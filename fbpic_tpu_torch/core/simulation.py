@@ -1,0 +1,432 @@
+"""User-facing Simulation API, mirroring the reference's surface.
+
+The constructor arguments follow FBPIC's fbpic/main.py:51-344 so
+that reference input scripts port over; the PIC cycle runs eagerly in
+PyTorch on an explicit ``device`` and ``dtype`` (see core/step.py).
+This port covers the resident main path: linear shapes, one or more
+resident species, open or periodic z, moving window and continuous
+injection, the standard PSATD solver with curl-free correction.
+"""
+import warnings
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from ..constants import c, e, m_e
+from ..fields.solver import (
+    GridConfig, SpectralFields, InterpFields, build_field_aux,
+)
+from ..fields import transform as tr
+from ..fields.smoothing import BinomialSmoother
+from ..particles.state import (
+    SpeciesConfig, ParticleState, generate_evenly_spaced,
+    make_particle_state, pad_particle_state,
+)
+from ..particles.injection import (
+    InjectorConfig, GeneratorAngles, build_injector_aux,
+)
+from .state import SimState
+from .step import StepOptions, make_step_fn, prepare
+
+
+def adapt_to_grid(x, p_xmin, p_xmax, p_nx, ncells_empty=0):
+    """Adapt p_xmin/p_xmax to fall exactly on the grid x.
+
+    Reference: FBPIC's fbpic/main.py:1056-1111.
+    """
+    xmin = x.min()
+    xmax = x.max()
+    dx = x[1] - x[0]
+    if p_xmin < xmin - 0.5 * dx:
+        p_xmin = xmin - 0.5 * dx
+    if p_xmax > xmax + (0.5 - ncells_empty) * dx:
+        p_xmax = xmax + (0.5 - ncells_empty) * dx
+    x_load = x[(x > p_xmin) & (x < p_xmax)]
+    Npx = len(x_load) * p_nx
+    if Npx > 0:
+        p_xmin = x_load.min() - 0.5 * dx
+        p_xmax = x_load.max() + 0.5 * dx
+    return p_xmin, p_xmax, Npx
+
+
+class SpeciesView:
+    """Numpy view of one species (reference ``Particles`` attributes)."""
+    _arrays = ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w")
+
+    def __init__(self, sim, index):
+        self._sim = sim
+        self._index = index
+
+    @property
+    def Ntot(self):
+        """Live particles of the species."""
+        return int((self._sim.state.species[self._index].w != 0).sum())
+
+    def __getattr__(self, name):
+        if name in SpeciesView._arrays:
+            arr = getattr(self._sim.state.species[self._index], name)
+            live = self._sim.state.species[self._index].w != 0
+            return arr[live].cpu().numpy()
+        raise AttributeError(name)
+
+
+class Simulation:
+    """Top-level simulation object (API-compatible with the reference).
+
+    device / dtype: where and in which precision the PIC cycle runs
+    (default CUDA, float32; a missing CUDA device is an error, never a
+    silent fallback).  sort_K: per-column slot capacity of the initial
+    species' resident layout (None = the automatic rule).
+    """
+
+    def __init__(self, Nz, zmax, Nr, rmax, Nm, dt,
+                 p_zmin=-np.inf, p_zmax=np.inf, p_rmin=0, p_rmax=np.inf,
+                 p_nz=None, p_nr=None, p_nt=None, n_e=None, zmin=0.0,
+                 n_order=-1, dens_func=None, filter_currents=True,
+                 n_guard=None, n_damp=None, exchange_period=None,
+                 current_correction="curl-free", boundaries=None,
+                 particle_shape="linear", verbose_level=1, smoother=None,
+                 use_ruyten_shapes=True, use_modified_volume=True,
+                 random_seed=None, device="cuda", dtype=torch.float32,
+                 sort_K=None):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Simulation(device='cuda'): CUDA is not "
+                               "available (pass device='cpu' explicitly)")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"dtype must be float32 or float64, not {dtype}")
+        if current_correction != "curl-free":
+            raise NotImplementedError("only the curl-free correction is "
+                                      "ported")
+        if particle_shape != "linear":
+            raise NotImplementedError("only linear shapes are ported")
+        if boundaries is None:
+            boundaries = {"z": "periodic", "r": "reflective"}
+        if isinstance(boundaries, str):
+            boundaries = {"z": boundaries, "r": "reflective"}
+        if boundaries.get("r", "reflective") != "reflective":
+            raise NotImplementedError("radial PML is not ported")
+        self.device, self.dtype = device, dtype
+        self.np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        self.boundaries = boundaries
+        self.verbose_level = int(verbose_level)
+        boundaries_z = boundaries.get("z", "periodic")
+        dz = (zmax - zmin) / Nz
+
+        # Open z: the internal grid is enlarged by guard + damping +
+        # injection cells at each end (boundary_communicator.py:224-278)
+        if boundaries_z == "open":
+            if n_guard is None:
+                if n_order == -1:
+                    n_guard_ = 64
+                else:
+                    from ..fields.stencil import get_stencil_reach
+                    n_guard_ = get_stencil_reach(
+                        Nz, dz, c * dt, n_order, None, False) + 1
+            else:
+                n_guard_ = n_guard
+            if n_damp is None:
+                n_damp = {"z": 64, "r": 32}
+            nz_damp_ = n_damp["z"] if isinstance(n_damp, dict) else n_damp
+            n_inject_ = n_guard_ // 2
+        else:
+            n_guard_ = nz_damp_ = n_inject_ = 0
+        nd = n_guard_ + nz_damp_ + n_inject_
+        self.Nz_phys = Nz
+        self.nd_edge = nd
+
+        # Period of particle removal / injection / fresh rho_prev
+        # (boundary_communicator.py:280-304)
+        if exchange_period is None:
+            if boundaries_z == "open":
+                cells_per_step = 2.0 * c * dt / dz
+                exchange_period = max(
+                    1, int((n_guard_ / 2 - 3) / cells_per_step))
+            else:
+                exchange_period = 1
+        self.exchange_period = max(1, int(exchange_period))
+
+        self.config = GridConfig(
+            Nz=Nz + 2 * nd, Nr=Nr, Nm=Nm, dz=dz, dr=rmax / Nr, rmax=rmax,
+            dt=dt, n_order=n_order, current_correction=current_correction,
+            particle_shape=particle_shape, boundaries_z=boundaries_z,
+            n_guard=n_guard_, nz_damp=nz_damp_, n_inject=n_inject_)
+        self.zmax = zmax
+        self.dt = dt
+        self.filter_currents = filter_currents
+        self.smoother = smoother or BinomialSmoother(1, False)
+        self.aux = build_field_aux(
+            self.config, self.smoother, use_ruyten_shapes=use_ruyten_shapes,
+            use_modified_volume=use_modified_volume, device=device,
+            dtype=dtype)
+
+        self._rng = np.random.RandomState(random_seed)
+        # Seed of the run-time randomness, derived from random_seed as in
+        # fbpic_tpu (its device PRNG root)
+        seed_rs = np.random.RandomState(
+            None if random_seed is None else random_seed + 987654321)
+        self.device_seed = int(seed_rs.randint(0, 2**31 - 1))
+        #: torch.Generator of the run-time randomness (injection angles
+        #: and thermal momenta); replaceable by the caller
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(self.device_seed)
+        #: column_angles(iteration, species_index, nkey) -> angles of the
+        #: injected plasma columns; replaceable by the caller
+        self.column_angles = GeneratorAngles(self.generator)
+
+        zmin_total = self.np_dtype(zmin - nd * dz)
+        self.state = SimState(
+            spect=SpectralFields.zeros(self.config, device, dtype),
+            interp=InterpFields.zeros(self.config, device, dtype),
+            species=[], time=self.np_dtype(0.0), zmin=zmin_total,
+            iteration=0, mw_zref=zmin_total,
+            sort_overflow=torch.zeros((), dtype=torch.int64, device=device),
+            ring_overwrite=torch.zeros((), dtype=torch.int64,
+                                       device=device))
+        #: Overflow counts summed over all step() calls of this object
+        self.overflow_totals = {"sort_overflow": 0, "ring_overwrite": 0}
+        self.species_configs = []
+        self.moving_win = None
+        self._injector_configs = []
+        self._injector_auxes = []
+        self.ptcl = []
+        if n_e is not None:
+            self.add_new_species(
+                q=-e, m=m_e, n=n_e, dens_func=dens_func,
+                p_nz=p_nz, p_nr=p_nr, p_nt=p_nt,
+                p_zmin=p_zmin, p_zmax=p_zmax, p_rmin=p_rmin, p_rmax=p_rmax,
+                sort_K=sort_K)
+
+    # -----------------------------------------------------------------
+    @property
+    def time(self):
+        return float(self.state.time)
+
+    @property
+    def iteration(self):
+        return self.state.iteration
+
+    @property
+    def zmin(self):
+        return float(self.state.zmin)
+
+    def grid_z(self, physical=True):
+        """z positions of grid cells; physical=True excludes the
+        guard/damp/injection cells of open boundaries."""
+        z_full = self.zmin + (0.5 + np.arange(self.config.Nz)) * self.config.dz
+        if physical and self.nd_edge > 0:
+            return z_full[self.nd_edge:self.nd_edge + self.Nz_phys]
+        return z_full
+
+    def grid_r(self):
+        return (0.5 + np.arange(self.config.Nr)) * self.config.dr
+
+    # -----------------------------------------------------------------
+    def add_new_species(self, q, m, n=None, dens_func=None,
+                        p_nz=None, p_nr=None, p_nt=None,
+                        p_zmin=-np.inf, p_zmax=np.inf,
+                        p_rmin=0, p_rmax=np.inf,
+                        uz_m=0.0, ux_m=0.0, uy_m=0.0,
+                        uz_th=0.0, ux_th=0.0, uy_th=0.0,
+                        continuous_injection=True, capacity=None,
+                        name=None, sort_K=None):
+        """Create a new species; returns a SpeciesView.
+
+        sort_K: per-column slot capacity of the resident layout.  None =
+        automatic on CUDA or in float32 (1.5x the initial maximum column
+        occupancy, at least 86, rounded up to 128); an explicit value
+        forces the resident layout (fbpic_tpu_torch runs only that
+        layout)."""
+        injector_cfg = injector_aux = None
+        if n is None:
+            raise NotImplementedError("empty species are not ported")
+        for var in (p_nz, p_nr, p_nt):
+            if var is None:
+                raise ValueError("If `n` is passed, `p_nz`, `p_nr`, `p_nt` "
+                                 "are required too.")
+        p_zmin_, p_zmax_, Npz = adapt_to_grid(self.grid_z(), p_zmin, p_zmax,
+                                              p_nz)
+        p_rmin_, p_rmax_, Npr = adapt_to_grid(self.grid_r(), p_rmin, p_rmax,
+                                              p_nr)
+        Ntot, x, y, z, ux, uy, uz, inv_gamma, w = generate_evenly_spaced(
+            Npz, p_zmin_, p_zmax_, Npr, p_rmin_, p_rmax_, p_nt, n,
+            dens_func, ux_m, uy_m, uz_m, ux_th, uy_th, uz_th, rng=self._rng)
+        if continuous_injection:
+            dz_particles = self.config.dz / p_nz
+            dens_args = None
+            if dens_func is not None:
+                from ..particles.state import _check_dens_func_arguments
+                dens_args = ("xyz" if _check_dens_func_arguments(dens_func)
+                             == ["x", "y", "z"] else "zr")
+            # Columns accumulated over one exchange period, plus margin
+            max_cols = int(np.ceil(self.exchange_period
+                                   * (c * self.config.dt / self.config.dz)
+                                   * p_nz)) + 4
+            injector_cfg = InjectorConfig(
+                dz_particles=dz_particles, n=n, ux_m=ux_m, uy_m=uy_m,
+                uz_m=uz_m, ux_th=ux_th, uy_th=uy_th, uz_th=uz_th,
+                dens_func=dens_func, dens_args=dens_args or "zr",
+                max_inject_cols=max_cols)
+            injector_aux = build_injector_aux(
+                Npr, p_rmin_, p_rmax_, p_nt, injector_cfg, rng=self._rng,
+                device=self.device, dtype=self.dtype)
+            # The particles live inside the removal bounds: size the
+            # storage from that span
+            margin = 2 * max(self.config.n_guard, 1)
+            cols_live = int(np.ceil((self.config.Nz - margin)
+                                    * self.config.dz / dz_particles))
+            needed = int(1.2 * cols_live * Npr * p_nt)
+            capacity = max(capacity or 0, needed, int(1.2 * max(Ntot, 1)))
+
+        if sort_K is None:
+            if (self.device.type == "cuda" or self.dtype == torch.float32) \
+                    and Ntot > 0:
+                cols = np.floor((np.asarray(z) - self.zmin)
+                                / self.config.dz).astype(int)
+                occ = np.bincount(cols[(cols >= 0) & (cols < self.config.Nz)],
+                                  minlength=self.config.Nz).max()
+                sort_K = int(-(-3 * max(int(occ), 86) // 2 // 128) * 128)
+            else:
+                sort_K = 0
+        resident = False
+        if int(sort_K) > 0:
+            cap_resident = self.config.Nz * int(sort_K)
+            if cap_resident >= (capacity or 0):
+                capacity = cap_resident
+                resident = True
+        # Banded re-sort when positions move at most 2 columns per step
+        band = max(1, int(c * self.config.dt / self.config.dz - 1e-9) + 1)
+        resort = "banded" if resident and band <= 2 else "full"
+        sc = SpeciesConfig(
+            q=q, m=m, particle_shape=self.config.particle_shape,
+            name=name or f"species{len(self.species_configs)}",
+            sort_K=int(sort_K), resident=resident, resort=resort)
+        pstate = make_particle_state(x, y, z, ux, uy, uz, inv_gamma, w,
+                                     capacity=capacity, device=self.device,
+                                     dtype=self.dtype)
+        if injector_cfg is not None:
+            z_end = (float(np.max(z)) + 0.5 * injector_cfg.dz_particles
+                     if Ntot > 0 else float(self.zmax))
+            pstate = pstate.replace(next_free=Ntot,
+                                    inj_z_end=self.np_dtype(z_end))
+        self.species_configs.append(sc)
+        self._injector_configs.append(injector_cfg)
+        self._injector_auxes.append(injector_aux)
+        self.state.species.append(pstate)
+        view = SpeciesView(self, len(self.species_configs) - 1)
+        self.ptcl.append(view)
+        return view
+
+    # -----------------------------------------------------------------
+    def get_interp_field(self, name, m=None):
+        """Return an interpolation-grid field as numpy (Nm, Nz, Nr).
+
+        name in {Er, Et, Ez, Br, Bt, Bz} (live in state) or
+        {rho, Jr, Jt, Jz} (computed on the fly from spectral space).
+        """
+        mats, spect = self.aux.mats, self.state.spect
+        if name in ("Er", "Et", "Ez", "Br", "Bt", "Bz"):
+            arr = getattr(self.state.interp, name)
+        elif name == "rho":
+            arr = tr.spect2interp_scal(mats, spect.rho_prev)
+        elif name in ("Jr", "Jt"):
+            Jr, Jt = tr.spect2interp_vect(mats, spect.Jp, spect.Jm)
+            arr = Jr if name == "Jr" else Jt
+        elif name == "Jz":
+            arr = tr.spect2interp_scal(mats, spect.Jz)
+        else:
+            raise ValueError(
+                f"Unknown field {name!r}; expected one of Er, Et, Ez, Br, "
+                "Bt, Bz, rho, Jr, Jt, Jz")
+        arr = arr.cpu().numpy()
+        if self.nd_edge > 0:
+            arr = arr[:, self.nd_edge:self.nd_edge + self.Nz_phys, :]
+        return arr if m is None else arr[m]
+
+    def set_interp_EB(self, **fields):
+        """Overwrite interpolation-grid E/B components (numpy arrays)."""
+        cdt = self.state.interp.Er.dtype
+        self.state = replace(self.state, interp=replace(
+            self.state.interp, **{
+                name: torch.as_tensor(np.asarray(value), dtype=cdt,
+                                      device=self.device)
+                for name, value in fields.items()}))
+
+    def set_moving_window(self, v=None):
+        """Attach a moving window of speed v (default c); requires open z
+        boundaries (reference: main.py:1004-1033)."""
+        if self.config.boundaries_z != "open":
+            raise ValueError(
+                "A moving window requires boundaries={'z': 'open'}.")
+        self.moving_win = float(c if v is None else v)
+        self.state = replace(self.state, mw_zref=self.state.zmin)
+
+    # -----------------------------------------------------------------
+    def build_options(self, correct_currents=True, use_true_rho=False):
+        return StepOptions(
+            correct_currents=correct_currents, use_true_rho=use_true_rho,
+            filter_currents=self.filter_currents,
+            rmax_gather=self.config.rmax,
+            moving_window_v=self.moving_win,
+            injectors=(tuple(self._injector_configs)
+                       if self.moving_win is not None else ()),
+            exchange_period=self.exchange_period)
+
+    def step(self, N=1, correct_currents=True, use_true_rho=False,
+             show_progress=False):
+        """Perform N PIC cycles."""
+        options = self.build_options(correct_currents=correct_currents,
+                                     use_true_rho=use_true_rho)
+        step_fn = make_step_fn(self.config, self.species_configs, options)
+        # Refresh spectral E/B from the interpolation grid (captures any
+        # user-set fields), then the initial rho_prev deposit
+        # (reference: main.py:408-415 and :435-449)
+        self.state = prepare(self.config, options, self.species_configs,
+                             self.state, self.aux)
+        for _ in range(N):
+            self.state = step_fn(self.state, self.aux,
+                                 tuple(self._injector_auxes),
+                                 self.column_angles, self.generator)
+        self._consume_overflow_counters()
+
+    def _consume_overflow_counters(self):
+        """Read the overflow counters (one host read per step() call).
+
+        sort_overflow > 0: some z column exceeded the resident capacity
+        K and its excess particles were lost; warn and auto-bump sort_K
+        (1.5x, rounded to 128), re-padding every row of the layout.
+        ring_overwrite > 0: injected particles found no free slot."""
+        n_sort = int(self.state.sort_overflow)
+        n_ring = int(self.state.ring_overwrite)
+        self.overflow_totals["sort_overflow"] += n_sort
+        self.overflow_totals["ring_overwrite"] += n_ring
+        if n_sort > 0:
+            bumped = []
+            species = list(self.state.species)
+            for i, sc in enumerate(self.species_configs):
+                if sc.sort_K <= 0:
+                    continue
+                new_K = int(-(-3 * sc.sort_K // 2 // 128) * 128)
+                self.species_configs[i] = replace(sc, sort_K=new_K)
+                if sc.resident:
+                    species[i] = pad_particle_state(
+                        species[i], self.config.Nz, new_K)
+                bumped.append(f"{sc.name}: {sc.sort_K}->{new_K}")
+            self.state = replace(self.state, species=species)
+            warnings.warn(
+                f"{n_sort} particle-step(s) exceeded a z column's "
+                f"capacity during this step() call (those particles were "
+                f"lost); sort_K auto-bumped ({'; '.join(bumped)}).  Pass a "
+                f"larger sort_K to add_new_species to avoid this.",
+                RuntimeWarning)
+        if n_ring > 0:
+            warnings.warn(
+                f"{n_ring} injected particle(s) found no free slot in "
+                "their species this step() call and were dropped.",
+                RuntimeWarning)
+        if n_sort > 0 or n_ring > 0:
+            self.state = replace(
+                self.state,
+                sort_overflow=torch.zeros_like(self.state.sort_overflow),
+                ring_overwrite=torch.zeros_like(self.state.ring_overwrite))
