@@ -4,13 +4,15 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises, and the script exits non-zero):
-  0. builds the CUDA kernels from fbpic_tpu_torch/csrc with nvcc;
+  0. builds the CUDA kernels from fbpic_tpu_torch/csrc with nvcc (one
+     nvcc per source, all started together);
   1. K1 (fused J + d(rho) deposit) against its plain PyTorch version at
      the LWFA bench shape, on particles drawn from a numpy seed (a third
-     of them near or below the axis), with kernel and plain times;
+     of them near or below the axis), with kernel, plain and library
+     (torch.bmm of the one-hot matrix with V) times and the bound;
   2. K2 (sorted field gather) against its plain version, for open and
      periodic z;
-  3. the main path: the bench.py LWFA configuration (Nz=800, Nr=50,
+  3. the LWFA main path: the bench.py configuration (Nz=800, Nr=50,
      Nm=2, 16 particles per cell, a0=4 laser, moving window, continuous
      injection, open z, float32) through Simulation / add_laser_pulse /
      set_moving_window / step, with every kernel launch counter reset
@@ -24,7 +26,26 @@ Phases (any failure raises, and the script exits non-zero):
      (z0 = 24 um) and, as that test does, at a0 = 1 (the a0 = 4 wake is
      nonlinear and about 20% longer than 2 pi c / omega_p), then steps
      until the wake trails the laser over more than three zero
-     crossings.
+     crossings;
+  5. K3 (one-hot dense deposit) against its plain version at the
+     boosted-frame shape: the J window (offsets -2..1, 9 channels) and
+     the rho window (-3..2, 3 channels), open and periodic z, float32
+     (1e-5) and float64 (1e-12), with kernel, plain and library times
+     and the bound;
+  6. the boosted-frame main path: examples/boosted_frame_script.py:17-58
+     as written (gamma_boost = 10, Nz = 2048, Nr = 50, Nm = 2, n_order =
+     32, 2x2x4 particles per cell, Galilean v_comoving = -c beta_boost,
+     a0 = 2 laser, open z, moving window, float32, no diagnostics) but
+     with the plasma from the box's left edge (p_zmin = -40 um lab; the
+     published empty box selects a layout the port does not run yet):
+     5 + 60 steps with exactly 2 K3 launches, 1 K2 launch and no K1
+     launch per step, zero overflow, finite fields; then a profiled
+     window for the device time per step;
+  7. the numerical Cherenkov gate of tests/test_boosted.py (Nz = 40,
+     Nr = 20, a gamma = 130 plasma and its ions flowing through a
+     periodic box, 570 + 30 steps): slope_standard > 3.5 slope_galilean
+     in float64 (the resident layout forced by sort_K, so K3's double
+     instantiation runs); the float32 slopes are printed, not gated.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.  Exits non-zero without a result
@@ -49,8 +70,30 @@ N_WARMUP, N_TIMED = 5, 60
 # plasma wavelengths of wake behind it (dz = 0.05 um, lambda_p = 16.7 um)
 WAKE_Z0, WAKE_A0, WAKE_STEPS = 24.e-6, 1.0, 560
 
+# The boosted-frame LWFA of examples/boosted_frame_script.py:17-58 (the
+# plasma from the box's left edge, -40 um lab, instead of 0)
+B_GAMMA = 10.
+B_NZ, B_ZMAX_LAB, B_ZMIN_LAB = 2048, 0.e-6, -40.e-6
+B_NR, B_RMAX, B_NM, B_N_ORDER = 50, 40.e-6, 2, 32
+B_N_E_LAB = 1.e24
+B_P_ZMIN_LAB, B_P_ZMAX_LAB, B_P_RMAX = -40.e-6, 2000.e-6, 35.e-6
+B_PPC = (2, 2, 4)
+B_LASER = dict(a0=2., waist=10.e-6, tau=30.e-15, z0=-15.e-6)
+N_PROFILED = 10
+# The numerical Cherenkov configuration of tests/test_boosted.py
+NCI_STEPS = (570, 30)
+NCI_RATIO = 3.5
+
 TOL_K1 = 1e-5       # relative to each part's max |value| (float32 sums
 TOL_K2 = 5e-6       # in another order: sequential vs atomics / GEMM)
+TOL_K3 = {"float32": 1e-5, "float64": 1e-12}
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
+# cores (the bound of a kernel is the larger of bytes / rate and
+# operations / rate)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+DEVICE = "cuda"
 
 
 def cuda_ms(fn, n_warm=3, n_iter=20):
@@ -69,6 +112,28 @@ def cuda_ms(fn, n_warm=3, n_iter=20):
     return start.elapsed_time(end) / n_iter
 
 
+def bound(n_bytes, n_flops):
+    """Least time (ms) the card needs to move n_bytes and do n_flops in
+    float32, and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / FP32_FLOP_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
+
+
+def onehot_bmm(ir_buf, V, Nrb):
+    """The library yardstick of K1 and K3: the prebuilt one-hot matrix
+    S (Nz, Nrb, K) times V (Nz, K, W) as one torch.bmm call (TF32 off),
+    and the time of that call."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S = torch.nn.functional.one_hot(ir_buf.long(), Nrb).to(V.dtype)
+    S = S.transpose(1, 2).contiguous()
+    out = torch.bmm(S, V)
+    ms = cuda_ms(lambda: torch.bmm(S, V))
+    return out, ms
+
+
 def make_sim(z0=Z0, a0=A0):
     import torch
     from fbpic_tpu_torch import Simulation
@@ -79,14 +144,14 @@ def make_sim(z0=Z0, a0=A0):
         NZ, ZMAX, NR, RMAX, NM, dt, p_zmin=P_ZMIN, p_zmax=P_ZMAX, p_rmin=0.,
         p_rmax=P_RMAX, p_nz=P_NZ, p_nr=P_NR, p_nt=P_NT, n_e=N_E, zmin=ZMIN,
         n_order=32, boundaries={"z": "open", "r": "reflective"},
-        random_seed=0, device="cuda", dtype=torch.float32)
+        random_seed=0, device=DEVICE, dtype=torch.float32)
     add_laser_pulse(sim, GaussianLaser(a0=a0, waist=W0, tau=TAU, z0=z0))
     sim.set_moving_window(v=c)
     return sim
 
 
-def random_sorted_particles(sim, seed=23):
-    """Particles from a numpy seed, column-sorted at the bench shape."""
+def random_sorted_particles(sim, seed=23, dtype=None):
+    """Particles from a numpy seed, column-sorted at the sim's shape."""
     import torch
     from fbpic_tpu_torch.particles.sorted_deposit import build_column_sort
     cfg = sim.config
@@ -101,7 +166,7 @@ def random_sorted_particles(sim, seed=23):
     w[rng.rand(Np) < 0.1] = 0.0
     ux, uy, uz = rng.randn(3, Np) * 0.5
     ig = 1 / np.sqrt(1 + ux ** 2 + uy ** 2 + uz ** 2)
-    arrs = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    arrs = [torch.as_tensor(a, dtype=dtype or torch.float32, device=DEVICE)
             for a in (r * np.cos(th), r * np.sin(th), z, w, ux, uy, uz, ig)]
     sort = build_column_sort(arrs[2], arrs[3], sim.zmin, 1 / cfg.dz,
                              cfg.Nz, K, arrs)
@@ -146,12 +211,33 @@ def phase_k1(sim):
     ms = cuda_ms(lambda: cuda_fused.fused_onehot_contract(**ops))
     plain_ms = cuda_ms(lambda: cuda_fused.fused_onehot_contract_plain(**ops),
                        n_warm=1, n_iter=5)
-    print(f"K1 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    # Bound: the kernel's operands (per slot: CJ channels, nJ z weights,
+    # 6 rows, CD d(phase) + CD phase channels, 2 nD endpoint z weights,
+    # 2 int32 rows) read once, the output written once; per live slot 3
+    # operations for each J output and ~17 for each d(rho) output
+    Nz, K, CJ = ops["channels"].shape
+    CD, nJ, nD = ops["dph"].shape[2], ops["n_offJ"], ops["n_offD"]
+    W_D = kern.shape[2] - W_J
+    n_bytes = (Nz * K * (4 * (CJ + nJ + 6 + 2 * CD + 2 * nD) + 8)
+               + 4 * kern.numel())
+    n_live = int(sort["valid"].sum())
+    bound_ms, bound_by = bound(n_bytes, n_live * (3 * W_J + 17 * W_D))
+    V = torch.cat(cuda_fused.fused_blocks(
+        ops["geom"], ops["channels"], ops["meta"], ops["span"], ops["dph"],
+        ops["ph_b"], ops["wj"], ops["ruyten"], ops["Nm"], ops["n_offD"]),
+        dim=2)
+    lib_out, library_ms = onehot_bmm(ops["geom"]["ir_buf"], V, kern.shape[1])
+    lib_err = rel_err(lib_out, plain)
+    del V, lib_out
+    print(f"K1 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"(bmm) {library_ms:.4f} ms (rel err {lib_err:.2e}), bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes)", flush=True)
     return dict(name="K1 fused J+drho deposit", route="cuda",
                 source="fbpic_tpu_torch/csrc/fused_deposit.cu",
                 replaces="fbpic_tpu/particles/pallas_fused.py:78",
                 max_abs_err=max_abs, rel_err=max(errs), ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def phase_k2(sim):
@@ -166,7 +252,7 @@ def phase_k2(sim):
     interp = InterpFields(**{
         n: torch.complex(*(torch.as_tensor(rng.randn(*shape),
                                            dtype=torch.float32,
-                                           device="cuda")
+                                           device=DEVICE)
                            for _ in range(2)))
         for n in ("Er", "Et", "Ez", "Br", "Bt", "Bz")})
     worst, max_abs, times = 0.0, 0.0, {}
@@ -191,12 +277,23 @@ def phase_k2(sim):
             times["plain_ms"] = cuda_ms(
                 lambda: cuda_gather.gather_sorted_plain(**ops),
                 n_warm=1, n_iter=5)
+    # Bound: per slot 2 int32 and 5 float32 operands read and 6 outputs
+    # written, plus the field table Fg once; per live slot 4 corners x
+    # 12 Nm channels (a multiply-add each), the mode sum and the rotation
+    Nz, K = sort["valid"].shape
+    n_bytes = Nz * K * (8 + 4 * 5 + 4 * 6) + 4 * ops["Fg"].numel()
+    n_live = int(sort["valid"].sum())
+    bound_ms, bound_by = bound(
+        n_bytes, n_live * (8 * 12 * cfg.Nm + 4 * 6 * cfg.Nm + 8))
     print(f"K2 time: kernel {times['ms']:.4f} ms, plain "
-          f"{times['plain_ms']:.4f} ms", flush=True)
+          f"{times['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({n_bytes} bytes); no single library call",
+          flush=True)
     return dict(name="K2 sorted field gather", route="cuda",
                 source="fbpic_tpu_torch/csrc/gather.cu",
                 replaces="fbpic_tpu/particles/pallas_gather.py:80",
-                max_abs_err=max_abs, rel_err=worst, **times)
+                max_abs_err=max_abs, rel_err=worst, **times,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def check_fields(sim, what):
@@ -275,12 +372,257 @@ def phase_wake():
     return lam / lam_a
 
 
+def make_boosted_sim(dtype=None):
+    """examples/boosted_frame_script.py:38-58 as written (lab-frame values
+    in, converted by gamma_boost), with the plasma from the left edge."""
+    import torch
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.boosted_frame import BoostConverter
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
+    boost = BoostConverter(B_GAMMA)
+    zmin, zmax = boost.static_length([B_ZMIN_LAB, B_ZMAX_LAB])
+    dt = (zmax - zmin) / B_NZ / c
+    n_e, = boost.static_density([B_N_E_LAB])
+    v_window, = boost.velocity([c])
+    sim = Simulation(
+        B_NZ, zmax, B_NR, B_RMAX, B_NM, dt, zmin=zmin, n_order=B_N_ORDER,
+        gamma_boost=B_GAMMA, v_comoving=-c * np.sqrt(1. - 1. / B_GAMMA**2),
+        use_galilean=True, boundaries={"z": "open", "r": "reflective"},
+        random_seed=0, device=DEVICE, dtype=dtype or torch.float32)
+    sim.add_new_species(
+        q=-e, m=m_e, n=n_e, p_zmin=B_P_ZMIN_LAB,
+        p_zmax=boost.static_length([B_P_ZMAX_LAB])[0], p_rmax=B_P_RMAX,
+        p_nz=B_PPC[0], p_nr=B_PPC[1], p_nt=B_PPC[2],
+        continuous_injection=True, boost_positions_in_dens_func=True)
+    add_laser_pulse(sim, GaussianLaser(**B_LASER), gamma_boost=B_GAMMA)
+    sim.set_moving_window(v=v_window)
+    return sim
+
+
+def phase_k3(sim):
+    """K3 against its plain version on random column-sorted particles at
+    the boosted shape, both windows, both folds, float32 and float64;
+    times, library time and bound of the float32 open-z calls (the main
+    path's), summed over the two windows (one step of one species)."""
+    import torch
+    from fbpic_tpu_torch.constants import e
+    from fbpic_tpu_torch.particles import cuda_dense
+    from fbpic_tpu_torch.particles.sorted_deposit import (
+        _build_V, dense_contract_operands)
+    cfg = sim.config
+    Nrb = cfg.Nr + 4
+    worst, max_abs = {}, 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, n_bytes=0, n_flops=0)
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype).split(".")[-1]
+        sort, pad = random_sorted_particles(sim, seed=41, dtype=dtype)
+        x, y, z, w, ux, uy, uz, ig = pad
+        for zfold in ("clamp", "periodic"):
+            ops = dense_contract_operands(
+                dict(valid=sort["valid"], padded=pad), x, y, z, w, -e, ux,
+                uy, uz, ig, 0.5 * cfg.dt, cfg.Nm, 1 / cfg.dz, sim.zmin,
+                cfg.Nz, 1 / cfg.dr, 0.0, cfg.Nr,
+                sim.aux.ruyten_linear.to(dtype), zfold=zfold,
+                sort_at_start=True, vz_shift=cfg.v_comoving)
+            for window in ("J", "rho"):
+                o = ops[window]
+                args = (o["geom"], o["channel_vals"], o["meta"], Nrb)
+                kern = cuda_dense.dense_onehot_contract(*args)
+                plain = cuda_dense.dense_onehot_contract_plain(*args)
+                torch.cuda.synchronize()
+                err = rel_err(kern, plain)
+                max_abs = max(max_abs, float((kern - plain).abs().max()))
+                worst[tname] = max(worst.get(tname, 0.0), err)
+                Nz, K, C = o["channel_vals"].shape
+                n_off = len(o["geom"]["zw"])
+                print(f"K3 {window} window, {zfold}, {tname}: Nz={Nz} "
+                      f"K={K} Nrb={Nrb} n_off={n_off} C={C} W="
+                      f"{kern.shape[2]}; rel err {err:.3e} (tol "
+                      f"{TOL_K3[tname]})", flush=True)
+                if not np.isfinite(err) or err > TOL_K3[tname]:
+                    raise RuntimeError(f"K3 ({window}, {zfold}, {tname}) "
+                                       f"disagrees with its plain version: "
+                                       f"{err}")
+                if dtype != torch.float32 or zfold != "clamp":
+                    continue
+                ms = cuda_ms(lambda: cuda_dense.dense_onehot_contract(*args))
+                plain_ms = cuda_ms(
+                    lambda: cuda_dense.dense_onehot_contract_plain(*args),
+                    n_warm=1, n_iter=5)
+                # Bound: per slot C channels, n_off z weights, 3 rows and
+                # the int32 row read once, the output written once; per
+                # live slot 3 operations for each output channel
+                n_bytes = Nz * K * (4 * (C + n_off + 3) + 4) \
+                    + 4 * kern.numel()
+                n_flops = int(sort["valid"].sum()) * 3 * kern.shape[2]
+                b_ms, b_by = bound(n_bytes, n_flops)
+                V = torch.cat(_build_V(*args[:3]), dim=2)
+                lib_out, library_ms = onehot_bmm(o["geom"]["ir_buf"], V,
+                                                 Nrb)
+                lib_err = rel_err(lib_out, plain)
+                del V, lib_out
+                print(f"K3 {window} window time: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library (bmm) {library_ms:.4f} ms"
+                      f" (rel err {lib_err:.2e}), bound {b_ms:.4f} ms by "
+                      f"{b_by} ({n_bytes} bytes)", flush=True)
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", library_ms),
+                                 ("n_bytes", n_bytes), ("n_flops", n_flops)):
+                    tot[key] += val
+        del sort, pad, ops
+        torch.cuda.empty_cache()
+    bound_ms, bound_by = bound(tot["n_bytes"], tot["n_flops"])
+    print(f"K3 per step and species (J + rho windows): kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
+          f"{tot['library_ms']:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}", flush=True)
+    return dict(name="K3 one-hot dense deposit (J + rho windows, one step)",
+                route="cuda", source="fbpic_tpu_torch/csrc/dense_deposit.cu",
+                replaces="fbpic_tpu/particles/pallas_deposit.py:78",
+                max_abs_err=max_abs, rel_err=worst["float32"],
+                rel_err_f64=worst["float64"], ms=tot["ms"],
+                plain_ms=tot["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=tot["library_ms"])
+
+
+def phase_boosted(sim, counters):
+    """The boosted-frame main path: counts reset just before, read just
+    after; exactly 2 K3, 1 K2 and 0 K1 launches per step."""
+    import torch
+    for fn in counters.values():
+        fn.launches = 0
+    t_first = time.perf_counter()
+    sim.step(N_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.step(N_TIMED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_steps = N_WARMUP + N_TIMED
+    wall = t1 - t0
+    live = sim.ptcl[0].Ntot
+    print(f"boosted main path: {n_steps} steps ({N_WARMUP} warm-up, first "
+          f"in {t0 - t_first:.2f} s incl. setup of the step), "
+          f"{wall / N_TIMED * 1e3:.4f} ms/step, "
+          f"{wall * 1e9 / (N_TIMED * live):.4f} ns/particle/step over "
+          f"{live} live particles; Nz={sim.config.Nz} "
+          f"K={sim.species_configs[0].sort_K} "
+          f"resort={sim.species_configs[0].resort}", flush=True)
+    print(f"launches during the boosted main path: {launches}; overflow "
+          f"totals {sim.overflow_totals}", flush=True)
+    want = {"K1": 0, "K2": n_steps, "K3": 2 * n_steps}
+    if launches != want:
+        raise RuntimeError(f"boosted path launches {launches} != {want}")
+    if any(sim.overflow_totals.values()):
+        raise RuntimeError(f"column/ring overflow: {sim.overflow_totals}")
+    check_fields(sim, "boosted main path")
+    return launches, dict(ms_per_step=wall / N_TIMED * 1e3,
+                          ns_per_particle_step=wall * 1e9 / (N_TIMED * live),
+                          live_particles=live, Nz=sim.config.Nz,
+                          K=sim.species_configs[0].sort_K)
+
+
+def profile_steps(sim, n_steps):
+    """Device time per step and the kernels that take it, from
+    torch.profiler over n_steps steps (None when the profiler shows no
+    device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sim.step(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.step(n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Kernel rows only: the CPU-op rows carry their kernels' device time
+    # too, and summing both would count it twice (one stream: the sum of
+    # kernel times is the busy time)
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    if busy_us == 0:
+        print("profiler: no device time recorded (not measured)")
+        return None
+    n_launch = sum(ev.count for ev in kernels) / n_steps
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:12]
+    print(f"profiled {n_steps} steps: {wall / n_steps * 1e3:.4f} ms/step "
+          f"wall under the profiler, {busy_us / n_steps / 1e3:.4f} ms/step "
+          f"device busy, {n_launch:.1f} kernel launches/step", flush=True)
+    for ev in top:
+        print(f"  {ev.self_device_time_total / n_steps / 1e3:9.4f} ms/step "
+              f"{ev.count / n_steps:7.1f}/step  {ev.key[:90]}")
+    return dict(device_ms_per_step=busy_us / n_steps / 1e3,
+                profiled_wall_ms_per_step=wall / n_steps * 1e3,
+                launches_per_step=n_launch)
+
+
+def nci_slope(scheme, dtype):
+    """tests/test_boosted.py::_growth_slope: log growth of the Er RMS
+    over the last 30 of 600 steps of a gamma = 130 plasma and its ions
+    flowing through a periodic box (standard, Galilean or comoving)."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e, m_p
+    Nz, zmax, zmin, Nr, rmax, Nm = 40, 7.86, -7.86, 20, 7.86, 2
+    dt = (zmax - zmin) / Nz / c
+    gamma = 130.
+    uz_m = np.sqrt(gamma**2 - 1)
+    n_e = gamma / (4 * 3.14 * 2.81e-15)
+    sim = Simulation(Nz, zmax, Nr, rmax, Nm, dt, zmin=zmin,
+                     v_comoving=None if scheme == "standard" else 0.9999 * c,
+                     use_galilean=(scheme == "galilean"), random_seed=0,
+                     device=DEVICE, dtype=dtype)
+    for q, m in ((-e, m_e), (e, m_p)):
+        sim.add_new_species(q=q, m=m, n=n_e, p_zmin=zmin, p_zmax=zmax,
+                            p_rmin=0., p_rmax=rmax, p_nz=2, p_nr=2, p_nt=4,
+                            uz_m=uz_m, sort_K=512)
+
+    def er_rms():
+        Er0, Er1 = (sim.get_interp_field("Er", m) for m in (0, 1))
+        return float(np.sqrt(np.average(np.abs(Er0)**2 + np.abs(Er1)**2)))
+
+    sim.step(NCI_STEPS[0])
+    rms_a = er_rms()
+    sim.step(NCI_STEPS[1])
+    rms_b = er_rms()
+    if any(sim.overflow_totals.values()):
+        raise RuntimeError(f"NCI run overflow: {sim.overflow_totals}")
+    return float(np.log(rms_b) - np.log(rms_a))
+
+
+def phase_nci():
+    """The gate in float64; the float32 slopes are printed, not gated
+    (float32 roundoff seeds the standard scheme's instability ~1e9 times
+    higher, so it saturates early: 3.1x on the CPU)."""
+    import torch
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        t0 = time.perf_counter()
+        std, gal = (nci_slope(s, dtype) for s in ("standard", "galilean"))
+        out[tname] = dict(standard=std, galilean=gal)
+        gated = dtype == torch.float64
+        print(f"NCI ({tname}, {'gated' if gated else 'not gated'}): growth "
+              f"slope standard {std:.4f}, galilean {gal:.4f}, ratio "
+              f"{std / gal:.2f} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if gated and not std > NCI_RATIO * gal:
+            raise RuntimeError(f"NCI gate failed in {tname}: standard "
+                               f"{std} <= {NCI_RATIO} x galilean {gal}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device: "
                            "torch.cuda.is_available() is false")
     from fbpic_tpu_torch.utils import kernels
+    from fbpic_tpu_torch.particles.cuda_dense import dense_onehot_contract
     from fbpic_tpu_torch.particles.cuda_fused import fused_onehot_contract
     from fbpic_tpu_torch.particles.cuda_gather import gather_sorted
 
@@ -288,7 +630,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = kernels.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
@@ -302,11 +644,36 @@ def main():
     torch.cuda.empty_cache()
     launches, main_metrics = phase_main(
         sim, (fused_onehot_contract, gather_sorted))
+    del sim
     ratio = phase_wake()
     k1["launches"], k2["launches"] = launches
-    print(json.dumps({"main_path": main_metrics, "wake_ratio": ratio}))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bsim = make_boosted_sim()
+    print(f"boosted sim set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    k3 = phase_k3(bsim)
+    torch.cuda.empty_cache()
+    b_launches, boosted_metrics = phase_boosted(
+        bsim, {"K1": fused_onehot_contract, "K2": gather_sorted,
+               "K3": dense_onehot_contract})
+    k3["launches"] = b_launches["K3"]
+    prof = profile_steps(bsim, N_PROFILED)
+    if prof is not None:
+        # idle share of the unprofiled steps
+        prof["idle_share"] = 1 - (prof["device_ms_per_step"]
+                                  / boosted_metrics["ms_per_step"])
+    boosted_metrics["profile"] = prof
+    del bsim
+    torch.cuda.empty_cache()
+    nci = phase_nci()
+
+    print(json.dumps({"main_path": main_metrics, "wake_ratio": ratio,
+                      "boosted_path": boosted_metrics,
+                      "boosted_launches": b_launches, "nci_slopes": nci,
+                      "seconds": time.perf_counter() - t_start}))
     print(smi)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

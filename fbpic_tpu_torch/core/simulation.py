@@ -5,7 +5,9 @@ that reference input scripts port over; the PIC cycle runs eagerly in
 PyTorch on an explicit ``device`` and ``dtype`` (see core/step.py).
 This port covers the resident main path: linear shapes, one or more
 resident species, open or periodic z, moving window and continuous
-injection, the standard PSATD solver with curl-free correction.
+injection, the standard and the Galilean / comoving PSATD solver with
+curl-free correction, and the boosted-frame conversions of species,
+laser and moving window (``gamma_boost``).
 """
 import warnings
 from dataclasses import replace
@@ -18,6 +20,7 @@ from ..fields.solver import (
     GridConfig, SpectralFields, InterpFields, build_field_aux,
 )
 from ..fields import transform as tr
+from ..lpa_utils.boosted_frame import BoostConverter
 from ..fields.smoothing import BinomialSmoother
 from ..particles.state import (
     SpeciesConfig, ParticleState, generate_evenly_spaced,
@@ -78,15 +81,21 @@ class Simulation:
     (default CUDA, float32; a missing CUDA device is an error, never a
     silent fallback).  sort_K: per-column slot capacity of the initial
     species' resident layout (None = the automatic rule).
+    v_comoving / use_galilean: the Galilean (grid flowing at v_comoving)
+    or comoving PSATD scheme; gamma_boost: the Lorentz factor of the
+    boosted frame, for the lab-to-boosted conversions of
+    ``add_new_species`` and ``set_moving_window``.
     """
 
     def __init__(self, Nz, zmax, Nr, rmax, Nm, dt,
                  p_zmin=-np.inf, p_zmax=np.inf, p_rmin=0, p_rmax=np.inf,
                  p_nz=None, p_nr=None, p_nt=None, n_e=None, zmin=0.0,
                  n_order=-1, dens_func=None, filter_currents=True,
+                 v_comoving=None, use_galilean=True,
                  n_guard=None, n_damp=None, exchange_period=None,
                  current_correction="curl-free", boundaries=None,
-                 particle_shape="linear", verbose_level=1, smoother=None,
+                 gamma_boost=None, particle_shape="linear", verbose_level=1,
+                 smoother=None,
                  use_ruyten_shapes=True, use_modified_volume=True,
                  random_seed=None, device="cuda", dtype=torch.float32,
                  sort_K=None):
@@ -113,6 +122,7 @@ class Simulation:
         self.verbose_level = int(verbose_level)
         boundaries_z = boundaries.get("z", "periodic")
         dz = (zmax - zmin) / Nz
+        use_galilean = bool(use_galilean) and v_comoving is not None
 
         # Open z: the internal grid is enlarged by guard + damping +
         # injection cells at each end (boundary_communicator.py:224-278)
@@ -123,7 +133,8 @@ class Simulation:
                 else:
                     from ..fields.stencil import get_stencil_reach
                     n_guard_ = get_stencil_reach(
-                        Nz, dz, c * dt, n_order, None, False) + 1
+                        Nz, dz, c * dt, n_order, v_comoving,
+                        use_galilean) + 1
             else:
                 n_guard_ = n_guard
             if n_damp is None:
@@ -149,12 +160,15 @@ class Simulation:
 
         self.config = GridConfig(
             Nz=Nz + 2 * nd, Nr=Nr, Nm=Nm, dz=dz, dr=rmax / Nr, rmax=rmax,
-            dt=dt, n_order=n_order, current_correction=current_correction,
+            dt=dt, n_order=n_order, v_comoving=v_comoving,
+            use_galilean=use_galilean, current_correction=current_correction,
             particle_shape=particle_shape, boundaries_z=boundaries_z,
             n_guard=n_guard_, nz_damp=nz_damp_, n_inject=n_inject_)
         self.zmax = zmax
         self.dt = dt
         self.filter_currents = filter_currents
+        self.boost = (None if gamma_boost is None
+                      else BoostConverter(gamma_boost))
         self.smoother = smoother or BinomialSmoother(1, False)
         self.aux = build_field_aux(
             self.config, self.smoother, use_ruyten_shapes=use_ruyten_shapes,
@@ -229,9 +243,15 @@ class Simulation:
                         p_rmin=0, p_rmax=np.inf,
                         uz_m=0.0, ux_m=0.0, uy_m=0.0,
                         uz_th=0.0, ux_th=0.0, uy_th=0.0,
-                        continuous_injection=True, capacity=None,
+                        continuous_injection=True,
+                        boost_positions_in_dens_func=False, capacity=None,
                         name=None, sort_K=None):
         """Create a new species; returns a SpeciesView.
+
+        With ``gamma_boost`` set on the Simulation, the lab-frame p_zmin,
+        p_zmax, n, uz_m and uz_th are converted to the boosted frame
+        (and the dens_func argument z too, with
+        boost_positions_in_dens_func).
 
         sort_K: per-column slot capacity of the resident layout.  None =
         automatic on CUDA or in float32 (1.5x the initial maximum column
@@ -245,6 +265,28 @@ class Simulation:
             if var is None:
                 raise ValueError("If `n` is passed, `p_nz`, `p_nr`, `p_nt` "
                                  "are required too.")
+        # Boosted frame: convert the lab-frame quantities
+        # (fbpic_tpu core/simulation.py:458-482)
+        if self.boost is not None:
+            gamma_m = np.sqrt(1. + uz_m**2 + ux_m**2 + uy_m**2)
+            beta_m_lab = uz_m / gamma_m
+            p_zmin, p_zmax = self.boost.copropag_length(
+                [p_zmin, p_zmax], beta_object=beta_m_lab)
+            n, = self.boost.copropag_density([n], beta_object=beta_m_lab)
+            if uz_m == 0:
+                uz_th = self.boost.gamma0 * uz_th
+            else:
+                uz_th = self.boost.gamma0 * (
+                    1. - self.boost.beta0 * beta_m_lab) * uz_th
+            uz_m = self.boost.gamma0 * (uz_m - self.boost.beta0 * gamma_m)
+            if boost_positions_in_dens_func and dens_func is not None:
+                from ..particles.state import _check_dens_func_arguments
+                coef = self.boost.gamma0 * (1 - beta_m_lab * self.boost.beta0)
+                user_func = dens_func
+                if _check_dens_func_arguments(dens_func) == ["z", "r"]:
+                    dens_func = lambda z, r: user_func(coef * z, r)
+                else:
+                    dens_func = lambda x, y, z: user_func(x, y, coef * z)
         p_zmin_, p_zmax_, Npz = adapt_to_grid(self.grid_z(), p_zmin, p_zmax,
                                               p_nz)
         p_rmin_, p_rmax_, Npr = adapt_to_grid(self.grid_r(), p_rmin, p_rmax,
@@ -296,8 +338,8 @@ class Simulation:
                 capacity = cap_resident
                 resident = True
         # Banded re-sort when positions move at most 2 columns per step
-        band = max(1, int(c * self.config.dt / self.config.dz - 1e-9) + 1)
-        resort = "banded" if resident and band <= 2 else "full"
+        resort = ("banded" if resident and self.config.resort_band <= 2
+                  else "full")
         sc = SpeciesConfig(
             q=q, m=m, particle_shape=self.config.particle_shape,
             name=name or f"species{len(self.species_configs)}",
@@ -353,13 +395,19 @@ class Simulation:
                                       device=self.device)
                 for name, value in fields.items()}))
 
-    def set_moving_window(self, v=None):
+    def set_moving_window(self, v=None, gamma_boost=None):
         """Attach a moving window of speed v (default c); requires open z
-        boundaries (reference: main.py:1004-1033)."""
+        boundaries (reference: main.py:1004-1033).  With gamma_boost (and
+        the Simulation's own gamma_boost), v is a lab-frame speed and is
+        converted to the boosted frame."""
         if self.config.boundaries_z != "open":
             raise ValueError(
                 "A moving window requires boundaries={'z': 'open'}.")
-        self.moving_win = float(c if v is None else v)
+        if v is None:
+            v = c
+        if gamma_boost is not None and self.boost is not None:
+            v, = self.boost.velocity([v])
+        self.moving_win = float(v)
         self.state = replace(self.state, mw_zref=self.state.zmin)
 
     # -----------------------------------------------------------------

@@ -5,9 +5,17 @@ as in the reference, FBPIC's fbpic/main.py:346-585):
 
     [exchange: remove, inject, deposit rho_prev]
     -> re-sort (banded, or full) -> sorted gather E,B (K2)
-    -> Vay push p -> push x (dt/2) -> fused J + d(rho) deposit (K1)
+    -> Vay push p -> push x (dt/2) -> fused J + d(rho) deposit (K1),
+       or J and rho deposits (K3)
     -> push x (dt/2) -> rho_next -> correct currents -> PSATD push
-    -> moving-window shift -> spect2interp E,B -> open-z damping
+    -> Galilean drift + moving-window shift -> spect2interp E,B
+    -> open-z damping
+
+float32 runs of the standard scheme deposit the per-particle d(rho) the
+current correction needs (K1); float64 runs and the Galilean / comoving
+scheme deposit J and rho_next (K3).  In the Galilean frame the grid
+flows at v_comoving: its left edge is zmin at the gather, zmin + vg*dt/2
+at the J deposit and zmin + vg*dt at rho_next.
 
 Resident species live in the flattened (Nz, K) column-sort layout: the
 step re-sorts them once at its start and gathers, pushes and deposits
@@ -21,7 +29,6 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from ..constants import c
 from ..fields import transform as tr
 from ..fields import psatd_push as ps
 from ..particles import push as pp
@@ -104,12 +111,21 @@ def deposit_J_spect(config, aux, fused_J):
 
 def push_fields(config, aux, spect, use_true_rho):
     """PSATD E/B advance + rho_prev <- rho_next."""
-    Ep, Em, Ez, Bp, Bm, Bz = ps.push_eb_standard(
-        spect.Ep, spect.Em, spect.Ez, spect.Bp, spect.Bm, spect.Bz,
-        spect.Jp, spect.Jm, spect.Jz, spect.rho_prev, spect.rho_next,
-        aux.rho_prev_coef, aux.rho_next_coef, aux.j_coef,
-        aux.C, aux.S_w, aux.kr, aux.kz, config.dt,
-        use_true_rho=use_true_rho)
+    if config.use_comoving:
+        Ep, Em, Ez, Bp, Bm, Bz = ps.push_eb_comoving(
+            spect.Ep, spect.Em, spect.Ez, spect.Bp, spect.Bm, spect.Bz,
+            spect.Jp, spect.Jm, spect.Jz, spect.rho_prev, spect.rho_next,
+            aux.rho_prev_coef, aux.rho_next_coef, aux.j_coef,
+            aux.C, aux.S_w, aux.T_eb, aux.T_cc, aux.T_rho,
+            aux.kr, aux.kz, config.dt, config.v_comoving,
+            use_true_rho=use_true_rho)
+    else:
+        Ep, Em, Ez, Bp, Bm, Bz = ps.push_eb_standard(
+            spect.Ep, spect.Em, spect.Ez, spect.Bp, spect.Bm, spect.Bz,
+            spect.Jp, spect.Jm, spect.Jz, spect.rho_prev, spect.rho_next,
+            aux.rho_prev_coef, aux.rho_next_coef, aux.j_coef,
+            aux.C, aux.S_w, aux.kr, aux.kz, config.dt,
+            use_true_rho=use_true_rho)
     return replace(spect, Ep=Ep, Em=Em, Ez=Ez, Bp=Bp, Bm=Bm, Bz=Bz,
                    rho_prev=spect.rho_next,
                    rho_next=torch.zeros_like(spect.rho_next))
@@ -120,9 +136,15 @@ def correct_currents(config, aux, spect, drho=None):
     rho_next - rho_prev (float32 runs)."""
     if config.current_correction != "curl-free":
         raise NotImplementedError(config.current_correction)
-    Jp, Jm, Jz = ps.correct_currents_curlfree_standard(
-        spect.rho_prev, spect.rho_next, spect.Jp, spect.Jm, spect.Jz,
-        aux.kz, aux.kr, aux.inv_k2, 1.0 / config.dt, drho=drho)
+    if config.use_comoving:
+        Jp, Jm, Jz = ps.correct_currents_curlfree_comoving(
+            spect.rho_prev, spect.rho_next, spect.Jp, spect.Jm, spect.Jz,
+            aux.kz, aux.kr, aux.inv_k2, aux.j_corr_coef, aux.T_eb,
+            aux.T_cc, 1.0 / config.dt)
+    else:
+        Jp, Jm, Jz = ps.correct_currents_curlfree_standard(
+            spect.rho_prev, spect.rho_next, spect.Jp, spect.Jm, spect.Jz,
+            aux.kz, aux.kr, aux.inv_k2, 1.0 / config.dt, drho=drho)
     return replace(spect, Jp=Jp, Jm=Jm, Jz=Jz)
 
 
@@ -288,6 +310,12 @@ def make_step_fn(config, species_configs, options: StepOptions):
         ring_overwrite = state.ring_overwrite
         ep = max(1, options.exchange_period)
         do_exchange = it % ep == 0
+        # Galilean frame: the grid edge flows vg*dt per step; deposits
+        # see it at their own time (fbpic_tpu core/step.py:942-956)
+        vg = config.v_galilean
+        vg_dt = vg * dt
+        zmin_mid = zmin + 0.5 * vg_dt
+        zmin_next = zmin + vg_dt
 
         # --- Open boundaries: every exchange_period steps, remove the
         # particles in the guard cells, inject the columns the moving
@@ -313,11 +341,13 @@ def make_step_fn(config, species_configs, options: StepOptions):
                                             aux.filter_r)
             spect = replace(spect, rho_prev=rho_prev)
 
-        # float32: the correction needs the per-particle d(rho)
+        # float32, standard scheme: the correction needs the
+        # per-particle d(rho)
         f32_mode = any(sp.x.dtype == torch.float32 for sp in species)
         want_drho = (f32_mode and options.correct_currents
-                     and config.current_correction == "curl-free")
-        band = max(1, int(c * dt / config.dz - 1e-9) + 1)
+                     and config.current_correction == "curl-free"
+                     and not config.use_comoving)
+        band = config.resort_band
         fused_J, fused_rho, fused_drho = {}, {}, {}
 
         for i in resident_idx:
@@ -373,7 +403,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 ux, uy, uz, inv_gamma = pp.push_p(psp, E_B[:3], E_B[3:],
                                                   sc.q, sc.m, dt)
                 psp = psp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
-            psp = half_push_x(config, psp, zmin)
+            psp = half_push_x(config, psp, zmin_mid)
 
             # Fused J + rho/d(rho) deposit on the pushed padded arrays
             # (sort_at_start: the sort is half a push behind)
@@ -384,16 +414,16 @@ def make_step_fn(config, species_configs, options: StepOptions):
             out = deposit_rho_J_sorted(
                 dict(valid=valid, padded=pad_dep), psp.x, psp.y, psp.z,
                 psp.w, sc.q, psp.ux, psp.uy, psp.uz, psp.inv_gamma,
-                0.5 * dt, config.Nm, 1.0 / config.dz, float(zmin),
+                0.5 * dt, config.Nm, 1.0 / config.dz, float(zmin_mid),
                 config.Nz, 1.0 / config.dr, 0.0, config.Nr,
                 aux.ruyten_linear, zfold=zfold, comp=_comp_of(psp),
                 with_drho=want_drho, with_rho=not want_drho,
-                sort_at_start=True)
+                sort_at_start=True, vz_shift=vg)
             fused_J[i] = out[:3]
             fused_rho[i] = out[3]
             if want_drho:
                 fused_drho[i] = out[4]
-            psp = half_push_x(config, psp, zmin)
+            psp = half_push_x(config, psp, zmin_next)
             # Flatten back: the sorted order becomes the storage order;
             # invalid slots (duplicates of neighbours) are dead
             flat = {n: getattr(psp, n).reshape(-1) for n in
@@ -423,7 +453,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
             rho_next = spect.rho_prev + drho
         else:
             rho_next = deposit_rho_spect(config, aux, species,
-                                         species_configs, zmin,
+                                         species_configs, zmin_next,
                                          fused=fused_rho)
             if options.filter_currents:
                 rho_next = ps.filter_scalar(rho_next, aux.filter_z,
@@ -433,6 +463,12 @@ def make_step_fn(config, species_configs, options: StepOptions):
         if options.correct_currents:
             spect = correct_currents(config, aux, spect, drho=drho)
         spect = push_fields(config, aux, spect, options.use_true_rho)
+
+        # --- Galilean frame: the grid edge has flowed vg*dt this step
+        # (no spectral shift: the comoving coefficients advance the
+        # fields in the flowing frame).  Before the window comparison, so
+        # the window shifts only the excess over the drift.
+        zmin = zmin + vg_dt
 
         # --- Moving window: shift the spectral fields and the grid edge;
         # roll the resident rows so row == column still holds

@@ -1,8 +1,10 @@
 """PSATD field advance, curl-free current correction and source filters.
 
 Field arrays are complex tensors stacked over azimuthal modes,
-(Nm, Nz, Nr); coefficient arrays are real.  Each function is the
-elementwise k-space update of the standard (non-Galilean) spectral
+(Nm, Nz, Nr).  Coefficient arrays are real, except those of the
+Galilean / comoving scheme (T_eb, T_cc, T_rho, j_corr_coef and its
+j_coef / rho_*_coef), which are complex tensors of the fields' complex
+dtype.  Each function is the elementwise k-space update of the spectral
 solver.  Behavioral reference: FBPIC's fbpic/fields/
 numba_methods.py:64-382.
 """
@@ -48,6 +50,61 @@ def push_eb_standard(
     return Ep_new, Em_new, Ez_new, Bp_new, Bm_new, Bz_new
 
 
+def push_eb_comoving(
+    Ep, Em, Ez, Bp, Bm, Bz, Jp, Jm, Jz, rho_prev, rho_next,
+    rho_prev_coef, rho_next_coef, j_coef, C, S_w, T_eb, T_cc, T_rho,
+    kr, kz, dt, V, use_true_rho=False,
+):
+    """Advance E, B with the Galilean / comoving-current PSATD scheme
+    (V: the comoving velocity)."""
+    if use_true_rho:
+        rho_diff = rho_next * rho_next_coef - rho_prev * rho_prev_coef
+    else:
+        divE = (Ep - Em) * kr + 1j * (Ez * kz)
+        divJ = (Jp - Jm) * kr + 1j * (Jz * kz)
+        rho_diff = (
+            divE * ((T_eb * rho_next_coef - rho_prev_coef) * epsilon_0)
+            + divJ * (T_rho * rho_next_coef)
+        )
+
+    TC = T_eb * C
+    TS = T_eb * S_w
+
+    Ep_new = (
+        Ep * TC + rho_diff * (0.5 * kr)
+        + (1j * (Jp * (kz * V))) * j_coef
+        + ((1j * (Bz * kr)) * (-0.5) + Bp * kz - Jp * T_cc * mu_0) * (TS * c2)
+    )
+    Em_new = (
+        Em * TC - rho_diff * (0.5 * kr)
+        + (1j * (Jm * (kz * V))) * j_coef
+        + ((1j * (Bz * kr)) * (-0.5) - Bm * kz - Jm * T_cc * mu_0) * (TS * c2)
+    )
+    Ez_new = (
+        Ez * TC - (1j * rho_diff) * kz
+        + (1j * (Jz * (kz * V))) * j_coef
+        + (1j * (Bp * kr) + 1j * (Bm * kr) - Jz * T_cc * mu_0) * (TS * c2)
+    )
+
+    Bp_new = (
+        Bp * TC
+        - ((1j * (Ez * kr)) * (-0.5) + Ep * kz) * TS
+        + ((1j * (Jz * kr)) * (-0.5) + Jp * kz) * j_coef
+    )
+    Bm_new = (
+        Bm * TC
+        - ((1j * (Ez * kr)) * (-0.5) - Em * kz) * TS
+        + ((1j * (Jz * kr)) * (-0.5) - Jm * kz) * j_coef
+    )
+    Bz_new = (
+        Bz * TC
+        - (1j * (Ep * kr) + 1j * (Em * kr)) * TS
+        + (1j * (Jp * kr) + 1j * (Jm * kr)) * j_coef
+    )
+
+    return Ep_new, Em_new, Ez_new, Bp_new, Bm_new, Bz_new
+
+
 def correct_currents_curlfree_standard(
     rho_prev, rho_next, Jp, Jm, Jz, kz, kr, inv_k2, inv_dt, drho=None
 ):
@@ -58,6 +115,16 @@ def correct_currents_curlfree_standard(
     density in the grid difference)."""
     d = drho if drho is not None else (rho_next - rho_prev)
     F = (d * inv_dt + 1j * (Jz * kz) + (Jp - Jm) * kr) * (-inv_k2)
+    return Jp + F * (0.5 * kr), Jm - F * (0.5 * kr), Jz - (1j * F) * kz
+
+
+def correct_currents_curlfree_comoving(
+    rho_prev, rho_next, Jp, Jm, Jz, kz, kr, inv_k2, j_corr_coef, T_eb, T_cc,
+    inv_dt
+):
+    """Curl-free current correction (Galilean / comoving scheme)."""
+    F = ((rho_next - rho_prev * T_eb) * (T_cc * j_corr_coef)
+         + 1j * (Jz * kz) + (Jp - Jm) * kr) * (-inv_k2)
     return Jp + F * (0.5 * kr), Jm - F * (0.5 * kr), Jz - (1j * F) * kz
 
 

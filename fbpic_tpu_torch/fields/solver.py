@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..constants import c
 from .transform import TransformMatrices
 from .hankel import build_mode_matrices
 from .psatd_coefs import PsatdCoeffs
@@ -39,6 +40,10 @@ class GridConfig:
     rmax: float
     dt: float
     n_order: int = -1
+    # Galilean / comoving PSATD: the velocity the scheme follows (None =
+    # standard scheme); use_galilean: the grid itself flows at v_comoving
+    v_comoving: Optional[float] = None
+    use_galilean: bool = True
     current_correction: str = "curl-free"
     particle_shape: str = "linear"
     boundaries_z: str = "periodic"  # 'periodic' or 'open'
@@ -48,6 +53,23 @@ class GridConfig:
     n_guard: int = 0
     nz_damp: int = 0
     n_inject: int = 0
+
+    @property
+    def use_comoving(self):
+        return self.v_comoving is not None
+
+    @property
+    def v_galilean(self):
+        """Speed at which the grid itself flows (0 unless Galilean)."""
+        return (self.v_comoving if self.use_comoving and self.use_galilean
+                else 0.0)
+
+    @property
+    def resort_band(self):
+        """Columns a particle can cross in one step relative to the
+        (possibly flowing) grid: the banded re-sort's band."""
+        return max(1, int((c + abs(self.v_galilean)) * self.dt / self.dz
+                          - 1e-9) + 1)
 
     @property
     def nd_edge(self):
@@ -106,12 +128,18 @@ class FieldAux:
     kz_true: torch.Tensor    # (Nz,) real, FFT-convention kz
     kz: torch.Tensor         # (1, Nz, 1) modified kz (finite-order stencil)
     kr: torch.Tensor         # (Nm, 1, Nr)
-    # PSATD coefficients, (Nm, Nz, Nr):
+    # PSATD coefficients, (Nm, Nz, Nr); j_coef and the rho_*_coef are
+    # complex in the Galilean/comoving scheme, real otherwise:
     C: torch.Tensor
     S_w: torch.Tensor
     j_coef: torch.Tensor
     rho_prev_coef: torch.Tensor
     rho_next_coef: torch.Tensor
+    # Galilean/comoving extras, complex (None for the standard scheme):
+    T_eb: Optional[torch.Tensor]
+    T_cc: Optional[torch.Tensor]
+    T_rho: Optional[torch.Tensor]
+    j_corr_coef: Optional[torch.Tensor]
     # Current correction: 1/k^2, 0 at k=0, (Nm, Nz, Nr)
     inv_k2: torch.Tensor
     # Source smoothing filter:
@@ -132,7 +160,7 @@ class FieldAux:
 
 def build_field_aux(config: GridConfig, smoother: BinomialSmoother = None,
                     use_ruyten_shapes=True, use_modified_volume=True,
-                    device="cpu", dtype=torch.float64) -> FieldAux:
+                    *, device, dtype=torch.float64) -> FieldAux:
     """Host-side construction of all solver coefficient arrays."""
     Nz, Nr, Nm = config.Nz, config.Nr, config.Nm
     if smoother is None:
@@ -147,7 +175,7 @@ def build_field_aux(config: GridConfig, smoother: BinomialSmoother = None,
     kz_mesh = np.broadcast_to(kz_mod[None, :, None], (Nm, Nz, Nr))
     kr_mesh = np.broadcast_to(kr_np[:, None, :], (Nm, Nz, Nr))
     ps = PsatdCoeffs(kz_mesh.copy(), kr_mesh.copy(), config.dt,
-                     V=None, use_galilean=False)
+                     V=config.v_comoving, use_galilean=config.use_galilean)
 
     k2 = kz_mesh**2 + kr_mesh**2
     inv_k2 = np.where(k2 == 0.0, 0.0, 1.0 / np.where(k2 == 0.0, 1.0, k2))
@@ -167,7 +195,13 @@ def build_field_aux(config: GridConfig, smoother: BinomialSmoother = None,
         vol_std, Nr, config.dr, config.dz, use_ruyten_shapes)
 
     def dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        """Real arrays in the working dtype, complex ones in its complex
+        counterpart."""
+        x = np.asarray(x)
+        return torch.as_tensor(x, device=device, dtype=(
+            complex_dtype(dtype) if np.iscomplexobj(x) else dtype))
+
+    comoving = config.use_comoving
 
     damp = {}
     if config.boundaries_z == "open" and config.nz_damp > 0:
@@ -190,6 +224,10 @@ def build_field_aux(config: GridConfig, smoother: BinomialSmoother = None,
         C=dev(ps.C), S_w=dev(ps.S_w), j_coef=dev(ps.j_coef),
         rho_prev_coef=dev(ps.rho_prev_coef),
         rho_next_coef=dev(ps.rho_next_coef),
+        T_eb=dev(ps.T_eb) if comoving else None,
+        T_cc=dev(ps.T_cc) if comoving else None,
+        T_rho=dev(ps.T_rho) if comoving else None,
+        j_corr_coef=dev(ps.j_corr_coef) if comoving else None,
         inv_k2=dev(inv_k2),
         filter_z=dev(filter_z), filter_r=dev(filter_r),
         invvol=dev(invvol),

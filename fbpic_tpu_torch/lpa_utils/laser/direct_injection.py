@@ -11,8 +11,10 @@ from scipy.constants import c
 from ...fields.host_transform import HostSpectralTransformer
 
 
-def get_laser_Er_Et(sim, laser_profile):
-    """Evaluate the laser's (Er, Et) on the grid, azimuthally decomposed.
+def get_laser_Er_Et(sim, laser_profile, boost=None):
+    """Evaluate the laser's (Er, Et) on the grid, azimuthally decomposed
+    (boost: a BoostConverter when the profile is given in the lab frame
+    of a boosted-frame simulation).
 
     Returns (Er_m, Et_m): complex (Nm, Nz, Nr) mode arrays.
     """
@@ -29,9 +31,21 @@ def get_laser_Er_Et(sim, laser_profile):
     x_3d = r_3d * cos_t
     y_3d = r_3d * sin_t
 
-    Ex_3d, Ey_3d = laser_profile.E_field(x_3d, y_3d, z_3d, sim.time)
+    if boost is not None:
+        zlab_3d = boost.gamma0 * (z_3d + boost.beta0 * c * sim.time)
+        tlab = boost.gamma0 * (sim.time + (boost.beta0 / c) * z_3d)
+    else:
+        zlab_3d = z_3d
+        tlab = sim.time
+
+    Ex_3d, Ey_3d = laser_profile.E_field(x_3d, y_3d, zlab_3d, tlab)
     Er_3d = cos_t * Ex_3d + sin_t * Ey_3d
     Et_3d = -sin_t * Ex_3d + cos_t * Ey_3d
+
+    if boost is not None:
+        scale = 1.0 / (boost.gamma0 * (1 + boost.beta0))
+        Er_3d = Er_3d * scale
+        Et_3d = Et_3d * scale
 
     # Azimuthal decomposition: inverse DFT over theta samples
     Er_m = np.fft.ifft(Er_3d, axis=-1)   # (Nz, Nr, ntheta)
@@ -78,9 +92,9 @@ def calculate_laser_fields(Er_m, Et_m, trans: HostSpectralTransformer,
     return dict(Er=Er_i, Et=Et_i, Ez=Ez_i, Br=Br_i, Bt=Bt_i, Bz=Bz_i)
 
 
-def add_laser_direct(sim, laser_profile):
+def add_laser_direct(sim, laser_profile, boost=None):
     """Add a laser pulse to the simulation mesh (single global solve)."""
-    Er_m, Et_m = get_laser_Er_Et(sim, laser_profile)
+    Er_m, Et_m = get_laser_Er_Et(sim, laser_profile, boost)
     trans = HostSpectralTransformer(
         sim.config.Nz, sim.config.Nr, sim.config.Nm, sim.config.rmax,
         sim.config.dz, sim.config.n_order)

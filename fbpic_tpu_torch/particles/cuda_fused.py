@@ -33,14 +33,22 @@ def _operands(geom, channels, span, dph, ph_b, wj, Nm):
             + list(span["zw_b"]))
 
 
+def fused_blocks(geom, channels, meta, span, dph, ph_b, wj, ruyten, Nm,
+                 n_offD):
+    """The blocks of K1's V: the J blocks, then the d(rho) blocks."""
+    from .sorted_deposit import _build_V, _build_V_span_diff
+    metaD = _channel_meta(Nm, 1, [+1.0], channels.dtype, channels.device)
+    return (_build_V(geom, channels, meta)
+            + _build_V_span_diff(span, dph, ph_b, wj, metaD, ruyten,
+                                 n_blocks=n_offD))
+
+
 def fused_onehot_contract_plain(geom, channels, meta, span, dph, ph_b, wj,
                                 ruyten, Nm, Nz, Nr, n_offJ, n_offD):
     """Plain PyTorch version of K1 (same signature and result)."""
-    from .sorted_deposit import _build_V, _build_V_span_diff, _contract
-    metaD = _channel_meta(Nm, 1, [+1.0], channels.dtype, channels.device)
-    blocks = (_build_V(geom, channels, meta)
-              + _build_V_span_diff(span, dph, ph_b, wj, metaD, ruyten,
-                                   n_blocks=n_offD))
+    from .sorted_deposit import _contract
+    blocks = fused_blocks(geom, channels, meta, span, dph, ph_b, wj, ruyten,
+                          Nm, n_offD)
     return _contract(geom["ir_buf"], blocks, Nr + 2 * NGUARD)
 
 

@@ -51,7 +51,7 @@ class InjectorAux:
 
 
 def build_injector_aux(Npr, rmin, rmax, Nptheta, injector: InjectorConfig,
-                       rng=None, device="cpu",
+                       rng=None, *, device,
                        dtype=torch.float64) -> InjectorAux:
     """Host-side construction of the per-column particle template."""
     rng = rng or np.random

@@ -16,8 +16,8 @@ the offsets are extra channel blocks in V and shifted adds on the grid.
 The result equals the scatter path (deposit.py) in exact arithmetic --
 same shape factors, folding and edge masking.  The fused J + d(rho)
 contraction of the float32 path runs in K1
-(``cuda_fused.fused_onehot_contract``); the other contractions are the
-segmented sum ``_contract``.
+(``cuda_fused.fused_onehot_contract``); the J and rho contractions of
+the ``with_rho`` branch run in K3 (``cuda_dense.dense_onehot_contract``).
 
 Reference behavior being replaced: cell-sorted atomics on CUDA
 (FBPIC's fbpic/particles/deposition/cuda_methods.py) and
@@ -32,6 +32,7 @@ from .deposit import (
     _fold_guard_cells, _modes, current_components,
 )
 from .cuda_fused import fused_onehot_contract
+from .cuda_dense import dense_onehot_contract
 
 
 def build_column_sort(z, w, zmin, invdz, Nz, K, payload):
@@ -279,10 +280,9 @@ def _reassemble(out, Nz, Nr, zfold, delta_lo, delta_hi, C):
 
 def _dense_deposit(geom, channel_vals, meta, Nz, Nr, zfold,
                    delta_lo, delta_hi):
-    """Segmented sum of the padded channels (Nz, K, C) by radial row.
-    Returns the folded (Nz, Nr, C) grid."""
-    blocks = _build_V(geom, channel_vals, meta)
-    out = _contract(geom["ir_buf"], blocks, Nr + 2 * NGUARD)
+    """Segmented sum of the padded channels (Nz, K, C) by radial row
+    (K3).  Returns the folded (Nz, Nr, C) grid."""
+    out = dense_onehot_contract(geom, channel_vals, meta, Nr + 2 * NGUARD)
     return _reassemble(out, Nz, Nr, zfold, delta_lo, delta_hi,
                        channel_vals.shape[2])
 
@@ -296,13 +296,18 @@ def deposit_rho_J_sorted(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,
                          dt_half, Nm, invdz, zmin, Nz, invdr, rmin, Nr,
                          ruyten_linear, zfold="periodic", comp=None,
                          with_drho=False, with_rho=True,
-                         sort_at_start=False):
+                         sort_at_start=False, vz_shift=0.0):
     """Fused J (at the current positions) + rho (at the positions one
     half push later) + optionally d(rho), on the padded layout.
 
     sort_at_start: the plan was built half a push before the current
     (J) positions (the resident step sorts at the start of the step), so
     every z offset window widens by one cell each way.
+
+    vz_shift: the Galilean grid speed v_comoving.  ``zmin`` is then the
+    grid edge at the J time; the rho / d(rho) endpoints move relative to
+    a grid that itself flows, at the effective z velocity vz - vz_shift
+    (covered by the offset windows under c*dt <= dz).
 
     Returns (Jr, Jt, Jz, rho) raw grids (not divided by cell volume),
     plus drho when ``with_drho``; rho is None when not ``with_rho``.
@@ -311,7 +316,6 @@ def deposit_rho_J_sorted(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,
     dr_lo, dr_hi = (-3, 2) if sort_at_start else (-2, 1)
     x, y, z, w, ux, uy, uz, inv_gamma, comp = _padded_particles(
         sort, x, y, z, w, ux, uy, uz, inv_gamma, comp)
-    dev, rdt = x.device, x.dtype
 
     # --- J at the current (n+1/2) positions
     geom, channels, meta, wj = _J_operands(
@@ -327,15 +331,10 @@ def deposit_rho_J_sorted(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,
     # caller derives rho_next = rho_prev + drho)
     rho = None
     if with_rho:
-        x2 = x + chdt * inv_gamma * ux
-        y2 = y + chdt * inv_gamma * uy
-        z2 = z + chdt * inv_gamma * uz
-        geom2 = _padded_geometry(sort, x2, y2, z2, invdz, zmin, Nz,
-                                 invdr, rmin, Nr, ruyten_linear, zfold,
-                                 delta_lo=dr_lo, delta_hi=dr_hi, comp=comp)
-        cos_m2, sin_m2 = _mode_phases(geom2["cos"], geom2["sin"], Nm)
-        channels2 = _pack_padded([_modes(wj, cos_m2, sin_m2)], Nm)
-        meta2 = _channel_meta(Nm, 1, [+1.0], rdt, dev)
+        geom2, channels2, meta2 = _rho_operands(
+            sort, x, y, z, wj, ux, uy, uz, inv_gamma, chdt,
+            vz_shift * dt_half, Nm, invdz, zmin, Nz, invdr, rmin, Nr,
+            ruyten_linear, zfold, dr_lo, dr_hi, comp)
         out2 = _dense_deposit(geom2, channels2, meta2, Nz, Nr, zfold,
                               delta_lo=dr_lo, delta_hi=dr_hi)
         rho = _unpack_channels(out2, 1, Nm)[0]
@@ -346,7 +345,7 @@ def deposit_rho_J_sorted(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,
     # (they share the mid-position rows): K1
     span, dph, ph_b, n_offD = _drho_operands(
         geom, x, y, w, ux, uy, uz, inv_gamma, chdt, invdz, invdr, Nm,
-        dj_lo, dj_hi)
+        dj_lo, dj_hi, vz_shift * dt_half)
     n_offJ = dj_hi + 2 - dj_lo
     W_J = n_offJ * 2 * channels.shape[2]
     out_all = fused_onehot_contract(
@@ -390,9 +389,28 @@ def _J_operands(sort, x, y, z, w, q, ux, uy, uz, inv_gamma, Nm, invdz,
     return geom, channels, meta, wj
 
 
+def _rho_operands(sort, x, y, z, wj, ux, uy, uz, inv_gamma, chdt, z_shift,
+                  Nm, invdz, zmin, Nz, invdr, rmin, Nr, ruyten, zfold,
+                  dr_lo, dr_hi, comp):
+    """Geometry, packed channels and channel metadata of the rho deposit
+    at the positions one half push later (z_shift: the Galilean grid's
+    drift over that half push)."""
+    x2 = x + chdt * inv_gamma * ux
+    y2 = y + chdt * inv_gamma * uy
+    z2 = z + chdt * inv_gamma * uz - z_shift
+    geom2 = _padded_geometry(sort, x2, y2, z2, invdz, zmin, Nz, invdr, rmin,
+                             Nr, ruyten, zfold, delta_lo=dr_lo,
+                             delta_hi=dr_hi, comp=comp)
+    cos_m2, sin_m2 = _mode_phases(geom2["cos"], geom2["sin"], Nm)
+    channels2 = _pack_padded([_modes(wj, cos_m2, sin_m2)], Nm)
+    meta2 = _channel_meta(Nm, 1, [+1.0], x.dtype, x.device)
+    return geom2, channels2, meta2
+
+
 def _drho_operands(geom, x, y, w, ux, uy, uz, inv_gamma, chdt, invdz,
-                   invdr, Nm, dj_lo, dj_hi):
-    """Endpoint data of the telescoped d(rho) deposit.
+                   invdr, Nm, dj_lo, dj_hi, z_shift=0.0):
+    """Endpoint data of the telescoped d(rho) deposit (z_shift: the
+    Galilean grid's drift over half a step).
 
     Endpoint shapes derive from the MID-position geometry plus
     velocity-product half-step deltas in cell units (materialized
@@ -400,7 +418,7 @@ def _drho_operands(geom, x, y, w, ux, uy, uz, inv_gamma, chdt, invdz,
     cell-coordinate ULP, larger than the per-step density change).
     Cell-boundary crossers go to the right offset block by
     floor-splitting (exact in z).  Returns (span, dph, ph_b, n_offD)."""
-    hz = chdt * inv_gamma * uz * invdz
+    hz = (chdt * inv_gamma * uz - z_shift) * invdz
     vr = geom["cos"] * ux + geom["sin"] * uy
     hr = chdt * inv_gamma * vr * invdr
     s_mid, delta_mid, ok = geom["s_sub"], geom["delta"], geom["ok"]
@@ -454,3 +472,30 @@ def fused_contract_operands(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,
     return dict(geom=geom, channels=channels, meta=meta, span=span,
                 dph=dph, ph_b=ph_b, wj=wj, ruyten=ruyten_linear, Nm=Nm,
                 Nz=Nz, Nr=Nr, n_offJ=dj_hi + 2 - dj_lo, n_offD=n_offD)
+
+
+def dense_contract_operands(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,
+                            dt_half, Nm, invdz, zmin, Nz, invdr, rmin, Nr,
+                            ruyten_linear, zfold="periodic", comp=None,
+                            sort_at_start=False, vz_shift=0.0):
+    """The keyword arguments of the two ``_dense_deposit`` calls (K3) of
+    ``deposit_rho_J_sorted(with_rho=True)``, exactly as it builds them:
+    {"J": ..., "rho": ...}.  K3 itself takes (geom, channel_vals, meta)
+    with Nrb = Nr + 2 * NGUARD."""
+    dj_lo, dj_hi = (-2, 1) if sort_at_start else (-1, 0)
+    dr_lo, dr_hi = (-3, 2) if sort_at_start else (-2, 1)
+    x, y, z, w, ux, uy, uz, inv_gamma, comp = _padded_particles(
+        sort, x, y, z, w, ux, uy, uz, inv_gamma, comp)
+    geom, channels, meta, wj = _J_operands(
+        sort, x, y, z, w, q, ux, uy, uz, inv_gamma, Nm, invdz, zmin, Nz,
+        invdr, rmin, Nr, ruyten_linear, zfold, dj_lo, dj_hi, comp)
+    geom2, channels2, meta2 = _rho_operands(
+        sort, x, y, z, wj, ux, uy, uz, inv_gamma, c * dt_half,
+        vz_shift * dt_half, Nm, invdz, zmin, Nz, invdr, rmin, Nr,
+        ruyten_linear, zfold, dr_lo, dr_hi, comp)
+    common = dict(Nz=Nz, Nr=Nr, zfold=zfold)
+    return dict(
+        J=dict(geom=geom, channel_vals=channels, meta=meta,
+               delta_lo=dj_lo, delta_hi=dj_hi, **common),
+        rho=dict(geom=geom2, channel_vals=channels2, meta=meta2,
+                 delta_lo=dr_lo, delta_hi=dr_hi, **common))

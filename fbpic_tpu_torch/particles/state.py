@@ -99,7 +99,7 @@ def _round_capacity(n, multiple=256):
 
 
 def make_particle_state(x, y, z, ux, uy, uz, inv_gamma, w, capacity=None,
-                        device="cpu", dtype=torch.float64) -> ParticleState:
+                        *, device, dtype=torch.float64) -> ParticleState:
     """Pack numpy arrays into a padded, fixed-capacity ParticleState."""
     n = len(x)
     cap = capacity if capacity is not None else _round_capacity(n)

@@ -1,9 +1,9 @@
-"""Build the port's SimState from another simulation's arrays.
+"""Build the port's SimState and GridConfig from another simulation's.
 
 Used to start fbpic_tpu_torch from exactly the state of an fbpic_tpu run
 (its SimState turned into numpy arrays by the caller: split-complex
-fields become ``re + 1j * im``), so both packages can be stepped from
-the same state and compared.
+fields become ``re + 1j * im``; its GridConfig read field by field), so
+both packages can be stepped from the same state and compared.
 """
 from dataclasses import fields as dc_fields
 
@@ -11,13 +11,23 @@ import numpy as np
 import torch
 
 from ..core.state import SimState
-from ..fields.solver import SpectralFields, InterpFields, complex_dtype
+from ..fields.solver import (
+    GridConfig, SpectralFields, InterpFields, complex_dtype,
+)
 from ..particles.state import ARRAY_FIELDS, ParticleState
+
+
+def config_from(config):
+    """The port's GridConfig with the values of another GridConfig (e.g.
+    fbpic_tpu's), field by field: the comoving fields v_comoving and
+    use_galilean too."""
+    return GridConfig(**{f.name: getattr(config, f.name)
+                         for f in dc_fields(GridConfig)})
 
 
 def state_from_numpy(spect, interp, species, time, zmin, iteration,
                      mw_zref=None, sort_overflow=0, ring_overwrite=0,
-                     device="cpu", dtype=torch.float64):
+                     *, device, dtype=torch.float64):
     """SimState from numpy data.
 
     spect / interp: mappings from the SpectralFields / InterpFields field
@@ -26,6 +36,10 @@ def state_from_numpy(spect, interp, species, time, zmin, iteration,
     w (and comp_x, comp_y, comp_z for float32 runs) and the scalars
     next_free and inj_z_end (None when not injecting).  time, zmin,
     mw_zref: floats (rounded to the working dtype); iteration: int.
+    device: where the state lives (required: no default device).  The
+    field coefficients are not part of the state: ``build_field_aux`` of
+    the carried ``config_from`` rebuilds them (standard or Galilean /
+    comoving).
     """
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     cdt = complex_dtype(dtype)

@@ -16,7 +16,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fused_deposit", "gather")
+SOURCES = ("fused_deposit", "dense_deposit", "gather")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -27,6 +27,9 @@ _SIGNATURES = {
     "fused_contract_f32": [_P] * 13 + [_I] * 11 + [_P],
     "fused_contract_f64": [_P] * 13 + [_I] * 11 + [_P],
     "fused_contract_smem_bytes": [_I] * 7,
+    "dense_contract_f32": [_P] * 6 + [_I] * 8 + [_P],
+    "dense_contract_f64": [_P] * 6 + [_I] * 8 + [_P],
+    "dense_contract_smem_bytes": [_I] * 5,
     "gather_sorted_f32": [_P] * 9 + [_I] * 5 + [_P],
     "gather_sorted_f64": [_P] * 9 + [_I] * 5 + [_P],
 }

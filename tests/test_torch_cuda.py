@@ -6,12 +6,18 @@ only PyTorch; there, skip the JAX-based conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-- K1 and K2 against their plain PyTorch versions on the same card
-  (K1 1e-5, K2 5e-6 relative: float32 sums in another order);
+- K1, K2 and K3 against their plain PyTorch versions on the same card
+  (K1 and K3 1e-5, K2 5e-6 relative in float32: sums in another order;
+  1e-12 in float64);
 - the golden-wake configuration for 100 steps on the card against the
   same run on the CPU (plain kernel versions), float32 and float64;
 - the wavelength and amplitude invariants of tests/test_golden_wake.py
-  after 450 steps on the card.
+  after 450 steps on the card;
+- the boosted-frame Galilean slice: 20 steps of the smoke-size
+  examples/boosted_frame_script.py on the card against the CPU (float64,
+  1e-8), a boosted step with the plain segmented sum made to raise (no
+  CUDA deposit reaches it), and the numerical Cherenkov gate of
+  tests/test_boosted.py.
 """
 import os
 
@@ -110,6 +116,31 @@ def test_k2_kernel_matches_plain(cuda, zfold, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", ["J", "rho"])
+@pytest.mark.parametrize("zfold", ["periodic", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_kernel_matches_plain(cuda, window, zfold, dtype):
+    from fbpic_tpu_torch.particles import cuda_dense
+    from fbpic_tpu_torch.particles.sorted_deposit import (
+        dense_contract_operands)
+    sim, sort = _sorted_particles(cuda, dtype, seed=29)
+    cfg = sim.config
+    x, y, z, w, ux, uy, uz, ig = sort["padded"]
+    ops = dense_contract_operands(
+        sort, x, y, z, w, -1.6e-19, ux, uy, uz, ig, 0.25 * cfg.dz / 3e8,
+        cfg.Nm, 1 / cfg.dz, sim.zmin, cfg.Nz, 1 / cfg.dr, 0.0, cfg.Nr,
+        sim.aux.ruyten_linear, zfold=zfold, sort_at_start=True,
+        vz_shift=-0.995 * 3e8)[window]
+    args = (ops["geom"], ops["channel_vals"], ops["meta"], cfg.Nr + 4)
+    n0 = cuda_dense.dense_onehot_contract.launches
+    out = cuda_dense.dense_onehot_contract(*args)
+    ref = cuda_dense.dense_onehot_contract_plain(*args)
+    assert cuda_dense.dense_onehot_contract.launches == n0 + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert _rel(out, ref) <= tol
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_check_their_operands(cuda):
     from fbpic_tpu_torch.particles import cuda_gather
     sim, sort = _sorted_particles(cuda, torch.float32, seed=3)
@@ -180,15 +211,17 @@ def _profiles(sim):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_card_run_matches_cpu_run(cuda, dtype):
     """100 steps of the golden-wake configuration on the card (K2, and
-    K1 in float32) and on the CPU (their plain versions), from the same
+    K1 in float32; in float64 the J and rho deposits go through
+    K3<double>) and on the CPU (their plain versions), from the same
     plasma and the same injection angles.  float64: 1e-8 of each
     profile's scale (FFTs, GEMMs and sums in another order differ at
     ~1e-16 per operation; the PIC loop amplifies that over 100 steps).
     float32: the 100-step gates of tests/test_golden_wake.py:156-157
     (1.5e-2, 3e-2 for rho), as for the float32 port against fbpic_tpu."""
-    from fbpic_tpu_torch.particles import cuda_fused, cuda_gather
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused, cuda_gather
     n_k1 = cuda_fused.fused_onehot_contract.launches
     n_k2 = cuda_gather.gather_sorted.launches
+    n_k3 = cuda_dense.dense_onehot_contract.launches
     runs = {}
     for dev in (cuda, torch.device("cpu")):
         sim = _golden_config_sim(dev, dtype)
@@ -200,6 +233,8 @@ def test_card_run_matches_cpu_run(cuda, dtype):
     assert cuda_gather.gather_sorted.launches - n_k2 == 100
     if dtype == torch.float32:
         assert cuda_fused.fused_onehot_contract.launches - n_k1 == 100
+    else:
+        assert cuda_dense.dense_onehot_contract.launches - n_k3 == 200
     gates = ({n: 1e-8 for n in runs["cpu"]} if dtype == torch.float64 else
              {"Ez_axis": 1.5e-2, "Er0_r5": 1.5e-2, "Er1_r5": 1.5e-2,
               "rho_axis": 3e-2})
@@ -234,3 +269,122 @@ def test_wake_invariants_on_card(cuda, dtype):
     assert abs(lam / float(gold["inv_wavelength"]) - 1) < 0.02
     amp = float(np.abs(Ez).max())
     assert 0.9 < amp / float(gold["inv_amplitude"]) < 1.1
+
+
+def _boosted_smoke_sim(device, scheme="galilean"):
+    """examples/boosted_frame_script.py:17-58 at its smoke size (:34-35),
+    with the plasma from the box's left edge (-40 um lab), float64, the
+    resident layout forced (sort_K)."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.boosted_frame import BoostConverter
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, \
+        GaussianLaser
+    gamma = 10.
+    boost = BoostConverter(gamma)
+    Nz, Nr, Nm = 256, 12, 2
+    zmin, zmax = boost.static_length([-40.e-6, 0.e-6])
+    n_e, = boost.static_density([1.e24])
+    v_window, = boost.velocity([c])
+    sim = Simulation(Nz, zmax, Nr, 40.e-6, Nm, (zmax - zmin) / Nz / c,
+                     zmin=zmin, n_order=16, gamma_boost=gamma,
+                     v_comoving=-c * np.sqrt(1. - 1. / gamma**2),
+                     use_galilean=(scheme == "galilean"),
+                     boundaries={"z": "open", "r": "reflective"},
+                     random_seed=0, device=device, dtype=torch.float64)
+    sim.add_new_species(q=-e, m=m_e, n=n_e, p_zmin=-40.e-6,
+                        p_zmax=boost.static_length([2000.e-6])[0],
+                        p_rmax=35.e-6, p_nz=1, p_nr=1, p_nt=4,
+                        continuous_injection=True,
+                        boost_positions_in_dens_func=True, sort_K=128)
+    add_laser_pulse(sim, GaussianLaser(a0=2., waist=10.e-6, tau=30.e-15,
+                                       z0=-15.e-6), gamma_boost=gamma)
+    sim.set_moving_window(v=v_window)
+    sim.column_angles = _SeededAngles()
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["galilean", "comoving"])
+def test_boosted_card_run_matches_cpu_run(cuda, scheme):
+    """20 boosted-frame steps on the card (K3 twice and K2 once a step,
+    no K1) against the CPU (plain versions), float64, from the same
+    plasma and injection angles: the on-axis Ez and rho and the mode-1
+    Er at r = 5 dr within 1e-8 of their scale."""
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused, cuda_gather
+    counters = (cuda_fused.fused_onehot_contract, cuda_gather.gather_sorted,
+                cuda_dense.dense_onehot_contract)
+    n0 = [fn.launches for fn in counters]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        sim = _boosted_smoke_sim(dev, scheme)
+        sim.step(20)
+        assert sim.overflow_totals == {"sort_overflow": 0,
+                                       "ring_overwrite": 0}
+        runs[dev.type] = _profiles(sim)
+    assert [fn.launches - n for fn, n in zip(counters, n0)] == [0, 20, 40]
+    for name in ("Ez_axis", "Er1_r5", "rho_axis"):
+        card, ref = runs["cuda"][name], runs["cpu"][name]
+        assert np.isfinite(card).all(), name
+        err = np.abs(card - ref).max() / np.abs(ref).max()
+        assert err < 1e-8, (name, err)
+
+
+@pytest.mark.cuda
+def test_boosted_cuda_step_never_reaches_the_plain_sum(cuda, monkeypatch):
+    """On CUDA tensors the deposit launches K3 or raises: with the plain
+    segmented sum (_contract) made to raise, a boosted step still runs."""
+    from fbpic_tpu_torch.particles import sorted_deposit
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain segmented sum ran on the card")
+
+    sim = _boosted_smoke_sim(cuda)
+    monkeypatch.setattr(sorted_deposit, "_contract", no_plain)
+    sim.step(2)
+    assert np.isfinite(sim.get_interp_field("Ez")).all()
+    # ... while the same step on the CPU does reach it
+    with pytest.raises(AssertionError, match="plain segmented sum"):
+        _boosted_smoke_sim(torch.device("cpu")).step(1)
+
+
+def _nci_slope(device, dtype, scheme):
+    """tests/test_boosted.py::_growth_slope with the port: a gamma = 130
+    plasma and its ions (two species drifting at uz_m) flowing through a
+    periodic box, 570 + 30 steps, resident layout forced."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e, m_p
+    Nz, zmax, zmin, Nr, rmax, Nm = 40, 7.86, -7.86, 20, 7.86, 2
+    gamma = 130.
+    uz_m = np.sqrt(gamma**2 - 1)
+    n_e = gamma / (4 * 3.14 * 2.81e-15)
+    sim = Simulation(Nz, zmax, Nr, rmax, Nm, (zmax - zmin) / Nz / c,
+                     zmin=zmin,
+                     v_comoving=None if scheme == "standard" else 0.9999 * c,
+                     use_galilean=(scheme == "galilean"), random_seed=0,
+                     device=device, dtype=dtype)
+    for q, m in ((-e, m_e), (e, m_p)):
+        sim.add_new_species(q=q, m=m, n=n_e, p_zmin=zmin, p_zmax=zmax,
+                            p_rmin=0., p_rmax=rmax, p_nz=2, p_nr=2, p_nt=4,
+                            uz_m=uz_m, sort_K=512)
+
+    def er_rms():
+        Er0, Er1 = (sim.get_interp_field("Er", m) for m in (0, 1))
+        return float(np.sqrt(np.average(np.abs(Er0)**2 + np.abs(Er1)**2)))
+
+    sim.step(570)
+    rms_a = er_rms()
+    sim.step(30)
+    assert sim.overflow_totals == {"sort_overflow": 0, "ring_overwrite": 0}
+    return np.log(er_rms()) - np.log(rms_a)
+
+
+@pytest.mark.cuda
+def test_galilean_suppresses_cherenkov_on_card(cuda):
+    """tests/test_boosted.py::test_cherenkov_instability on the card, in
+    float64 as that test runs: the standard scheme's Er grows more than
+    3.5x faster than the Galilean scheme's (the J and rho deposits of
+    the Galilean run go through K3<double>)."""
+    slope_std = _nci_slope(cuda, torch.float64, "standard")
+    slope_gal = _nci_slope(cuda, torch.float64, "galilean")
+    assert slope_std > 3.5 * slope_gal, (slope_std, slope_gal)

@@ -171,3 +171,78 @@ def test_window_shift_and_skinny_damping_match_jax():
     out1 = s1.damp_EB_z_skinny(a1, sp1, ip1)
     for n in ("Ep", "Em", "Ez", "Bp", "Bm", "Bz"):
         _close(getattr(out0, n), getattr(out1, n))
+
+
+@pytest.mark.parametrize("use_galilean", [True, False])
+@pytest.mark.parametrize("use_true_rho", [False, True])
+def test_comoving_push_and_correction_match_jax(use_galilean, use_true_rho):
+    """The Galilean (grid flowing at v_comoving) and comoving PSATD
+    coefficients, push_eb_comoving and the comoving curl-free correction,
+    at the flow of the boosted-frame example (v = -c sqrt(1 - 1/10^2)).
+    The complex coefficients (T_eb, T_cc, T_rho, j_corr_coef and the
+    complex j_coef / rho_*_coef) are native complex tensors in the port,
+    CArr pairs in fbpic_tpu."""
+    from fbpic_tpu.fields import psatd_push as p0
+    from fbpic_tpu_torch.fields import psatd_push as p1
+    Nm, Nz, Nr, rmax, dz = 2, 64, 32, 20e-6, 1e-6
+    v = -c * np.sqrt(1. - 1. / 10.**2)
+    g0, g1 = _configs(Nz=Nz, Nr=Nr, Nm=Nm, dz=dz, dr=rmax / Nr, rmax=rmax,
+                      dt=dz / c, n_order=32, v_comoving=v,
+                      use_galilean=use_galilean)
+    assert g1.use_comoving and g1.use_galilean == use_galilean
+    a0, a1 = _aux(g0, g1)
+    for name in ("C", "S_w", "j_coef", "rho_prev_coef", "rho_next_coef",
+                 "T_eb", "T_cc", "T_rho", "j_corr_coef"):
+        ref, out = getattr(a0, name), getattr(a1, name)
+        assert out.dtype == (torch.complex128 if isinstance(ref, CArr)
+                             else torch.float64), name
+        _close(ref, out, tol=1e-15)
+    rng = np.random.RandomState(5)
+    F = [_both(rng, (Nm, Nz, Nr)) for _ in range(11)]
+    j, t = zip(*F)
+    out0 = p0.push_eb_comoving(
+        *j, a0.rho_prev_coef, a0.rho_next_coef, a0.j_coef, a0.C, a0.S_w,
+        a0.T_eb, a0.T_cc, a0.T_rho, a0.kr, a0.kz, g0.dt, v,
+        use_true_rho=use_true_rho)
+    out1 = p1.push_eb_comoving(
+        *t, a1.rho_prev_coef, a1.rho_next_coef, a1.j_coef, a1.C, a1.S_w,
+        a1.T_eb, a1.T_cc, a1.T_rho, a1.kr, a1.kz, g1.dt, v,
+        use_true_rho=use_true_rho)
+    for a, b in zip(out0, out1):
+        assert b.dtype == torch.complex128
+        _close(a, b)
+    for a, b in zip(
+            p0.correct_currents_curlfree_comoving(
+                j[9], j[10], j[6], j[7], j[8], a0.kz, a0.kr, a0.inv_k2,
+                a0.j_corr_coef, a0.T_eb, a0.T_cc, 1 / g0.dt),
+            p1.correct_currents_curlfree_comoving(
+                t[9], t[10], t[6], t[7], t[8], a1.kz, a1.kr, a1.inv_k2,
+                a1.j_corr_coef, a1.T_eb, a1.T_cc, 1 / g1.dt)):
+        _close(a, b)
+
+
+def test_comoving_push_keeps_complex64_in_float32():
+    """float32 runs: every product of the comoving push stays complex64
+    (a complex128 coefficient would silently promote the fields)."""
+    from fbpic_tpu_torch.fields import GridConfig, build_field_aux
+    from fbpic_tpu_torch.fields import psatd_push as p1
+    Nm, Nz, Nr, rmax, dz = 2, 16, 8, 20e-6, 1e-6
+    g = GridConfig(Nz=Nz, Nr=Nr, Nm=Nm, dz=dz, dr=rmax / Nr, rmax=rmax,
+                   dt=dz / c, n_order=16, v_comoving=-0.99 * c)
+    a = build_field_aux(g, device="cpu", dtype=torch.float32)
+    for name in ("j_coef", "rho_prev_coef", "rho_next_coef", "T_eb", "T_cc",
+                 "T_rho", "j_corr_coef"):
+        assert getattr(a, name).dtype == torch.complex64, name
+    rng = np.random.RandomState(6)
+    f = [torch.as_tensor(rng.randn(Nm, Nz, Nr) + 1j * rng.randn(Nm, Nz, Nr),
+                         dtype=torch.complex64) for _ in range(11)]
+    for use_true_rho in (False, True):
+        out = p1.push_eb_comoving(
+            *f, a.rho_prev_coef, a.rho_next_coef, a.j_coef, a.C, a.S_w,
+            a.T_eb, a.T_cc, a.T_rho, a.kr, a.kz, g.dt, g.v_comoving,
+            use_true_rho=use_true_rho)
+        assert all(o.dtype == torch.complex64 for o in out)
+    out = p1.correct_currents_curlfree_comoving(
+        f[9], f[10], f[6], f[7], f[8], a.kz, a.kr, a.inv_k2, a.j_corr_coef,
+        a.T_eb, a.T_cc, 1 / g.dt)
+    assert all(o.dtype == torch.complex64 for o in out)

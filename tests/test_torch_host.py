@@ -124,7 +124,7 @@ def test_injector_template_bit_equal():
                                rng=np.random.RandomState(3))
     a1 = i1.build_injector_aux(7, 0.0, 14e-6, 4, cfg1,
                                rng=np.random.RandomState(3),
-                               dtype=torch.float64)
+                               device="cpu", dtype=torch.float64)
     for name in ("r", "cos_t", "sin_t", "w_base"):
         _same(np.asarray(getattr(a0, name)),
               getattr(a1, name).numpy())

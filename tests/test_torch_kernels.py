@@ -1,15 +1,18 @@
-"""The port's two kernels (K1 fused J + d(rho) deposit, K2 sorted gather)
-against fbpic_tpu's Pallas kernels and XLA paths, on the inputs of
-tests/test_pallas_deposit.py and tests/test_pallas_gather.py.
+"""The port's three kernels (K1 fused J + d(rho) deposit, K2 sorted
+gather, K3 one-hot dense deposit) against fbpic_tpu's Pallas kernels and
+XLA paths, on the inputs of tests/test_pallas_deposit.py and
+tests/test_pallas_gather.py.
 
 On the CPU the port's wrappers run their plain PyTorch versions, so this
 file holds those against:
 - the Pallas kernel in interpreter mode (``interpret=True``), and
 - fbpic_tpu's XLA path (FBPIC_TPU_PALLAS_DEPOSIT / _GATHER = 0),
-on identical float32 operands.  Tolerances: 2e-6 (K1) and 5e-6 (K2)
-relative to each output part's largest value -- the Pallas and XLA
+on identical float32 operands.  Tolerances: 2e-6 (K1, K3) and 5e-6
+(K2) relative to each output part's largest value -- the Pallas and XLA
 paths split float32 into 3 bf16 terms (about float32-exact), the port
-sums in plain float32 in another order.
+sums in plain float32 in another order.  K3 in float64 is held against
+fbpic_tpu's ``_dense_deposit`` at 1e-12 (its Pallas kernel accumulates
+in float32).
 
 The end-to-end sorted deposit (both branches) and gather follow, in
 float32 and float64 (1e-12).  The CUDA kernels themselves are held
@@ -244,3 +247,58 @@ def test_deposit_rho_J_sorted_matches_xla(dtype, tol, with_drho, with_rho,
         assert (a is None) == (b is None)
         if a is not None:
             assert _rel(b.numpy(), a.to_numpy()) <= tol
+
+
+def _k3_operands(window, zfold, dtype):
+    """The operands of one K3 call exactly as deposit_rho_J_sorted builds
+    them (sort half a push behind, rho one half push later): the J window
+    (offsets -2..1, 3 components x 3 channels) or the rho window (-3..2,
+    3 channels)."""
+    from fbpic_tpu_torch.particles.sorted_deposit import (
+        dense_contract_operands)
+    arrs, g = _deposit_inputs(dtype=dtype)
+    sort = _port_sort(arrs, g)
+    x, y, z, w, ux, uy, uz, ig = sort["padded"]
+    return dense_contract_operands(
+        sort, x, y, z, w, dtype(-1.6e-19), ux, uy, uz, ig,
+        dtype(0.25 * g["dz"] / c), g["Nm"], 1 / g["dz"], g["zmin"], g["Nz"],
+        1 / g["dr"], 0.0, g["Nr"], torch.as_tensor(g["ruy"]), zfold=zfold,
+        sort_at_start=True)[window]
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-6),
+                                       (np.float64, 1e-12)])
+@pytest.mark.parametrize("zfold", ["clamp", "periodic"])
+@pytest.mark.parametrize("window", ["J", "rho"])
+def test_k3_plain_matches_dense_deposit_and_pallas(window, zfold, dtype,
+                                                   tol):
+    """The port's _dense_deposit (K3's plain version on the CPU) against
+    fbpic_tpu's _dense_deposit (XLA one-hot GEMM) on the same operands,
+    and in float32 with open z against the Pallas kernel run through
+    _pallas_dense_deposit in interpreter mode (its reassembly has no
+    periodic-seam wrap, so only the clamp fold is comparable)."""
+    from fbpic_tpu.particles import pallas_deposit, sorted_deposit as s0
+    from fbpic_tpu_torch.particles import sorted_deposit as s1
+    from fbpic_tpu_torch.particles.cuda_dense import (
+        dense_onehot_contract, dense_onehot_contract_plain)
+    ops = _k3_operands(window, zfold, dtype)
+    C = ops["channel_vals"].shape[2]
+    n_off = ops["delta_hi"] + 2 - ops["delta_lo"]
+    assert (n_off, C) == ((5, 9) if window == "J" else (7, 3))
+    Nrb = ops["Nr"] + 4
+    raw = dense_onehot_contract(ops["geom"], ops["channel_vals"],
+                                ops["meta"], Nrb)
+    assert tuple(raw.shape) == (ops["Nz"], Nrb, n_off * 2 * C)
+    np.testing.assert_array_equal(
+        raw.numpy(), dense_onehot_contract_plain(
+            ops["geom"], ops["channel_vals"], ops["meta"], Nrb).numpy())
+    out = s1._dense_deposit(**ops).numpy()
+    jo = _to_jax(ops)
+    refs = [s0._dense_deposit(**jo)]
+    if dtype == np.float32 and zfold == "clamp":
+        refs.append(pallas_deposit._pallas_dense_deposit(**jo,
+                                                         interpret=True))
+    for ref in refs:
+        ref = np.asarray(ref)
+        assert ref.shape == out.shape == (ops["Nz"], ops["Nr"], C)
+        assert _rel(out, ref) <= tol

@@ -134,7 +134,7 @@ def test_one_resident_step_matches_jax():
     state0 = s0.state
     for _ in range(2):          # exchange step, then a banded re-sort step
         carried = jax_state_to_numpy(state0)
-        state1 = state_from_numpy(**carried)
+        state1 = state_from_numpy(**carried, device="cpu")
         state0 = step0(state0, s0.aux, tuple(s0._injector_auxes), (), (),
                        ())
         state1 = step1(state1, s1.aux, tuple(s1._injector_auxes), angles,
