@@ -9,7 +9,9 @@ Phases (any failure raises, and the script exits non-zero):
   1. K1 (fused J + d(rho) deposit) against its plain PyTorch version at
      the LWFA bench shape, on particles drawn from a numpy seed (a third
      of them near or below the axis), with kernel, plain and library
-     (torch.bmm of the one-hot matrix with V) times and the bound;
+     (torch.bmm of the one-hot matrix with V) times, the live fraction
+     of the slots, the bound over the live slots (and, on the line
+     before, over all slots), and two launches compared bit for bit;
   2. K2 (sorted field gather) against its plain version, for open and
      periodic z;
   3. the LWFA main path: the bench.py configuration (Nz=800, Nr=50,
@@ -17,7 +19,9 @@ Phases (any failure raises, and the script exits non-zero):
      injection, open z, float32) through Simulation / add_laser_pulse /
      set_moving_window / step, with every kernel launch counter reset
      just before and read just after; ms/step, ns/particle/step,
-     overflow counters and finite fields;
+     overflow counters and finite fields; then K1 once more on the
+     operands of that running simulation (its resident layout: full and
+     empty columns), and a profiled window for the device time per step;
   4. the wake invariant of tests/test_golden_wake.py (on-axis wake
      wavelength within 15% of 2 pi c / omega_p) on the bench grid and
      plasma.  In the bench configuration the laser starts 2 um ahead of
@@ -39,8 +43,9 @@ Phases (any failure raises, and the script exits non-zero):
      with the plasma from the box's left edge (p_zmin = -40 um lab; the
      published empty box selects a layout the port does not run yet):
      5 + 60 steps with exactly 2 K3 launches, 1 K2 launch and no K1
-     launch per step, zero overflow, finite fields; then a profiled
-     window for the device time per step;
+     launch per step, zero overflow, finite fields; then K3 once more on
+     the operands of that running simulation, and a profiled window for
+     the device time per step;
   7. the numerical Cherenkov gate of tests/test_boosted.py (Nz = 40,
      Nr = 20, a gamma = 130 plasma and its ions flowing through a
      periodic box, 570 + 30 steps): slope_standard > 3.5 slope_galilean
@@ -181,9 +186,84 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def live_fraction(ok):
+    """(live slots, all slots) of a layout from its z-weight mask."""
+    return int((ok != 0).sum()), ok.numel()
+
+
+def assert_bitwise_repeatable(fn, what):
+    """Two launches on the same operands must give the same bits."""
+    import torch
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise RuntimeError(f"{what}: two launches differ bit for bit")
+    return a
+
+
+def measure_k1(ops, label):
+    """K1 on `ops` against its plain version and the one-hot bmm: errors,
+    times, live fraction and bounds."""
+    import torch
+    from fbpic_tpu_torch.particles import cuda_fused
+    kern = assert_bitwise_repeatable(
+        lambda: cuda_fused.fused_onehot_contract(**ops), f"K1 ({label})")
+    plain = cuda_fused.fused_onehot_contract_plain(**ops)
+    torch.cuda.synchronize()
+    Nz, K, CJ = ops["channels"].shape
+    CD, nJ, nD = ops["dph"].shape[2], ops["n_offJ"], ops["n_offD"]
+    W_J = nJ * 2 * CJ
+    W_D = kern.shape[2] - W_J
+    errs = [rel_err(kern[..., :W_J], plain[..., :W_J]),
+            rel_err(kern[..., W_J:], plain[..., W_J:])]
+    max_abs = float((kern - plain).abs().max())
+    n_live, n_slots = live_fraction(ops["geom"]["ok"])
+    print(f"K1 {label}: Nz={Nz} K={K} Nrb={kern.shape[1]} W={kern.shape[2]}, "
+          f"{n_live} of {n_slots} slots live ({n_live / n_slots:.4f}); rel "
+          f"err J={errs[0]:.3e} drho={errs[1]:.3e} (tol {TOL_K1}); two "
+          f"launches bit-equal", flush=True)
+    if not all(np.isfinite(errs)) or max(errs) > TOL_K1:
+        raise RuntimeError(f"K1 ({label}) disagrees with its plain version: "
+                           f"{errs}")
+    ms = cuda_ms(lambda: cuda_fused.fused_onehot_contract(**ops))
+    plain_ms = cuda_ms(lambda: cuda_fused.fused_onehot_contract_plain(**ops),
+                       n_warm=1, n_iter=5)
+    # Bound.  Per slot the kernel's operands are CJ channels, nJ z weights,
+    # 5 rows (sr0_m0, sr0_mh, u_a, u_b, wj), CD d(phase) + CD phase
+    # channels and 2 nD endpoint z weights in float32, 2 int64 indices and
+    # a bool; the mask row `ok` is read for every slot, the rest for the
+    # live slots only (what these inputs need), the output written once.
+    # Per live slot 3 operations for each J output and ~17 for each d(rho)
+    # output.  The all-slots figure counts the 42 words a slot of the
+    # operand copies the kernel read before it took them in place.
+    slot_bytes = 4 * (CJ + nJ + 5 + 2 * CD + 2 * nD) + 2 * 8 + 1
+    n_bytes = n_live * slot_bytes + 4 * n_slots + 4 * kern.numel()
+    n_flops = n_live * (3 * W_J + 17 * W_D)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    all_bytes = (n_slots * (4 * (CJ + nJ + 6 + 2 * CD + 2 * nD) + 8)
+                 + 4 * kern.numel())
+    all_ms, all_by = bound(all_bytes, n_flops)
+    V = torch.cat(cuda_fused.fused_blocks(
+        ops["geom"], ops["channels"], ops["meta"], ops["span"], ops["dph"],
+        ops["ph_b"], ops["wj"], ops["ruyten"], ops["Nm"], ops["n_offD"]),
+        dim=2)
+    lib_out, library_ms = onehot_bmm(ops["geom"]["ir_buf"], V, kern.shape[1])
+    lib_err = rel_err(lib_out, plain)
+    del V, lib_out
+    print(f"K1 {label} bound, all slots: {all_ms:.4f} ms by {all_by} "
+          f"({all_bytes} bytes)", flush=True)
+    print(f"K1 {label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (bmm) {library_ms:.4f} ms (rel err {lib_err:.2e}), bound "
+          f"over live slots {bound_ms:.4f} ms by {bound_by} ({n_bytes} "
+          f"bytes), live fraction {n_live / n_slots:.4f}", flush=True)
+    return dict(max_abs_err=max_abs, rel_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, live_fraction=n_live / n_slots,
+                bound_all_slots_ms=all_ms)
+
+
 def phase_k1(sim):
     from fbpic_tpu_torch.constants import e
-    from fbpic_tpu_torch.particles import cuda_fused
     from fbpic_tpu_torch.particles.sorted_deposit import (
         fused_contract_operands)
     cfg = sim.config
@@ -195,49 +275,41 @@ def phase_k1(sim):
         Nz=cfg.Nz, invdr=1 / cfg.dr, rmin=0.0, Nr=cfg.Nr,
         ruyten_linear=sim.aux.ruyten_linear, zfold="clamp",
         sort_at_start=True)
-    kern = cuda_fused.fused_onehot_contract(**ops)
-    plain = cuda_fused.fused_onehot_contract_plain(**ops)
-    import torch
-    torch.cuda.synchronize()
-    W_J = ops["n_offJ"] * 2 * ops["channels"].shape[2]
-    errs = [rel_err(kern[..., :W_J], plain[..., :W_J]),
-            rel_err(kern[..., W_J:], plain[..., W_J:])]
-    max_abs = float((kern - plain).abs().max())
-    print(f"K1 shape: Nz={cfg.Nz} K={ops['channels'].shape[1]} "
-          f"Nrb={kern.shape[1]} W={kern.shape[2]}; rel err J={errs[0]:.3e}"
-          f" drho={errs[1]:.3e} (tol {TOL_K1})", flush=True)
-    if not all(np.isfinite(errs)) or max(errs) > TOL_K1:
-        raise RuntimeError(f"K1 disagrees with its plain version: {errs}")
-    ms = cuda_ms(lambda: cuda_fused.fused_onehot_contract(**ops))
-    plain_ms = cuda_ms(lambda: cuda_fused.fused_onehot_contract_plain(**ops),
-                       n_warm=1, n_iter=5)
-    # Bound: the kernel's operands (per slot: CJ channels, nJ z weights,
-    # 6 rows, CD d(phase) + CD phase channels, 2 nD endpoint z weights,
-    # 2 int32 rows) read once, the output written once; per live slot 3
-    # operations for each J output and ~17 for each d(rho) output
-    Nz, K, CJ = ops["channels"].shape
-    CD, nJ, nD = ops["dph"].shape[2], ops["n_offJ"], ops["n_offD"]
-    W_D = kern.shape[2] - W_J
-    n_bytes = (Nz * K * (4 * (CJ + nJ + 6 + 2 * CD + 2 * nD) + 8)
-               + 4 * kern.numel())
-    n_live = int(sort["valid"].sum())
-    bound_ms, bound_by = bound(n_bytes, n_live * (3 * W_J + 17 * W_D))
-    V = torch.cat(cuda_fused.fused_blocks(
-        ops["geom"], ops["channels"], ops["meta"], ops["span"], ops["dph"],
-        ops["ph_b"], ops["wj"], ops["ruyten"], ops["Nm"], ops["n_offD"]),
-        dim=2)
-    lib_out, library_ms = onehot_bmm(ops["geom"]["ir_buf"], V, kern.shape[1])
-    lib_err = rel_err(lib_out, plain)
-    del V, lib_out
-    print(f"K1 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"(bmm) {library_ms:.4f} ms (rel err {lib_err:.2e}), bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes)", flush=True)
     return dict(name="K1 fused J+drho deposit", route="cuda",
                 source="fbpic_tpu_torch/csrc/fused_deposit.cu",
                 replaces="fbpic_tpu/particles/pallas_fused.py:78",
-                max_abs_err=max_abs, rel_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                **measure_k1(ops, "random half-full layout"))
+
+
+def capture_calls(sim, name):
+    """The (args, kwargs) of every call of sorted_deposit.<name> (a
+    kernel wrapper) during one more step of the running simulation."""
+    from fbpic_tpu_torch.particles import sorted_deposit
+    real = getattr(sorted_deposit, name)
+    calls = []
+
+    def recorder(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(sorted_deposit, name, recorder)
+    try:
+        sim.step(1)
+    finally:
+        setattr(sorted_deposit, name, real)
+    if not calls:
+        raise RuntimeError(f"the step did not call {name}")
+    return calls
+
+
+def phase_k1_resident(sim):
+    """K1 on the operands of the running LWFA simulation."""
+    import inspect
+    from fbpic_tpu_torch.particles import cuda_fused
+    (args, kwargs), = capture_calls(sim, "fused_onehot_contract")
+    ops = inspect.signature(cuda_fused.fused_onehot_contract_plain).bind(
+        *args, **kwargs).arguments
+    return measure_k1(dict(ops), "resident LWFA layout")
 
 
 def phase_k2(sim):
@@ -400,6 +472,85 @@ def make_boosted_sim(dtype=None):
     return sim
 
 
+def measure_k3(args, label, timed):
+    """K3 on `args` = (geom, channel_vals, meta, Nrb) against its plain
+    version; with `timed`, also the times, the one-hot bmm and the bounds
+    (bytes and operations are returned for the per-step sum)."""
+    import torch
+    from fbpic_tpu_torch.particles import cuda_dense
+    from fbpic_tpu_torch.particles.sorted_deposit import _build_V
+    geom, chan, _, Nrb = args
+    tname = str(chan.dtype).split(".")[-1]
+    kern = assert_bitwise_repeatable(
+        lambda: cuda_dense.dense_onehot_contract(*args), f"K3 ({label})")
+    plain = cuda_dense.dense_onehot_contract_plain(*args)
+    torch.cuda.synchronize()
+    err = rel_err(kern, plain)
+    Nz, K, C = chan.shape
+    n_off = len(geom["zw"])
+    n_live, n_slots = live_fraction(geom["ok"])
+    print(f"K3 {label}, {tname}: Nz={Nz} K={K} Nrb={Nrb} n_off={n_off} "
+          f"C={C} W={kern.shape[2]}, {n_live} of {n_slots} slots live "
+          f"({n_live / n_slots:.4f}); rel err {err:.3e} (tol "
+          f"{TOL_K3[tname]}); two launches bit-equal", flush=True)
+    if not np.isfinite(err) or err > TOL_K3[tname]:
+        raise RuntimeError(f"K3 ({label}, {tname}) disagrees with its plain "
+                           f"version: {err}")
+    out = dict(rel_err=err, max_abs_err=float((kern - plain).abs().max()))
+    if not timed:
+        return out
+    ms = cuda_ms(lambda: cuda_dense.dense_onehot_contract(*args))
+    plain_ms = cuda_ms(lambda: cuda_dense.dense_onehot_contract_plain(*args),
+                       n_warm=1, n_iter=5)
+    # Bound.  Per slot the kernel's operands are C channels, n_off z
+    # weights and 2 rows (sr0_m0, sr0_mh) in float32, an int64 row index
+    # and a bool; the mask row `ok` is read for every slot, the rest for
+    # the live slots only, the output written once; per live slot 3
+    # operations for each output channel.  The all-slots figure counts
+    # the C + n_off + 4 words a slot of the operand copies the kernel
+    # read before it took them in place.
+    esize = chan.element_size()
+    n_bytes = (n_live * (esize * (C + n_off + 2) + 8 + 1) + esize * n_slots
+               + esize * kern.numel())
+    n_flops = n_live * 3 * kern.shape[2]
+    b_ms, b_by = bound(n_bytes, n_flops)
+    all_bytes = n_slots * (4 * (C + n_off + 3) + 4) + 4 * kern.numel()
+    all_ms, all_by = bound(all_bytes, n_flops)
+    V = torch.cat(_build_V(*args[:3]), dim=2)
+    lib_out, library_ms = onehot_bmm(geom["ir_buf"], V, Nrb)
+    lib_err = rel_err(lib_out, plain)
+    del V, lib_out
+    print(f"K3 {label} bound, all slots: {all_ms:.4f} ms by {all_by} "
+          f"({all_bytes} bytes)", flush=True)
+    print(f"K3 {label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (bmm) {library_ms:.4f} ms (rel err {lib_err:.2e}), "
+          f"bound over live slots {b_ms:.4f} ms by {b_by} ({n_bytes} "
+          f"bytes), live fraction {n_live / n_slots:.4f}", flush=True)
+    out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               n_bytes=n_bytes, n_flops=n_flops, all_ms=all_ms,
+               live_fraction=n_live / n_slots)
+    return out
+
+
+def k3_step_total(windows, label):
+    """Sum the J and rho windows (one step of one species)."""
+    tot = {k: sum(w[k] for w in windows)
+           for k in ("ms", "plain_ms", "library_ms", "n_bytes", "n_flops",
+                     "all_ms")}
+    bound_ms, bound_by = bound(tot["n_bytes"], tot["n_flops"])
+    print(f"K3 {label} per step and species (J + rho windows): kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
+          f"{tot['library_ms']:.4f} ms, bound over live slots "
+          f"{bound_ms:.4f} ms by {bound_by} (all slots "
+          f"{tot['all_ms']:.4f} ms)", flush=True)
+    return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=tot["library_ms"],
+                live_fraction=windows[0]["live_fraction"],
+                bound_all_slots_ms=tot["all_ms"],
+                windows_ms=[w["ms"] for w in windows],
+                windows_library_ms=[w["library_ms"] for w in windows])
+
+
 def phase_k3(sim):
     """K3 against its plain version on random column-sorted particles at
     the boosted shape, both windows, both folds, float32 and float64;
@@ -407,13 +558,11 @@ def phase_k3(sim):
     path's), summed over the two windows (one step of one species)."""
     import torch
     from fbpic_tpu_torch.constants import e
-    from fbpic_tpu_torch.particles import cuda_dense
     from fbpic_tpu_torch.particles.sorted_deposit import (
-        _build_V, dense_contract_operands)
+        dense_contract_operands)
     cfg = sim.config
     Nrb = cfg.Nr + 4
-    worst, max_abs = {}, 0.0
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, n_bytes=0, n_flops=0)
+    worst, max_abs, timed_windows = {}, 0.0, []
     for dtype in (torch.float32, torch.float64):
         tname = str(dtype).split(".")[-1]
         sort, pad = random_sorted_particles(sim, seed=41, dtype=dtype)
@@ -427,63 +576,35 @@ def phase_k3(sim):
                 sort_at_start=True, vz_shift=cfg.v_comoving)
             for window in ("J", "rho"):
                 o = ops[window]
-                args = (o["geom"], o["channel_vals"], o["meta"], Nrb)
-                kern = cuda_dense.dense_onehot_contract(*args)
-                plain = cuda_dense.dense_onehot_contract_plain(*args)
-                torch.cuda.synchronize()
-                err = rel_err(kern, plain)
-                max_abs = max(max_abs, float((kern - plain).abs().max()))
-                worst[tname] = max(worst.get(tname, 0.0), err)
-                Nz, K, C = o["channel_vals"].shape
-                n_off = len(o["geom"]["zw"])
-                print(f"K3 {window} window, {zfold}, {tname}: Nz={Nz} "
-                      f"K={K} Nrb={Nrb} n_off={n_off} C={C} W="
-                      f"{kern.shape[2]}; rel err {err:.3e} (tol "
-                      f"{TOL_K3[tname]})", flush=True)
-                if not np.isfinite(err) or err > TOL_K3[tname]:
-                    raise RuntimeError(f"K3 ({window}, {zfold}, {tname}) "
-                                       f"disagrees with its plain version: "
-                                       f"{err}")
-                if dtype != torch.float32 or zfold != "clamp":
-                    continue
-                ms = cuda_ms(lambda: cuda_dense.dense_onehot_contract(*args))
-                plain_ms = cuda_ms(
-                    lambda: cuda_dense.dense_onehot_contract_plain(*args),
-                    n_warm=1, n_iter=5)
-                # Bound: per slot C channels, n_off z weights, 3 rows and
-                # the int32 row read once, the output written once; per
-                # live slot 3 operations for each output channel
-                n_bytes = Nz * K * (4 * (C + n_off + 3) + 4) \
-                    + 4 * kern.numel()
-                n_flops = int(sort["valid"].sum()) * 3 * kern.shape[2]
-                b_ms, b_by = bound(n_bytes, n_flops)
-                V = torch.cat(_build_V(*args[:3]), dim=2)
-                lib_out, library_ms = onehot_bmm(o["geom"]["ir_buf"], V,
-                                                 Nrb)
-                lib_err = rel_err(lib_out, plain)
-                del V, lib_out
-                print(f"K3 {window} window time: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, library (bmm) {library_ms:.4f} ms"
-                      f" (rel err {lib_err:.2e}), bound {b_ms:.4f} ms by "
-                      f"{b_by} ({n_bytes} bytes)", flush=True)
-                for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("library_ms", library_ms),
-                                 ("n_bytes", n_bytes), ("n_flops", n_flops)):
-                    tot[key] += val
+                timed = dtype == torch.float32 and zfold == "clamp"
+                m = measure_k3(
+                    (o["geom"], o["channel_vals"], o["meta"], Nrb),
+                    f"{window} window, {zfold}, random half-full layout",
+                    timed)
+                max_abs = max(max_abs, m["max_abs_err"])
+                worst[tname] = max(worst.get(tname, 0.0), m["rel_err"])
+                if timed:
+                    timed_windows.append(m)
         del sort, pad, ops
         torch.cuda.empty_cache()
-    bound_ms, bound_by = bound(tot["n_bytes"], tot["n_flops"])
-    print(f"K3 per step and species (J + rho windows): kernel "
-          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
-          f"{tot['library_ms']:.4f} ms, bound {bound_ms:.4f} ms by "
-          f"{bound_by}", flush=True)
     return dict(name="K3 one-hot dense deposit (J + rho windows, one step)",
                 route="cuda", source="fbpic_tpu_torch/csrc/dense_deposit.cu",
                 replaces="fbpic_tpu/particles/pallas_deposit.py:78",
                 max_abs_err=max_abs, rel_err=worst["float32"],
-                rel_err_f64=worst["float64"], ms=tot["ms"],
-                plain_ms=tot["plain_ms"], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=tot["library_ms"])
+                rel_err_f64=worst["float64"],
+                **k3_step_total(timed_windows, "random half-full layout"))
+
+
+def phase_k3_resident(sim):
+    """K3 on the operands of the running boosted simulation (its two
+    calls of one step: the J and the rho window)."""
+    calls = capture_calls(sim, "dense_onehot_contract")
+    if len(calls) != 2:
+        raise RuntimeError(f"{len(calls)} K3 calls in one boosted step")
+    windows = [measure_k3(args, f"{window} window, resident boosted layout",
+                          True)
+               for window, (args, _) in zip(("J", "rho"), calls)]
+    return k3_step_total(windows, "resident boosted layout")
 
 
 def phase_boosted(sim, counters):
@@ -644,20 +765,28 @@ def main():
     torch.cuda.empty_cache()
     launches, main_metrics = phase_main(
         sim, (fused_onehot_contract, gather_sorted))
+    k1["launches"], k2["launches"] = launches
+    k1["resident"] = phase_k1_resident(sim)
+    main_prof = profile_steps(sim, N_PROFILED)
+    if main_prof is not None:
+        main_prof["idle_share"] = 1 - (main_prof["device_ms_per_step"]
+                                       / main_metrics["ms_per_step"])
+    main_metrics["profile"] = main_prof
     del sim
     ratio = phase_wake()
-    k1["launches"], k2["launches"] = launches
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     bsim = make_boosted_sim()
-    print(f"boosted sim set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"boosted sim set up in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     k3 = phase_k3(bsim)
     torch.cuda.empty_cache()
     b_launches, boosted_metrics = phase_boosted(
         bsim, {"K1": fused_onehot_contract, "K2": gather_sorted,
                "K3": dense_onehot_contract})
     k3["launches"] = b_launches["K3"]
+    k3["resident"] = phase_k3_resident(bsim)
     prof = profile_steps(bsim, N_PROFILED)
     if prof is not None:
         # idle share of the unprofiled steps

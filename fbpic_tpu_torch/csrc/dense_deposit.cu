@@ -17,149 +17,162 @@
 // (C = n_comp * (2 Nm - 1)); V is rebuilt on the fly and never written
 // to device memory.
 //
-// Design (K1's, without the d(rho) blocks).  One block per (column,
-// channel tile); one thread per output channel w.  The block stages TP
-// particles of its column into shared memory with coalesced loads, then
-// every thread walks them in order, rebuilds its V[k, w] in registers and
-// adds it into its private column of the (Nrb x Wt) shared accumulator.
-// No two threads touch the same accumulator word: no atomics, and the
-// per-(ir, w) sum runs in particle order, so results are bit-reproducible.
-// W is tiled over blockIdx.y so the accumulator fits any Nr / Nm.
+// What bounds it on H100.  By bytes it is the live slots (C + n_off + 2
+// words, an int64 row index and a bool a slot, read once) and one
+// Nz*Nrb*W store: tens of microseconds at the boosted-frame LWFA shape,
+// with ~3 flops per non-zero V entry.  What the kernel spends its time
+// on is instruction dispatch: a visit of one particle and one
+// z-offset block (stage reads, V, the read-modify-write of the
+// accumulator at an address that depends on the particle) is ~40
+// instructions whether the block has 18 channels (J) or 6 (rho), and a
+// particle needs two visits; the J and the rho window therefore take the
+// same time.  Staging, barriers and ballots alone take about a third of
+// it (measured with the visits compiled out).
 //
-// What bounds it on H100: the per-particle inputs (C + n_off + 4 words a
-// slot: 18 for J, 14 for rho at Nm = 2) are read once, ~0.2 GB per J
-// deposit at the boosted-frame LWFA shape, i.e. ~60 us at 3.35 TB/s, plus
-// one Nz*Nrb*W store.  The per-slot work is ~3 flops per output channel,
-// far below the FP32 rate.  The shared-memory read-modify-write of the
-// accumulator (one per slot and channel) is the next limit; threads of a
-// warp hit consecutive words, so it is bank-conflict free.
+// What the design does about it (contract_common.cuh).  The TPU needed
+// V dense for its matrix unit; here a particle touches only the two
+// offset blocks whose z weight is non-zero: a warp takes one offset block
+// and one class of radial rows of a staged tile at a time, ballots the
+// non-zero weights of 32 slots and visits those particles only (2 * 2C
+// accumulations a particle instead of n_off * 2C), two particles in
+// flight.  Slots past the column's last live one are never staged (the
+// caller's layouts keep live slots first: see cuda_dense.py).  The
+// operands are read in place -- channels (Nz, K, C) with C fastest, one
+// (Nz, K) tensor per z offset, int64 row indices, the bool below-axis
+// flag -- with cp.async through a ring of two tiles, so a call is one
+// launch and no operand copy.  Every accumulator word has one owner lane
+// at a time and is summed in slot order: no atomics on the sums, the
+// result is bit-reproducible.  Large Nr tiles the radial rows over
+// blockIdx.y.
 
-#include <cuda_runtime.h>
+#include "contract_common.cuh"
 
 namespace {
 
-constexpr int TP = 64;          // particles staged per tile
-constexpr int N_ROWS = 3;       // [sr0_m0, sr0_mh, below]
+using namespace contract;
+
+// Operand pointers of one call, by value in the launch arguments
+template <typename T>
+struct DenseArgs {
+  Runs<T> runs;            // [chan, zw_0 .. zw_{n_off-1}, sr0_m0, sr0_mh]
+  const T* ok;
+  const unsigned char* is_mode0;   // (C,) bool
+  const T* flip;                   // (C,)
+  T* out;
+  int K, C, n_off, Nrb, Rt;
+};
 
 template <typename T>
-__global__ void dense_contract_kernel(
-    const T* __restrict__ chan, const T* __restrict__ zw,
-    const T* __restrict__ rows, const int* __restrict__ ir,
-    const T* __restrict__ meta, T* __restrict__ out, int K, int C,
-    int n_off, int Nrb, int Wt) {
-  extern __shared__ unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);            // (Nrb, Wt)
-  // Staged per-particle fields, each a row of TP values
-  const int offZ = C, offR = C + n_off, nF = offR + N_ROWS;
-  T* tf = acc + Nrb * Wt;                              // (nF, TP)
-  int* ti = reinterpret_cast<int*>(tf + nF * TP);      // (TP,)
+__global__ void __launch_bounds__(N_THREADS, MIN_BLOCKS)
+dense_contract_kernel(
+    const __grid_constant__ DenseArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, W = a.n_off * 2 * C;
+  T* acc = reinterpret_cast<T*>(smem);
+  unsigned char* ring = smem + align16(sizeof(T) * a.Rt * W);
+  const int r_lo = blockIdx.y * a.Rt;
+  const int rt = min(a.Rt, a.Nrb - r_lo);
+  const int o_zw = C, o_m0 = C + a.n_off, o_mh = o_m0 + 1;
+  // (corner, channel) of lane channel ch, its radial row and its flip
+  auto decode = [&](int ch) {
+    Lane<T> l;
+    l.corner = ch >= C;
+    l.c = l.corner ? ch - C : ch;
+    const bool in = ch < 2 * C;
+    l.srow = (in && a.is_mode0[l.c]) ? o_m0 : o_mh;
+    l.flip = in ? a.flip[l.c] : T(1);
+    return l;
+  };
+  const Lane<T> mine = decode(threadIdx.x & 31);   // 2C <= 32: every ch
 
-  const int col = blockIdx.x;
-  const int W = n_off * 2 * C;
-  const int t = threadIdx.x;
-  const int w = blockIdx.y * Wt + t;
-  const bool active = (t < Wt) && (w < W);
-
-  // Decode this thread's channel: block b = 2*offset + corner
-  int c = 0, o = 0, corner = 0;
-  T is0 = 0, flip = 1;
-  if (active) {
-    const int b = w / C;
-    c = w % C;
-    o = b >> 1;
-    corner = b & 1;
-    is0 = meta[c];
-    flip = meta[C + c];
-  }
-  const int srow = offR + (is0 > 0 ? 0 : 1);   // sr0_m0 or sr0_mh
-
-  for (int i = t; i < Nrb * Wt; i += blockDim.x) acc[i] = T(0);
-
-  const size_t colK = static_cast<size_t>(col) * K;
-  for (int k0 = 0; k0 < K; k0 += TP) {
-    const int n = min(TP, K - k0);
-    __syncthreads();  // previous tile fully consumed (and acc zeroed)
-    for (int i = t; i < nF * TP; i += blockDim.x) {
-      const int f = i / TP, p = i % TP;
-      if (p >= n) continue;
-      const T* src;
-      int fl, nrow;
-      if (f < offZ) { src = chan; fl = f; nrow = C; }
-      else if (f < offR) { src = zw; fl = f - offZ; nrow = n_off; }
-      else { src = rows; fl = f - offR; nrow = N_ROWS; }
-      tf[i] = src[(static_cast<size_t>(col) * nrow + fl) * K + k0 + p];
-    }
-    for (int p = t; p < n; p += blockDim.x) ti[p] = ir[colK + k0 + p];
-    __syncthreads();
-    if (!active) continue;
-    for (int p = 0; p < n; ++p) {
-      const int r = ti[p];
-      if (r < 0 || r >= Nrb) continue;
-      const bool below = tf[(offR + 2) * TP + p] > 0;
-      const T s = tf[srow * TP + p];
-      const T sr = corner ? T(1) - s : (below ? flip * s : s);
-      acc[r * Wt + t] += (tf[c * TP + p] * tf[(offZ + o) * TP + p]) * sr;
-    }
-  }
-  __syncthreads();
-  const int w0 = blockIdx.y * Wt;
-  for (int i = t; i < Nrb * Wt; i += blockDim.x) {
-    const int r = i / Wt, tt = i % Wt;
-    if (w0 + tt < W)
-      out[(static_cast<size_t>(col) * Nrb + r) * W + w0 + tt] = acc[i];
-  }
+  contract_column<T>(
+      a.runs, a.ok, a.out, acc, ring, a.K, a.Nrb, W, a.Rt, a.n_off * RG,
+      [&](const Stage<T>& st, int n, int item, int lane) {
+        // item = (z offset block, row class); lanes = (corner, channel)
+        const int o = item / RG;
+        const T* zw = st.f + (o_zw + o) * TP;
+        warp_accumulate<T>(
+            acc, W, o * 2 * C, 2 * C, st.i64, r_lo, rt, item % RG, n, lane,
+            [&](int p) { return zw[p] != T(0); },
+            [&](int p, int ch) {
+              const Lane<T> l = ch == lane ? mine : decode(ch);
+              const T sr = radial(st.f[l.srow * TP + p], l.corner,
+                                  st.below[p] != 0, l.flip);
+              return (st.f[p * C + l.c] * zw[p]) * sr;
+            });
+      });
 }
 
 template <typename T>
-size_t smem_bytes(int C, int n_off, int Nrb, int Wt) {
-  const int nF = C + n_off + N_ROWS;
-  return sizeof(T) * (static_cast<size_t>(Nrb) * Wt + nF * TP)
-         + sizeof(int) * TP;
+size_t smem_bytes(int C, int n_off, int Rt) {
+  return align16(sizeof(T) * static_cast<size_t>(Rt) * n_off * 2 * C)
+         + NSTAGE * stage_bytes<T>(C + n_off + 2, 1);
 }
 
+// ptrs: [chan, sr0_m0, sr0_mh, below, ir, ok, is_mode0, flip, out,
+//        zw_0 .. zw_{n_off-1}]
 template <typename T>
-int launch(const void* chan, const void* zw, const void* rows,
-           const void* ir, const void* meta, void* out, int Nz, int K, int C,
-           int n_off, int Nrb, int Wt, int n_wtiles, int threads,
-           void* stream) {
-  const size_t smem = smem_bytes<T>(C, n_off, Nrb, Wt);
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_contract_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(Nz, n_wtiles);
-  dense_contract_kernel<T><<<grid, threads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(chan), static_cast<const T*>(zw),
-      static_cast<const T*>(rows), static_cast<const int*>(ir),
-      static_cast<const T*>(meta), static_cast<T*>(out), K, C, n_off, Nrb,
-      Wt);
+int launch(const void* const* ptrs, int Nz, int K, int C, int n_off, int Nrb,
+           int Rt, void* stream) {
+  if (n_off > MAX_OFF || n_off + 3 > MAX_RUNS) return -1;
+  DenseArgs<T> a;
+  int n = 0, off = 0;
+  auto run = [&](const void* p, int width) {
+    a.runs.src[n] = static_cast<const T*>(p);
+    a.runs.width[n] = width;
+    a.runs.off[n] = off;
+    off += width;
+    ++n;
+  };
+  run(ptrs[0], C);
+  for (int o = 0; o < n_off; ++o) run(ptrs[9 + o], 1);
+  run(ptrs[1], 1);
+  run(ptrs[2], 1);
+  a.runs.n = n;
+  a.runs.words = off;
+  a.runs.below = static_cast<const unsigned char*>(ptrs[3]);
+  a.runs.i64[0] = static_cast<const long long*>(ptrs[4]);
+  a.runs.i64[1] = nullptr;
+  a.runs.n_i64 = 1;
+  a.ok = static_cast<const T*>(ptrs[5]);
+  a.is_mode0 = static_cast<const unsigned char*>(ptrs[6]);
+  a.flip = static_cast<const T*>(ptrs[7]);
+  a.out = static_cast<T*>(const_cast<void*>(ptrs[8]));
+  a.K = K; a.C = C; a.n_off = n_off; a.Nrb = Nrb; a.Rt = Rt;
+
+  const size_t smem = smem_bytes<T>(C, n_off, Rt);
+  static size_t granted = 0;   // largest dynamic shared memory asked so far
+  if (smem > granted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dense_contract_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  dim3 grid(Nz, (Nrb + Rt - 1) / Rt);
+  dense_contract_kernel<T><<<grid, N_THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define DENSE_ARGS                                                        \
-  const void *chan, const void *zw, const void *rows, const void *ir,    \
-      const void *meta, void *out, int Nz, int K, int C, int n_off,      \
-      int Nrb, int Wt, int n_wtiles, int threads, void *stream
-#define DENSE_CALL                                                        \
-  chan, zw, rows, ir, meta, out, Nz, K, C, n_off, Nrb, Wt, n_wtiles,     \
-      threads, stream
-
-extern "C" int dense_contract_f32(DENSE_ARGS) {
-  return launch<float>(DENSE_CALL);
+extern "C" int dense_contract_f32(const void* const* ptrs, int Nz, int K,
+                                  int C, int n_off, int Nrb, int Rt,
+                                  void* stream) {
+  return launch<float>(ptrs, Nz, K, C, n_off, Nrb, Rt, stream);
 }
 
-extern "C" int dense_contract_f64(DENSE_ARGS) {
-  return launch<double>(DENSE_CALL);
+extern "C" int dense_contract_f64(const void* const* ptrs, int Nz, int K,
+                                  int C, int n_off, int Nrb, int Rt,
+                                  void* stream) {
+  return launch<double>(ptrs, Nz, K, C, n_off, Nrb, Rt, stream);
 }
 
-// Dynamic shared memory a launch with these sizes requests, so the
-// caller can pick the channel tiling against the device limit.
+// Dynamic shared memory a launch with these sizes requests (the wrapper's
+// own reckoning, cuda_dense.dense_smem_bytes, is held against it).
 extern "C" int dense_contract_smem_bytes(int dtype_bytes, int C, int n_off,
-                                         int Nrb, int Wt) {
-  return static_cast<int>(dtype_bytes == 4
-                              ? smem_bytes<float>(C, n_off, Nrb, Wt)
-                              : smem_bytes<double>(C, n_off, Nrb, Wt));
+                                         int Rt) {
+  return static_cast<int>(dtype_bytes == 4 ? smem_bytes<float>(C, n_off, Rt)
+                                           : smem_bytes<double>(C, n_off, Rt));
 }

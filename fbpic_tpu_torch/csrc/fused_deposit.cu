@@ -13,197 +13,207 @@
 // blocks (endpoint shape differences, Ruyten row looked up at bn).
 // V is rebuilt on the fly and never written to device memory.
 //
-// Design.  One block per (column, channel tile); one thread per output
-// channel w.  The block stages TP particles of its column into shared
-// memory with coalesced loads, then every thread walks them in order,
-// rebuilds its own V[k, w] in registers and adds it into its private
-// column of the (Nrb x Wt) shared accumulator.  No two threads ever
-// touch the same accumulator word, so there are no atomics and the
-// per-(ir, w) summation order is the particle order: the result is
-// bit-reproducible from run to run.  W is tiled over blockIdx.y so the
-// accumulator stays within the shared-memory budget for any Nr / Nm.
+// What bounds it on H100.  By bytes it is the live slots (39 words, two
+// int64 indices and a bool a slot at Nm = 2, read once) and one
+// Nz*Nrb*W store: tens of microseconds at the LWFA bench shape, with ~3
+// flops per non-zero J entry and ~17 per non-zero d(rho) entry, far
+// below the float32 rate.  What the kernel spends its time on is
+// instruction dispatch: a visit of one particle and one z-offset block
+// (stage reads, V, the read-modify-write of the accumulator at an
+// address that depends on the particle) is ~40 instructions for at most
+// 18 useful lanes, and a particle needs 2 J and 2-4 d(rho) visits.
+// Staging, barriers and ballots alone take about a quarter of the time
+// (measured with the visits compiled out).
 //
-// What bounds it on H100: the per-particle inputs (~42 words per
-// particle at Nm=2) are read exactly once -- ~0.2 GB per step at the
-// LWFA bench shape, i.e. ~65 us at 3.35 TB/s -- plus one Nz*Nrb*W
-// store.  The shared-memory read-modify-write of the accumulator (one
-// per particle and channel, Nz*K*W ~ 1.7e8 per step) is the next
-// limit; threads of a warp hit consecutive words, so it is
-// bank-conflict free.
+// What the design does about it (contract_common.cuh).  A warp takes one
+// z-offset block (of the n_offJ J blocks or the n_offD d(rho) blocks)
+// and one class of radial rows of a staged tile at a time.  It ballots
+// the z weights of 32 slots (for d(rho): either endpoint's) and visits
+// only the particles whose weight for its offset is non-zero, two in
+// flight: a particle costs 2*2*CJ J and at most 4*2*CD d(rho)
+// accumulations instead of W.  Slots past the column's last live one are
+// never staged (the caller's layouts keep live slots first: see
+// cuda_fused.py).  The operands are read in place -- (Nz, K, C) channel
+// tensors with C fastest, one (Nz, K) tensor per z offset, int64
+// indices, the bool below-axis flag -- with cp.async through a ring of
+// two tiles; the Ruyten table sits in shared memory.  A call is one
+// launch and no operand copy.  Every accumulator word has one owner lane
+// at a time and is summed in slot order: no atomics on the sums, the
+// result is bit-reproducible.  Large Nr tiles the radial rows over
+// blockIdx.y.
 
-#include <cuda_runtime.h>
+#include "contract_common.cuh"
 
 namespace {
 
-constexpr int TP = 64;          // particles staged per tile
-constexpr int N_ROWS = 6;       // [sr0_m0, sr0_mh, below, u_a, u_b, wj]
+using namespace contract;
+
+// Operand pointers of one call, by value in the launch arguments
+template <typename T>
+struct FusedArgs {
+  // [chJ, zwJ_0.., sr0_m0, sr0_mh, u_a, u_b, wj, dph, ph_b, zw_a_0..,
+  //  zw_b_0..]; int64 rows [ir_buf, bn]
+  Runs<T> runs;
+  const T* ok;
+  const T* ruyten;                 // (2, NT)
+  const unsigned char* is_mode0;   // (CJ,) bool, the J channels
+  const T* flip;                   // (CJ,)
+  T* out;
+  int K, CJ, nJ, CD, nD, Nrb, NT, Rt;
+};
 
 template <typename T>
-__global__ void fused_contract_kernel(
-    const T* __restrict__ chJ, const T* __restrict__ zwJ,
-    const T* __restrict__ rows, const int* __restrict__ ir,
-    const int* __restrict__ bn, const T* __restrict__ dph,
-    const T* __restrict__ phb, const T* __restrict__ zwa,
-    const T* __restrict__ zwb, const T* __restrict__ tables,
-    const T* __restrict__ metaJ, const T* __restrict__ metaD,
-    T* __restrict__ out, int K, int CJ, int nJ, int CD, int nD, int Nrb,
-    int NT, int Wt) {
-  extern __shared__ unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);            // (Nrb, Wt)
-  // Staged per-particle fields, each a row of TP values
-  const int offJ = 0, offZJ = CJ, offR = CJ + nJ, offDph = offR + N_ROWS;
-  const int offPhb = offDph + CD, offZa = offPhb + CD, offZb = offZa + nD;
-  const int nF = offZb + nD;
-  T* tf = acc + Nrb * Wt;                              // (nF, TP)
-  int* ti = reinterpret_cast<int*>(tf + nF * TP);      // (2, TP)
+__global__ void __launch_bounds__(N_THREADS, MIN_BLOCKS)
+fused_contract_kernel(
+    const __grid_constant__ FusedArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int CJ = a.CJ, nJ = a.nJ, CD = a.CD, nD = a.nD, NT = a.NT;
+  const int WJ = nJ * 2 * CJ, W = WJ + nD * 2 * CD;
+  T* acc = reinterpret_cast<T*>(smem);
+  T* tab = reinterpret_cast<T*>(smem + align16(sizeof(T) * a.Rt * W));
+  unsigned char* ring = reinterpret_cast<unsigned char*>(tab)
+                        + align16(sizeof(T) * 2 * NT);
+  const int r_lo = blockIdx.y * a.Rt;
+  const int rt = min(a.Rt, a.Nrb - r_lo);
+  // staged rows (in words per slot)
+  const int o_zwJ = CJ, o_m0 = CJ + nJ, o_mh = o_m0 + 1, o_ua = o_m0 + 2;
+  const int o_ub = o_m0 + 3, o_wj = o_m0 + 4, o_dph = o_m0 + 5;
+  const int o_phb = o_dph + CD, o_za = o_phb + CD, o_zb = o_za + nD;
 
-  const int col = blockIdx.x;
-  const int WJ = nJ * 2 * CJ;
-  const int W = WJ + nD * 2 * CD;
-  const int t = threadIdx.x;
-  const int w = blockIdx.y * Wt + t;
-  const bool active = (t < Wt) && (w < W);
+  for (int i = threadIdx.x; i < 2 * NT; i += blockDim.x)
+    tab[i] = a.ruyten[i];   // visible after contract_column's first barrier
 
-  // Decode this thread's channel: block b = 2*offset + corner
-  bool isJ = true;
-  int c = 0, o = 0, corner = 0;
-  T is0 = 0, flip = 1;
-  if (active) {
-    if (w < WJ) {
-      const int b = w / CJ;
-      c = w % CJ;
-      o = b >> 1;
-      corner = b & 1;
-      is0 = metaJ[c];
-      flip = metaJ[CJ + c];
+  // (corner, channel) of lane channel ch.  J: the caller's metadata;
+  // d(rho): one scalar component, so channel c is mode (c + 1) / 2,
+  // mode 0 for c == 0, flipped below the axis for odd modes.
+  auto decode = [&](int ch, bool d_warp) {
+    const int C = d_warp ? CD : CJ;
+    Lane<T> l;
+    l.corner = ch >= C;
+    l.c = l.corner ? ch - C : ch;
+    const bool in = ch < 2 * C;
+    if (d_warp) {
+      l.srow = l.c == 0 ? 0 : NT;              // row of the Ruyten table
+      l.flip = (((l.c + 1) >> 1) & 1) ? T(-1) : T(1);
     } else {
-      isJ = false;
-      const int wd = w - WJ;
-      const int b = wd / CD;
-      c = wd % CD;
-      o = b >> 1;
-      corner = b & 1;
-      is0 = metaD[c];
-      flip = metaD[CD + c];
+      l.srow = (in && a.is_mode0[l.c]) ? o_m0 : o_mh;
+      l.flip = in ? a.flip[l.c] : T(1);
     }
-  }
-  const T* tab = tables + (is0 > 0 ? 0 : NT);  // Ruyten row of this mode
+    return l;
+  };
+  const Lane<T> mineJ = decode(threadIdx.x & 31, false);
+  const Lane<T> mineD = decode(threadIdx.x & 31, true);
 
-  for (int i = t; i < Nrb * Wt; i += blockDim.x) acc[i] = T(0);
-
-  const size_t colK = static_cast<size_t>(col) * K;
-  for (int k0 = 0; k0 < K; k0 += TP) {
-    const int n = min(TP, K - k0);
-    __syncthreads();  // previous tile fully consumed (and acc zeroed)
-    for (int i = t; i < nF * TP; i += blockDim.x) {
-      const int f = i / TP, p = i % TP;
-      if (p >= n) continue;
-      const T* src;
-      int fl;
-      if (f < offZJ) { src = chJ; fl = f; }
-      else if (f < offR) { src = zwJ; fl = f - offZJ; }
-      else if (f < offDph) { src = rows; fl = f - offR; }
-      else if (f < offPhb) { src = dph; fl = f - offDph; }
-      else if (f < offZa) { src = phb; fl = f - offPhb; }
-      else if (f < offZb) { src = zwa; fl = f - offZa; }
-      else { src = zwb; fl = f - offZb; }
-      int nrow;
-      if (f < offZJ) nrow = CJ;
-      else if (f < offR) nrow = nJ;
-      else if (f < offDph) nrow = N_ROWS;
-      else if (f < offZa) nrow = CD;
-      else nrow = nD;
-      tf[i] = src[(static_cast<size_t>(col) * nrow + fl) * K + k0 + p];
-    }
-    for (int p = t; p < n; p += blockDim.x) {
-      ti[p] = ir[colK + k0 + p];
-      ti[TP + p] = bn[colK + k0 + p];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int p = 0; p < n; ++p) {
-      const int r = ti[p];
-      if (r < 0 || r >= Nrb) continue;
-      const bool below = tf[(offR + 2) * TP + p] > 0;
-      T v;
-      if (isJ) {
-        // sorted_deposit._build_V
-        const T s = tf[(offR + (is0 > 0 ? 0 : 1)) * TP + p];
-        const T sr = corner ? T(1) - s : (below ? flip * s : s);
-        v = (tf[(offJ + c) * TP + p] * tf[(offZJ + o) * TP + p]) * sr;
-      } else {
-        // sorted_deposit._build_V_span_diff
-        const T ruy = tab[ti[TP + p]];
-        const T ua = tf[(offR + 3) * TP + p];
-        const T ub = tf[(offR + 4) * TP + p];
-        const T s0a = (T(1) - ua) + ruy * ((T(1) - ua) * ua);
-        const T s0b = (T(1) - ub) + ruy * ((T(1) - ub) * ub);
-        T sa, sb;
-        if (corner) {
-          sa = T(1) - s0a;
-          sb = T(1) - s0b;
+  contract_column<T>(
+      a.runs, a.ok, a.out, acc, ring, a.K, a.Nrb, W, a.Rt, (nJ + nD) * RG,
+      [&](const Stage<T>& st, int n, int item, int lane) {
+        // item = (z offset block, row class); lanes = (corner, channel)
+        const int blk = item / RG, g = item % RG;
+        if (blk < nJ) {
+          // sorted_deposit._build_V, offset block `blk`
+          const T* zw = st.f + (o_zwJ + blk) * TP;
+          warp_accumulate<T>(
+              acc, W, blk * 2 * CJ, 2 * CJ, st.i64, r_lo, rt, g, n, lane,
+              [&](int p) { return zw[p] != T(0); },
+              [&](int p, int ch) {
+                const Lane<T> l = ch == lane ? mineJ : decode(ch, false);
+                const T sr = radial(st.f[l.srow * TP + p], l.corner,
+                                    st.below[p] != 0, l.flip);
+                return (st.f[p * CJ + l.c] * zw[p]) * sr;
+              });
         } else {
-          sa = below ? flip * s0a : s0a;
-          sb = below ? flip * s0b : s0b;
+          // sorted_deposit._build_V_span_diff, offset block `o`
+          const int o = blk - nJ;
+          const T* za = st.f + (o_za + o) * TP;
+          const T* zb = st.f + (o_zb + o) * TP;
+          const long long* bn = st.i64 + TP;
+          warp_accumulate<T>(
+              acc, W, WJ + o * 2 * CD, 2 * CD, st.i64, r_lo, rt, g, n, lane,
+              [&](int p) { return za[p] != T(0) || zb[p] != T(0); },
+              [&](int p, int ch) {
+                const Lane<T> l = ch == lane ? mineD : decode(ch, true);
+                const T ruy = tab[l.srow + static_cast<int>(bn[p])];
+                const T ua = st.f[o_ua * TP + p], ub = st.f[o_ub * TP + p];
+                const T s0a = (T(1) - ua) + ruy * ((T(1) - ua) * ua);
+                const T s0b = (T(1) - ub) + ruy * ((T(1) - ub) * ub);
+                const bool below = st.below[p] != 0;
+                const T sa = radial(s0a, l.corner, below, l.flip);
+                const T sb = radial(s0b, l.corner, below, l.flip);
+                const T pb = st.f[o_phb * TP + p * CD + l.c];
+                const T dp = st.f[o_dph * TP + p * CD + l.c];
+                return st.f[o_wj * TP + p] *
+                       (dp * (za[p] * sa) + pb * ((zb[p] - za[p]) * sa) +
+                        pb * (zb[p] * (sb - sa)));
+              });
         }
-        const T za = tf[(offZa + o) * TP + p];
-        const T zb = tf[(offZb + o) * TP + p];
-        const T pb = tf[(offPhb + c) * TP + p];
-        v = tf[(offR + 5) * TP + p] *
-            (tf[(offDph + c) * TP + p] * (za * sa) + pb * ((zb - za) * sa) +
-             pb * (zb * (sb - sa)));
-      }
-      acc[r * Wt + t] += v;
-    }
-  }
-  __syncthreads();
-  const int w0 = blockIdx.y * Wt;
-  for (int i = t; i < Nrb * Wt; i += blockDim.x) {
-    const int r = i / Wt, tt = i % Wt;
-    if (w0 + tt < W)
-      out[(static_cast<size_t>(col) * Nrb + r) * W + w0 + tt] = acc[i];
-  }
+      });
 }
 
 template <typename T>
-int launch(const void* chJ, const void* zwJ, const void* rows, const void* ir,
-           const void* bn, const void* dph, const void* phb, const void* zwa,
-           const void* zwb, const void* tables, const void* metaJ,
-           const void* metaD, void* out, int Nz, int K, int CJ, int nJ,
-           int CD, int nD, int Nrb, int NT, int Wt, int n_wtiles,
-           int threads, void* stream) {
-  const int nF = CJ + nJ + N_ROWS + 2 * CD + 2 * nD;
-  const size_t smem = sizeof(T) * (static_cast<size_t>(Nrb) * Wt + nF * TP)
-                      + sizeof(int) * 2 * TP;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_contract_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(Nz, n_wtiles);
-  fused_contract_kernel<T><<<grid, threads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(chJ), static_cast<const T*>(zwJ),
-      static_cast<const T*>(rows), static_cast<const int*>(ir),
-      static_cast<const int*>(bn), static_cast<const T*>(dph),
-      static_cast<const T*>(phb), static_cast<const T*>(zwa),
-      static_cast<const T*>(zwb), static_cast<const T*>(tables),
-      static_cast<const T*>(metaJ), static_cast<const T*>(metaD),
-      static_cast<T*>(out), K, CJ, nJ, CD, nD, Nrb, NT, Wt);
+size_t smem_bytes(int CJ, int nJ, int CD, int nD, int NT, int Rt) {
+  const int W = nJ * 2 * CJ + nD * 2 * CD;
+  return align16(sizeof(T) * static_cast<size_t>(Rt) * W)
+         + align16(sizeof(T) * 2 * NT)
+         + NSTAGE * stage_bytes<T>(CJ + nJ + 5 + 2 * CD + 2 * nD, 2);
+}
+
+// ptrs: [chJ, sr0_m0, sr0_mh, u_a, u_b, wj, dph, ph_b, below, ir, bn, ok,
+//        ruyten, is_mode0, flip, out, zwJ_0.., zw_a_0.., zw_b_0..]
+template <typename T>
+int launch(const void* const* ptrs, int Nz, int K, int CJ, int nJ, int CD,
+           int nD, int Nrb, int NT, int Rt, void* stream) {
+  if (nJ > MAX_OFF || nD > MAX_OFF || nJ + 2 * nD + 8 > MAX_RUNS) return -1;
+  FusedArgs<T> a;
+  int n = 0, off = 0;
+  auto run = [&](const void* p, int width) {
+    a.runs.src[n] = static_cast<const T*>(p);
+    a.runs.width[n] = width;
+    a.runs.off[n] = off;
+    off += width;
+    ++n;
+  };
+  const void* const* zw = ptrs + 16;
+  run(ptrs[0], CJ);
+  for (int o = 0; o < nJ; ++o) run(zw[o], 1);
+  for (int i = 1; i <= 5; ++i) run(ptrs[i], 1);
+  run(ptrs[6], CD);
+  run(ptrs[7], CD);
+  for (int o = 0; o < 2 * nD; ++o) run(zw[nJ + o], 1);
+  a.runs.n = n;
+  a.runs.words = off;
+  a.runs.below = static_cast<const unsigned char*>(ptrs[8]);
+  a.runs.i64[0] = static_cast<const long long*>(ptrs[9]);
+  a.runs.i64[1] = static_cast<const long long*>(ptrs[10]);
+  a.runs.n_i64 = 2;
+  a.ok = static_cast<const T*>(ptrs[11]);
+  a.ruyten = static_cast<const T*>(ptrs[12]);
+  a.is_mode0 = static_cast<const unsigned char*>(ptrs[13]);
+  a.flip = static_cast<const T*>(ptrs[14]);
+  a.out = static_cast<T*>(const_cast<void*>(ptrs[15]));
+  a.K = K; a.CJ = CJ; a.nJ = nJ; a.CD = CD; a.nD = nD;
+  a.Nrb = Nrb; a.NT = NT; a.Rt = Rt;
+
+  const size_t smem = smem_bytes<T>(CJ, nJ, CD, nD, NT, Rt);
+  static size_t granted = 0;   // largest dynamic shared memory asked so far
+  if (smem > granted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_contract_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  dim3 grid(Nz, (Nrb + Rt - 1) / Rt);
+  fused_contract_kernel<T><<<grid, N_THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define FUSED_ARGS                                                          \
-  const void *chJ, const void *zwJ, const void *rows, const void *ir,      \
-      const void *bn, const void *dph, const void *phb, const void *zwa,   \
-      const void *zwb, const void *tables, const void *metaJ,              \
-      const void *metaD, void *out, int Nz, int K, int CJ, int nJ, int CD, \
-      int nD, int Nrb, int NT, int Wt, int n_wtiles, int threads,          \
-      void *stream
-#define FUSED_CALL                                                          \
-  chJ, zwJ, rows, ir, bn, dph, phb, zwa, zwb, tables, metaJ, metaD, out,    \
-      Nz, K, CJ, nJ, CD, nD, Nrb, NT, Wt, n_wtiles, threads, stream
+#define FUSED_ARGS                                                       \
+  const void *const *ptrs, int Nz, int K, int CJ, int nJ, int CD, int nD, \
+      int Nrb, int NT, int Rt, void *stream
+#define FUSED_CALL ptrs, Nz, K, CJ, nJ, CD, nD, Nrb, NT, Rt, stream
 
 extern "C" int fused_contract_f32(FUSED_ARGS) {
   return launch<float>(FUSED_CALL);
@@ -213,10 +223,11 @@ extern "C" int fused_contract_f64(FUSED_ARGS) {
   return launch<double>(FUSED_CALL);
 }
 
-// Dynamic shared memory a launch with these sizes requests, so the
-// caller can pick the channel tiling against the device limit.
+// Dynamic shared memory a launch with these sizes requests (the wrapper's
+// own reckoning, cuda_fused.fused_smem_bytes, is held against it).
 extern "C" int fused_contract_smem_bytes(int dtype_bytes, int CJ, int nJ,
-                                         int CD, int nD, int Nrb, int Wt) {
-  const int nF = CJ + nJ + N_ROWS + 2 * CD + 2 * nD;
-  return dtype_bytes * (Nrb * Wt + nF * TP) + 4 * 2 * TP;
+                                         int CD, int nD, int NT, int Rt) {
+  return static_cast<int>(
+      dtype_bytes == 4 ? smem_bytes<float>(CJ, nJ, CD, nD, NT, Rt)
+                       : smem_bytes<double>(CJ, nJ, CD, nD, NT, Rt));
 }

@@ -14,6 +14,19 @@ rebuilds V in registers and never writes it to device memory; it works
 on the port's packed channels (C = n_comp * (2 Nm - 1)), not the Pallas
 kernel's padded re/im layout.
 
+The kernel reads the operands where they lie: ``channel_vals`` as the
+contiguous (Nz, K, C) it is, one contiguous (Nz, K) tensor per z offset
+(``geom["zw"]``), ``sr0_m0`` / ``sr0_mh``, the int64 ``ir_buf``, the
+bool ``below_axis`` and ``geom["ok"]``, the mask the z weights were
+multiplied by.  The wrapper copies, casts and permutes nothing and
+raises on an operand that is not of that type, shape and contiguity: a
+call is one kernel launch.  A column costs what its slots up to the
+last one with ``ok != 0`` cost (slots with ``ok == 0`` carry zero z
+weights and contribute exact zeros), so the kernel is fastest on
+layouts that keep each column's live slots first, as
+``build_column_sort`` and ``banded_column_resort`` do; any other layout
+is still summed correctly.
+
 ``dense_onehot_contract`` returns (Nz, Nrb, n_off * 2 * C).  On CPU
 tensors it runs the plain PyTorch version (``dense_onehot_contract_plain``:
 V materialized, then a segmented sum by ``index_add_``); on CUDA tensors
@@ -21,7 +34,7 @@ it launches the kernel or raises.
 """
 import torch
 
-from ..utils.kernels import library, check_launch
+from ..utils import kernels
 
 
 def dense_onehot_contract_plain(geom, channel_vals, meta, Nrb):
@@ -30,14 +43,30 @@ def dense_onehot_contract_plain(geom, channel_vals, meta, Nrb):
     return _contract(geom["ir_buf"], _build_V(geom, channel_vals, meta), Nrb)
 
 
-def _pick_tiling(lib, esize, C, n_off, Nrb, W, smem_budget=100_000):
-    """Fewest channel tiles whose shared memory fits the budget."""
-    for n_tiles in range(1, W + 1):
-        Wt = -(-W // n_tiles)
-        if (lib.dense_contract_smem_bytes(esize, C, n_off, Nrb, Wt)
-                <= smem_budget and Wt <= 1024):
-            return Wt, n_tiles
-    raise ValueError(f"dense deposit: no channel tiling fits Nrb={Nrb}")
+def dense_smem_bytes(esize, C, n_off, Rt):
+    """Dynamic shared memory of one block: the (Rt, n_off*2*C)
+    accumulator and the ring of staged tiles (as csrc/dense_deposit.cu
+    reckons it)."""
+    return (kernels.align16(esize * Rt * n_off * 2 * C)
+            + kernels.NSTAGE * kernels.stage_bytes(esize, C + n_off + 2, 1))
+
+
+def dense_operands(geom, channel_vals, meta):
+    """(name, tensor, dtype, shape) of every operand of K3, in the order
+    of the kernel's pointer table (the output goes between the fixed
+    operands and the per-offset z weights)."""
+    dtype = channel_vals.dtype
+    Nz, K, C = channel_vals.shape
+    fixed = [("channel_vals", channel_vals, dtype, (Nz, K, C)),
+             ("sr0_m0", geom["sr0_m0"], dtype, (Nz, K)),
+             ("sr0_mh", geom["sr0_mh"], dtype, (Nz, K)),
+             ("below_axis", geom["below_axis"], torch.bool, (Nz, K)),
+             ("ir_buf", geom["ir_buf"], torch.int64, (Nz, K)),
+             ("ok", geom["ok"], dtype, (Nz, K)),
+             ("is_mode0", meta["is_mode0"], torch.bool, (C,)),
+             ("flip", meta["flip"], dtype, (C,))]
+    zw = [(f"zw[{o}]", t, dtype, (Nz, K)) for o, t in enumerate(geom["zw"])]
+    return fixed, zw
 
 
 def dense_onehot_contract(geom, channel_vals, meta, Nrb):
@@ -51,43 +80,29 @@ def dense_onehot_contract(geom, channel_vals, meta, Nrb):
     dtype = channel_vals.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dense deposit: unsupported dtype {dtype}")
+    if channel_vals.dim() != 3:
+        raise ValueError("dense deposit: channel_vals is not (Nz, K, C)")
     Nz, K, C = channel_vals.shape
     n_off = len(geom["zw"])
-    rows = [geom["sr0_m0"], geom["sr0_mh"], geom["below_axis"],
-            geom["ir_buf"]] + list(geom["zw"])
-    for t in rows + [meta["is_mode0"], meta["flip"]]:
-        if t.device != dev:
-            raise ValueError("dense deposit: operands on different devices")
-    for t in rows:
-        if tuple(t.shape) != (Nz, K):
-            raise ValueError(f"dense deposit: operand shape {tuple(t.shape)}"
-                             f" is not ({Nz}, {K})")
-    if tuple(meta["is_mode0"].shape) != (C,) \
-            or tuple(meta["flip"].shape) != (C,):
-        raise ValueError("dense deposit: channel metadata is not (C,)")
-    W = n_off * 2 * C
+    if n_off > kernels.MAX_OFF:
+        raise ValueError(f"dense deposit: more than {kernels.MAX_OFF} z "
+                         f"offsets in one window")
+    fixed, zw = dense_operands(geom, channel_vals, meta)
+    for name, t, dt, shape in fixed + zw:
+        kernels.check_operand("dense deposit", name, t, dev, dt, shape)
+    out = torch.empty((Nz, Nrb, n_off * 2 * C), dtype=dtype, device=dev)
 
-    def stack(ts):
-        return torch.stack([t.to(dtype) for t in ts], dim=1).contiguous()
-
-    chan = channel_vals.permute(0, 2, 1).contiguous()       # (Nz, C, K)
-    zw = stack(geom["zw"])
-    geo = stack([geom["sr0_m0"], geom["sr0_mh"], geom["below_axis"]])
-    ir = geom["ir_buf"].to(torch.int32).contiguous()
-    cmeta = torch.stack([meta["is_mode0"].to(dtype),
-                         meta["flip"].to(dtype)]).contiguous()   # (2, C)
-    out = torch.empty((Nz, Nrb, W), dtype=dtype, device=dev)
-
-    lib = library("dense_deposit")
-    esize = 4 if dtype == torch.float32 else 8
-    Wt, n_tiles = _pick_tiling(lib, esize, C, n_off, Nrb, W)
+    esize = channel_vals.element_size()
+    Rt, _ = kernels.pick_row_tiling(
+        Nrb, lambda rt: dense_smem_bytes(esize, C, n_off, rt))
+    lib = kernels.library("dense_deposit")
     fn = (lib.dense_contract_f32 if dtype == torch.float32
           else lib.dense_contract_f64)
-    args = [chan, zw, geo, ir, cmeta, out]
-    code = fn(*[a.data_ptr() for a in args], Nz, K, C, n_off, Nrb, Wt,
-              n_tiles, -(-Wt // 32) * 32,
+    table = kernels.pointer_table([t for _, t, _, _ in fixed] + [out]
+                                  + [t for _, t, _, _ in zw])
+    code = fn(table, Nz, K, C, n_off, Nrb, Rt,
               torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(code, "dense deposit")
+    kernels.check_launch(code, "dense deposit")
     dense_onehot_contract.launches += 1
     return out
 

@@ -14,6 +14,19 @@ to device memory; the TPU devices (one-hot MXU contraction, 3-term bf16
 split, one-hot Ruyten lookup) are not carried over -- it uses plain
 FMAs.  See the source for what bounds it on the card.
 
+The kernel reads the operands where they lie: ``channels`` / ``dph`` /
+``ph_b`` as the contiguous (Nz, K, C) they are, one contiguous (Nz, K)
+tensor per z offset (``geom["zw"]``, ``span["zw_a"]``, ``span["zw_b"]``),
+the int64 ``ir_buf`` and ``bn``, the bool ``below_axis`` and
+``geom["ok"]``, the mask the z weights were multiplied by.  The wrapper
+copies, casts and permutes nothing and raises on an operand that is not
+of that type, shape and contiguity: a call is one kernel launch.  A
+column costs what its slots up to the last one with ``ok != 0`` cost
+(slots with ``ok == 0`` carry zero z weights and contribute exact
+zeros), so the kernel is fastest on layouts that keep each column's
+live slots first, as ``build_column_sort`` and ``banded_column_resort``
+do; any other layout is still summed correctly.
+
 ``fused_onehot_contract`` keeps the fbpic_tpu signature and returns
 (Nz, Nrb, W).  On CPU tensors it runs the plain PyTorch version
 (``fused_onehot_contract_plain``: V materialized, then a segmented sum
@@ -21,16 +34,8 @@ by ``index_add_``); on CUDA tensors it launches the kernel or raises.
 """
 import torch
 
-from ..utils.kernels import library, check_launch
+from ..utils import kernels
 from .deposit import NGUARD, _channel_meta
-
-
-def _operands(geom, channels, span, dph, ph_b, wj, Nm):
-    """Flat list of the contraction's inputs, for checking."""
-    return ([channels, dph, ph_b, wj, geom["sr0_m0"], geom["sr0_mh"],
-             geom["below_axis"], geom["ir_buf"], span["u_a"], span["u_b"],
-             span["bn"]] + list(geom["zw"]) + list(span["zw_a"])
-            + list(span["zw_b"]))
 
 
 def fused_blocks(geom, channels, meta, span, dph, ph_b, wj, ruyten, Nm,
@@ -52,14 +57,44 @@ def fused_onehot_contract_plain(geom, channels, meta, span, dph, ph_b, wj,
     return _contract(geom["ir_buf"], blocks, Nr + 2 * NGUARD)
 
 
-def _pick_tiling(lib, esize, CJ, nJ, CD, nD, Nrb, W, smem_budget=100_000):
-    """Fewest channel tiles whose shared memory fits the budget."""
-    for n_tiles in range(1, W + 1):
-        Wt = -(-W // n_tiles)
-        smem = lib.fused_contract_smem_bytes(esize, CJ, nJ, CD, nD, Nrb, Wt)
-        if smem <= smem_budget and Wt <= 1024:
-            return Wt, n_tiles
-    raise ValueError(f"fused deposit: no channel tiling fits Nrb={Nrb}")
+def fused_smem_bytes(esize, CJ, nJ, CD, nD, NT, Rt):
+    """Dynamic shared memory of one block: the (Rt, W) accumulator, the
+    (2, NT) Ruyten table and the ring of staged tiles (as
+    csrc/fused_deposit.cu reckons it)."""
+    W = nJ * 2 * CJ + nD * 2 * CD
+    words = CJ + nJ + 5 + 2 * CD + 2 * nD
+    return (kernels.align16(esize * Rt * W) + kernels.align16(esize * 2 * NT)
+            + kernels.NSTAGE * kernels.stage_bytes(esize, words, 2))
+
+
+def fused_operands(geom, channels, meta, span, dph, ph_b, wj, ruyten):
+    """(name, tensor, dtype, shape) of every operand of K1, in the order
+    of the kernel's pointer table (the output goes between the fixed
+    operands and the per-offset z weights)."""
+    dtype = channels.dtype
+    Nz, K, CJ = channels.shape
+    CD = dph.shape[2]
+    slot = (Nz, K)
+    fixed = [("channels", channels, dtype, (Nz, K, CJ)),
+             ("sr0_m0", geom["sr0_m0"], dtype, slot),
+             ("sr0_mh", geom["sr0_mh"], dtype, slot),
+             ("u_a", span["u_a"], dtype, slot),
+             ("u_b", span["u_b"], dtype, slot),
+             ("wj", wj, dtype, slot),
+             ("dph", dph, dtype, (Nz, K, CD)),
+             ("ph_b", ph_b, dtype, (Nz, K, CD)),
+             ("below_axis", geom["below_axis"], torch.bool, slot),
+             ("ir_buf", geom["ir_buf"], torch.int64, slot),
+             ("bn", span["bn"], torch.int64, slot),
+             ("ok", geom["ok"], dtype, slot),
+             ("ruyten", ruyten, dtype, tuple(ruyten.shape)),
+             ("is_mode0", meta["is_mode0"], torch.bool, (CJ,)),
+             ("flip", meta["flip"], dtype, (CJ,))]
+    zw = [(f"{name}[{o}]", t, dtype, slot)
+          for name, ts in (("zw", geom["zw"]), ("zw_a", span["zw_a"]),
+                           ("zw_b", span["zw_b"]))
+          for o, t in enumerate(ts)]
+    return fixed, zw
 
 
 def fused_onehot_contract(geom, channels, meta, span, dph, ph_b, wj,
@@ -70,62 +105,49 @@ def fused_onehot_contract(geom, channels, meta, span, dph, ph_b, wj,
         return fused_onehot_contract_plain(
             geom, channels, meta, span, dph, ph_b, wj, ruyten, Nm, Nz, Nr,
             n_offJ, n_offD)
-    if channels.device.type != "cuda":
-        raise ValueError(f"fused deposit: unsupported device "
-                         f"{channels.device}")
+    dev = channels.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused deposit: unsupported device {dev}")
     dtype = channels.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fused deposit: unsupported dtype {dtype}")
+    if channels.dim() != 3 or dph.dim() != 3 or channels.shape[0] != Nz:
+        raise ValueError("fused deposit: channels / dph are not (Nz, K, C)")
     K, CJ = channels.shape[1], channels.shape[2]
     CD = dph.shape[2]
-    for t in _operands(geom, channels, span, dph, ph_b, wj, Nm):
-        if t.device != channels.device:
-            raise ValueError("fused deposit: operands on different devices")
-        if tuple(t.shape[:2]) != (Nz, K):
-            raise ValueError(f"fused deposit: operand shape {tuple(t.shape)}"
-                             f" is not ({Nz}, {K}, ...)")
     if len(geom["zw"]) != n_offJ or len(span["zw_a"]) != n_offD \
             or len(span["zw_b"]) != n_offD or CJ != 3 * (2 * Nm - 1) \
             or CD != 2 * Nm - 1 or tuple(ruyten.shape) != (2, Nr + 1):
         raise ValueError("fused deposit: inconsistent channel counts")
+    if max(n_offJ, n_offD) > kernels.MAX_OFF:
+        raise ValueError(f"fused deposit: more than {kernels.MAX_OFF} z "
+                         f"offsets in one window")
+    # the kernel takes the below-axis flag and the row index once, for the
+    # J and the d(rho) blocks alike
+    if span["below"].data_ptr() != geom["below_axis"].data_ptr() \
+            or span["ir_buf"].data_ptr() != geom["ir_buf"].data_ptr():
+        raise ValueError("fused deposit: span and geom do not share their "
+                         "below-axis flag and row index")
+    fixed, zw = fused_operands(geom, channels, meta, span, dph, ph_b, wj,
+                               ruyten)
+    for name, t, dt, shape in fixed + zw:
+        kernels.check_operand("fused deposit", name, t, dev, dt, shape)
     Nrb = Nr + 2 * NGUARD
     W = n_offJ * 2 * CJ + n_offD * 2 * CD
+    out = torch.empty((Nz, Nrb, W), dtype=dtype, device=dev)
 
-    def rows_first(t):                      # (Nz, K, C) -> (Nz, C, K)
-        return t.to(dtype).permute(0, 2, 1).contiguous()
-
-    def stack(ts):
-        return torch.stack([t.to(dtype) for t in ts], dim=1).contiguous()
-
-    chJ = rows_first(channels)
-    zwJ = stack(geom["zw"])
-    rows = stack([geom["sr0_m0"], geom["sr0_mh"], geom["below_axis"],
-                  span["u_a"], span["u_b"], wj])
-    ir = geom["ir_buf"].to(torch.int32).contiguous()
-    bn = span["bn"].to(torch.int32).contiguous()
-    dphs, phbs = rows_first(dph), rows_first(ph_b)
-    zwa, zwb = stack(span["zw_a"]), stack(span["zw_b"])
-    tables = ruyten.to(dtype).contiguous()
-    def meta_rows(m):                       # (2, C): [is_mode0, flip]
-        return torch.stack([m["is_mode0"].to(dtype),
-                            m["flip"].to(dtype)]).contiguous()
-
-    metaJ = meta_rows(meta)
-    metaD = meta_rows(_channel_meta(Nm, 1, [+1.0], dtype, channels.device))
-    out = torch.empty((Nz, Nrb, W), dtype=dtype, device=channels.device)
-
-    lib = library("fused_deposit")
-    esize = 4 if dtype == torch.float32 else 8
-    Wt, n_tiles = _pick_tiling(lib, esize, CJ, n_offJ, CD, n_offD, Nrb, W)
-    threads = -(-Wt // 32) * 32
+    esize = channels.element_size()
+    Rt, _ = kernels.pick_row_tiling(
+        Nrb, lambda rt: fused_smem_bytes(esize, CJ, n_offJ, CD, n_offD,
+                                         Nr + 1, rt))
+    lib = kernels.library("fused_deposit")
     fn = (lib.fused_contract_f32 if dtype == torch.float32
           else lib.fused_contract_f64)
-    args = [chJ, zwJ, rows, ir, bn, dphs, phbs, zwa, zwb, tables, metaJ,
-            metaD, out]
-    code = fn(*[a.data_ptr() for a in args], Nz, K, CJ, n_offJ, CD, n_offD,
-              Nrb, Nr + 1, Wt, n_tiles, threads,
-              torch.cuda.current_stream(channels.device).cuda_stream)
-    check_launch(code, "fused deposit")
+    table = kernels.pointer_table([t for _, t, _, _ in fixed] + [out]
+                                  + [t for _, t, _, _ in zw])
+    code = fn(table, Nz, K, CJ, n_offJ, CD, n_offD, Nrb, Nr + 1, Rt,
+              torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(code, "fused deposit")
     fused_onehot_contract.launches += 1
     return out
 

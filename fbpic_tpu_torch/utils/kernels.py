@@ -4,8 +4,13 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``.
 Builds happen at first use (never at import), one ``nvcc`` per source,
 all started together, into ``fbpic_tpu_torch/_build/`` (git-ignored).
-A library's file name carries a hash of its source, so an edited source
-is rebuilt and a stale library is never loaded.
+A library's file name carries a hash of its source and of every header
+in ``csrc/``, so an edited source or header is rebuilt and a stale
+library is never loaded.
+
+Also here: what the kernel wrappers share on the Python side (operand
+checks, the table of operand pointers, the radial-row tiling against
+the card's shared memory).
 """
 import ctypes
 import hashlib
@@ -24,12 +29,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every exported C function (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 _SIGNATURES = {
-    "fused_contract_f32": [_P] * 13 + [_I] * 11 + [_P],
-    "fused_contract_f64": [_P] * 13 + [_I] * 11 + [_P],
+    "fused_contract_f32": [_P] + [_I] * 9 + [_P],
+    "fused_contract_f64": [_P] + [_I] * 9 + [_P],
     "fused_contract_smem_bytes": [_I] * 7,
-    "dense_contract_f32": [_P] * 6 + [_I] * 8 + [_P],
-    "dense_contract_f64": [_P] * 6 + [_I] * 8 + [_P],
-    "dense_contract_smem_bytes": [_I] * 5,
+    "dense_contract_f32": [_P] + [_I] * 6 + [_P],
+    "dense_contract_f64": [_P] + [_I] * 6 + [_P],
+    "dense_contract_smem_bytes": [_I] * 4,
     "gather_sorted_f32": [_P] * 9 + [_I] * 5 + [_P],
     "gather_sorted_f64": [_P] * 9 + [_I] * 5 + [_P],
 }
@@ -46,7 +51,8 @@ def _nvcc():
 
 
 def _lib_path(name):
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
@@ -95,3 +101,57 @@ def check_launch(code, what):
     """Raise if a C launcher returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{what} launch failed with CUDA error {code}")
+
+
+# --- what the contraction wrappers (K1, K3) share ---------------------
+
+#: Shared memory one block may ask for on Hopper (227 KB), and what the
+#: kernels hold statically beside their dynamic request
+SMEM_PER_BLOCK = 232448
+SMEM_STATIC = 64
+#: Slots per staged tile and tiles in the ring (csrc/contract_common.cuh)
+TP, NSTAGE = 128, 2
+#: Most z-offset blocks of one window the kernels take
+MAX_OFF = 8
+
+
+def align16(n):
+    return (n + 15) & ~15
+
+
+def stage_bytes(esize, words, n_i64):
+    """Bytes of one staged tile: `words` float words, `n_i64` int64
+    indices and the bool below-axis flag per slot."""
+    return TP * (words * esize + 8 * n_i64 + 1)
+
+
+def pick_row_tiling(Nrb, smem_bytes_of, limit=SMEM_PER_BLOCK - SMEM_STATIC):
+    """Fewest tiles of radial rows whose block fits the card's shared
+    memory: (Rt, n_tiles) with Rt rows a tile.  ``smem_bytes_of(Rt)`` is
+    the dynamic shared memory of a block that accumulates Rt rows."""
+    for n_tiles in range(1, Nrb + 1):
+        Rt = -(-Nrb // n_tiles)
+        if smem_bytes_of(Rt) <= limit:
+            return Rt, -(-Nrb // Rt)
+    raise ValueError(f"no tiling of {Nrb} radial rows fits {limit} bytes "
+                     f"of shared memory")
+
+
+def check_operand(what, name, t, device, dtype, shape):
+    """Raise unless tensor `t` is what the kernel reads in place: on
+    `device`, of `dtype`, of `shape`, and contiguous."""
+    if t.device != device:
+        raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: {name} is {t.dtype}, not {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, not "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def pointer_table(tensors):
+    """The tensors' addresses as a C array of pointers (host memory; the
+    launcher copies it into the kernel's by-value arguments)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])

@@ -9,6 +9,12 @@ only PyTorch; there, skip the JAX-based conftest:
 - K1, K2 and K3 against their plain PyTorch versions on the same card
   (K1 and K3 1e-5, K2 5e-6 relative in float32: sums in another order;
   1e-12 in float64);
+- K1 and K3 on layouts the random half-full one does not reach (full
+  columns next to empty ones, one live particle, K not a multiple of the
+  staging tile, Nm = 1 and 3, an Nr that needs several tiles of radial
+  rows), two launches compared bit for bit, the wrappers' refusal of
+  operands the kernels do not read in place, and the shared-memory
+  reckoning of the wrappers against the kernels';
 - the golden-wake configuration for 100 steps on the card against the
   same run on the CPU (plain kernel versions), float32 and float64;
 - the wavelength and amplitude invariants of tests/test_golden_wake.py
@@ -40,27 +46,185 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def _sorted_particles(dev, dtype, seed, Nz=48, Nr=16, Nm=2, K=512):
-    """Column-sorted particles from a numpy seed, a third near the axis."""
+def _sorted_particles(dev, dtype, seed, Nz=48, Nr=16, Nm=2, K=512,
+                     layout="half_full"):
+    """Column-sorted particles from a numpy seed, a third near the axis.
+
+    layout: "half_full" (uniform in z, half of the slots live),
+    "full_and_empty" (every even column holds exactly K live particles,
+    every odd column none) or "single" (one live particle)."""
     from fbpic_tpu_torch import Simulation
     from fbpic_tpu_torch.particles.sorted_deposit import build_column_sort
     dz, dr, zmin = 0.1, 0.2, -1.0
     sim = Simulation(Nz, zmin + Nz * dz, Nr, Nr * dr, Nm, 1e-12, zmin=zmin,
                      device=dev, dtype=dtype)
     rng = np.random.RandomState(seed)
-    Np = int(0.5 * K * Nz)
-    z = zmin + rng.uniform(0.0, Nz * dz, Np)
+    if layout == "full_and_empty":
+        cols = np.repeat(np.arange(0, Nz, 2), K)
+        Np = len(cols)
+        z = zmin + (cols + rng.uniform(0.05, 0.95, Np)) * dz
+    else:
+        Np = 1 if layout == "single" else int(0.5 * K * Nz)
+        z = zmin + rng.uniform(0.0, Nz * dz, Np)
     r = np.where(rng.rand(Np) < 0.35, rng.uniform(0, 1.5 * dr, Np),
                  rng.uniform(0, 0.99 * Nr * dr, Np))
     th = rng.uniform(0, 2 * np.pi, Np)
     w = rng.uniform(0.5, 1.5, Np)
-    w[rng.rand(Np) < 0.1] = 0.0
+    if layout == "half_full":
+        w[rng.rand(Np) < 0.1] = 0.0
     ux, uy, uz = rng.randn(3, Np) * 0.5
     ig = 1 / np.sqrt(1 + ux ** 2 + uy ** 2 + uz ** 2)
     arrs = [torch.as_tensor(a, dtype=dtype, device=dev)
             for a in (r * np.cos(th), r * np.sin(th), z, w, ux, uy, uz, ig)]
     sort = build_column_sort(arrs[2], arrs[3], zmin, 1 / dz, Nz, K, arrs)
+    assert int(sort["n_over"]) == 0
+    if layout == "full_and_empty":
+        counts = sort["valid"].sum(dim=1)
+        assert bool((counts[0::2] == K).all() and (counts[1::2] == 0).all())
     return sim, sort
+
+
+def _k1_ops(sim, sort):
+    from fbpic_tpu_torch.particles.sorted_deposit import (
+        fused_contract_operands)
+    cfg = sim.config
+    x, y, z, w, ux, uy, uz, ig = sort["padded"]
+    return fused_contract_operands(
+        sort, x, y, z, w, -1.6e-19, ux, uy, uz, ig, 0.25 * cfg.dz / 3e8,
+        cfg.Nm, 1 / cfg.dz, sim.zmin, cfg.Nz, 1 / cfg.dr, 0.0, cfg.Nr,
+        sim.aux.ruyten_linear, zfold="clamp", sort_at_start=True)
+
+
+def _k3_args(sim, sort, window, zfold="clamp"):
+    from fbpic_tpu_torch.particles.sorted_deposit import (
+        dense_contract_operands)
+    cfg = sim.config
+    x, y, z, w, ux, uy, uz, ig = sort["padded"]
+    ops = dense_contract_operands(
+        sort, x, y, z, w, -1.6e-19, ux, uy, uz, ig, 0.25 * cfg.dz / 3e8,
+        cfg.Nm, 1 / cfg.dz, sim.zmin, cfg.Nz, 1 / cfg.dr, 0.0, cfg.Nr,
+        sim.aux.ruyten_linear, zfold=zfold, sort_at_start=True,
+        vz_shift=-0.995 * 3e8)[window]
+    return (ops["geom"], ops["channel_vals"], ops["meta"], cfg.Nr + 4)
+
+
+#: Layouts the random half-full one does not reach: keyword arguments of
+#: _sorted_particles (K = 200 is no multiple of the kernels' 128-slot
+#: staging tile; Nr = 500 needs several tiles of radial rows)
+LAYOUTS = {
+    "full_and_empty": dict(layout="full_and_empty", K=256),
+    "single_particle": dict(layout="single"),
+    "ragged_K": dict(K=200),
+    "Nm1": dict(Nm=1),
+    "Nm3": dict(Nm=3),
+    "Nm4": dict(Nm=4),      # 2 * 21 J channels: more than a warp's lanes
+    "tall_Nr": dict(Nz=8, Nr=500, K=128),
+}
+
+
+def _twice(fn):
+    """The result of fn(), after checking that a second launch gives the
+    same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_k1_kernel_on_special_layouts(cuda, layout, dtype):
+    from fbpic_tpu_torch.particles import cuda_fused
+    from fbpic_tpu_torch.utils import kernels
+    sim, sort = _sorted_particles(cuda, dtype, seed=7, **LAYOUTS[layout])
+    ops = _k1_ops(sim, sort)
+    out = _twice(lambda: cuda_fused.fused_onehot_contract(**ops))
+    ref = cuda_fused.fused_onehot_contract_plain(**ops)
+    W_J = ops["n_offJ"] * 2 * ops["channels"].shape[2]
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert _rel(out[..., :W_J], ref[..., :W_J]) <= tol
+    assert _rel(out[..., W_J:], ref[..., W_J:]) <= tol
+    if layout == "full_and_empty":
+        assert not out[1::2].any()
+    if layout == "tall_Nr":
+        esize = ops["channels"].element_size()
+        _, n_tiles = kernels.pick_row_tiling(
+            sim.config.Nr + 4, lambda rt: cuda_fused.fused_smem_bytes(
+                esize, 9, ops["n_offJ"], 3, ops["n_offD"],
+                sim.config.Nr + 1, rt))
+        assert n_tiles > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["J", "rho"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_k3_kernel_on_special_layouts(cuda, layout, dtype, window):
+    from fbpic_tpu_torch.particles import cuda_dense
+    from fbpic_tpu_torch.utils import kernels
+    sim, sort = _sorted_particles(cuda, dtype, seed=11, **LAYOUTS[layout])
+    args = _k3_args(sim, sort, window)
+    out = _twice(lambda: cuda_dense.dense_onehot_contract(*args))
+    ref = cuda_dense.dense_onehot_contract_plain(*args)
+    assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
+    if layout == "full_and_empty":
+        assert not out[1::2].any()
+    if layout == "tall_Nr" and window == "J" and dtype == torch.float64:
+        _, n_tiles = kernels.pick_row_tiling(
+            sim.config.Nr + 4,
+            lambda rt: cuda_dense.dense_smem_bytes(8, 9, 5, rt))
+        assert n_tiles > 1
+
+
+@pytest.mark.cuda
+def test_wrappers_reckon_shared_memory_as_the_kernels_do(cuda):
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused
+    from fbpic_tpu_torch.utils import kernels
+    fused, dense = (kernels.library(n)
+                    for n in ("fused_deposit", "dense_deposit"))
+    for esize in (4, 8):
+        for Rt in (1, 54, 333):
+            assert fused.fused_contract_smem_bytes(
+                esize, 9, 5, 3, 7, 51, Rt) == cuda_fused.fused_smem_bytes(
+                esize, 9, 5, 3, 7, 51, Rt)
+            for C, n_off in ((9, 5), (3, 7), (1, 3)):
+                assert dense.dense_contract_smem_bytes(
+                    esize, C, n_off, Rt) == cuda_dense.dense_smem_bytes(
+                    esize, C, n_off, Rt)
+
+
+def _strided_copy(t):
+    """The same values and shape, not contiguous."""
+    return t.transpose(0, 1).contiguous().transpose(0, 1)
+
+
+@pytest.mark.cuda
+def test_contraction_wrappers_refuse_what_the_kernels_do_not_read(cuda):
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused
+    sim, sort = _sorted_particles(cuda, torch.float32, seed=3)
+    ops = _k1_ops(sim, sort)
+    with pytest.raises(ValueError, match="not contiguous"):
+        cuda_fused.fused_onehot_contract(
+            **dict(ops, channels=_strided_copy(ops["channels"])))
+    zw = list(ops["geom"]["zw"])
+    zw[1] = _strided_copy(zw[1])
+    with pytest.raises(ValueError, match="not contiguous"):
+        cuda_fused.fused_onehot_contract(
+            **dict(ops, geom=dict(ops["geom"], zw=zw)))
+    with pytest.raises(TypeError):
+        cuda_fused.fused_onehot_contract(
+            **dict(ops, span=dict(ops["span"], bn=ops["span"]["bn"].int())))
+    geom, chan, meta, Nrb = _k3_args(sim, sort, "J")
+    with pytest.raises(ValueError, match="not contiguous"):
+        cuda_dense.dense_onehot_contract(geom, _strided_copy(chan), meta, Nrb)
+    with pytest.raises(TypeError):
+        cuda_dense.dense_onehot_contract(
+            dict(geom, below_axis=geom["below_axis"].float()), chan, meta,
+            Nrb)
+    with pytest.raises(ValueError):
+        cuda_dense.dense_onehot_contract(
+            dict(geom, ok=geom["ok"][:, :-1]), chan, meta, Nrb)
 
 
 @pytest.mark.cuda

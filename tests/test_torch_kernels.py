@@ -302,3 +302,202 @@ def test_k3_plain_matches_dense_deposit_and_pallas(window, zfold, dtype,
         ref = np.asarray(ref)
         assert ref.shape == out.shape == (ops["Nz"], ops["Nr"], C)
         assert _rel(out, ref) <= tol
+
+
+# --- what licenses the CUDA kernels' skipping of dead slots -------------
+
+def _garbage_in_dead_slots(sort, rng):
+    """The sorted layout twice: dead slots zeroed, and dead slots filled
+    with finite garbage (far-off positions, non-zero weights)."""
+    valid = sort["valid"]
+    zeroed, garbage = [], []
+    for a in sort["padded"]:
+        junk = torch.as_tensor(
+            (rng.randn(*a.shape) * 7.0 + 3.0).astype(a.numpy().dtype))
+        zeroed.append(torch.where(valid, a, torch.zeros_like(a)))
+        garbage.append(torch.where(valid, a, junk))
+    return (dict(valid=valid, padded=zeroed),
+            dict(valid=valid, padded=garbage))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kernel", ["K1", "K3_J", "K3_rho"])
+def test_plain_contractions_ignore_what_dead_slots_hold(kernel, dtype):
+    """A slot with ok == 0 contributes exact zeros whatever it holds
+    (every block of V carries a z weight that was multiplied by ok), so
+    the plain versions give the same bits for zeroed and for garbage
+    dead slots.  This is what lets the CUDA kernels stop at a column's
+    last live slot and skip particles whose z weights are all zero."""
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused
+    from fbpic_tpu_torch.particles.sorted_deposit import (
+        dense_contract_operands, fused_contract_operands)
+    arrs, g = _deposit_inputs(dtype=dtype)
+    sort = _port_sort(arrs, g)
+    assert int((~sort["valid"]).sum()) > 0
+    outs = []
+    for s in _garbage_in_dead_slots(sort, np.random.RandomState(5)):
+        x, y, z, w, ux, uy, uz, ig = s["padded"]
+        args = (s, x, y, z, w, dtype(-1.6e-19), ux, uy, uz, ig,
+                dtype(0.25 * g["dz"] / c), g["Nm"], 1 / g["dz"], g["zmin"],
+                g["Nz"], 1 / g["dr"], 0.0, g["Nr"],
+                torch.as_tensor(g["ruy"]))
+        if kernel == "K1":
+            ops = fused_contract_operands(*args, zfold="clamp",
+                                          sort_at_start=True)
+            assert not ops["geom"]["ok"][~s["valid"]].any()
+            outs.append(cuda_fused.fused_onehot_contract_plain(**ops))
+        else:
+            o = dense_contract_operands(
+                *args, zfold="periodic",
+                sort_at_start=True)[kernel.split("_")[1]]
+            assert not o["geom"]["ok"][~s["valid"]].any()
+            outs.append(cuda_dense.dense_onehot_contract_plain(
+                o["geom"], o["channel_vals"], o["meta"], g["Nr"] + 4))
+    assert bool(outs[0].isfinite().all()) and bool(outs[0].any())
+    assert torch.equal(outs[0], outs[1])
+
+
+def _is_prefix(valid):
+    """Live slots first in every column."""
+    return bool((valid[:, 1:] <= valid[:, :-1]).all())
+
+
+def test_build_column_sort_keeps_live_slots_first():
+    """The CUDA contractions stage a column up to its last live slot, so
+    they are fastest when live slots are a prefix of every column."""
+    arrs, g = _deposit_inputs()
+    sort = _port_sort(arrs, g)
+    assert _is_prefix(sort["valid"])
+    counts = sort["valid"].sum(dim=1)
+    assert int(counts.sum()) == int((arrs[3] != 0).sum())
+    assert int(counts.min()) < int(counts.max()) < 512
+
+
+@pytest.mark.parametrize("band", [1, 2])
+@pytest.mark.parametrize("zfold", ["clamp", "periodic"])
+def test_banded_resort_keeps_live_slots_first(zfold, band):
+    from fbpic_tpu_torch.particles.sorted_deposit import banded_column_resort
+    arrs, g = _deposit_inputs()
+    sort = _port_sort(arrs, g)
+    rng = np.random.RandomState(9)
+    pad = [torch.where(sort["valid"], a, torch.zeros_like(a))
+           for a in sort["padded"]]
+    # every particle moves by less than `band` cells (wrapped or clamped
+    # into the box), some leave their column, some stay
+    Lz = g["Nz"] * g["dz"]
+    dzp = torch.as_tensor(rng.uniform(-0.95 * band, 0.95 * band,
+                                      tuple(pad[2].shape)) * g["dz"]
+                          ).to(pad[2].dtype)
+    z = pad[2] + dzp
+    if zfold == "periodic":
+        z = g["zmin"] + torch.remainder(z - g["zmin"], Lz)
+    else:
+        z = torch.clamp(z, g["zmin"] + 1e-3, g["zmin"] + Lz - 1e-3)
+    pad[2] = torch.where(sort["valid"], z, torch.zeros_like(z))
+    out = banded_column_resort(pad, g["zmin"], 1 / g["dz"], g["Nz"], 512,
+                               band, zfold=zfold)
+    assert int(out["n_over"]) == 0
+    assert int(out["valid"].sum()) == int(sort["valid"].sum())
+    assert _is_prefix(out["valid"])
+    # and the kept slots are live particles, the others hold zeros
+    assert bool((out["padded"][3][out["valid"]] != 0).all())
+    assert not out["padded"][3][~out["valid"]].any()
+
+
+# --- the Python the CUDA wrappers run before a launch --------------------
+
+@pytest.mark.parametrize("esize", [4, 8])
+@pytest.mark.parametrize("Nr,Nm", [(50, 2), (50, 1), (50, 3), (500, 2),
+                                   (3000, 2)])
+def test_row_tiling_fits_the_shared_memory_of_a_block(Nr, Nm, esize):
+    """pick_row_tiling: the fewest tiles of radial rows whose block fits
+    Hopper's 227 KB; the tiles cover every row; one tile at the paths'
+    own sizes."""
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused
+    from fbpic_tpu_torch.utils import kernels
+    Nrb, CJ, CD = Nr + 4, 3 * (2 * Nm - 1), 2 * Nm - 1
+    limit = kernels.SMEM_PER_BLOCK - kernels.SMEM_STATIC
+    sizes = {
+        "K1": lambda rt: cuda_fused.fused_smem_bytes(esize, CJ, 5, CD, 7,
+                                                     Nr + 1, rt),
+        "K3_J": lambda rt: cuda_dense.dense_smem_bytes(esize, CJ, 5, rt),
+        "K3_rho": lambda rt: cuda_dense.dense_smem_bytes(esize, CD, 7, rt),
+    }
+    for name, smem_of in sizes.items():
+        Rt, n_tiles = kernels.pick_row_tiling(Nrb, smem_of)
+        assert smem_of(Rt) <= limit, name
+        assert (n_tiles - 1) * Rt < Nrb <= n_tiles * Rt, name
+        if n_tiles > 1:     # one tile fewer would not fit
+            assert smem_of(-(-Nrb // (n_tiles - 1))) > limit, name
+        if Nr == 50:
+            assert n_tiles == 1, name
+    if Nr >= 500 and esize == 8:
+        assert kernels.pick_row_tiling(Nrb, sizes["K1"])[1] > 1
+    with pytest.raises(ValueError):
+        kernels.pick_row_tiling(Nrb, sizes["K1"], limit=1000)
+
+
+def test_shared_memory_reckoning_at_the_lwfa_shape():
+    """The staged tile and the accumulator at the bench LWFA shape (Nm =
+    2, Nrb = 54, float32), by hand: K1 stages 39 float words, 2 int64
+    and a bool per slot, 128 slots a tile, 2 tiles."""
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused
+    from fbpic_tpu_torch.utils import kernels
+    assert kernels.stage_bytes(4, 39, 2) == 128 * (39 * 4 + 16 + 1)
+    assert cuda_fused.fused_smem_bytes(4, 9, 5, 3, 7, 51, 54) == (
+        54 * 132 * 4 + kernels.align16(2 * 51 * 4) + 2 * 128 * 173)
+    assert cuda_dense.dense_smem_bytes(4, 9, 5, 54) == (
+        54 * 90 * 4 + 2 * 128 * (16 * 4 + 8 + 1))
+    assert cuda_dense.dense_smem_bytes(8, 3, 7, 54) == (
+        54 * 42 * 8 + 2 * 128 * (12 * 8 + 8 + 1))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_operand_tables_name_what_the_kernels_read_in_place(kernel):
+    """The wrappers' operand lists on the operands the deposit builds:
+    every tensor already has the type, shape and contiguity the kernel
+    reads (so the wrappers copy nothing), and check_operand refuses a
+    strided view, another dtype and another shape."""
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused
+    from fbpic_tpu_torch.utils import kernels
+    cpu = torch.device("cpu")
+    if kernel == "K1":
+        ops = _k1_operands(True)
+        fixed, zw = cuda_fused.fused_operands(
+            ops["geom"], ops["channels"], ops["meta"], ops["span"],
+            ops["dph"], ops["ph_b"], ops["wj"], ops["ruyten"])
+        assert len(fixed) == 15 and len(zw) == 5 + 7 + 7
+        assert ops["span"]["below"] is ops["geom"]["below_axis"]
+        assert ops["span"]["ir_buf"] is ops["geom"]["ir_buf"]
+    else:
+        o = _k3_operands("J", "clamp", np.float32)
+        fixed, zw = cuda_dense.dense_operands(o["geom"], o["channel_vals"],
+                                              o["meta"])
+        assert len(fixed) == 8 and len(zw) == 5
+    for name, t, dt, shape in fixed + zw:
+        kernels.check_operand(kernel, name, t, cpu, dt, shape)
+    table = kernels.pointer_table([t for _, t, _, _ in fixed + zw])
+    assert list(table) == [t.data_ptr() for _, t, _, _ in fixed + zw]
+    name, t, dt, shape = fixed[0]
+    with pytest.raises(ValueError, match="not contiguous"):
+        kernels.check_operand(kernel, name,
+                              t.transpose(0, 1).contiguous().transpose(0, 1),
+                              cpu, dt, shape)
+    with pytest.raises(TypeError):
+        kernels.check_operand(kernel, name, t.double(), cpu, dt, shape)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.check_operand(kernel, name, t[:, :-1], cpu, dt, shape)
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """An edited header must not load a stale library: the library's file
+    name hashes every header of csrc/ beside the source."""
+    from fbpic_tpu_torch.utils import kernels
+    for f in kernels.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = {n: kernels._lib_path(n).name for n in kernels.SOURCES}
+    with open(tmp_path / "contract_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: kernels._lib_path(n).name for n in kernels.SOURCES}
+    assert all(before[n] != after[n] for n in kernels.SOURCES)
