@@ -12,16 +12,26 @@ Phases (any failure raises, and the script exits non-zero):
      (torch.bmm of the one-hot matrix with V) times, the live fraction
      of the slots, the bound over the live slots (and, on the line
      before, over all slots), and two launches compared bit for bit;
-  2. K2 (sorted field gather) against its plain version, for open and
-     periodic z;
+  2. K2 (sorted field gather: geometry, staged corner fetch, mode sum
+     and rotation in one launch) against its plain version on random
+     particles at the LWFA shape: open and periodic z, float32 (5e-6)
+     and float64 (1e-12), with and without Kahan words, the fields in
+     both layouts the kernel reads, two launches bit for bit; kernel,
+     plain and bound times (over the live slots; the operand-level
+     all-slots figure on the line before), and torch's grid_sample of
+     the field words at the live slots as context (fetch only, not the
+     same function); one gather_fields_sorted call must be one device
+     launch;
   3. the LWFA main path: the bench.py configuration (Nz=800, Nr=50,
      Nm=2, 16 particles per cell, a0=4 laser, moving window, continuous
      injection, open z, float32) through Simulation / add_laser_pulse /
      set_moving_window / step, with every kernel launch counter reset
      just before and read just after; ms/step, ns/particle/step,
-     overflow counters and finite fields; then K1 once more on the
-     operands of that running simulation (its resident layout: full and
-     empty columns), and a profiled window for the device time per step;
+     overflow counters, finite fields and exactly one K1 and one K2
+     launch a step; then K1 and K2 once more on the operands of that
+     running simulation (its resident layout: full and empty columns),
+     the host synchronizations of one step (torch's CUDA sync debug
+     mode), and a profiled window for the device time per step;
   4. the wake invariant of tests/test_golden_wake.py (on-axis wake
      wavelength within 15% of 2 pi c / omega_p) on the bench grid and
      plasma.  In the bench configuration the laser starts 2 um ahead of
@@ -43,9 +53,10 @@ Phases (any failure raises, and the script exits non-zero):
      with the plasma from the box's left edge (p_zmin = -40 um lab; the
      published empty box selects a layout the port does not run yet):
      5 + 60 steps with exactly 2 K3 launches, 1 K2 launch and no K1
-     launch per step, zero overflow, finite fields; then K3 once more on
-     the operands of that running simulation, and a profiled window for
-     the device time per step;
+     launch per step, zero overflow, finite fields; then K3 and K2 once
+     more on the operands of that running simulation, the host
+     synchronizations of one step, and a profiled window for the device
+     time per step;
   7. the numerical Cherenkov gate of tests/test_boosted.py (Nz = 40,
      Nr = 20, a gamma = 130 plasma and its ions flowing through a
      periodic box, 570 + 30 steps): slope_standard > 3.5 slope_galilean
@@ -85,12 +96,17 @@ B_P_ZMIN_LAB, B_P_ZMAX_LAB, B_P_RMAX = -40.e-6, 2000.e-6, 35.e-6
 B_PPC = (2, 2, 4)
 B_LASER = dict(a0=2., waist=10.e-6, tau=30.e-15, z0=-15.e-6)
 N_PROFILED = 10
+#: The port's kernels as the profiler names them
+PORT_KERNELS = {"K1": "fused_contract_kernel", "K2": "gather_sorted_kernel",
+                "K3": "dense_contract_kernel"}
 # The numerical Cherenkov configuration of tests/test_boosted.py
 NCI_STEPS = (570, 30)
 NCI_RATIO = 3.5
 
-TOL_K1 = 1e-5       # relative to each part's max |value| (float32 sums
-TOL_K2 = 5e-6       # in another order: sequential vs atomics / GEMM)
+# Tolerances, relative to each output part's largest |value|: a kernel
+# sums in another order than its plain version (GEMM, index_add_)
+TOL_K1 = 1e-5
+TOL_K2 = {"float32": 5e-6, "float64": 1e-12}
 TOL_K3 = {"float32": 1e-5, "float64": 1e-12}
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
@@ -102,11 +118,20 @@ DEVICE = "cuda"
 
 
 def cuda_ms(fn, n_warm=3, n_iter=20):
-    """Mean device time of fn() over n_iter launches (CUDA events)."""
+    """Mean device time of fn() over n_iter launches (CUDA events).  The
+    launches are queued behind a sleep kernel that outlasts their host
+    time, so the events time the device running them back to back, not
+    the rate at which the host launches them (a wrapper's Python can
+    take longer than a small kernel)."""
     import torch
     for _ in range(n_warm):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0    # one call, host and device
+    torch.cuda._sleep(int(min(2.0 * n_iter * host_s, 1.0) * 2e9))  # cycles
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -281,22 +306,22 @@ def phase_k1(sim):
                 **measure_k1(ops, "random half-full layout"))
 
 
-def capture_calls(sim, name):
-    """The (args, kwargs) of every call of sorted_deposit.<name> (a
-    kernel wrapper) during one more step of the running simulation."""
-    from fbpic_tpu_torch.particles import sorted_deposit
-    real = getattr(sorted_deposit, name)
+def capture_calls(sim, module, name):
+    """The (args, kwargs) of every call of module.<name> (a kernel
+    wrapper, or the function of the step that calls one) during one more
+    step of the running simulation."""
+    real = getattr(module, name)
     calls = []
 
     def recorder(*args, **kwargs):
         calls.append((args, kwargs))
         return real(*args, **kwargs)
 
-    setattr(sorted_deposit, name, recorder)
+    setattr(module, name, recorder)
     try:
         sim.step(1)
     finally:
-        setattr(sorted_deposit, name, real)
+        setattr(module, name, real)
     if not calls:
         raise RuntimeError(f"the step did not call {name}")
     return calls
@@ -305,67 +330,235 @@ def capture_calls(sim, name):
 def phase_k1_resident(sim):
     """K1 on the operands of the running LWFA simulation."""
     import inspect
-    from fbpic_tpu_torch.particles import cuda_fused
-    (args, kwargs), = capture_calls(sim, "fused_onehot_contract")
+    from fbpic_tpu_torch.particles import cuda_fused, sorted_deposit
+    (args, kwargs), = capture_calls(sim, sorted_deposit,
+                                    "fused_onehot_contract")
     ops = inspect.signature(cuda_fused.fused_onehot_contract_plain).bind(
         *args, **kwargs).arguments
     return measure_k1(dict(ops), "resident LWFA layout")
 
 
+def grid_sample_fetch_ms(ops):
+    """CUDA-event time of torch.nn.functional.grid_sample of the 12 Nm
+    field words at the live slots' cell coordinates (bilinear): the
+    4-corner fetch alone, not the same function as K2 (no signed guard
+    row, no periodic rows, no mode sum, no rotation).  Context for K2's
+    time, not its library call."""
+    import torch
+    from fbpic_tpu_torch.particles.cuda_gather import FIELD_NAMES
+    fields = [getattr(ops["interp"], n) for n in FIELD_NAMES]
+    Nm, Nz, Nr = fields[0].shape
+    img = torch.stack([f.real for f in fields] + [f.imag for f in fields])
+    img = img.reshape(1, 12 * Nm, Nz, Nr).contiguous()
+    live = ops["valid"]
+    x, y, z = (ops[k][live] for k in ("xp", "yp", "zp"))
+    rc = (torch.sqrt(x * x + y * y) - ops["rmin"]) * ops["invdr"] - 0.5
+    zc = (z - ops["zmin"]) * ops["invdz"] - 0.5
+    grid = torch.stack([2 * rc / (Nr - 1) - 1, 2 * zc / (Nz - 1) - 1],
+                       dim=-1)[None, None]
+    return cuda_ms(lambda: torch.nn.functional.grid_sample(
+        img, grid, mode="bilinear", align_corners=True))
+
+
+def measure_k2(ops, label, timed):
+    """K2 on `ops` (the keyword arguments of gather_sorted) against its
+    plain version: errors and two launches bit for bit; with `timed`,
+    also the times, the bounds and the grid_sample fetch."""
+    import torch
+    from fbpic_tpu_torch.particles import cuda_gather
+    tname = str(ops["xp"].dtype).split(".")[-1]
+    kern = assert_bitwise_repeatable(
+        lambda: torch.stack(cuda_gather.gather_sorted(**ops)),
+        f"K2 ({label})")
+    plain = torch.stack(cuda_gather.gather_sorted_plain(**ops))
+    torch.cuda.synchronize()
+    # Ex and Ey (Bx and By) are one rotation of the same (Fr, Ft), so
+    # their rounding scales with the pair's largest value, not each
+    # component's: a linearly polarized laser leaves Ey ~ 0 where Fr and
+    # Ft are large.  Ez and Bz are held against their own.
+    scale = [max(float(plain[q].abs().max()) for q in grp)
+             for grp in ((0, 1), (0, 1), (2,), (3, 4), (3, 4), (5,))]
+    diff = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    errs = [d / max(s, 1e-30) for d, s in zip(diff, scale)]
+    own = [rel_err(a, b) for a, b in zip(kern, plain)]
+    valid = ops["valid"]
+    n_live, n_slots = live_fraction(valid)
+    print(f"K2 {label}, {tname}, {ops.get('zfold', 'periodic')} z, "
+          f"{'with' if ops.get('comp') is not None else 'without'} Kahan "
+          f"words: Nz={valid.shape[0]} K={valid.shape[1]}, {n_live} of "
+          f"{n_slots} slots live ({n_live / n_slots:.4f}); rel err per "
+          f"component {['%.2e' % e for e in errs]} (tol {TOL_K2[tname]}; "
+          f"against each component's own largest value "
+          f"{['%.2e' % e for e in own]}); two launches bit-equal",
+          flush=True)
+    if not all(np.isfinite(errs)) or max(errs) > TOL_K2[tname]:
+        raise RuntimeError(f"K2 ({label}) disagrees with its plain version: "
+                           f"{errs}")
+    out = dict(rel_err=max(errs), max_abs_err=max(diff),
+               live_fraction=n_live / n_slots)
+    del kern, plain
+    if not timed:
+        return out
+    ms = cuda_ms(lambda: cuda_gather.gather_sorted(**ops))
+    plain_ms = cuda_ms(lambda: cuda_gather.gather_sorted_plain(**ops),
+                       n_warm=1, n_iter=5)
+    # Bound.  The valid flag and the six outputs of every slot, x, y, z
+    # (and the Kahan words) of the live slots, each read once, and the
+    # six complex fields once; per live slot ~36 + 126 Nm operations (the
+    # geometry, 4 corners x 12 Nm multiply-adds, the mode sum, the
+    # rotation).  The all-slots figure is the operand-level one: the 2
+    # int32 and 5 float words a slot that the operand build wrote and the
+    # kernel read, the 6 outputs, and the guarded field table.
+    fields = [getattr(ops["interp"], n) for n in cuda_gather.FIELD_NAMES]
+    Nm, Nz, Nr = fields[0].shape
+    esize = ops["xp"].element_size()
+    words = 3 if ops.get("comp") is None else 6
+    n_bytes = (n_slots * (1 + 6 * esize) + n_live * words * esize
+               + sum(t.numel() * t.element_size() for t in fields))
+    n_flops = n_live * (36 + 126 * Nm)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    all_bytes = n_slots * (8 + 11 * esize) + esize * Nz * (Nr + 1) * 12 * Nm
+    all_ms, all_by = bound(all_bytes, n_flops)
+    fetch_ms = grid_sample_fetch_ms(ops)
+    print(f"K2 {label} bound, all slots (operand level): {all_ms:.4f} ms by "
+          f"{all_by} ({all_bytes} bytes)", flush=True)
+    print(f"K2 {label}: grid_sample of the {12 * Nm} field words at the "
+          f"{n_live} live slots {fetch_ms:.4f} ms (fetch only, not the same "
+          f"function)", flush=True)
+    print(f"K2 {label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound over live slots {bound_ms:.4f} ms by {bound_by} ({n_bytes} "
+          f"bytes), live fraction {n_live / n_slots:.4f}; no single library "
+          f"call", flush=True)
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bound_all_slots_ms=all_ms,
+               grid_sample_fetch_ms=fetch_ms)
+    return out
+
+
+def device_launches(fn):
+    """Kernels (and copies) the device ran for fn(), from torch.profiler;
+    None when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and ev.self_device_time_total > 0]
+    return sum(ev.count for ev in evs) if evs else None
+
+
 def phase_k2(sim):
+    """K2 against its plain version on random column-sorted particles at
+    the LWFA shape: float32 and float64, open and periodic z, with and
+    without Kahan words (the periodic case with Kahan words reads the
+    fields in the z-fastest layout torch.fft leaves), two launches
+    bit-equal each; times and bounds of the float32 open-z call without
+    Kahan words, where one gather_fields_sorted call must also be exactly
+    one device launch."""
     import torch
     from fbpic_tpu_torch.fields.solver import InterpFields
-    from fbpic_tpu_torch.particles import cuda_gather
-    from fbpic_tpu_torch.particles.gather import gather_operands
+    from fbpic_tpu_torch.particles.cuda_gather import FIELD_NAMES
+    from fbpic_tpu_torch.particles.gather import gather_fields_sorted
     cfg = sim.config
-    sort, pad = random_sorted_particles(sim, seed=31)
-    rng = np.random.RandomState(31)
-    shape = (cfg.Nm, cfg.Nz, cfg.Nr)
-    interp = InterpFields(**{
-        n: torch.complex(*(torch.as_tensor(rng.randn(*shape),
-                                           dtype=torch.float32,
-                                           device=DEVICE)
-                           for _ in range(2)))
-        for n in ("Er", "Et", "Ez", "Br", "Bt", "Bz")})
-    worst, max_abs, times = 0.0, 0.0, {}
-    for zfold in ("clamp", "periodic"):
-        ops = gather_operands(pad[0], pad[1], pad[2], sort["valid"], interp,
-                              cfg.rmax, 1 / cfg.dz, sim.zmin, cfg.Nz,
-                              1 / cfg.dr, 0.0, cfg.Nr, zfold=zfold)
-        kern = cuda_gather.gather_sorted(**ops)
-        plain = cuda_gather.gather_sorted_plain(**ops)
-        torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(kern, plain)]
-        max_abs = max(max_abs, max(float((a - b).abs().max())
-                                   for a, b in zip(kern, plain)))
-        print(f"K2 {zfold}: rel err per component "
-              f"{['%.2e' % x for x in errs]} (tol {TOL_K2})", flush=True)
-        if not all(np.isfinite(errs)) or max(errs) > TOL_K2:
-            raise RuntimeError(f"K2 ({zfold}) disagrees with its plain "
-                               f"version: {errs}")
-        worst = max(worst, max(errs))
-        if zfold == "clamp":
-            times["ms"] = cuda_ms(lambda: cuda_gather.gather_sorted(**ops))
-            times["plain_ms"] = cuda_ms(
-                lambda: cuda_gather.gather_sorted_plain(**ops),
-                n_warm=1, n_iter=5)
-    # Bound: per slot 2 int32 and 5 float32 operands read and 6 outputs
-    # written, plus the field table Fg once; per live slot 4 corners x
-    # 12 Nm channels (a multiply-add each), the mode sum and the rotation
-    Nz, K = sort["valid"].shape
-    n_bytes = Nz * K * (8 + 4 * 5 + 4 * 6) + 4 * ops["Fg"].numel()
-    n_live = int(sort["valid"].sum())
-    bound_ms, bound_by = bound(
-        n_bytes, n_live * (8 * 12 * cfg.Nm + 4 * 6 * cfg.Nm + 8))
-    print(f"K2 time: kernel {times['ms']:.4f} ms, plain "
-          f"{times['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({n_bytes} bytes); no single library call",
-          flush=True)
+    worst, max_abs, timed = {}, 0.0, None
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype).split(".")[-1]
+        sort, pad = random_sorted_particles(sim, seed=31, dtype=dtype)
+        rng = np.random.RandomState(31)
+        slot = tuple(sort["valid"].shape)
+        comp = [torch.as_tensor(rng.randn(*slot) * 1e-3 * cfg.dz,
+                                dtype=dtype, device=DEVICE)
+                for _ in range(3)]
+        shape = (cfg.Nm, cfg.Nz, cfg.Nr)
+        interp = InterpFields(**{
+            n: torch.complex(*(torch.as_tensor(rng.randn(*shape),
+                                               dtype=dtype, device=DEVICE)
+                               for _ in range(2)))
+            for n in FIELD_NAMES})
+        z_fast = InterpFields(**{
+            n: getattr(interp, n).transpose(1, 2).contiguous()
+            .transpose(1, 2) for n in FIELD_NAMES})
+        for zfold in ("clamp", "periodic"):
+            for with_comp in (False, True):
+                ops = dict(xp=pad[0], yp=pad[1], zp=pad[2],
+                           valid=sort["valid"], interp=interp,
+                           rmax_gather=cfg.rmax, invdz=1 / cfg.dz,
+                           zmin=sim.zmin, Nz=cfg.Nz, invdr=1 / cfg.dr,
+                           rmin=0.0, Nr=cfg.Nr,
+                           comp=comp if with_comp else None, zfold=zfold)
+                if zfold == "periodic" and with_comp:
+                    ops["interp"] = z_fast
+                is_timed = (dtype == torch.float32 and zfold == "clamp"
+                            and not with_comp)
+                m = measure_k2(ops, "random half-full layout", is_timed)
+                max_abs = max(max_abs, m["max_abs_err"])
+                worst[tname] = max(worst.get(tname, 0.0), m["rel_err"])
+                if not is_timed:
+                    continue
+                timed = m
+                args = [ops[k] for k in ("xp", "yp", "zp", "valid", "interp",
+                                         "rmax_gather", "invdz", "zmin", "Nz",
+                                         "invdr", "rmin", "Nr")]
+                n_dev = device_launches(
+                    lambda: gather_fields_sorted(*args, zfold=zfold))
+                print(f"K2: one gather_fields_sorted call ran {n_dev} device "
+                      f"kernel(s)", flush=True)
+                if n_dev not in (1, None):
+                    raise RuntimeError(f"gather_fields_sorted ran {n_dev} "
+                                       f"device kernels, not 1")
+        del sort, pad, comp, interp, z_fast, ops
+        torch.cuda.empty_cache()
     return dict(name="K2 sorted field gather", route="cuda",
                 source="fbpic_tpu_torch/csrc/gather.cu",
                 replaces="fbpic_tpu/particles/pallas_gather.py:80",
-                max_abs_err=max_abs, rel_err=worst, **times,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                max_abs_err=max_abs, rel_err=worst["float32"],
+                rel_err_f64=worst["float64"], library_ms=None,
+                **{k: timed[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "live_fraction", "bound_all_slots_ms",
+                    "grid_sample_fetch_ms")})
+
+
+def phase_k2_resident(sim, label):
+    """K2 on the operands of the running simulation's own gather."""
+    import inspect
+    from fbpic_tpu_torch.core import step
+    from fbpic_tpu_torch.particles import cuda_gather
+    (args, kwargs), = capture_calls(sim, step, "gather_fields_sorted")
+    ops = inspect.signature(cuda_gather.gather_sorted).bind(
+        *args, **kwargs).arguments
+    m = measure_k2(dict(ops), label, True)
+    return {k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "live_fraction", "bound_all_slots_ms",
+                              "grid_sample_fetch_ms", "rel_err")}
+
+
+def count_syncs(sim, label):
+    """Host synchronizations of one more step, as torch's CUDA sync
+    debug mode reports them (a warning for every blocking call), by the
+    line that made them."""
+    import collections
+    import os
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.step(1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
+        if "synchroniz" in str(w.message))
+    n = sum(where.values())
+    print(f"host syncs in one {label} step (torch.cuda sync debug mode): "
+          f"{n} {dict(where)}", flush=True)
+    return dict(count=n, where=dict(where))
 
 
 def check_fields(sim, what):
@@ -401,9 +594,9 @@ def phase_main(sim, counters):
     print(f"launches during the main path: K1 {launches[0]}, K2 "
           f"{launches[1]}; overflow totals {sim.overflow_totals}",
           flush=True)
-    for n in launches:
-        if n < n_steps:
-            raise RuntimeError(f"a kernel ran {n} < {n_steps} times")
+    if launches != [n_steps, n_steps]:
+        raise RuntimeError(f"K1 / K2 ran {launches} times in {n_steps} "
+                           f"steps, not once a step each")
     if any(sim.overflow_totals.values()):
         raise RuntimeError(f"column/ring overflow: {sim.overflow_totals}")
     check_fields(sim, "main path")
@@ -598,7 +791,8 @@ def phase_k3(sim):
 def phase_k3_resident(sim):
     """K3 on the operands of the running boosted simulation (its two
     calls of one step: the J and the rho window)."""
-    calls = capture_calls(sim, "dense_onehot_contract")
+    from fbpic_tpu_torch.particles import sorted_deposit
+    calls = capture_calls(sim, sorted_deposit, "dense_onehot_contract")
     if len(calls) != 2:
         raise RuntimeError(f"{len(calls)} K3 calls in one boosted step")
     windows = [measure_k3(args, f"{window} window, resident boosted layout",
@@ -671,15 +865,19 @@ def profile_steps(sim, n_steps):
         return None
     n_launch = sum(ev.count for ev in kernels) / n_steps
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:12]
+    port = {k: sum(ev.self_device_time_total for ev in kernels
+                   if name in ev.key) / n_steps / 1e3
+            for k, name in PORT_KERNELS.items()}
     print(f"profiled {n_steps} steps: {wall / n_steps * 1e3:.4f} ms/step "
           f"wall under the profiler, {busy_us / n_steps / 1e3:.4f} ms/step "
-          f"device busy, {n_launch:.1f} kernel launches/step", flush=True)
+          f"device busy, {n_launch:.1f} kernel launches/step; the port's "
+          f"kernels, ms/step: {port}", flush=True)
     for ev in top:
         print(f"  {ev.self_device_time_total / n_steps / 1e3:9.4f} ms/step "
               f"{ev.count / n_steps:7.1f}/step  {ev.key[:90]}")
     return dict(device_ms_per_step=busy_us / n_steps / 1e3,
                 profiled_wall_ms_per_step=wall / n_steps * 1e3,
-                launches_per_step=n_launch)
+                launches_per_step=n_launch, kernel_ms_per_step=port)
 
 
 def nci_slope(scheme, dtype):
@@ -767,6 +965,8 @@ def main():
         sim, (fused_onehot_contract, gather_sorted))
     k1["launches"], k2["launches"] = launches
     k1["resident"] = phase_k1_resident(sim)
+    k2["resident"] = {"LWFA": phase_k2_resident(sim, "resident LWFA layout")}
+    syncs = {"bench LWFA": count_syncs(sim, "bench LWFA")}
     main_prof = profile_steps(sim, N_PROFILED)
     if main_prof is not None:
         main_prof["idle_share"] = 1 - (main_prof["device_ms_per_step"]
@@ -787,6 +987,10 @@ def main():
                "K3": dense_onehot_contract})
     k3["launches"] = b_launches["K3"]
     k3["resident"] = phase_k3_resident(bsim)
+    k2["launches_boosted"] = b_launches["K2"]
+    k2["resident"]["boosted"] = phase_k2_resident(
+        bsim, "resident boosted layout")
+    syncs["boosted LWFA"] = count_syncs(bsim, "boosted LWFA")
     prof = profile_steps(bsim, N_PROFILED)
     if prof is not None:
         # idle share of the unprofiled steps
@@ -800,6 +1004,7 @@ def main():
     print(json.dumps({"main_path": main_metrics, "wake_ratio": ratio,
                       "boosted_path": boosted_metrics,
                       "boosted_launches": b_launches, "nci_slopes": nci,
+                      "host_syncs_per_step": syncs,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3]}))

@@ -12,6 +12,8 @@ Shape factors include the Ruyten correction and the below-axis sign
 flip (reference: deposition/particle_shapes.py:17-80,
 fields/numba_methods.py:410-460).
 """
+import functools
+
 import torch
 
 from ..constants import c
@@ -129,8 +131,17 @@ def _channel_meta(Nm, n_components, comp_flip_parity, dtype, device):
 
     Channel layout: comp-major, then mode, then re/im -- except that the
     identically-zero mode-0 imaginary part is not stored, so each
-    component spans 2*Nm - 1 channels.
+    component spans 2*Nm - 1 channels.  Built once per (layout, dtype,
+    device) and kept: a tensor made from a host list is a blocking copy
+    on a CUDA device, which the step must not pay every time.
     """
+    return dict(_channel_meta_tensors(Nm, n_components,
+                                      tuple(comp_flip_parity), dtype,
+                                      torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _channel_meta_tensors(Nm, n_components, comp_flip_parity, dtype, device):
     is_mode0, flip = [], []
     for comp in range(n_components):
         for m in range(Nm):

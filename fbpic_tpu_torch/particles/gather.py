@@ -53,22 +53,24 @@ def gather_fields_sorted(
 
     The sort columns must lie within one cell of the particle positions
     (exact at sort time; the banded re-sort keeps the plan exact).  The
-    4-corner fetch, mode sum and rotation run in K2
-    (``cuda_gather.gather_sorted``).
+    whole gather -- geometry, 4-corner fetch, mode sum and rotation --
+    is K2 (``cuda_gather.gather_sorted``): one kernel launch on CUDA
+    tensors, its plain version (``gather_operands`` and the one-hot
+    contraction) on CPU tensors.
 
     Returns (Ex, Ey, Ez, Bx, By, Bz) as (Nz, K) tensors (invalid slots
     zero).
     """
-    return gather_sorted(**gather_operands(
-        xp, yp, zp, valid, interp, rmax_gather, invdz, zmin, Nz, invdr,
-        rmin, Nr, comp=comp, zfold=zfold))
+    return gather_sorted(xp, yp, zp, valid, interp, rmax_gather, invdz, zmin,
+                         Nz, invdr, rmin, Nr, comp=comp, zfold=zfold)
 
 
 def gather_operands(xp, yp, zp, valid, interp, rmax_gather, invdz, zmin,
                     Nz, invdr, rmin, Nr, comp=None, zfold="periodic"):
-    """The keyword arguments of K2 (``gather_sorted``): per-slot corner
-    indices and weights, and the field channels with the signed axis
-    guard row."""
+    """The operands of K2's plain corner fetch
+    (``cuda_gather.gather_corners_plain``): per-slot corner indices and
+    weights, and the field channels with the signed axis guard row --
+    what the kernel computes in registers and shared memory."""
     Nm = interp.Er.shape[0]
     rdt = xp.dtype
     r, cos, sin = _cylindrical_projection(xp, yp)

@@ -25,7 +25,8 @@ SOURCES = ("fused_deposit", "dense_deposit", "gather")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_double
 # argtypes of every exported C function (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 _SIGNATURES = {
@@ -35,8 +36,12 @@ _SIGNATURES = {
     "dense_contract_f32": [_P] + [_I] * 6 + [_P],
     "dense_contract_f64": [_P] + [_I] * 6 + [_P],
     "dense_contract_smem_bytes": [_I] * 4,
-    "gather_sorted_f32": [_P] * 9 + [_I] * 5 + [_P],
-    "gather_sorted_f64": [_P] * 9 + [_I] * 5 + [_P],
+    "gather_sorted_f32": [_P] + [_D] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 2
+                         + [_P],
+    "gather_sorted_f64": [_P] + [_D] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 2
+                         + [_P],
+    "gather_smem_bytes": [_I] * 4,
+    "gather_bz_max": [],
 }
 
 _libs = {}
@@ -153,5 +158,7 @@ def check_operand(what, name, t, device, dtype, shape):
 
 def pointer_table(tensors):
     """The tensors' addresses as a C array of pointers (host memory; the
-    launcher copies it into the kernel's by-value arguments)."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    launcher copies it into the kernel's by-value arguments); None for an
+    operand left out."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])

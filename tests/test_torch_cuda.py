@@ -15,6 +15,11 @@ only PyTorch; there, skip the JAX-based conftest:
   rows), two launches compared bit for bit, the wrappers' refusal of
   operands the kernels do not read in place, and the shared-memory
   reckoning of the wrappers against the kernels';
+- K2 with and without Kahan words, both z folds, both field layouts it
+  reads, on all-dead and full columns, one particle, K not a multiple
+  of its threads, fewer columns than a block stages rows for, Nm = 1
+  and 3, and an Nr whose rows do not fit (direct reads); one
+  ``gather_fields_sorted`` call is one device launch;
 - the golden-wake configuration for 100 steps on the card against the
   same run on the CPU (plain kernel versions), float32 and float64;
 - the wavelength and amplitude invariants of tests/test_golden_wake.py
@@ -179,10 +184,15 @@ def test_k3_kernel_on_special_layouts(cuda, layout, dtype, window):
 
 @pytest.mark.cuda
 def test_wrappers_reckon_shared_memory_as_the_kernels_do(cuda):
-    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused, cuda_gather
     from fbpic_tpu_torch.utils import kernels
-    fused, dense = (kernels.library(n)
-                    for n in ("fused_deposit", "dense_deposit"))
+    fused, dense, gather = (kernels.library(n) for n in (
+        "fused_deposit", "dense_deposit", "gather"))
+    assert gather.gather_bz_max() == cuda_gather.BZ_MAX
+    for esize in (4, 8):
+        for Nm, Nr, bz in ((2, 50, 4), (1, 12, 1), (3, 500, 2), (4, 7, 0)):
+            assert gather.gather_smem_bytes(esize, Nm, Nr, bz) == \
+                cuda_gather.gather_smem_bytes(esize, Nm, Nr, bz)
     for esize in (4, 8):
         for Rt in (1, 54, 333):
             assert fused.fused_contract_smem_bytes(
@@ -250,33 +260,121 @@ def test_k1_kernel_matches_plain(cuda, dtype):
     assert _rel(out[..., W_J:], ref[..., W_J:]) <= tol
 
 
+def _k2_ops(sim, sort, zfold="clamp", comp=False, z_fast=False, seed=5,
+            rmax_frac=1.0):
+    """The keyword arguments of K2 on a sorted layout: interp fields from
+    a numpy seed (r fastest, or z fastest as torch.fft leaves them), some
+    live particles moved after the sort by up to 1.6 cells (so both
+    clipped z offsets occur; periodic z wraps them into the box), the
+    Kahan words, and rmax_gather = rmax_frac * rmax."""
+    from fbpic_tpu_torch.fields.solver import InterpFields
+    from fbpic_tpu_torch.particles.cuda_gather import FIELD_NAMES
+    cfg = sim.config
+    x, y, z = sort["padded"][:3]
+    dev, dtype = x.device, x.dtype
+    rng = np.random.RandomState(seed)
+
+    def tensor(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    shape = (cfg.Nm, cfg.Nz, cfg.Nr)
+    interp = InterpFields(**{
+        n: torch.complex(tensor(rng.randn(*shape)), tensor(rng.randn(*shape)))
+        for n in FIELD_NAMES})
+    if z_fast:
+        interp = InterpFields(**{
+            n: getattr(interp, n).transpose(1, 2).contiguous().transpose(1, 2)
+            for n in FIELD_NAMES})
+    shift = rng.choice([0.0, 0.0, 0.7, 1.6, -0.7, -1.6], size=tuple(z.shape))
+    z = torch.where(sort["valid"], z + tensor(shift * cfg.dz), z)
+    if zfold == "periodic":
+        z = sim.zmin + torch.remainder(z - sim.zmin, cfg.Nz * cfg.dz)
+    ops = dict(xp=x, yp=y, zp=z.contiguous(), valid=sort["valid"],
+               interp=interp, rmax_gather=rmax_frac * cfg.rmax,
+               invdz=1 / cfg.dz, zmin=sim.zmin, Nz=cfg.Nz, invdr=1 / cfg.dr,
+               rmin=0.0, Nr=cfg.Nr, zfold=zfold)
+    if comp:
+        ops["comp"] = tuple(tensor(rng.randn(*tuple(x.shape)) * 1e-3 * cfg.dz)
+                            for _ in range(3))
+    return ops
+
+
+def _k2_check(ops, dtype):
+    """K2 twice (bit-equal) against its plain version: 5e-6 of each
+    output's largest value in float32 (corner and mode sums in another
+    order than the one-hot GEMM), 1e-12 in float64; dead slots zero."""
+    from fbpic_tpu_torch.particles import cuda_gather
+    n0 = cuda_gather.gather_sorted.launches
+    out = _twice(lambda: torch.stack(cuda_gather.gather_sorted(**ops)))
+    assert cuda_gather.gather_sorted.launches == n0 + 2
+    ref = torch.stack(cuda_gather.gather_sorted_plain(**ops))
+    tol = 5e-6 if dtype == torch.float32 else 1e-12
+    for a, b in zip(out, ref):
+        assert bool(a.isfinite().all())
+        assert _rel(a, b) <= tol
+    assert not out[:, ~ops["valid"]].any()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_comp", [False, True])
+@pytest.mark.parametrize("zfold", ["periodic", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_kernel_matches_plain(cuda, zfold, dtype, with_comp):
+    sim, sort = _sorted_particles(cuda, dtype, seed=31)
+    _k2_check(_k2_ops(sim, sort, zfold, comp=with_comp, rmax_frac=0.9),
+              dtype)
+
+
+#: K2 on layouts the random half-full one does not reach (K = 200 is no
+#: multiple of the kernel's 256 threads; Nz = 3 is fewer columns than a
+#: block stages rows for, so a staged row repeats; Nr = 500 takes 2
+#: columns a block in float32 and the direct reads in float64)
+K2_LAYOUTS = {
+    "full_and_empty": dict(layout="full_and_empty", K=256),
+    "single_particle": dict(layout="single"),
+    "ragged_K": dict(K=200),
+    "small_Nz": dict(Nz=3, K=1024),
+    "Nm1": dict(Nm=1),
+    "Nm3": dict(Nm=3),
+    "tall_Nr": dict(Nz=8, Nr=500, K=128),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("zfold", ["periodic", "clamp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k2_kernel_matches_plain(cuda, zfold, dtype):
-    from fbpic_tpu_torch.fields.solver import InterpFields
+@pytest.mark.parametrize("layout", sorted(K2_LAYOUTS))
+def test_k2_kernel_on_special_layouts(cuda, layout, dtype, zfold):
     from fbpic_tpu_torch.particles import cuda_gather
-    from fbpic_tpu_torch.particles.gather import gather_operands
-    sim, sort = _sorted_particles(cuda, dtype, seed=31)
-    cfg = sim.config
-    g = torch.Generator(device=cuda).manual_seed(5)
-    shape = (cfg.Nm, cfg.Nz, cfg.Nr)
-    interp = InterpFields(**{
-        n: torch.complex(torch.randn(shape, generator=g, device=cuda,
-                                     dtype=dtype),
-                         torch.randn(shape, generator=g, device=cuda,
-                                     dtype=dtype))
-        for n in ("Er", "Et", "Ez", "Br", "Bt", "Bz")})
-    ops = gather_operands(*sort["padded"][:3], sort["valid"], interp,
-                          cfg.rmax, 1 / cfg.dz, sim.zmin, cfg.Nz, 1 / cfg.dr,
-                          0.0, cfg.Nr, zfold=zfold)
-    n0 = cuda_gather.gather_sorted.launches
-    out = cuda_gather.gather_sorted(**ops)
-    ref = cuda_gather.gather_sorted_plain(**ops)
-    assert cuda_gather.gather_sorted.launches == n0 + 1
-    tol = 5e-6 if dtype == torch.float32 else 1e-12
-    for a, b in zip(out, ref):
-        assert _rel(a, b) <= tol
+    sim, sort = _sorted_particles(cuda, dtype, seed=17, **K2_LAYOUTS[layout])
+    ops = _k2_ops(sim, sort, zfold, comp=True, z_fast=zfold == "periodic")
+    out = _k2_check(ops, dtype)
+    if layout == "full_and_empty":
+        assert not out[:, 1::2].any() and bool(out[:, 0::2].any())
+    if layout == "tall_Nr":
+        esize = ops["xp"].element_size()
+        assert cuda_gather.pick_bz(esize, 2, 500) == (2 if esize == 4 else 0)
+
+
+@pytest.mark.cuda
+def test_gather_fields_sorted_is_one_kernel_launch(cuda):
+    """On CUDA tensors the whole gather is K2: one device launch, no
+    operand build, no copy."""
+    from torch.profiler import ProfilerActivity, profile
+    from fbpic_tpu_torch.particles.gather import gather_fields_sorted
+    sim, sort = _sorted_particles(cuda, torch.float32, seed=3)
+    ops = _k2_ops(sim, sort, "periodic", comp=True, z_fast=True)
+    gather_fields_sorted(**ops)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gather_fields_sorted(**ops)
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and ev.self_device_time_total > 0]
+    assert [ev.count for ev in evs] == [1]
+    assert "gather_sorted_kernel" in evs[0].key
 
 
 @pytest.mark.cuda
@@ -306,15 +404,33 @@ def test_k3_kernel_matches_plain(cuda, window, zfold, dtype):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_check_their_operands(cuda):
+    """K2 refuses what its kernel does not read in place: a strided
+    position, a flag of another dtype, a field that is neither r- nor
+    z-fastest, fields of two layouts, a field on another device."""
+    import dataclasses
     from fbpic_tpu_torch.particles import cuda_gather
     sim, sort = _sorted_particles(cuda, torch.float32, seed=3)
-    ok = torch.ones(sort["valid"].shape, device=cuda)
-    bad_Fg = torch.zeros((sim.config.Nz, 5, 24), device=cuda)
-    with pytest.raises(ValueError):
-        cuda_gather.gather_sorted(
-            torch.zeros_like(ok, dtype=torch.int32),
-            torch.zeros_like(ok, dtype=torch.int32), ok, ok, ok, ok, ok,
-            bad_Fg[:, :, :12], 3, 2)
+    ops = _k2_ops(sim, sort, comp=True)
+    interp = ops["interp"]
+    bad = [dict(xp=_strided_copy(ops["xp"])),
+           dict(comp=(ops["comp"][0], _strided_copy(ops["comp"][1]),
+                      ops["comp"][2])),
+           dict(interp=dataclasses.replace(
+               interp, Ez=interp.Ez.transpose(0, 1).contiguous()
+               .transpose(0, 1))),
+           dict(interp=dataclasses.replace(
+               interp, Bz=interp.Bz.transpose(1, 2).contiguous()
+               .transpose(1, 2))),
+           dict(interp=dataclasses.replace(interp, Br=interp.Br.cpu())),
+           dict(zp=ops["zp"][:, :-1])]
+    for b in bad:
+        with pytest.raises(ValueError):
+            cuda_gather.gather_sorted(**dict(ops, **b))
+    with pytest.raises(TypeError):
+        cuda_gather.gather_sorted(**dict(ops, valid=ops["valid"].float()))
+    with pytest.raises(TypeError):
+        cuda_gather.gather_sorted(**dict(ops, interp=dataclasses.replace(
+            interp, Et=interp.Et.to(torch.complex128))))
 
 
 def _wake_wavelength(Ez_axis, dz):

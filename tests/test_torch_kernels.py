@@ -163,7 +163,7 @@ def _gather_inputs(zfold, seed=31):
 @pytest.mark.parametrize("zfold", ["periodic", "clamp"])
 def test_k2_plain_matches_pallas(zfold):
     from fbpic_tpu.particles.pallas_gather import gather_sorted_pallas
-    from fbpic_tpu_torch.particles.cuda_gather import gather_sorted
+    from fbpic_tpu_torch.particles.cuda_gather import gather_corners_plain
     from fbpic_tpu_torch.particles.gather import gather_operands
     arrs, g, sort, fields, interp = _gather_inputs(zfold)
     xp, yp, zp = sort["padded"][:3]
@@ -171,7 +171,7 @@ def test_k2_plain_matches_pallas(zfold):
                           np.float32(g["Nr"] * g["dr"]), 1 / g["dz"],
                           g["zmin"], g["Nz"], 1 / g["dr"], 0.0, g["Nr"],
                           zfold=zfold)
-    out = gather_sorted(**ops)
+    out = gather_corners_plain(**ops)
     jo = _to_jax(ops)
     pal = gather_sorted_pallas(
         jo["o_lo"].astype(jnp.float32), jo["l_r"].astype(jnp.float32),

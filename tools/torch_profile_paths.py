@@ -13,14 +13,28 @@ second, first) inside one job:
 It imports chip_smoke and fbpic_tpu_torch from the current directory,
 builds that tree's kernels, and for each path steps 5 times to warm up,
 times 60 unprofiled steps on the host clock (synchronized), then
-profiles 10 steps with torch.profiler (chip_smoke.profile_steps: the sum
-of the kernel rows is the busy time of the one stream).  Prints one
-line `PROFILE {...}` per path.
+profiles 10 steps with torch.profiler: the profile_steps of the
+chip_smoke.py beside this script (the sum of the kernel rows is the busy
+time of the one stream; the rows of the port's kernels, K1-K3, by name),
+and the host synchronizations of one more step (its count_syncs), so
+both trees are read by the same code.  Prints one line `PROFILE {...}`
+per path.
 """
+import importlib.util
 import json
 import os
 import sys
 import time
+from pathlib import Path
+
+
+def measures():
+    """The chip_smoke.py next to this script, as a module."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("smoke_measures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def run(name, sim, cs, torch):
@@ -30,12 +44,14 @@ def run(name, sim, cs, torch):
     sim.step(cs.N_TIMED)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / cs.N_TIMED * 1e3
-    prof = cs.profile_steps(sim, cs.N_PROFILED)
+    here = measures()
+    prof = here.profile_steps(sim, cs.N_PROFILED)
+    syncs = here.count_syncs(sim, name)
     if any(sim.overflow_totals.values()):
         raise RuntimeError(f"{name}: overflow {sim.overflow_totals}")
     print("PROFILE " + json.dumps(dict(path=name, tree=os.getcwd(),
-                                       ms_per_step=ms, **(prof or {}))),
-          flush=True)
+                                       ms_per_step=ms, host_syncs=syncs,
+                                       **(prof or {}))), flush=True)
 
 
 def main():
