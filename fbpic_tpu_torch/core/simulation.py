@@ -3,11 +3,11 @@
 The constructor arguments follow FBPIC's fbpic/main.py:51-344 so
 that reference input scripts port over; the PIC cycle runs eagerly in
 PyTorch on an explicit ``device`` and ``dtype`` (see core/step.py).
-This port covers the resident main path: linear shapes, one or more
-resident species, open or periodic z, moving window and continuous
-injection, the standard and the Galilean / comoving PSATD solver with
-curl-free correction, and the boosted-frame conversions of species,
-laser and moving window (``gamma_boost``).
+This port covers linear shapes, resident and non-resident (ring)
+species, empty species, open or periodic z, moving window and
+continuous injection, the standard and the Galilean / comoving PSATD
+solver with curl-free correction, and the boosted-frame conversions of
+species, laser and moving window (``gamma_boost``).
 """
 import warnings
 from dataclasses import replace
@@ -30,7 +30,7 @@ from ..particles.injection import (
     InjectorConfig, GeneratorAngles, build_injector_aux,
 )
 from .state import SimState
-from .step import StepOptions, make_step_fn, prepare
+from .step import StepOptions, interp2spect_EB, make_step_fn, prepare
 
 
 def adapt_to_grid(x, p_xmin, p_xmax, p_nx, ncells_empty=0):
@@ -80,7 +80,10 @@ class Simulation:
     device / dtype: where and in which precision the PIC cycle runs
     (default CUDA, float32; a missing CUDA device is an error, never a
     silent fallback).  sort_K: per-column slot capacity of the initial
-    species' resident layout (None = the automatic rule).
+    species' sorted layout (None = the automatic rule).  The attribute
+    ``use_fused_deposit`` (default: on CUDA or in float32, as
+    fbpic_tpu's on an accelerator or in float32) turns the fused sorted
+    deposits and the resident layout on; set it before adding a species.
     v_comoving / use_galilean: the Galilean (grid flowing at v_comoving)
     or comoving PSATD scheme; gamma_boost: the Lorentz factor of the
     boosted frame, for the lab-to-boosted conversions of
@@ -117,6 +120,8 @@ class Simulation:
         if boundaries.get("r", "reflective") != "reflective":
             raise NotImplementedError("radial PML is not ported")
         self.device, self.dtype = device, dtype
+        #: Fused sorted deposits and the resident layout (user-overridable)
+        self.use_fused_deposit = self._fused_by_default()
         self.np_dtype = np.float32 if dtype == torch.float32 else np.float64
         self.boundaries = boundaries
         self.verbose_level = int(verbose_level)
@@ -212,6 +217,11 @@ class Simulation:
                 p_zmin=p_zmin, p_zmax=p_zmax, p_rmin=p_rmin, p_rmax=p_rmax,
                 sort_K=sort_K)
 
+    def _fused_by_default(self):
+        """fbpic_tpu's default of use_fused_deposit and gate of the
+        automatic sort_K: on an accelerator or in float32."""
+        return self.device.type == "cuda" or self.dtype == torch.float32
+
     # -----------------------------------------------------------------
     @property
     def time(self):
@@ -246,84 +256,89 @@ class Simulation:
                         continuous_injection=True,
                         boost_positions_in_dens_func=False, capacity=None,
                         name=None, sort_K=None):
-        """Create a new species; returns a SpeciesView.
+        """Create a new species; returns a SpeciesView.  Without ``n``
+        the species is empty.
 
         With ``gamma_boost`` set on the Simulation, the lab-frame p_zmin,
         p_zmax, n, uz_m and uz_th are converted to the boosted frame
         (and the dens_func argument z too, with
         boost_positions_in_dens_func).
 
-        sort_K: per-column slot capacity of the resident layout.  None =
+        sort_K: per-column slot capacity of the sorted layout.  None =
         automatic on CUDA or in float32 (1.5x the initial maximum column
-        occupancy, at least 86, rounded up to 128); an explicit value
-        forces the resident layout (fbpic_tpu_torch runs only that
-        layout)."""
+        occupancy, at least 86, rounded up to 128), else 0 (the scatter
+        deposits).  With use_fused_deposit on, a species whose capacity
+        fits Nz * sort_K is resident (capacity Nz * sort_K); any other
+        sort_K species is column-sorted afresh every step."""
         injector_cfg = injector_aux = None
         if n is None:
-            raise NotImplementedError("empty species are not ported")
-        for var in (p_nz, p_nr, p_nt):
-            if var is None:
-                raise ValueError("If `n` is passed, `p_nz`, `p_nr`, `p_nt` "
-                                 "are required too.")
-        # Boosted frame: convert the lab-frame quantities
-        # (fbpic_tpu core/simulation.py:458-482)
-        if self.boost is not None:
-            gamma_m = np.sqrt(1. + uz_m**2 + ux_m**2 + uy_m**2)
-            beta_m_lab = uz_m / gamma_m
-            p_zmin, p_zmax = self.boost.copropag_length(
-                [p_zmin, p_zmax], beta_object=beta_m_lab)
-            n, = self.boost.copropag_density([n], beta_object=beta_m_lab)
-            if uz_m == 0:
-                uz_th = self.boost.gamma0 * uz_th
-            else:
-                uz_th = self.boost.gamma0 * (
-                    1. - self.boost.beta0 * beta_m_lab) * uz_th
-            uz_m = self.boost.gamma0 * (uz_m - self.boost.beta0 * gamma_m)
-            if boost_positions_in_dens_func and dens_func is not None:
-                from ..particles.state import _check_dens_func_arguments
-                coef = self.boost.gamma0 * (1 - beta_m_lab * self.boost.beta0)
-                user_func = dens_func
-                if _check_dens_func_arguments(dens_func) == ["z", "r"]:
-                    dens_func = lambda z, r: user_func(coef * z, r)
+            Ntot = 0
+            x = y = z = ux = uy = uz = inv_gamma = w = np.empty(0)
+        else:
+            for var in (p_nz, p_nr, p_nt):
+                if var is None:
+                    raise ValueError("If `n` is passed, `p_nz`, `p_nr`, "
+                                     "`p_nt` are required too.")
+            # Boosted frame: convert the lab-frame quantities
+            # (fbpic_tpu core/simulation.py:458-482)
+            if self.boost is not None:
+                gamma_m = np.sqrt(1. + uz_m**2 + ux_m**2 + uy_m**2)
+                beta_m_lab = uz_m / gamma_m
+                p_zmin, p_zmax = self.boost.copropag_length(
+                    [p_zmin, p_zmax], beta_object=beta_m_lab)
+                n, = self.boost.copropag_density([n], beta_object=beta_m_lab)
+                if uz_m == 0:
+                    uz_th = self.boost.gamma0 * uz_th
                 else:
-                    dens_func = lambda x, y, z: user_func(x, y, coef * z)
-        p_zmin_, p_zmax_, Npz = adapt_to_grid(self.grid_z(), p_zmin, p_zmax,
-                                              p_nz)
-        p_rmin_, p_rmax_, Npr = adapt_to_grid(self.grid_r(), p_rmin, p_rmax,
-                                              p_nr)
-        Ntot, x, y, z, ux, uy, uz, inv_gamma, w = generate_evenly_spaced(
-            Npz, p_zmin_, p_zmax_, Npr, p_rmin_, p_rmax_, p_nt, n,
-            dens_func, ux_m, uy_m, uz_m, ux_th, uy_th, uz_th, rng=self._rng)
-        if continuous_injection:
-            dz_particles = self.config.dz / p_nz
-            dens_args = None
-            if dens_func is not None:
-                from ..particles.state import _check_dens_func_arguments
-                dens_args = ("xyz" if _check_dens_func_arguments(dens_func)
-                             == ["x", "y", "z"] else "zr")
-            # Columns accumulated over one exchange period, plus margin
-            max_cols = int(np.ceil(self.exchange_period
-                                   * (c * self.config.dt / self.config.dz)
-                                   * p_nz)) + 4
-            injector_cfg = InjectorConfig(
-                dz_particles=dz_particles, n=n, ux_m=ux_m, uy_m=uy_m,
-                uz_m=uz_m, ux_th=ux_th, uy_th=uy_th, uz_th=uz_th,
-                dens_func=dens_func, dens_args=dens_args or "zr",
-                max_inject_cols=max_cols)
-            injector_aux = build_injector_aux(
-                Npr, p_rmin_, p_rmax_, p_nt, injector_cfg, rng=self._rng,
-                device=self.device, dtype=self.dtype)
-            # The particles live inside the removal bounds: size the
-            # storage from that span
-            margin = 2 * max(self.config.n_guard, 1)
-            cols_live = int(np.ceil((self.config.Nz - margin)
-                                    * self.config.dz / dz_particles))
-            needed = int(1.2 * cols_live * Npr * p_nt)
-            capacity = max(capacity or 0, needed, int(1.2 * max(Ntot, 1)))
+                    uz_th = self.boost.gamma0 * (
+                        1. - self.boost.beta0 * beta_m_lab) * uz_th
+                uz_m = self.boost.gamma0 * (uz_m - self.boost.beta0 * gamma_m)
+                if boost_positions_in_dens_func and dens_func is not None:
+                    from ..particles.state import _check_dens_func_arguments
+                    coef = self.boost.gamma0 * (
+                        1 - beta_m_lab * self.boost.beta0)
+                    user_func = dens_func
+                    if _check_dens_func_arguments(dens_func) == ["z", "r"]:
+                        dens_func = lambda z, r: user_func(coef * z, r)
+                    else:
+                        dens_func = lambda x, y, z: user_func(x, y, coef * z)
+            p_zmin_, p_zmax_, Npz = adapt_to_grid(self.grid_z(), p_zmin,
+                                                  p_zmax, p_nz)
+            p_rmin_, p_rmax_, Npr = adapt_to_grid(self.grid_r(), p_rmin,
+                                                  p_rmax, p_nr)
+            Ntot, x, y, z, ux, uy, uz, inv_gamma, w = generate_evenly_spaced(
+                Npz, p_zmin_, p_zmax_, Npr, p_rmin_, p_rmax_, p_nt, n,
+                dens_func, ux_m, uy_m, uz_m, ux_th, uy_th, uz_th,
+                rng=self._rng)
+            if continuous_injection:
+                dz_particles = self.config.dz / p_nz
+                dens_args = None
+                if dens_func is not None:
+                    from ..particles.state import _check_dens_func_arguments
+                    dens_args = ("xyz" if _check_dens_func_arguments(dens_func)
+                                 == ["x", "y", "z"] else "zr")
+                # Columns accumulated over one exchange period, plus margin
+                max_cols = int(np.ceil(self.exchange_period
+                                       * (c * self.config.dt / self.config.dz)
+                                       * p_nz)) + 4
+                injector_cfg = InjectorConfig(
+                    dz_particles=dz_particles, n=n, ux_m=ux_m, uy_m=uy_m,
+                    uz_m=uz_m, ux_th=ux_th, uy_th=uy_th, uz_th=uz_th,
+                    dens_func=dens_func, dens_args=dens_args or "zr",
+                    max_inject_cols=max_cols)
+                injector_aux = build_injector_aux(
+                    Npr, p_rmin_, p_rmax_, p_nt, injector_cfg, rng=self._rng,
+                    device=self.device, dtype=self.dtype)
+                # The particles live inside the removal bounds: size the
+                # ring from that span
+                margin = 2 * max(self.config.n_guard, 1)
+                cols_live = int(np.ceil((self.config.Nz - margin)
+                                        * self.config.dz / dz_particles))
+                needed = int(1.2 * cols_live * Npr * p_nt)
+                capacity = max(capacity or 0, needed, int(1.2 * max(Ntot, 1)))
 
         if sort_K is None:
-            if (self.device.type == "cuda" or self.dtype == torch.float32) \
-                    and Ntot > 0:
+            if self._fused_by_default() and Ntot > 0:
                 cols = np.floor((np.asarray(z) - self.zmin)
                                 / self.config.dz).astype(int)
                 occ = np.bincount(cols[(cols >= 0) & (cols < self.config.Nz)],
@@ -332,7 +347,7 @@ class Simulation:
             else:
                 sort_K = 0
         resident = False
-        if int(sort_K) > 0:
+        if int(sort_K) > 0 and self.use_fused_deposit:
             cap_resident = self.config.Nz * int(sort_K)
             if cap_resident >= (capacity or 0):
                 capacity = cap_resident
@@ -387,13 +402,15 @@ class Simulation:
         return arr if m is None else arr[m]
 
     def set_interp_EB(self, **fields):
-        """Overwrite interpolation-grid E/B components (numpy arrays)."""
+        """Overwrite interpolation-grid E/B components (numpy arrays) and
+        refresh spectral E/B from them."""
         cdt = self.state.interp.Er.dtype
-        self.state = replace(self.state, interp=replace(
-            self.state.interp, **{
-                name: torch.as_tensor(np.asarray(value), dtype=cdt,
-                                      device=self.device)
-                for name, value in fields.items()}))
+        interp = replace(self.state.interp, **{
+            name: torch.as_tensor(np.asarray(value), dtype=cdt,
+                                  device=self.device)
+            for name, value in fields.items()})
+        self.state = replace(self.state, interp=interp, spect=interp2spect_EB(
+            self.aux, interp, self.state.spect))
 
     def set_moving_window(self, v=None, gamma_boost=None):
         """Attach a moving window of speed v (default c); requires open z
@@ -411,7 +428,11 @@ class Simulation:
         self.state = replace(self.state, mw_zref=self.state.zmin)
 
     # -----------------------------------------------------------------
-    def build_options(self, correct_currents=True, use_true_rho=False):
+    def build_options(self, correct_currents=True, use_true_rho=False,
+                      move_positions=True, move_momenta=True):
+        if not (move_positions and move_momenta):
+            raise NotImplementedError("move_positions / move_momenta = False "
+                                      "are not ported")
         return StepOptions(
             correct_currents=correct_currents, use_true_rho=use_true_rho,
             filter_currents=self.filter_currents,
@@ -419,13 +440,15 @@ class Simulation:
             moving_window_v=self.moving_win,
             injectors=(tuple(self._injector_configs)
                        if self.moving_win is not None else ()),
-            exchange_period=self.exchange_period)
+            exchange_period=self.exchange_period,
+            fused_deposit=self.use_fused_deposit)
 
     def step(self, N=1, correct_currents=True, use_true_rho=False,
-             show_progress=False):
+             move_positions=True, move_momenta=True, show_progress=False):
         """Perform N PIC cycles."""
-        options = self.build_options(correct_currents=correct_currents,
-                                     use_true_rho=use_true_rho)
+        options = self.build_options(
+            correct_currents=correct_currents, use_true_rho=use_true_rho,
+            move_positions=move_positions, move_momenta=move_momenta)
         step_fn = make_step_fn(self.config, self.species_configs, options)
         # Refresh spectral E/B from the interpolation grid (captures any
         # user-set fields), then the initial rho_prev deposit
@@ -438,13 +461,34 @@ class Simulation:
                                  self.column_angles, self.generator)
         self._consume_overflow_counters()
 
+    def _ensure_capacity(self, index, min_capacity, factor=1.0):
+        """Grow species ``index`` to at least ``min_capacity`` slots
+        (and ``factor`` times its capacity), rounded up to 128, with dead
+        slots at the array end.  A resident species is left alone: its
+        capacity is Nz * sort_K and grows with the sort_K bump.  Returns
+        the new capacity, or None."""
+        sc = self.species_configs[index]
+        sp = self.state.species[index]
+        new_cap = int(-(-max(min_capacity, int(factor * sp.capacity))
+                        // 128) * 128)
+        if sc.resident or new_cap <= sp.capacity:
+            return None
+        species = list(self.state.species)
+        species[index] = pad_particle_state(sp, new_cap)
+        self.state = replace(self.state, species=species)
+        return new_cap
+
     def _consume_overflow_counters(self):
         """Read the overflow counters (one host read per step() call).
 
-        sort_overflow > 0: some z column exceeded the resident capacity
-        K and its excess particles were lost; warn and auto-bump sort_K
-        (1.5x, rounded to 128), re-padding every row of the layout.
-        ring_overwrite > 0: injected particles found no free slot."""
+        sort_overflow > 0: some z column exceeded its sort_K slots and
+        the excess particles were lost (resident) or their charge was
+        dropped (sorted each step); warn and bump sort_K (1.5x, rounded
+        to 128), re-padding every row of a resident layout.
+        ring_overwrite > 0: injected particles overwrote live ones in a
+        full ring, or found no dead slot in a resident species; warn and
+        double the capacity of every non-resident injecting species
+        that is more than half full (one more host read each)."""
         n_sort = int(self.state.sort_overflow)
         n_ring = int(self.state.ring_overwrite)
         self.overflow_totals["sort_overflow"] += n_sort
@@ -459,20 +503,35 @@ class Simulation:
                 self.species_configs[i] = replace(sc, sort_K=new_K)
                 if sc.resident:
                     species[i] = pad_particle_state(
-                        species[i], self.config.Nz, new_K)
+                        species[i], self.config.Nz * new_K,
+                        row_shape=(self.config.Nz, sc.sort_K))
                 bumped.append(f"{sc.name}: {sc.sort_K}->{new_K}")
             self.state = replace(self.state, species=species)
             warnings.warn(
                 f"{n_sort} particle-step(s) exceeded a z column's "
                 f"capacity during this step() call (those particles were "
-                f"lost); sort_K auto-bumped ({'; '.join(bumped)}).  Pass a "
-                f"larger sort_K to add_new_species to avoid this.",
-                RuntimeWarning)
+                f"lost, or their charge dropped); sort_K auto-bumped "
+                f"({'; '.join(bumped)}).  Pass a larger sort_K to "
+                f"add_new_species to avoid this.", RuntimeWarning)
         if n_ring > 0:
+            grown = []
+            for i, sc in enumerate(self.species_configs):
+                sp = self.state.species[i]
+                if sc.resident or self._injector_configs[i] is None:
+                    continue
+                n_live = int((sp.w != 0).sum())
+                if n_live > 0.5 * sp.capacity:
+                    new_cap = self._ensure_capacity(i, 0, factor=2.0)
+                    if new_cap:
+                        grown.append(f"{sc.name}: -> {new_cap}")
             warnings.warn(
-                f"{n_ring} injected particle(s) found no free slot in "
-                "their species this step() call and were dropped.",
-                RuntimeWarning)
+                f"{n_ring} created/injected particle(s) found their "
+                "species' ring buffer full this step() call (they were "
+                "dropped or overwrote live particles)"
+                + (f"; capacity auto-grown ({'; '.join(grown)}) for "
+                   f"subsequent steps" if grown else "")
+                + ".  Pass a larger `capacity` to add_new_species to "
+                "avoid this.", RuntimeWarning)
         if n_sort > 0 or n_ring > 0:
             self.state = replace(
                 self.state,

@@ -1,28 +1,37 @@
-"""The PIC cycle of resident species, one eager step at a time.
+"""The PIC cycle, one eager step at a time.
 
 One step (momenta one half-step behind positions at cycle boundaries,
 as in the reference, FBPIC's fbpic/main.py:346-585):
 
     [exchange: remove, inject, deposit rho_prev]
-    -> re-sort (banded, or full) -> sorted gather E,B (K2)
-    -> Vay push p -> push x (dt/2) -> fused J + d(rho) deposit (K1),
-       or J and rho deposits (K3)
-    -> push x (dt/2) -> rho_next -> correct currents -> PSATD push
+    -> resident species: re-sort (banded, or full) -> sorted gather E,B
+       (K2) -> Vay push p -> push x (dt/2) -> fused J + d(rho) deposit
+       (K1), or J and rho deposits (K3) -> push x (dt/2)
+    -> other species: linear gather E,B -> Vay push p -> push x (dt/2)
+       -> [sort_K > 0: column sort, fused deposits (K1 / K3)]
+       -> J (scatter, or the legacy sorted plan: K3) -> push x (dt/2)
+    -> rho_next -> correct currents -> PSATD push
     -> Galilean drift + moving-window shift -> spect2interp E,B
     -> open-z damping
 
 float32 runs of the standard scheme deposit the per-particle d(rho) the
-current correction needs (K1); float64 runs and the Galilean / comoving
-scheme deposit J and rho_next (K3).  In the Galilean frame the grid
-flows at v_comoving: its left edge is zmin at the gather, zmin + vg*dt/2
-at the J deposit and zmin + vg*dt at rho_next.
+current correction needs (K1; species without the fused deposit
+difference two scatter deposits instead); float64 runs and the Galilean
+/ comoving scheme deposit J and rho_next (K3 on sorted species).  In the
+Galilean frame the grid flows at v_comoving: its left edge is zmin at
+the gather, zmin + vg*dt/2 at the J deposit and zmin + vg*dt at
+rho_next.
 
-Resident species live in the flattened (Nz, K) column-sort layout: the
-step re-sorts them once at its start and gathers, pushes and deposits
-in padded form.  The data-dependent branches of fbpic_tpu's jitted step
-run on the host: the exchange cadence depends on the iteration only,
-and the banded re-sort's fallback to the full sort reads the overflow
-count back (one device-to-host sync per step).
+Resident species (the fused deposit on, sort_K > 0, capacity Nz *
+sort_K) live in the flattened (Nz, K) column-sort layout: the step
+re-sorts them once at its start and gathers, pushes and deposits in
+padded form.  Every other species keeps a stable storage order (a ring,
+into which continuous injection writes at a cursor); with sort_K > 0 it
+is column-sorted afresh after its first half push for the sorted
+deposits.  The data-dependent branches of fbpic_tpu's jitted step run
+on the host: the exchange cadence and the injected column count depend
+on the iteration only, and the banded re-sort's fallback to the full
+sort reads the overflow count back (one device-to-host sync per step).
 """
 from dataclasses import dataclass, replace
 
@@ -32,12 +41,13 @@ import torch
 from ..fields import transform as tr
 from ..fields import psatd_push as ps
 from ..particles import push as pp
-from ..particles.deposit import deposit_rho_linear
-from ..particles.gather import gather_fields_sorted
-from ..particles.injection import generate_columns
+from ..particles.deposit import deposit_rho_linear, deposit_J_linear
+from ..particles.gather import gather_fields_linear, gather_fields_sorted
+from ..particles.injection import generate_columns, write_ring
 from ..particles.state import ARRAY_FIELDS
 from ..particles.sorted_deposit import (
     build_column_sort, banded_column_resort, deposit_rho_J_sorted,
+    deposit_rho_sorted, deposit_J_sorted,
 )
 from .state import SimState
 
@@ -58,6 +68,9 @@ class StepOptions:
     # `exchange_period` steps; in between rho_prev is the window-shifted
     # previous rho_next
     exchange_period: int = 1
+    # Sorted deposits: the resident layout, and the fused deposit of the
+    # other sort_K species (off: the legacy sorted plan or the scatter)
+    fused_deposit: bool = False
 
 
 def _zfold(config):
@@ -71,21 +84,31 @@ def _comp_of(sp):
     return (sp.comp_x, sp.comp_y, sp.comp_z)
 
 
-def deposit_rho_spect(config, aux, species, species_configs, zmin,
-                      fused=None):
-    """Charge of all species -> filtered-free spectral rho (Nm, Nz, Nr).
+def _deposit_args(config, zmin):
+    return (config.Nm, 1.0 / config.dz, float(zmin), config.Nz,
+            1.0 / config.dr, 0.0, config.Nr)
 
-    fused: optional {species_index: raw rho} from the sorted deposit,
-    used instead of the scatter deposit."""
+
+def deposit_rho_spect(config, aux, species, species_configs, zmin,
+                      sorts=None, fused=None):
+    """Charge of all species -> filtered-free spectral rho (Nm, Nz, Nr),
+    summed in species order.
+
+    fused: optional {species_index: raw rho} from the fused sorted
+    deposits; sorts: optional {species_index: legacy column-sort plan}
+    for deposit_rho_sorted; every other species is scatter-deposited."""
     rho = None
     for i, (sp, sc) in enumerate(zip(species, species_configs)):
-        if fused is not None and i in fused:
+        if fused and i in fused:
             contrib = fused[i]
+        elif sorts and i in sorts:
+            contrib = deposit_rho_sorted(
+                sorts[i], sp.x, sp.y, sp.z, sp.w, sc.q,
+                *_deposit_args(config, zmin), aux.ruyten_linear,
+                zfold=_zfold(config))
         else:
             contrib = deposit_rho_linear(
-                sp.x, sp.y, sp.z, sp.w, sc.q, config.Nm,
-                1.0 / config.dz, float(zmin), config.Nz,
-                1.0 / config.dr, 0.0, config.Nr,
+                sp.x, sp.y, sp.z, sp.w, sc.q, *_deposit_args(config, zmin),
                 aux.ruyten_linear, zfold=_zfold(config), comp=_comp_of(sp))
         rho = contrib if rho is None else rho + contrib
     if rho is None:
@@ -95,10 +118,24 @@ def deposit_rho_spect(config, aux, species, species_configs, zmin,
     return tr.interp2spect_scal(aux.mats, rho * aux.invvol[:, None, :])
 
 
-def deposit_J_spect(config, aux, fused_J):
-    """Sum the sorted deposits' raw (Jr, Jt, Jz) -> spectral (Jp, Jm, Jz)."""
+def deposit_J_spect(config, aux, species, species_configs, zmin,
+                    sorts=None, fused=None):
+    """Current of all species -> spectral (Jp, Jm, Jz), summed in
+    species order (fused / sorts / scatter as in deposit_rho_spect)."""
     JrJtJz = None
-    for contrib in fused_J.values():
+    for i, (sp, sc) in enumerate(zip(species, species_configs)):
+        if fused and i in fused:
+            contrib = fused[i]
+        elif sorts and i in sorts:
+            contrib = deposit_J_sorted(
+                sorts[i], sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
+                sp.inv_gamma, *_deposit_args(config, zmin),
+                aux.ruyten_linear, zfold=_zfold(config))
+        else:
+            contrib = deposit_J_linear(
+                sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
+                sp.inv_gamma, *_deposit_args(config, zmin),
+                aux.ruyten_linear, zfold=_zfold(config), comp=_comp_of(sp))
         JrJtJz = (list(contrib) if JrJtJz is None
                   else [a + b for a, b in zip(JrJtJz, contrib)])
     if JrJtJz is None:
@@ -159,6 +196,19 @@ def interp2spect_EB(aux, interp, spect):
         aux.mats, interp.Er, interp.Et, interp.Ez,
         interp.Br, interp.Bt, interp.Bz)
     return replace(spect, Ep=Ep, Em=Em, Ez=Ez, Bp=Bp, Bm=Bm, Bz=Bz)
+
+
+def gather_and_push(config, options, sp, sc, interp, zmin, dt):
+    """Gather E,B at a non-resident species' particles (the linear
+    gather by index) and Vay-push its momenta."""
+    E_B = gather_fields_linear(
+        sp.x, sp.y, sp.z, interp, options.rmax_gather,
+        1.0 / config.dz, float(zmin), config.Nz, 1.0 / config.dr, 0.0,
+        config.Nr, comp=_comp_of(sp))
+    if sc.q == 0:
+        return sp
+    ux, uy, uz, inv_gamma = pp.push_p(sp, E_B[:3], E_B[3:], sc.q, sc.m, dt)
+    return sp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
 
 
 def half_push_x(config, sp, zmin):
@@ -227,23 +277,32 @@ def remove_outside_particles(config, sp, zmin):
 
 
 def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
-                         phi_of, generator):
+                         phi_of, generator, resident):
     """Inject the plasma columns the window uncovered since the last
-    exchange into dead slots of the species (resident layout: the
-    per-step re-sort rewrites the storage order, so a ring cursor does
-    not track free slots).  Returns (species, n_dropped)."""
+    exchange.  A non-resident species keeps a stable storage order:
+    the columns go into its ring at the cursor ``next_free``, and the
+    live in-range particles they overwrite are counted.  A resident
+    species' storage order is rewritten by every re-sort, so a cursor
+    does not track its free slots: the columns go into dead slots (dead
+    first, in storage order), and those that find none are counted.
+    Returns (species, count)."""
     rdt = type(zmin)
-    z_inject = (zmin + (config.Nz - config.n_guard) * config.dz
-                + (3 - config.n_inject) * config.dz
-                + config.dt * (options.moving_window_v
-                               - inj_cfg.v_end_plasma))
+    # The plane's offset from zmin summed first, as XLA folds fbpic_tpu's
+    # constant terms (the plane sits on a column edge: rounding picks
+    # the column count)
+    z_inject = zmin + ((rdt((config.Nz - config.n_guard) * config.dz)
+                        + rdt((3 - config.n_inject) * config.dz))
+                       + rdt(config.dt * (options.moving_window_v
+                                          - inj_cfg.v_end_plasma)))
+    # times the reciprocal, as XLA computes a division by a constant
     n_cols = int(np.clip(np.floor((z_inject - sp.inj_z_end)
-                                  / rdt(inj_cfg.dz_particles)),
+                                  * (rdt(1.0) / rdt(inj_cfg.dz_particles))),
                          0, inj_cfg.max_inject_cols))
     new, new_z_end = generate_columns(inj_cfg, inj_aux, sp.inj_z_end,
                                       n_cols, phi_of, generator)
     n_write = new["x"].shape[0]
     col_size = inj_aux.r.shape[0]
+    cap = sp.capacity
     dev = sp.x.device
     mask = torch.arange(n_write, device=dev) < n_cols * col_size
 
@@ -252,32 +311,45 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     for name in ("comp_x", "comp_y", "comp_z"):
         if getattr(sp, name) is not None:
             values[name] = torch.zeros_like(new["x"])
-    # Write into genuinely dead slots (dead first, stable order)
-    pos = torch.cumsum(mask.long(), 0) - 1
-    dead_order = torch.argsort((sp.w != 0).to(torch.int8), stable=True)
-    n_dead = (sp.w == 0).sum()
-    slots = dead_order[:n_write]
-    ok = torch.zeros(n_write, dtype=torch.bool, device=dev)
-    ok[pos[mask]] = True
-    ok = ok & (torch.arange(n_write, device=dev) < n_dead)
-    dropped = mask.sum() - ok.sum()
     updates = {}
-    for name, vals in values.items():
-        arr = getattr(sp, name).clone()
-        packed = torch.zeros(n_write, dtype=vals.dtype, device=dev)
-        packed[pos[mask]] = vals[mask]
-        arr[slots] = torch.where(ok, packed, arr[slots])
-        updates[name] = arr
-    updates["next_free"] = (sp.next_free + n_cols * col_size) % sp.capacity
+    if not resident:
+        slots = torch.remainder(
+            sp.next_free + torch.arange(n_write, device=dev), cap)
+        z_lo = float(zmin + max(config.n_guard, 1) * config.dz)
+        count = (mask & (sp.w[slots] != 0) & (sp.z[slots] > z_lo)).sum()
+        for name, vals in values.items():
+            updates[name] = write_ring(getattr(sp, name), sp.next_free,
+                                       vals, cap, mask)
+    else:
+        pos = torch.cumsum(mask.long(), 0) - 1
+        dead_order = torch.argsort((sp.w != 0).to(torch.int8), stable=True)
+        n_dead = (sp.w == 0).sum()
+        slots = dead_order[:n_write]
+        ok = torch.zeros(n_write, dtype=torch.bool, device=dev)
+        ok[pos[mask]] = True
+        ok = ok & (torch.arange(n_write, device=dev) < n_dead)
+        count = mask.sum() - ok.sum()
+        for name, vals in values.items():
+            arr = getattr(sp, name).clone()
+            packed = torch.zeros(n_write, dtype=vals.dtype, device=dev)
+            packed[pos[mask]] = vals[mask]
+            arr[slots] = torch.where(ok, packed, arr[slots])
+            updates[name] = arr
+    updates["next_free"] = (sp.next_free + n_cols * col_size) % cap
     updates["inj_z_end"] = new_z_end
-    return sp.replace(**updates), dropped
+    return sp.replace(**updates), count
 
 
 # ---------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------
 
-def _resident_indices(species_configs):
+def _resident_indices(species_configs, options):
+    """Species that run the resident column layout: the fused deposit
+    on, sort_K > 0, linear shapes, and Simulation's residency flag
+    (capacity Nz * sort_K)."""
+    if not options.fused_deposit:
+        return []
     return [i for i, sc in enumerate(species_configs)
             if sc.resident and sc.sort_K > 0
             and sc.particle_shape == "linear"]
@@ -290,12 +362,10 @@ def make_step_fn(config, species_configs, options: StepOptions):
     ``column_angles(iteration, species_index, nkey)`` gives the rotation
     of each injected column (see particles/injection.py)."""
     species_configs = tuple(species_configs)
-    resident_idx = _resident_indices(species_configs)
-    for i, sc in enumerate(species_configs):
-        if i not in resident_idx:
-            raise NotImplementedError(
-                f"species {sc.name!r} is not resident: fbpic_tpu_torch "
-                "runs only the resident column layout (pass sort_K > 0)")
+    for sc in species_configs:
+        if sc.particle_shape != "linear":
+            raise NotImplementedError("only linear shapes are ported")
+    resident_idx = _resident_indices(species_configs, options)
     zfold = _zfold(config)
 
     def step(state: SimState, aux, inj_auxes=(), column_angles=None,
@@ -329,11 +399,11 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 for i, inj_cfg in enumerate(options.injectors):
                     if inj_cfg is None:
                         continue
-                    species[i], dropped = continuous_injection(
+                    species[i], count = continuous_injection(
                         config, options, species[i], inj_cfg, inj_auxes[i],
                         zmin, lambda nkey, i=i: column_angles(it, i, nkey),
-                        generator)
-                    ring_overwrite = ring_overwrite + dropped
+                        generator, resident=i in resident_idx)
+                    ring_overwrite = ring_overwrite + count
             rho_prev = deposit_rho_spect(config, aux, species,
                                          species_configs, zmin)
             if options.filter_currents:
@@ -349,6 +419,8 @@ def make_step_fn(config, species_configs, options: StepOptions):
                      and not config.use_comoving)
         band = config.resort_band
         fused_J, fused_rho, fused_drho = {}, {}, {}
+        # With the fused deposit's d(rho), rho_next = rho_prev + d(rho)
+        derive_rho_next = want_drho and bool(resident_idx)
 
         for i in resident_idx:
             sp, sc = species[i], species_configs[i]
@@ -435,26 +507,111 @@ def make_step_fn(config, species_configs, options: StepOptions):
                                     torch.zeros_like(psp.w)).reshape(-1)
             species[i] = sp.replace(**flat)
 
+        # --- Non-resident species: linear gather, momentum push, first
+        # half position push
+        for i, sc in enumerate(species_configs):
+            if i not in resident_idx:
+                species[i] = half_push_x(
+                    config, gather_and_push(config, options, species[i], sc,
+                                            interp, zmin, dt), zmin_mid)
+
+        # --- Column sort of the non-resident sort_K species at the mid
+        # positions (fbpic_tpu core/step.py:1416-1467).  The fused
+        # deposit takes the particles through the sort (payload plan);
+        # the legacy deposits gather the arrays as they are when they
+        # deposit (idx plan), and need an exact-position sort, so a
+        # Galilean grid drift sends them to the scatter deposits.
+        sorts = {}
+        for i, sc in enumerate(species_configs):
+            if i in resident_idx or sc.sort_K <= 0:
+                continue
+            if not (options.fused_deposit or vg == 0.0):
+                continue
+            sp = species[i]
+            payload = None
+            if options.fused_deposit:
+                payload = [sp.x, sp.y, sp.z, sp.w, sp.ux, sp.uy, sp.uz,
+                           sp.inv_gamma]
+                if sp.comp_x is not None:
+                    payload += [sp.comp_x, sp.comp_y, sp.comp_z]
+            sorts[i] = build_column_sort(sp.z, sp.w, float(zmin_mid),
+                                         1.0 / config.dz, config.Nz,
+                                         sc.sort_K, payload)
+            sort_overflow = sort_overflow + sorts[i]["n_over"]
+
+        # --- Fused J + rho / d(rho) deposit of the sorted species (K1,
+        # or K3 twice) on their fresh sort
+        if options.fused_deposit and sorts:
+            derive_rho_next = want_drho
+            for i, sort in sorts.items():
+                sp, sc = species[i], species_configs[i]
+                out = deposit_rho_J_sorted(
+                    sort, sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
+                    sp.inv_gamma, 0.5 * dt, config.Nm, 1.0 / config.dz,
+                    float(zmin_mid), config.Nz, 1.0 / config.dr, 0.0,
+                    config.Nr, aux.ruyten_linear, zfold=zfold,
+                    comp=_comp_of(sp), with_drho=want_drho,
+                    with_rho=not derive_rho_next, vz_shift=vg)
+                fused_J[i] = out[:3]
+                fused_rho[i] = out[3]
+                if want_drho:
+                    fused_drho[i] = out[4]
+
         # --- Current at t = (n+1/2) dt
-        Jp, Jm, Jz = deposit_J_spect(config, aux, fused_J)
+        Jp, Jm, Jz = deposit_J_spect(config, aux, species, species_configs,
+                                     zmin_mid, sorts=sorts, fused=fused_J)
         if options.filter_currents:
             Jp, Jm, Jz = ps.filter_vector(Jp, Jm, Jz, aux.filter_z,
                                           aux.filter_r)
         spect = replace(spect, Jp=Jp, Jm=Jm, Jz=Jz)
 
-        # --- float32: directly-deposited d(rho) for the correction, and
-        # rho_next = rho_prev + d(rho)
+        # --- float32, species without the fused deposit: their charge at
+        # the start-of-step positions, for the grid-difference d(rho)
+        scatter_rho1 = {}
+        if want_drho:
+            for i, (sp, sc) in enumerate(zip(species, species_configs)):
+                if i in fused_drho:
+                    continue
+                x0, y0, z0 = pp.push_x(sp, -0.5 * dt)
+                scatter_rho1[i] = deposit_rho_linear(
+                    x0, y0, z0, sp.w, sc.q, *_deposit_args(config, zmin),
+                    aux.ruyten_linear, zfold=zfold, comp=_comp_of(sp))
+
+        # --- Second half position push of the non-resident species
+        species = [sp if i in resident_idx
+                   else half_push_x(config, sp, zmin_next)
+                   for i, sp in enumerate(species)]
+
+        # --- float32: the per-particle d(rho) of the fused deposits plus
+        # the grid differences of the other species
         drho = None
-        if want_drho and fused_drho:
-            tot = sum(fused_drho.values()) * aux.invvol[:, None, :]
-            drho = tr.interp2spect_scal(aux.mats, tot)
-            if options.filter_currents:
-                drho = ps.filter_scalar(drho, aux.filter_z, aux.filter_r)
+        if want_drho:
+            contribs = list(fused_drho.values())
+            for i, rho1 in scatter_rho1.items():
+                sp, sc = species[i], species_configs[i]
+                rho2 = deposit_rho_linear(
+                    sp.x, sp.y, sp.z, sp.w, sc.q,
+                    *_deposit_args(config, zmin), aux.ruyten_linear,
+                    zfold=zfold, comp=_comp_of(sp))
+                contribs.append(rho2 - rho1)
+            if contribs:
+                tot = contribs[0]
+                for contrib in contribs[1:]:
+                    tot = tot + contrib
+                drho = tr.interp2spect_scal(aux.mats,
+                                            tot * aux.invvol[:, None, :])
+                if options.filter_currents:
+                    drho = ps.filter_scalar(drho, aux.filter_z,
+                                            aux.filter_r)
+
+        # --- Charge at t = (n+1) dt: rho_prev + d(rho) where the fused
+        # deposits gave d(rho), else deposited
+        if derive_rho_next and drho is not None:
             rho_next = spect.rho_prev + drho
         else:
             rho_next = deposit_rho_spect(config, aux, species,
                                          species_configs, zmin_next,
-                                         fused=fused_rho)
+                                         sorts=sorts, fused=fused_rho)
             if options.filter_currents:
                 rho_next = ps.filter_scalar(rho_next, aux.filter_z,
                                             aux.filter_r)

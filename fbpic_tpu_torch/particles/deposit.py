@@ -7,7 +7,9 @@ with a trailing channel axis; the corner offsets are then applied as
 shifted adds on the grid and the guard cells are folded back (periodic
 or clamped in z, reflected across the axis in r).
 
-This is the path the exchange step uses to deposit a fresh rho_prev.
+This is the path the exchange step uses to deposit a fresh rho_prev,
+and the J and rho deposits of non-resident species without a sorted
+plan.
 Shape factors include the Ruyten correction and the below-axis sign
 flip (reference: deposition/particle_shapes.py:17-80,
 fields/numba_methods.py:410-460).
@@ -100,6 +102,17 @@ def _geometry(x, y, z, invdz, zmin, Nz, invdr, rmin, Nr, ruyten,
                 idx00=iz_buf * Nrb + ir_buf, Nzb=Nzb, Nrb=Nrb)
 
 
+def _spread_dead(idx, w, n_rows):
+    """Dead slots (w = 0) add exact zeros: send each to a row of its own
+    (its slot number mod n_rows) instead of the cell it sits in.  A
+    ring's dead slots are parked at a few positions (the origin, the box
+    centre), and their adds would otherwise pile onto the same few rows
+    of the buffer, serialized by the card's atomics."""
+    spread = torch.remainder(torch.arange(idx.shape[0], device=idx.device),
+                             n_rows)
+    return torch.where(w != 0, idx, spread)
+
+
 def _deposit_channels(geom, channel_vals, meta, Nzb, Nrb, Nz, Nr, zfold):
     """Scatter all channels at once; channel_vals (Np, C).
     Returns the folded (Nz, Nr, C) real tensor."""
@@ -111,10 +124,11 @@ def _deposit_channels(geom, channel_vals, meta, Nzb, Nrb, Nz, Nr, zfold):
     sr0 = torch.where(below[:, None], meta["flip"][None, :] * sr0, sr0)
 
     v = channel_vals
-    vals = torch.cat([v * (sz0[:, None] * sr0), v * (sz0[:, None] * sr1),
-                      v * (sz1[:, None] * sr0), v * (sz1[:, None] * sr1)],
-                     dim=1)                              # (Np, 4C)
-    C = v.shape[1]
+    Np, C = v.shape
+    # the four corners (z lower / upper x r lower / upper), (Np, 4C)
+    zr = (torch.stack([sz0, sz1], dim=1)[:, :, None, None]
+          * torch.stack([sr0, sr1], dim=1)[:, None])
+    vals = (v[:, None, None, :] * zr).reshape(Np, 4 * C)
     buf = torch.zeros((Nzb * Nrb, 4 * C), dtype=v.dtype, device=v.device)
     buf.index_add_(0, geom["idx00"], vals)
     buf = buf.reshape(Nzb, Nrb, 4, C)
@@ -195,6 +209,7 @@ def deposit_rho_linear(x, y, z, w, q, Nm, invdz, zmin, Nz, invdr, rmin, Nr,
     Returns complex (Nm, Nz, Nr)."""
     geom = _geometry(x, y, z, invdz, zmin, Nz, invdr, rmin, Nr,
                      ruyten_linear, comp=comp)
+    geom["idx00"] = _spread_dead(geom["idx00"], w, geom["Nzb"] * geom["Nrb"])
     cos_m, sin_m = _mode_phases(geom["cos"], geom["sin"], Nm)
     channels = _pack_channels([_modes(q * w, cos_m, sin_m)], Nm, dim=1)
     meta = _channel_meta(Nm, 1, [+1.0], x.dtype, x.device)
@@ -216,6 +231,7 @@ def deposit_J_linear(x, y, z, w, q, ux, uy, uz, inv_gamma, Nm,
     """Deposit current density; returns (Jr, Jt, Jz) complex (Nm, Nz, Nr)."""
     geom = _geometry(x, y, z, invdz, zmin, Nz, invdr, rmin, Nr,
                      ruyten_linear, comp=comp)
+    geom["idx00"] = _spread_dead(geom["idx00"], w, geom["Nzb"] * geom["Nrb"])
     cos, sin = geom["cos"], geom["sin"]
     cos_m, sin_m = _mode_phases(cos, sin, Nm)
     js = current_components(q * w, cos, sin, ux, uy, uz, inv_gamma)

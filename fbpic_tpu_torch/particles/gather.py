@@ -1,9 +1,16 @@
-"""Field gathering on the sorted (Nz, K) layout: grid -> per-particle E, B.
+"""Field gathering: grid -> per-particle E, B.
+
+``gather_fields_sorted`` works on the sorted (Nz, K) layout of resident
+species (K2); ``gather_fields_linear`` on particles in any storage
+order (the non-resident species: plain PyTorch, as fbpic_tpu computes it
+with XLA ops, not a Pallas kernel).
 
 Behavioral reference:
 FBPIC's fbpic/particles/gathering/threading_methods.py:26-208 and
 gathering/inline_functions.py (axis guard-cell handling, mode factors).
 """
+import functools
+
 import torch
 
 from .cuda_gather import gather_sorted
@@ -43,6 +50,93 @@ def _guard_signs(Nm, dtype, device):
             s = msign if comp_i in (2, 5) else -msign
             signs += [s, s]
     return torch.tensor(signs, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_gather_signs(Nm, dtype, device):
+    """(-1)^m per (mode, re/im) and the guard sign of each component
+    (-1 transverse, +1 z) of gather_fields_linear, built once per
+    (Nm, dtype, device): a tensor made from a host list is a blocking
+    copy on a CUDA device."""
+    msign = torch.tensor([(-1.0) ** m for m in range(Nm)], dtype=dtype,
+                         device=device).repeat_interleave(2)
+    zsign = torch.tensor([-1.0, -1.0, 1.0, -1.0, -1.0, 1.0], dtype=dtype,
+                         device=device)
+    return msign, zsign
+
+
+def gather_fields_linear(x, y, z, interp, rmax_gather, invdz, zmin, Nz,
+                         invdr, rmin, Nr, comp=None):
+    """Gather E and B at particles in any storage order (linear shapes).
+
+    The 2x2 footprint of the fields is packed into one table -- the
+    grid and its copies shifted by one radial row and one z row (z
+    taken mod Nz, open z too, as in fbpic_tpu and K2) -- and fetched
+    with one index per particle: (component, corner x mode x re/im).
+    Broadcast products then apply the corner weights and the mode sum
+    Re(F_m e^{-i m theta}) (weights 1 for m = 0, 2 above) at once.
+    Below the axis the lower radial weight moves to the guard cell,
+    which reads radial row 0 with the sign -(-1)^m (transverse) or
+    (-1)^m (z): a second weighted sum over the two corners of row 0.
+    The Kahan words, when given, are folded into the sub-cell offsets.
+    Particles at r >= rmax_gather gather zero.
+
+    Returns (Ex, Ey, Ez, Bx, By, Bz), each shaped like x.
+    """
+    Nm = interp.Er.shape[0]
+    rdt, dev = x.dtype, x.device
+    r, cos, sin = _cylindrical_projection(x, y)
+    r_cell = invdr * (r - rmin) - 0.5
+    z_cell = invdz * (z - zmin) - 0.5
+    ir_lower = torch.floor(r_cell).long()
+    iz_lower = torch.floor(z_cell).long()
+    Sr_upper = r_cell - ir_lower.to(rdt)
+    Sz_upper = z_cell - iz_lower.to(rdt)
+    if comp is not None:
+        cx, cy, cz = comp
+        Sz_upper = Sz_upper + invdz * cz
+        Sr_upper = Sr_upper + invdr * (
+            (x * cx + y * cy) / torch.clamp(r, min=1e-30))
+    Sr_lower = 1.0 - Sr_upper
+    Sz_lower = 1.0 - Sz_upper
+
+    # (Nz, Nr, component, corner, mode x re/im); corners (iz, ir),
+    # (iz, ir+1), (iz+1, ir), (iz+1, ir+1)
+    F = _stack_interp_channels(interp, Nm).reshape(Nz, Nr, 6, 2 * Nm)
+    Fr1 = torch.cat([F[:, 1:], F[:, -1:]], dim=1)
+    table = torch.stack([F, Fr1, torch.roll(F, -1, 0),
+                         torch.roll(Fr1, -1, 0)], dim=3)
+    row = (torch.remainder(iz_lower, Nz) * Nr
+           + torch.clamp(ir_lower, 0, Nr - 1))
+    T = table.reshape(Nz * Nr, 6, 4, 2 * Nm).index_select(0, row)
+
+    # Mode-sum weights (cos m th, -sin m th) x (1, 2, 2, ...)
+    pr, pi = torch.ones_like(cos), torch.zeros_like(sin)
+    W = [pr, -pi]
+    for _ in range(1, Nm):
+        pr, pi = pr * cos + pi * sin, pi * cos - pr * sin
+        W += [2.0 * pr, -2.0 * pi]
+    W = torch.stack(W, dim=-1)                                # (Np, 2 Nm)
+    below = ir_lower < 0
+    zero = torch.zeros((), dtype=rdt, device=dev)
+    w0 = torch.where(below, Sr_upper, Sr_lower)
+    w1 = torch.where(below, zero, Sr_upper)
+    guard = torch.where(below, Sr_lower, zero)
+    corner = torch.stack([Sz_lower * w0, Sz_lower * w1, Sz_upper * w0,
+                          Sz_upper * w1], dim=-1)             # (Np, 4)
+    corner_g = torch.stack([Sz_lower * guard, Sz_upper * guard], dim=-1)
+    msign, zsign = _linear_gather_signs(Nm, rdt, dev)
+    # Weighted sums over (corner, mode x re/im) as broadcast products:
+    # a batched matmul of this shape (a 6 x 8 Nm block a particle) is
+    # many times slower on the card
+    V = (corner[:, :, None] * W[:, None, :])[:, None]        # (Np, 1, 4, 2Nm)
+    out = (T * V).sum(dim=(2, 3))
+    Vg = (corner_g[:, :, None] * (W * msign)[:, None, :])[:, None]
+    out = out + zsign * (T[:, :, ::2] * Vg).sum(dim=(2, 3))
+    out = out * (r < rmax_gather).to(rdt)[:, None]
+    Fr_E, Ft_E, Fz_E, Fr_B, Ft_B, Fz_B = out.unbind(1)
+    return (cos * Fr_E - sin * Ft_E, sin * Fr_E + cos * Ft_E, Fz_E,
+            cos * Fr_B - sin * Ft_B, sin * Fr_B + cos * Ft_B, Fz_B)
 
 
 def gather_fields_sorted(

@@ -111,7 +111,12 @@ def generate_columns(inj_cfg: InjectorConfig, inj_aux: InjectorAux,
     w = inj_aux.w_base.repeat(max_cols) * active.repeat_interleave(col_size)
     z = z_cols.repeat_interleave(col_size)
 
-    nkey = torch.floor(z_cols / dz_p + 0.5).to(torch.int32)
+    # Times the reciprocal, not over dz_p: XLA rewrites a division by a
+    # constant so, and z_cols / dz_p lies on the rounding knife edge
+    # (a half-integer) that picks the key
+    inv_dz_p = float(np.dtype(str(dtype).split(".")[-1]).type(1.0)
+                     / np.dtype(str(dtype).split(".")[-1]).type(dz_p))
+    nkey = torch.floor(z_cols * inv_dz_p + 0.5).to(torch.int32)
     phi = phi_of(nkey).to(device=device, dtype=dtype)
     cphi = torch.cos(phi).repeat_interleave(col_size)
     sphi = torch.sin(phi).repeat_interleave(col_size)
@@ -151,3 +156,22 @@ def generate_columns(inj_cfg: InjectorConfig, inj_aux: InjectorAux,
     new_z_end = z_end + np_dtype(n_cols) * dz_p
     return dict(x=x, y=y, z=z, ux=ux, uy=uy, uz=uz,
                 inv_gamma=inv_gamma, w=w), new_z_end
+
+
+def write_ring(arr, start, new_vals, capacity, mask=None):
+    """Write ``new_vals`` into a copy of ``arr`` from slot ``start`` on,
+    wrapping mod ``capacity`` (the ring cursor of a non-resident
+    species).  Slots where ``mask`` is False keep their old content.
+
+    A write longer than the ring lands in runs of ``capacity`` slots,
+    one after the other, so where slots repeat the later values win;
+    the kept old values are those before the write."""
+    n = new_vals.shape[0]
+    idx = torch.remainder(start + torch.arange(n, device=arr.device),
+                          capacity)
+    if mask is not None:
+        new_vals = torch.where(mask, new_vals, arr[idx])
+    out = arr.clone()
+    for lo in range(0, n, capacity):
+        out[idx[lo:lo + capacity]] = new_vals[lo:lo + capacity]
+    return out

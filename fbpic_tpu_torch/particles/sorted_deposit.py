@@ -17,7 +17,9 @@ The result equals the scatter path (deposit.py) in exact arithmetic --
 same shape factors, folding and edge masking.  The fused J + d(rho)
 contraction of the float32 path runs in K1
 (``cuda_fused.fused_onehot_contract``); the J and rho contractions of
-the ``with_rho`` branch run in K3 (``cuda_dense.dense_onehot_contract``).
+the ``with_rho`` branch and of ``deposit_J_sorted`` /
+``deposit_rho_sorted`` (the legacy plan) run in K3
+(``cuda_dense.dense_onehot_contract``).
 
 Reference behavior being replaced: cell-sorted atomics on CUDA
 (FBPIC's fbpic/particles/deposition/cuda_methods.py) and
@@ -35,7 +37,7 @@ from .cuda_fused import fused_onehot_contract
 from .cuda_dense import dense_onehot_contract
 
 
-def build_column_sort(z, w, zmin, invdz, Nz, K, payload):
+def build_column_sort(z, w, zmin, invdz, Nz, K, payload=None):
     """Sort particles by z grid column and pad each column to K slots.
 
     Every live particle (w != 0) enters the plan; out-of-box particles
@@ -43,8 +45,11 @@ def build_column_sort(z, w, zmin, invdz, Nz, K, payload):
     enter the plan.  ``payload``: tuple of (Np,) tensors carried through
     the sort; they come back padded to (Nz, K) under ``padded``.  Slots
     past a column's count hold the next particles of the sorted order
-    (masked by ``valid``).  Columns holding more than K live particles
-    drop the excess; the count is returned in ``n_over``.
+    (masked by ``valid``).  Without a payload the plan is the legacy one:
+    ``idx``, the (Nz, K) particle index of every slot, through which
+    ``deposit_rho_sorted`` / ``deposit_J_sorted`` gather the arrays as
+    they are when they deposit.  Columns holding more than K live
+    particles drop the excess; the count is returned in ``n_over``.
 
     The sort is stable, so the layout matches fbpic_tpu's ``lax.sort``
     exactly.
@@ -59,6 +64,10 @@ def build_column_sort(z, w, zmin, invdz, Nz, K, payload):
     valid = pos < starts[1:Nz + 1, None]
     counts = starts[1:Nz + 1] - starts[:Nz]
     n_over = torch.clamp(counts - K, min=0).sum()
+    if payload is None:
+        idx = (perm[torch.clamp(pos, 0, Np - 1)] if Np
+               else torch.zeros_like(pos))
+        return dict(idx=idx, valid=valid, n_over=n_over)
     padded = [None] * len(payload)
     groups = {}
     for i, arr in enumerate(payload):
@@ -128,8 +137,14 @@ def banded_column_resort(padded, zmin, invdz, Nz, K, band,
 
 
 def _padded_arrays(sort, arrays):
-    """The plan's pre-padded payload channels matching `arrays` (the
-    caller's arrays must follow the payload order)."""
+    """`arrays` in the plan's padded (Nz, K) form: a payload plan's
+    pre-padded channels (the caller's arrays must follow the payload
+    order), or the arrays gathered through a legacy plan's ``idx``."""
+    if "idx" in sort:
+        if arrays[0].shape[0] == 0:      # no particles: every slot invalid
+            return [torch.zeros(sort["idx"].shape, dtype=a.dtype,
+                                device=a.device) for a in arrays]
+        return list(torch.stack(arrays)[:, sort["idx"]].unbind(0))
     padded = sort["padded"]
     if len(arrays) > len(padded):
         raise ValueError("more arrays than payload channels in the plan")
@@ -290,6 +305,45 @@ def _dense_deposit(geom, channel_vals, meta, Nz, Nr, zfold,
 def _pack_padded(values, Nm):
     """Complex (Nm, Nz, K) per component -> real (Nz, K, C) channels."""
     return _pack_channels(values, Nm, dim=2)
+
+
+def deposit_rho_sorted(sort, x, y, z, w, q, Nm, invdz, zmin, Nz, invdr,
+                       rmin, Nr, ruyten_linear, zfold="periodic"):
+    """Sorted counterpart of deposit.deposit_rho_linear on a plan built
+    at most half a push away from the deposit positions (z offsets
+    -2..2), one K3 contraction.  As in fbpic_tpu, the Kahan words do not
+    enter.  Returns complex (Nm, Nz, Nr)."""
+    x, y, z, w = _padded_arrays(sort, [x, y, z, w])
+    geom = _padded_geometry(sort, x, y, z, invdz, zmin, Nz, invdr, rmin,
+                            Nr, ruyten_linear, zfold, delta_lo=-2,
+                            delta_hi=1)
+    cos_m, sin_m = _mode_phases(geom["cos"], geom["sin"], Nm)
+    channels = _pack_padded([_modes(q * w, cos_m, sin_m)], Nm)
+    meta = _channel_meta(Nm, 1, [+1.0], x.dtype, x.device)
+    out = _dense_deposit(geom, channels, meta, Nz, Nr, zfold,
+                         delta_lo=-2, delta_hi=1)
+    return _unpack_channels(out, 1, Nm)[0]
+
+
+def deposit_J_sorted(sort, x, y, z, w, q, ux, uy, uz, inv_gamma, Nm,
+                     invdz, zmin, Nz, invdr, rmin, Nr, ruyten_linear,
+                     zfold="periodic"):
+    """Sorted counterpart of deposit.deposit_J_linear (the window of
+    fbpic_tpu's: z offsets -2..2), one K3 contraction.  Returns
+    (Jr, Jt, Jz) complex (Nm, Nz, Nr)."""
+    x, y, z, w, ux, uy, uz, inv_gamma = _padded_arrays(
+        sort, [x, y, z, w, ux, uy, uz, inv_gamma])
+    geom = _padded_geometry(sort, x, y, z, invdz, zmin, Nz, invdr, rmin,
+                            Nr, ruyten_linear, zfold, delta_lo=-2,
+                            delta_hi=1)
+    cos, sin = geom["cos"], geom["sin"]
+    cos_m, sin_m = _mode_phases(cos, sin, Nm)
+    js = current_components(q * w, cos, sin, ux, uy, uz, inv_gamma)
+    channels = _pack_padded([_modes(j0, cos_m, sin_m) for j0 in js], Nm)
+    meta = _channel_meta(Nm, 3, [-1.0, -1.0, +1.0], x.dtype, x.device)
+    out = _dense_deposit(geom, channels, meta, Nz, Nr, zfold,
+                         delta_lo=-2, delta_hi=1)
+    return tuple(_unpack_channels(out, 3, Nm))
 
 
 def deposit_rho_J_sorted(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,

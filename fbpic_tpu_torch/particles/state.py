@@ -71,25 +71,36 @@ ARRAY_FIELDS = ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w",
                 "comp_x", "comp_y", "comp_z")
 
 
-def pad_particle_state(sp: ParticleState, Nz_rows: int,
-                       K_new: int) -> ParticleState:
-    """Grow each of the Nz_rows rows of a resident (column-padded)
-    layout to K_new slots; the new slots are dead (w = 0,
-    inv_gamma = 1).  The layout is positional, so every row is padded
-    in place rather than appended at the array end."""
-    K_old = sp.capacity // Nz_rows
-    if Nz_rows * K_old != sp.capacity or K_new < K_old:
-        raise ValueError(f"cannot grow {sp.capacity} slots in {Nz_rows} "
-                         f"rows to {K_new} per row")
+def pad_particle_state(sp: ParticleState, new_cap: int,
+                       row_shape=None) -> ParticleState:
+    """Grow every per-particle tensor to ``new_cap`` slots; the new
+    slots are dead (w = 0, inv_gamma = 1).
+
+    They are appended at the array end (a ring species: its cursor
+    ``next_free`` keeps its value), or, with ``row_shape=(Nz, K_old)``,
+    at the tail of each of the Nz rows of a resident species, whose
+    storage order is the (Nz, K_old) column layout."""
+    old = sp.capacity
+    if new_cap < old:
+        raise ValueError(f"cannot shrink capacity {old} -> {new_cap}")
+    if new_cap == old:
+        return sp
+    shape = (1, old)
+    if row_shape is not None:
+        Nz_rows, K_old = row_shape
+        if Nz_rows * K_old != old or new_cap % Nz_rows:
+            raise ValueError(f"cannot grow {old} slots in {Nz_rows} rows "
+                             f"of {K_old} to {new_cap}")
+        shape = (Nz_rows, K_old)
     updates = {}
     for name in ARRAY_FIELDS:
         arr = getattr(sp, name)
         if arr is None:
             continue
         fill = 1.0 if name == "inv_gamma" else 0.0
-        pad = torch.full((Nz_rows, K_new - K_old), fill, dtype=arr.dtype,
-                         device=arr.device)
-        updates[name] = torch.cat([arr.reshape(Nz_rows, K_old), pad],
+        pad = torch.full((shape[0], new_cap // shape[0] - shape[1]), fill,
+                         dtype=arr.dtype, device=arr.device)
+        updates[name] = torch.cat([arr.reshape(shape), pad],
                                   dim=1).reshape(-1)
     return sp.replace(**updates)
 

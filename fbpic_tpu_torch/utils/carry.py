@@ -33,8 +33,11 @@ def state_from_numpy(spect, interp, species, time, zmin, iteration,
     spect / interp: mappings from the SpectralFields / InterpFields field
     names to complex (Nm, Nz, Nr) arrays.  species: one mapping per
     species with the per-particle arrays x, y, z, ux, uy, uz, inv_gamma,
-    w (and comp_x, comp_y, comp_z for float32 runs) and the scalars
-    next_free and inj_z_end (None when not injecting).  time, zmin,
+    w (and comp_x, comp_y, comp_z for float32 runs) in their storage
+    order, and the scalars next_free and inj_z_end (None when not
+    injecting).  The capacity is the arrays' length: Nz * sort_K for a
+    resident species, any length for a ring species (whose cursor is
+    next_free), zero for an empty species without slots.  time, zmin,
     mw_zref: floats (rounded to the working dtype); iteration: int.
     device: where the state lives (required: no default device).  The
     field coefficients are not part of the state: ``build_field_aux`` of

@@ -236,6 +236,7 @@ def boosted_smoke_sims(scheme, n_steps=20):
     a0(s0, L0(**laser), gamma_boost=GAMMA)
     s0.set_moving_window(v=g["v_window"])
     s1 = S1(*grid, **_sim_kw(g, scheme), device="cpu", dtype=torch.float64)
+    s1.use_fused_deposit = True          # force the resident layout
     s1.add_new_species(**species)
     a1(s1, L1(**laser), gamma_boost=GAMMA)
     s1.set_moving_window(v=g["v_window"])

@@ -28,7 +28,13 @@ only PyTorch; there, skip the JAX-based conftest:
   examples/boosted_frame_script.py on the card against the CPU (float64,
   1e-8), a boosted step with the plain segmented sum made to raise (no
   CUDA deposit reaches it), and the numerical Cherenkov gate of
-  tests/test_boosted.py.
+  tests/test_boosted.py;
+- the non-resident (ring) path: the linear gather, the scatter deposits
+  and write_ring on the card against the CPU; K1 / K3 on the plans that
+  path builds (a fresh mid-step sort, the legacy idx plan) against their
+  plain versions; 20 steps of the ring, grown-ring, empty-species,
+  fresh-sort and legacy-plan runs on the card against the CPU, with
+  exact launch counts.
 """
 import os
 
@@ -461,18 +467,19 @@ def _golden_config_sim(device, dtype):
     """tests/test_golden_wake.py:68-90 (a0 = 1 laser, open z, moving
     window, continuous injection) with the resident layout forced."""
     from fbpic_tpu_torch import Simulation
-    from fbpic_tpu_torch.constants import c
+    from fbpic_tpu_torch.constants import c, e, m_e
     from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, \
         GaussianLaser
     Nz, Nr, Nm = 400, 24, 2
     zmax, zmin, rmax = 30.e-6, -10.e-6, 20.e-6
     sim = Simulation(Nz, zmax, Nr, rmax, Nm, (zmax - zmin) / Nz / c,
-                     p_zmin=24.e-6, p_zmax=500.e-6, p_rmin=0.,
-                     p_rmax=14.e-6, p_nz=1, p_nr=1, p_nt=4, n_e=4.e24,
                      zmin=zmin, n_order=32,
                      boundaries={"z": "open", "r": "reflective"},
-                     random_seed=0, device=device, dtype=dtype,
-                     sort_K=256)
+                     random_seed=0, device=device, dtype=dtype)
+    sim.use_fused_deposit = True         # force the resident layout
+    sim.add_new_species(q=-e, m=m_e, n=4.e24, p_zmin=24.e-6, p_zmax=500.e-6,
+                        p_rmin=0., p_rmax=14.e-6, p_nz=1, p_nr=1, p_nt=4,
+                        sort_K=256)
     add_laser_pulse(sim, GaussianLaser(a0=1.0, waist=8.e-6, tau=10.e-15,
                                        z0=20.e-6))
     sim.set_moving_window(v=c)
@@ -572,6 +579,7 @@ def _boosted_smoke_sim(device, scheme="galilean"):
                      use_galilean=(scheme == "galilean"),
                      boundaries={"z": "open", "r": "reflective"},
                      random_seed=0, device=device, dtype=torch.float64)
+    sim.use_fused_deposit = True         # force the resident layout
     sim.add_new_species(q=-e, m=m_e, n=n_e, p_zmin=-40.e-6,
                         p_zmax=boost.static_length([2000.e-6])[0],
                         p_rmax=35.e-6, p_nz=1, p_nr=1, p_nt=4,
@@ -668,3 +676,260 @@ def test_galilean_suppresses_cherenkov_on_card(cuda):
     slope_std = _nci_slope(cuda, torch.float64, "standard")
     slope_gal = _nci_slope(cuda, torch.float64, "galilean")
     assert slope_std > 3.5 * slope_gal, (slope_std, slope_gal)
+
+
+# ---------------------------------------------------------------------
+# The non-resident (ring) species path on the card
+# ---------------------------------------------------------------------
+
+def _random_particles(dev, dtype, seed, Np=20000, Nz=48, Nr=16, dz=0.1,
+                      dr=0.2, zmin=-1.0):
+    """x, y, z, w, ux, uy, uz, inv_gamma from a numpy seed (a third near
+    or below the axis, some past the last radial cell, z a cell beyond
+    both box ends, a tenth dead)."""
+    rng = np.random.RandomState(seed)
+    z = zmin + rng.uniform(-1.0, Nz + 1.0, Np) * dz
+    r = np.where(rng.rand(Np) < 0.35, rng.uniform(0, 1.5 * dr, Np),
+                 rng.uniform(0, 1.05 * Nr * dr, Np))
+    th = rng.uniform(0, 2 * np.pi, Np)
+    w = rng.uniform(0.5, 1.5, Np)
+    w[rng.rand(Np) < 0.1] = 0.0
+    ux, uy, uz = rng.randn(3, Np) * 0.5
+    ig = 1 / np.sqrt(1 + ux ** 2 + uy ** 2 + uz ** 2)
+    return [torch.as_tensor(a, dtype=dtype, device=dev)
+            for a in (r * np.cos(th), r * np.sin(th), z, w, ux, uy, uz, ig)]
+
+
+def _random_interp(dev, dtype, seed, Nm=2, Nz=48, Nr=16):
+    from fbpic_tpu_torch.fields.solver import InterpFields
+    from fbpic_tpu_torch.particles.cuda_gather import FIELD_NAMES
+    rng = np.random.RandomState(seed)
+    return InterpFields(**{n: torch.complex(
+        torch.as_tensor(rng.randn(Nm, Nz, Nr), dtype=dtype, device=dev),
+        torch.as_tensor(rng.randn(Nm, Nz, Nr), dtype=dtype, device=dev))
+        for n in FIELD_NAMES})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6),
+                                       (torch.float64, 1e-12)])
+def test_linear_gather_on_card_matches_cpu(cuda, dtype, tol):
+    """gather_fields_linear on CUDA tensors against the same call on the
+    CPU, each output against its vector pair's largest value (as K2's
+    checks), with and without Kahan words."""
+    from fbpic_tpu_torch.particles.gather import gather_fields_linear
+    geo = (1 / 0.1, -1.0, 48, 1 / 0.2, 0.0, 16)
+    words = np.random.RandomState(3).randn(3, 20000) * 1e-4
+    for with_comp in (False, True):
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            x, y, z = _random_particles(dev, dtype, 11)[:3]
+            comp = (tuple(torch.as_tensor(a, dtype=dtype, device=dev)
+                          for a in words) if with_comp else None)
+            outs.append([t.cpu() for t in gather_fields_linear(
+                x, y, z, _random_interp(dev, dtype, 12), 3.1, *geo,
+                comp=comp)])
+        for group in ((0, 1), (2,), (3, 4), (5,)):
+            scale = max(float(outs[1][q].abs().max()) for q in group)
+            for q in group:
+                err = float((outs[0][q] - outs[1][q]).abs().max()) / scale
+                assert err < tol, (with_comp, q, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_scatter_deposits_on_card_match_cpu(cuda, dtype, tol):
+    """deposit_rho_linear and deposit_J_linear (index_add_, summed in no
+    fixed order on the card) against the CPU, both z folds."""
+    from fbpic_tpu_torch.fields.solver import GridConfig, build_field_aux
+    from fbpic_tpu_torch.particles.deposit import (
+        deposit_J_linear, deposit_rho_linear)
+    cfg = GridConfig(Nz=48, Nr=16, Nm=2, dz=0.1, dr=0.2, rmax=3.2, dt=1e-12)
+    for zfold in ("periodic", "clamp"):
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            ruyten = build_field_aux(cfg, device=dev,
+                                     dtype=dtype).ruyten_linear
+            x, y, z, w, ux, uy, uz, ig = _random_particles(dev, dtype, 21)
+            geo = (2, 1 / 0.1, -1.0, 48, 1 / 0.2, 0.0, 16, ruyten)
+            outs.append([t.cpu() for t in (
+                deposit_rho_linear(x, y, z, w, -1.0, *geo, zfold=zfold),
+                *deposit_J_linear(x, y, z, w, -1.0, ux, uy, uz, ig, *geo,
+                                  zfold=zfold))])
+        for a, b in zip(*outs):
+            assert _rel(a, b) < tol, zfold
+
+
+@pytest.mark.cuda
+def test_write_ring_on_card_matches_cpu(cuda):
+    """write_ring on the card: the same slots as on the CPU, bit for bit,
+    for a write that wraps past the ring's end, a masked one and one
+    longer than the ring."""
+    from fbpic_tpu_torch.particles.injection import write_ring
+    rng = np.random.RandomState(5)
+    cap = 1000
+    arr = rng.randn(cap)
+    for start, n, masked in ((990, 37, False), (400, 300, True),
+                             (7, 2500, True)):
+        vals, mask = rng.randn(n), rng.rand(n) < 0.6
+        outs = [write_ring(torch.as_tensor(arr, device=dev), start,
+                           torch.as_tensor(vals, device=dev), cap,
+                           torch.as_tensor(mask, device=dev) if masked
+                           else None).cpu()
+                for dev in (cuda, torch.device("cpu"))]
+        assert torch.equal(*outs)
+
+
+def _captured_contractions(module, name, fn):
+    """The (args, kwargs) of every call of module.<name> while fn()
+    runs."""
+    real, calls = getattr(module, name), []
+
+    def recorder(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, recorder)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["fresh_f32", "fresh_f64", "legacy_f32",
+                                  "legacy_f64"])
+def test_contractions_on_mid_step_plans(cuda, plan):
+    """K1 / K3 on the plans the non-resident path builds: a fresh sort at
+    the mid positions (sort_at_start=False; float32: K1 once, float64:
+    K3 for J and for rho) and the legacy idx plan (deposit_J_sorted and
+    deposit_rho_sorted: K3 once each), each launch held against its
+    plain version on its own operands, with exact launch counts."""
+    from fbpic_tpu_torch.fields.solver import GridConfig, build_field_aux
+    from fbpic_tpu_torch.particles import (
+        cuda_dense, cuda_fused, sorted_deposit)
+    kind, tname = plan.split("_")
+    dtype = torch.float32 if tname == "f32" else torch.float64
+    # K above a column's ~420 particles plus the ~400 beyond each box
+    # end that the sort clamps into the edge columns
+    Nz, Nr, K = 48, 16, 1024
+    cfg = GridConfig(Nz=Nz, Nr=Nr, Nm=2, dz=0.1, dr=0.2, rmax=3.2,
+                     dt=0.1 / 3e8)
+    ruyten = build_field_aux(cfg, device=cuda, dtype=dtype).ruyten_linear
+    x, y, z, w, ux, uy, uz, ig = _random_particles(cuda, dtype, 31)
+    geo = (2, 1 / 0.1, -1.0, Nz, 1 / 0.2, 0.0, Nr, ruyten)
+    payload = [x, y, z, w, ux, uy, uz, ig] if kind == "fresh" else None
+    sort = sorted_deposit.build_column_sort(z, w, -1.0, 1 / 0.1, Nz, K,
+                                            payload)
+    assert int(sort["n_over"]) == 0 and ("idx" in sort) == (kind == "legacy")
+    if kind == "fresh":
+        with_drho = dtype == torch.float32
+        name, want = (("fused_onehot_contract", 1) if with_drho
+                      else ("dense_onehot_contract", 2))
+        calls = _captured_contractions(
+            sorted_deposit, name, lambda: sorted_deposit.deposit_rho_J_sorted(
+                sort, x, y, z, w, -1.0, ux, uy, uz, ig, 0.5 * cfg.dt,
+                *geo[:-1], ruyten, zfold="clamp", with_drho=with_drho,
+                with_rho=not with_drho))
+    else:
+        name, want = "dense_onehot_contract", 2
+
+        def legacy():
+            sorted_deposit.deposit_J_sorted(sort, x, y, z, w, -1.0, ux, uy,
+                                            uz, ig, *geo)
+            sorted_deposit.deposit_rho_sorted(sort, x, y, z, w, -1.0, *geo)
+        calls = _captured_contractions(sorted_deposit, name, legacy)
+    assert len(calls) == want
+    kern = getattr(cuda_fused if name.startswith("fused") else cuda_dense,
+                   name)
+    plain = getattr(cuda_fused if name.startswith("fused") else cuda_dense,
+                    name + "_plain")
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for args, kwargs in calls:
+        n0 = kern.launches
+        out = kern(*args, **kwargs)
+        assert kern.launches == n0 + 1
+        assert _rel(out, plain(*args, **kwargs)) < tol
+
+
+def _ring_window_sim(device, case, dtype=torch.float64):
+    """The window configuration of tests/test_torch_ring.py (open z,
+    moving window, continuous injection, a0 = 0.5 laser) on the
+    non-resident paths.  case: "scatter" (sort_K = 0, plus an empty
+    species of 256 dead slots and one with none), "grown" (scatter, the
+    ring doubled by _ensure_capacity before the first step),
+    "fresh_sort" (the fused deposit on a fresh sort: capacity above
+    Nz * sort_K) or "legacy" (the fused deposit off, sort_K > 0: the idx
+    plan)."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, \
+        GaussianLaser
+    sim = Simulation(130, 12.e-6, 16, 10.e-6, 2, 16.e-6 / 130 / c,
+                     zmin=-4.e-6, n_order=16,
+                     boundaries={"z": "open", "r": "reflective"},
+                     exchange_period=4, random_seed=0, device=device,
+                     dtype=dtype)
+    sim.use_fused_deposit = case != "legacy"
+    plasma = dict(q=-e, m=m_e, n=5.e24, p_zmin=2.e-6, p_zmax=100.e-6,
+                  p_rmin=0., p_rmax=9.e-6, p_nz=1, p_nr=2, p_nt=4)
+    if case in ("scatter", "grown"):
+        sim.add_new_species(**plasma, sort_K=0)
+        sim.add_new_species(q=-e, m=m_e)
+        sim.add_new_species(q=-e, m=m_e, capacity=0)
+    else:
+        sim.add_new_species(**plasma, sort_K=256,
+                            capacity=200_000 if case == "fresh_sort"
+                            else None)
+    assert not any(sc.resident for sc in sim.species_configs)
+    if case == "grown":
+        cap = sim.state.species[0].capacity
+        assert sim._ensure_capacity(0, 0, factor=2.0) >= 2 * cap
+    add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6, tau=8.e-15,
+                                       z0=6.e-6))
+    sim.set_moving_window(v=c)
+    sim.column_angles = _SeededAngles()
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    ("scatter", torch.float64), ("grown", torch.float64),
+    ("fresh_sort", torch.float64), ("fresh_sort", torch.float32),
+    ("legacy", torch.float64)])
+def test_ring_paths_on_card_match_cpu(cuda, case, dtype):
+    """20 steps of the non-resident paths on the card against the same
+    run on the CPU (plain kernel versions), from the same plasma and
+    injection angles: no K2 launch (nothing is resident), K3 twice a
+    step (float64 fresh sort; legacy plan), K1 once a step (float32
+    fresh sort), none on the scatter path; the on-axis Ez and rho and
+    the mode-1 Er at r = 5 dr within 1e-8 of their scale in float64
+    (the 100-step float32 gates of tests/test_golden_wake.py in
+    float32), the live slots alike, zero overflow."""
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused, cuda_gather
+    counters = (cuda_fused.fused_onehot_contract, cuda_gather.gather_sorted,
+                cuda_dense.dense_onehot_contract)
+    n0 = [fn.launches for fn in counters]
+    runs, live = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        sim = _ring_window_sim(dev, case, dtype)
+        sim.step(20)
+        assert sim.overflow_totals == {"sort_overflow": 0,
+                                       "ring_overwrite": 0}
+        runs[dev.type] = _profiles(sim)
+        live[dev.type] = [(sp.w != 0).cpu() for sp in sim.state.species]
+    want = {"scatter": [0, 0, 0], "grown": [0, 0, 0], "legacy": [0, 0, 40],
+            "fresh_sort": [20, 0, 0] if dtype == torch.float32
+            else [0, 0, 40]}[case]
+    assert [fn.launches - n for fn, n in zip(counters, n0)] == want
+    assert all(torch.equal(a, b) for a, b in zip(live["cuda"], live["cpu"]))
+    gates = ({"Ez_axis": 1e-8, "Er1_r5": 1e-8, "rho_axis": 1e-8}
+             if dtype == torch.float64 else
+             {"Ez_axis": 1.5e-2, "Er1_r5": 1.5e-2, "rho_axis": 3e-2})
+    for name, gate in gates.items():
+        card, ref = runs["cuda"][name], runs["cpu"][name]
+        assert np.isfinite(card).all(), name
+        err = np.abs(card - ref).max() / np.abs(ref).max()
+        assert err < gate, (name, err)

@@ -4,9 +4,10 @@ tests/test_golden_wake.py pins a small production configuration (open
 z, moving window, continuous injection, a0 = 1 laser) against profiles
 recorded from fbpic_tpu in float64 (tests/data/golden_wake.npz).  The
 port runs the same configuration in float64 with the resident column
-layout forced (sort_K; fbpic_tpu recorded the golden with its scatter
-path, equal in exact arithmetic) and fbpic_tpu's injection angles, and
-must match the 100-step profiles (pin_*) at the golden's own 2e-3 of
+layout forced (use_fused_deposit and sort_K; fbpic_tpu recorded the
+golden with its scatter path, equal in exact arithmetic) and
+fbpic_tpu's injection angles, and must match the 100-step profiles
+(pin_*) at the golden's own 2e-3 of
 each profile's scale.  (The 450-step full_* profiles are not run here:
 at ~0.25 s per CPU step they would take this file past its time budget.)
 """
@@ -33,19 +34,20 @@ def _few_torch_threads():
 def test_port_matches_golden_wake_pin():
     from test_torch_step import jax_column_angles
     from fbpic_tpu_torch import Simulation
-    from fbpic_tpu_torch.constants import c
+    from fbpic_tpu_torch.constants import c, e, m_e
     from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, \
         GaussianLaser
     Nz, Nr, Nm = 400, 24, 2
     zmax, zmin, rmax = 30.e-6, -10.e-6, 20.e-6
     dt = (zmax - zmin) / Nz / c
-    sim = Simulation(Nz, zmax, Nr, rmax, Nm, dt,
-                     p_zmin=24.e-6, p_zmax=500.e-6, p_rmin=0.,
-                     p_rmax=14.e-6, p_nz=1, p_nr=1, p_nt=4, n_e=4.e24,
-                     zmin=zmin, n_order=32,
+    sim = Simulation(Nz, zmax, Nr, rmax, Nm, dt, zmin=zmin, n_order=32,
                      boundaries={"z": "open", "r": "reflective"},
                      random_seed=0, verbose_level=0, device="cpu",
-                     dtype=torch.float64, sort_K=256)
+                     dtype=torch.float64)
+    sim.use_fused_deposit = True         # force the resident layout
+    sim.add_new_species(q=-e, m=m_e, n=4.e24, p_zmin=24.e-6,
+                        p_zmax=500.e-6, p_rmin=0., p_rmax=14.e-6, p_nz=1,
+                        p_nr=1, p_nt=4, sort_K=256)
     assert sim.species_configs[0].resident
     sim.column_angles = jax_column_angles(sim.device_seed, torch.float64)
     add_laser_pulse(sim, GaussianLaser(a0=1.0, waist=8.e-6, tau=10.e-15,

@@ -111,6 +111,7 @@ def _sims():
     s0.set_moving_window(v=c)
     s1 = S1(NZ_PHYS, ZMAX, NR, RMAX, NM, DT, device="cpu",
             dtype=torch.float64, **SIM_KW)
+    s1.use_fused_deposit = True          # force the resident layout
     s1.add_new_species(**SPECIES_KW)
     a1(s1, L1(**LASER_KW))
     s1.set_moving_window(v=c)
@@ -180,6 +181,7 @@ def test_periodic_plasma_wave_steps_match_jax():
     s0.add_new_species(**sp)
     s1 = S1(Nz, Lz, Nr, rmax, Nm, Lz / Nz / 3.e8, device="cpu",
             dtype=torch.float64, **kw)
+    s1.use_fused_deposit = True
     s1.add_new_species(**sp)
     assert s0.species_configs[0].resident and s1.species_configs[0].resident
     s0.step(10)

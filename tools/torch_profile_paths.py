@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device-busy time and kernel launches per step of the two paths that
-chip_smoke.py drives (the bench LWFA and the boosted-frame LWFA), for
-the tree in the current directory.
+"""Device-busy time and kernel launches per step of the paths that
+chip_smoke.py drives (the bench LWFA, the boosted-frame LWFA, and the
+published boosted script from its empty box: the ring path), for the
+tree in the current directory.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU; to
 compare two trees on one card, run it in each in turn (first, second,
@@ -10,8 +11,11 @@ second, first) inside one job:
     cd tree_a && python3 /path/to/tools/torch_profile_paths.py
     cd tree_b && python3 /path/to/tools/torch_profile_paths.py
 
+Arguments pick the paths (`lwfa`, `boosted`, `ring`; default: all).
+
 It imports chip_smoke and fbpic_tpu_torch from the current directory,
-builds that tree's kernels, and for each path steps 5 times to warm up,
+builds that tree's kernels, and for each path steps 5 times to warm up
+(the ring path first steps until its plasma fills the box),
 times 60 unprofiled steps on the host clock (synchronized), then
 profiles 10 steps with torch.profiler: the profile_steps of the
 chip_smoke.py beside this script (the sum of the kernel rows is the busy
@@ -37,8 +41,8 @@ def measures():
     return mod
 
 
-def run(name, sim, cs, torch):
-    sim.step(cs.N_WARMUP)
+def run(name, sim, cs, torch, n_warm=None):
+    sim.step(n_warm or cs.N_WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.step(cs.N_TIMED)
@@ -60,9 +64,17 @@ def main():
     import chip_smoke as cs
     from fbpic_tpu_torch.utils import kernels
     kernels.build_all()
-    run("bench LWFA", cs.make_sim(), cs, torch)
-    torch.cuda.empty_cache()
-    run("boosted LWFA", cs.make_boosted_sim(), cs, torch)
+    paths = sys.argv[1:] or ["lwfa", "boosted", "ring"]
+    if "lwfa" in paths:
+        run("bench LWFA", cs.make_sim(), cs, torch)
+        torch.cuda.empty_cache()
+    if "boosted" in paths:
+        run("boosted LWFA", cs.make_boosted_sim(), cs, torch)
+        torch.cuda.empty_cache()
+    if "ring" in paths:
+        sim = cs.make_boosted_sim(p_zmin_lab=cs.B_P_ZMIN_PUBLISHED)
+        run("published boosted (ring)", sim, cs, torch,
+            n_warm=cs.ring_fill_steps(sim)[0])
 
 
 if __name__ == "__main__":
