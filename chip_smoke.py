@@ -82,7 +82,31 @@ Phases (any failure raises, and the script exits non-zero):
        writes: PyTorch ops); ms/step, ns/particle/step, the live count
        beside the count reckoned for a full box, zero ring overwrite,
        finite fields, the host syncs of one step and a profiled window
-       (device busy, idle share, launches, the largest device rows).
+       (device busy, idle share, launches, the largest device rows);
+  9. examples/lwfa_script.py as written (the bench values, tracked, its
+     FieldDiagnostic and ParticleDiagnostic(select uz > 1) every 50
+     steps, a checkpoint every 100), 200 steps in two step() calls: one
+     K1 and one K2 launch a step; the diagnostics collect their records
+     (written and read back only where h5py is installed, which a
+     CUDA machine need not have); live ids unique, next_id = 1 + the slots
+     numbered + the injected candidates; a checkpoint save -> load
+     round trip bit for bit; a restart from iteration 100 continued to
+     200 against the uninterrupted run (the largest difference of each
+     array, and which are exact); ms per collect and per checkpoint
+     write and read; ms/step and device busy with tracking on, off, on;
+     the host syncs of one step;
+ 10. the card against the card machine's CPU in float64: 8 steps of
+     tests/test_diagnostics.py's configuration with the field,
+     particle, charge-density and back-transformed particle
+     diagnostics on the CPU, the state carried to the card, and the
+     records every diagnostic collects from it on both devices held
+     against each other;
+ 11. the boosted resident cell (phase 6) with the published script's
+     back-transformed field diagnostic (20 snapshots, 50 fs apart), 100
+     steps: exactly one K2 and two K3 launches a step; the captured
+     slices of three steps against get_interp_field's grids; ms/step
+     and device busy with the diagnostic on, off, on; the host syncs of
+     step(1) and step(10) calls, and that the capture adds none a step.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.  Exits non-zero without a result
@@ -131,6 +155,23 @@ B_P_ZMIN_PUBLISHED = 0.
 LWFA_RING_CAPACITY = 2**21
 # Steps of the float64 fresh-sort and legacy-plan runs
 N_SMALL = 10
+
+# examples/lwfa_script.py as written: diagnostics every 50 steps, a
+# checkpoint every 100, 200 steps (the script's N_step is 2000)
+LWFA_DIAG_PERIOD, LWFA_CHECKPOINT_PERIOD, LWFA_STEPS = 50, 100, 200
+# Timed steps of tracking on / off and of the field BTD on / off
+N_COST = 30
+# The field BTD of examples/boosted_frame_script.py:60-65 on the
+# resident boosted cell: 20 lab snapshots 50 fs apart, ~100 steps
+BTD_NSNAP, BTD_DT_LAB, BTD_PERIOD, BTD_STEPS = 20, 50.e-15, 25, 100
+# Captured slices against get_interp_field's grids (float32: a
+# single-column inverse DFT over 2410 z modes against the full cuFFT
+# transform), relative to the field's largest value
+TOL_BTD_SLICES = 1e-4
+# Collected records of one state, card against the card machine's CPU,
+# float64: relative to each record's largest value (FFTs, GEMMs and sums
+# in another order on each device)
+TOL_COLLECT = 1e-12
 
 # Tolerances, relative to each output part's largest |value|: a kernel
 # sums in another order than its plain version (GEMM, index_add_)
@@ -1128,6 +1169,487 @@ def phase_nci():
     return out
 
 
+# ---------------------------------------------------------------------
+# Diagnostics, checkpoints and tracking (phases 9-11)
+# ---------------------------------------------------------------------
+
+def h5py_available():
+    import importlib.util
+    return importlib.util.find_spec("h5py") is not None
+
+
+def collect_only(diag, sink):
+    """Without h5py, a diagnostic's writes go to ``sink`` (a list of
+    {file name: Records}) instead of a file: the collect step runs as in
+    a run that writes, and nothing is written in another format."""
+    diag.write_records = sink.append
+
+
+def cuda_wall_ms(fn, n=3):
+    """Mean host time of fn() over n calls, each synchronized."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def count_syncs_n(sim, label, n_steps):
+    """Host synchronizations of one step(n_steps) call (torch's CUDA sync
+    debug mode): their number, and how many came from the
+    back-transformed field diagnostic's code."""
+    import os
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.step(n_steps)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
+             if "synchroniz" in str(w.message)]
+    n_btd = sum(1 for w in where if "boosted_diag.py" in w)
+    print(f"host syncs in one step({n_steps}) call, {label}: {len(where)}, "
+          f"{n_btd} of them in diagnostics/boosted_diag.py", flush=True)
+    return dict(count=len(where), btd=n_btd)
+
+
+def timed_steps(sim, label, n_timed=N_COST):
+    """ms/step of n_timed synchronized steps, then device busy from a
+    profiled window."""
+    import torch
+    sim.step(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.step(n_timed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    prof = profile_steps(sim, N_PROFILED)
+    busy = None if prof is None else prof["device_ms_per_step"]
+    print(f"{label}: {ms:.4f} ms/step, device busy {busy} ms/step",
+          flush=True)
+    return dict(ms_per_step=ms, device_ms_per_step=busy,
+                launches_per_step=None if prof is None
+                else prof["launches_per_step"])
+
+
+def make_lwfa_script_sim():
+    """examples/lwfa_script.py:54-70 as written (full width), tracked,
+    with its field and particle diagnostics (every LWFA_DIAG_PERIOD
+    steps) and its periodic checkpoint; random_seed = 0 (the script
+    leaves it unset)."""
+    import torch
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
+    dt = (ZMAX - ZMIN) / NZ / c
+    sim = Simulation(NZ, ZMAX, NR, RMAX, NM, dt, p_zmin=P_ZMIN,
+                     p_zmax=P_ZMAX, p_rmin=0., p_rmax=P_RMAX, p_nz=P_NZ,
+                     p_nr=P_NR, p_nt=P_NT, n_e=N_E, zmin=ZMIN, n_order=32,
+                     boundaries={"z": "open", "r": "reflective"},
+                     random_seed=0, device=DEVICE, dtype=torch.float32)
+    elec = sim.ptcl[0]
+    elec.track(sim.comm)
+    add_laser_pulse(sim, GaussianLaser(a0=A0, waist=W0, tau=TAU, z0=Z0))
+    sim.set_moving_window(v=c)
+    return sim, elec
+
+
+def state_difference(a, b):
+    """{tensor name: largest |a - b|} of two checkpoint dicts, and the
+    names that are equal bit for bit."""
+    import torch
+    diffs, exact = {}, []
+    for key, t in a["tensors"].items():
+        u = b["tensors"][key]
+        if torch.equal(t, u):
+            exact.append(key)
+        diffs[key] = float((t - u).abs().max()) \
+            if t.is_floating_point() or t.is_complex() else \
+            float((t != u).sum())
+    return diffs, exact
+
+
+def phase_lwfa_script(counters, untracked_ms, workdir):
+    """examples/lwfa_script.py as written on the card: tracked, its
+    diagnostics every 50 steps (collected; written only where h5py is
+    installed), a checkpoint every 100, 200 steps in two step() calls;
+    exact K1 / K2 launches, unique ids, next_id against the injected
+    candidates, a bit-exact checkpoint round trip, a restart from the
+    iteration-100 checkpoint continued to 200 against the uninterrupted
+    run, the cost of each collect and of a checkpoint write and read,
+    tracking on / off, and the host syncs of one step."""
+    import os
+    import torch
+    from fbpic_tpu_torch.diagnostics import (
+        FieldDiagnostic, ParticleDiagnostic, set_periodic_checkpoint,
+        restart_from_checkpoint)
+    from fbpic_tpu_torch.diagnostics.checkpoint_restart import (
+        checkpoint_dict, checkpoint_path, load_checkpoint_dict,
+        read_checkpoint, write_checkpoint)
+    have_h5py = h5py_available()
+    print("h5py is " + ("installed: the diagnostics write their files" if
+                        have_h5py else "not installed on this machine: the "
+                        "diagnostics run their collect step and write "
+                        "nothing"), flush=True)
+    diag_dir = os.path.join(workdir, "diags")
+    ckpt_dir = os.path.join(workdir, "checkpoints")
+    sim, elec = make_lwfa_script_sim()
+    sp0 = sim.state.species[0]
+    n_tracked = sp0.next_id - 1
+    z_end0 = float(sp0.inj_z_end)
+    col_size = sim._injector_auxes[0].r.shape[0]
+    dz_p = sim._injector_configs[0].dz_particles
+    sim.diags = [
+        FieldDiagnostic(LWFA_DIAG_PERIOD, sim.fld, comm=sim.comm,
+                        write_dir=diag_dir),
+        ParticleDiagnostic(LWFA_DIAG_PERIOD, {"electrons": elec},
+                           select={"uz": [1., None]}, comm=sim.comm,
+                           write_dir=diag_dir)]
+    sinks = [[] for _ in sim.diags]
+    if not have_h5py:
+        for diag, sink in zip(sim.diags, sinks):
+            collect_only(diag, sink)
+    set_periodic_checkpoint(sim, LWFA_CHECKPOINT_PERIOD,
+                            checkpoint_dir=ckpt_dir)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sim.step(LWFA_STEPS // 2)
+    sim.step(LWFA_STEPS // 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"lwfa_script as written: {LWFA_STEPS} steps in {wall:.2f} s "
+          f"with its diagnostics and checkpoints; launches {launches}; "
+          f"overflow totals {sim.overflow_totals}", flush=True)
+    if launches != {"K1": LWFA_STEPS, "K2": LWFA_STEPS, "K3": 0}:
+        raise RuntimeError(f"lwfa_script launches {launches}, not one K1 "
+                           f"and one K2 a step")
+    if any(sim.overflow_totals.values()):
+        raise RuntimeError(f"lwfa_script overflow {sim.overflow_totals}")
+    check_fields(sim, "lwfa_script")
+    # Diagnostics: written files read back, or the collected records
+    want = [i * LWFA_DIAG_PERIOD
+            for i in range(LWFA_STEPS // LWFA_DIAG_PERIOD + 1)]
+    if have_h5py:
+        import h5py
+        files = sorted(os.listdir(os.path.join(diag_dir, "hdf5")))
+        if files != ["data%08d.h5" % i for i in want]:
+            raise RuntimeError(f"diagnostic files {files}")
+        with h5py.File(os.path.join(diag_dir, "hdf5", files[-1]), "r") as f:
+            n_sel = f["/data/%d/particles/electrons/weighting" % want[-1]] \
+                .shape[0]
+    else:
+        # (each step() call also writes at its start: iteration 100
+        # twice, as in fbpic_tpu)
+        iters = [sorted({int(name[4:12]) for files in sink for name in files})
+                 for sink in sinks]
+        if any(its != want for its in iters):
+            raise RuntimeError(f"collected iterations {iters} != {want}")
+        rec = sinks[1][-1]["data%08d.h5" % want[-1]]
+        n_sel = rec["/data/%d/particles/electrons/weighting"
+                    % want[-1]][0].shape[0]
+        for sink in sinks:
+            del sink[:]
+    print(f"diagnostics at iterations {want}; {n_sel} electrons with "
+          f"uz > 1 at iteration {want[-1]}", flush=True)
+    # Tracking: unique ids, the id counter
+    sp = sim.state.species[0]
+    ids = sp.ids[sp.w != 0]
+    n_unique = int(torch.unique(ids).numel())
+    candidates = int(round((float(sp.inj_z_end) - z_end0) / dz_p)) \
+        * col_size
+    print(f"tracking: {ids.numel()} live ids, {n_unique} unique, "
+          f"{int((ids == 0).sum())} zero; next_id {sp.next_id} = 1 + "
+          f"{n_tracked} numbered + {candidates} injected candidates",
+          flush=True)
+    if n_unique != ids.numel() or int((ids == 0).sum()):
+        raise RuntimeError("tracking ids not unique among live slots")
+    if sp.next_id != 1 + n_tracked + candidates:
+        raise RuntimeError(f"next_id {sp.next_id} != 1 + {n_tracked} + "
+                           f"{candidates}")
+    # Checkpoints: the round trip, write / read times
+    uninterrupted = checkpoint_dict(sim)
+    path = checkpoint_path(LWFA_STEPS, ckpt_dir)
+    write_ms = cuda_wall_ms(lambda: write_checkpoint(sim, path))
+    read_ms = cuda_wall_ms(lambda: read_checkpoint(path, sim.device))
+    size_mb = os.path.getsize(path) / 1e6
+    again, _ = make_lwfa_script_sim()
+    t0 = time.perf_counter()
+    load_checkpoint_dict(again, read_checkpoint(path, again.device))
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    diffs, exact = state_difference(uninterrupted, checkpoint_dict(again))
+    round_trip_exact = len(exact) == len(diffs) and \
+        uninterrupted["host"] == checkpoint_dict(again)["host"]
+    print(f"checkpoint of {size_mb:.1f} MB: write {write_ms:.2f} ms, read "
+          f"{read_ms:.2f} ms, read + load {load_ms:.2f} ms; save -> load "
+          f"round trip bit-exact: {round_trip_exact} ({len(exact)} of "
+          f"{len(diffs)} tensors)", flush=True)
+    if not round_trip_exact:
+        raise RuntimeError(f"checkpoint round trip differs: "
+                           f"{[k for k in diffs if k not in exact]}")
+    # Restart from iteration 100, continued to 200
+    del again
+    restarted, _ = make_lwfa_script_sim()
+    restart_from_checkpoint(restarted, iteration=LWFA_CHECKPOINT_PERIOD,
+                            checkpoint_dir=ckpt_dir)
+    restarted.step(LWFA_STEPS - LWFA_CHECKPOINT_PERIOD)
+    diffs, exact = state_difference(uninterrupted,
+                                    checkpoint_dict(restarted))
+    same_host = uninterrupted["host"] == checkpoint_dict(restarted)["host"]
+    print(f"restart from iteration {LWFA_CHECKPOINT_PERIOD} continued to "
+          f"{LWFA_STEPS}: host values equal {same_host}; exact: {exact}; "
+          f"largest difference per array: "
+          f"{ {k: v for k, v in diffs.items() if k not in exact} }",
+          flush=True)
+    del restarted
+    torch.cuda.empty_cache()
+    # Cost of each collect
+    collect_ms = {type(d).__name__: cuda_wall_ms(lambda d=d: d.collect(sim))
+                  for d in sim.diags}
+    print(f"ms per collect at iteration {sim.iteration}: {collect_ms}",
+          flush=True)
+    sim.diags, sim.checkpoints = [], []
+    syncs = count_syncs(sim, "lwfa_script, tracked")
+    on = timed_steps(sim, "lwfa_script, tracking on")
+    ids_kept = sim.state.species[0].ids
+    sim.state.species[0] = sim.state.species[0].replace(ids=None)
+    off = timed_steps(sim, "lwfa_script, tracking off")
+    sim.state.species[0] = sim.state.species[0].replace(
+        ids=torch.zeros_like(ids_kept))
+    on2 = timed_steps(sim, "lwfa_script, tracking on again")
+    print(f"tracking cost (this call): on {on['ms_per_step']:.4f} / "
+          f"{on2['ms_per_step']:.4f}, off {off['ms_per_step']:.4f} ms/step; "
+          f"device busy on {on['device_ms_per_step']} / "
+          f"{on2['device_ms_per_step']}, off {off['device_ms_per_step']} "
+          f"(phase 3, untracked, same config: {untracked_ms:.4f} ms/step)",
+          flush=True)
+    return launches, dict(
+        steps=LWFA_STEPS, wall_s=wall, selected_uz_gt_1=n_sel,
+        live_ids=int(ids.numel()), next_id=int(sp.next_id),
+        injected_candidates=candidates, checkpoint_mb=size_mb,
+        checkpoint_write_ms=write_ms, checkpoint_read_ms=read_ms,
+        checkpoint_load_ms=load_ms, round_trip_exact=round_trip_exact,
+        restart_exact=sorted(exact), restart_max_diff={
+            k: v for k, v in diffs.items() if k not in exact},
+        collect_ms=collect_ms, host_syncs_per_step=syncs["count"],
+        tracking_on=on, tracking_off=off, tracking_on_again=on2,
+        h5py=have_h5py)
+
+
+def make_diag_config_sim(device, workdir):
+    """tests/test_diagnostics.py's configuration, float64, the resident
+    layout forced (sort_K), tracked, with the field, particle (select, E,
+    B, gamma, id), charge-density and back-transformed particle
+    diagnostics, their writes collected
+    (tests/test_torch_cuda.py::_diag_config_sim)."""
+    import torch
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    Nz, Nr, Nm, zmax, rmax = 64, 16, 2, 6.4e-6, 8.e-6
+    dt = zmax / Nz / c
+    sim = Simulation(Nz, zmax, Nr, rmax, Nm, dt, random_seed=0,
+                     device=device, dtype=torch.float64)
+    sim.use_fused_deposit = True
+    view = sim.add_new_species(q=-e, m=m_e, n=1.e24, p_zmin=0.,
+                               p_zmax=zmax, p_rmin=0., p_rmax=6.e-6,
+                               p_nz=1, p_nr=1, p_nt=4, sort_K=128)
+    view.track()
+    attach_diags(sim, workdir)
+    return sim
+
+
+def attach_diags(sim, workdir):
+    """make_diag_config_sim's diagnostics, new, on sim's species."""
+    from fbpic_tpu_torch import diagnostics as d
+    view = sim.ptcl[0]
+    sim.diags = [
+        d.FieldDiagnostic(4, sim, write_dir=workdir),
+        d.ParticleDiagnostic(
+            4, species={"electrons": view}, select={"x": [0.0, None]},
+            particle_data=("position", "momentum", "weighting", "E", "B",
+                           "gamma", "id"), write_dir=workdir, sim=sim),
+        d.ParticleChargeDensityDiagnostic(4, sim,
+                                          species={"electrons": view},
+                                          write_dir=workdir),
+        d.BackTransformedParticleDiagnostic(
+            0., sim.zmax, 0., 3 * sim.dt, 2, 5.0, sim=sim,
+            species={"electrons": view}, write_dir=workdir)]
+    for diag in sim.diags:
+        collect_only(diag, [])
+
+
+def collect_records(sim):
+    """Every diagnostic of sim collected at its state; the
+    back-transformed particle diagnostic first catches the particles
+    that crossed its planes in the last step (its write at this time,
+    from z - vz dt), then gives its snapshots."""
+    files = {}
+    for diag in sim.diags:
+        if hasattr(diag, "collect_snapshot"):
+            diag._t_last = sim.time - sim.dt
+            diag.write(sim)
+            for i, snap in enumerate(diag.snapshots):
+                files.update(diag.collect_snapshot(i, snap))
+        else:
+            files.update({f"{type(diag).__name__}/{k}": v
+                          for k, v in diag.collect(sim).items()})
+    return files
+
+
+def phase_diag_card_vs_cpu(workdir):
+    """Card against the card machine's CPU, float64: 8 steps of
+    tests/test_diagnostics.py's configuration with its diagnostics on
+    the CPU, the state carried to the card (a checkpoint dict), and every
+    diagnostic collected from that one state on both devices, the
+    records held against each other.  (Stepped apart, the two runs'
+    fields differ at O(1): at rest and with no initial field, this
+    configuration's fields are the roundoff of rho_next - rho_prev over
+    dt, summed in another order on each device.)"""
+    import warnings
+    import torch
+    from fbpic_tpu_torch.diagnostics.checkpoint_restart import (
+        checkpoint_dict, load_checkpoint_dict)
+    from fbpic_tpu_torch.diagnostics.generic import records_difference
+    cpu = make_diag_config_sim("cpu", workdir)
+    cpu.step(8)
+    card = make_diag_config_sim(DEVICE, workdir)
+    with warnings.catch_warnings():
+        # no injection here: the generator's state does not matter
+        warnings.simplefilter("ignore", RuntimeWarning)
+        load_checkpoint_dict(card, checkpoint_dict(cpu))
+    attach_diags(cpu, workdir)
+    runs = [collect_records(sim) for sim in (card, cpu)]
+    errs = records_difference(runs[1], runs[0])
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    n_ids = sum(rec[p][0].shape[0] for rec in runs[0].values() for p in rec
+                if p.endswith("/id"))
+    print(f"collect, card against CPU (float64, the state after 8 steps): "
+          f"{len(runs[0])} files, {len(errs)} float datasets, {n_ids} ids "
+          f"equal; largest difference {worst[1]:.3e} ({worst[0]}; tol "
+          f"{TOL_COLLECT})", flush=True)
+    if not worst[1] <= TOL_COLLECT:
+        raise RuntimeError(f"collected records differ: {worst}")
+    del runs
+    torch.cuda.empty_cache()
+    return dict(files=len(errs), max_rel_err=worst[1], worst=worst[0],
+                ids=n_ids)
+
+
+def btd_reference_slices(sim, btd):
+    """The planes of capture_slices from get_interp_field's grids
+    (physical rows), interpolated with the same row and weight as the
+    capture (computed by the same ops on the device): {name: (Nm, S',
+    Nr)} over the S' valid planes whose two rows are physical, the
+    field's largest value under name + "_scale", and those planes."""
+    import torch
+    from fbpic_tpu_torch.constants import c
+    valid, _, _ = btd.capture_slices(sim)
+    st, cfg = sim.state, sim.config
+    z_b = (btd._t_lab / btd.gamma_boost - float(st.time)) * c \
+        / btd.beta_boost
+    iz_f = (z_b - float(st.zmin)) / cfg.dz - 0.5
+    iz0 = torch.clamp(torch.floor(iz_f).long(), 0, cfg.Nz - 2)
+    s1 = torch.clamp(iz_f - iz0.to(iz_f.dtype), 0.0, 1.0)
+    iz0 = iz0.cpu().numpy() - sim.nd_edge
+    s1, valid = s1.cpu().numpy(), valid.cpu().numpy()
+    use = [s for s in range(len(iz0))
+           if valid[s] and 0 <= iz0[s] < sim.Nz_phys - 1]
+    ref = {}
+    for name in btd.names:
+        F = sim.get_interp_field(name)
+        ref[name] = np.stack([(1 - s1[s]) * F[:, iz0[s]]
+                              + s1[s] * F[:, iz0[s] + 1] for s in use],
+                             axis=1)
+        ref[name + "_scale"] = np.abs(F).max()
+    return ref, use
+
+
+def phase_boosted_btd(counters, workdir):
+    """The boosted resident cell with the script's back-transformed field
+    diagnostic (20 snapshots 50 fs apart): ~100 steps with exact K2 / K3
+    launch counts, the slices of a few steps against get_interp_field's
+    grids, the BTD's added ms/step and device busy (off / on / off), and
+    the host syncs of step(1) and step(10) calls with it on and off."""
+    import torch
+    from fbpic_tpu_torch.constants import c
+    from fbpic_tpu_torch.diagnostics import BackTransformedFieldDiagnostic
+    sim = make_boosted_sim()
+    btd = BackTransformedFieldDiagnostic(
+        B_ZMIN_LAB, B_ZMAX_LAB, c, dt_snapshots_lab=BTD_DT_LAB,
+        Ntot_snapshots_lab=BTD_NSNAP, gamma_boost=B_GAMMA,
+        period=BTD_PERIOD, fldobject=sim.fld, comm=sim.comm,
+        write_dir=workdir)
+    flushed = []
+    collect_only(btd, flushed)
+    sim.diags = [btd]
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sim.step(BTD_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    filled = [int(s.filled.sum()) for s in btd.snapshots]
+    print(f"boosted cell with the field BTD: {BTD_STEPS} steps in "
+          f"{wall:.2f} s; launches {launches}; lab cells filled per "
+          f"snapshot {filled}; {len(flushed)} snapshots complete",
+          flush=True)
+    if launches != {"K1": 0, "K2": BTD_STEPS, "K3": 2 * BTD_STEPS}:
+        raise RuntimeError(f"boosted BTD launches {launches}")
+    if sum(filled) == 0:
+        raise RuntimeError("the BTD filled no lab cell")
+    check_fields(sim, "boosted BTD")
+    # Slices of a few steps against get_interp_field's grids
+    worst = 0.0
+    n_planes = 0
+    for _ in range(3):
+        sim.step(7)
+        slices = btd.capture_slices(sim)[2].cpu().numpy()
+        ref, use = btd_reference_slices(sim, btd)
+        n_planes += len(use)
+        for f, name in enumerate(btd.names):
+            err = np.abs(slices[f][:, use] - ref[name]).max(initial=0.0) \
+                / ref[name + "_scale"]
+            worst = max(worst, float(err))
+    print(f"BTD slices against get_interp_field's grids: {n_planes} planes "
+          f"over 3 steps, largest difference {worst:.3e} of the field's "
+          f"largest value (tol {TOL_BTD_SLICES})", flush=True)
+    if n_planes == 0 or not worst <= TOL_BTD_SLICES:
+        raise RuntimeError(f"BTD slices differ: {worst} over {n_planes}")
+    syncs = {"on": {n: count_syncs_n(sim, "BTD on", n) for n in (1, 10)}}
+    on = timed_steps(sim, "boosted cell, BTD on")
+    sim.diags = []
+    syncs["off"] = {n: count_syncs_n(sim, "BTD off", n) for n in (1, 10)}
+    off = timed_steps(sim, "boosted cell, BTD off")
+    sim.diags = [btd]
+    on2 = timed_steps(sim, "boosted cell, BTD on again")
+    # The BTD's own syncs come per step() call (the capture at its start
+    # and the copy of the buffer at its end), not per step
+    per_step = (syncs["on"][10]["btd"] - syncs["on"][1]["btd"]) / 9
+    print(f"BTD cost (this call): on {on['ms_per_step']:.4f} / "
+          f"{on2['ms_per_step']:.4f}, off {off['ms_per_step']:.4f} ms/step; "
+          f"device busy on {on['device_ms_per_step']} / "
+          f"{on2['device_ms_per_step']}, off {off['device_ms_per_step']}; "
+          f"launches/step on {on['launches_per_step']}, off "
+          f"{off['launches_per_step']}; host syncs the BTD adds per step: "
+          f"{per_step}", flush=True)
+    if per_step != 0:
+        raise RuntimeError(f"the BTD capture adds {per_step} syncs a step")
+    return launches, dict(steps=BTD_STEPS, wall_s=wall, filled=filled,
+                          slices_max_rel_err=worst, planes=n_planes,
+                          host_syncs=syncs, btd_on=on, btd_off=off,
+                          btd_on_again=on2)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1209,6 +1731,19 @@ def main():
     torch.cuda.empty_cache()
     nci = phase_nci()
 
+    import tempfile
+    with tempfile.TemporaryDirectory() as workdir:
+        lwfa_launches, lwfa_script = phase_lwfa_script(
+            counters, main_metrics["ms_per_step"], workdir)
+        k1["launches_lwfa_script"] = lwfa_launches["K1"]
+        k2["launches_lwfa_script"] = lwfa_launches["K2"]
+        torch.cuda.empty_cache()
+        diag_card_vs_cpu = phase_diag_card_vs_cpu(workdir)
+        btd_launches, boosted_btd = phase_boosted_btd(counters, workdir)
+        k2["launches_boosted_btd"] = btd_launches["K2"]
+        k3["launches_boosted_btd"] = btd_launches["K3"]
+        torch.cuda.empty_cache()
+
     print(json.dumps({"main_path": main_metrics, "wake_ratio": ratio,
                       "boosted_path": boosted_metrics,
                       "boosted_launches": b_launches,
@@ -1219,6 +1754,9 @@ def main():
                           key: dict(run["metrics"], launches=run["launches"])
                           for key, run in sorted_f64.items()},
                       "nci_slopes": nci, "host_syncs_per_step": syncs,
+                      "lwfa_script": lwfa_script,
+                      "diag_card_vs_cpu": diag_card_vs_cpu,
+                      "boosted_btd": boosted_btd,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3]}))

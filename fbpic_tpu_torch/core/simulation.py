@@ -29,8 +29,13 @@ from ..particles.state import (
 from ..particles.injection import (
     InjectorConfig, GeneratorAngles, build_injector_aux,
 )
+from ..particles.deposit import deposit_rho_linear
 from .state import SimState
 from .step import StepOptions, interp2spect_EB, make_step_fn, prepare
+
+#: Most cycles a capture diagnostic buffers on the device before it
+#: consumes them (fbpic_tpu's step chunk cap)
+MAX_CAPTURE = 250
 
 
 def adapt_to_grid(x, p_xmin, p_xmax, p_nx, ncells_empty=0):
@@ -66,6 +71,21 @@ class SpeciesView:
         """Live particles of the species."""
         return int((self._sim.state.species[self._index].w != 0).sum())
 
+    @property
+    def q(self):
+        return self._sim.species_configs[self._index].q
+
+    @property
+    def m(self):
+        return self._sim.species_configs[self._index].m
+
+    def track(self, comm=None):
+        """Give the species' particles unique ids, carried through the
+        step and handed out to injected particles (reference API:
+        ``Particles.track``)."""
+        from ..particles.tracking import enable_tracking
+        enable_tracking(self._sim, self)
+
     def __getattr__(self, name):
         if name in SpeciesView._arrays:
             arr = getattr(self._sim.state.species[self._index], name)
@@ -88,6 +108,11 @@ class Simulation:
     or comoving PSATD scheme; gamma_boost: the Lorentz factor of the
     boosted frame, for the lab-to-boosted conversions of
     ``add_new_species`` and ``set_moving_window``.
+
+    Diagnostics and checkpoints (``fbpic_tpu_torch.diagnostics``) go in
+    ``diags`` and ``checkpoints``; ``step`` writes them at their periods.
+    ``fld`` is the Simulation itself and ``comm`` is None (one device),
+    as in fbpic_tpu.
     """
 
     def __init__(self, Nz, zmax, Nr, rmax, Nm, dt,
@@ -206,10 +231,18 @@ class Simulation:
         #: Overflow counts summed over all step() calls of this object
         self.overflow_totals = {"sort_overflow": 0, "ring_overwrite": 0}
         self.species_configs = []
+        #: Particles each species was loaded with (fbpic_tpu's counts)
+        self._species_counts = []
         self.moving_win = None
         self._injector_configs = []
         self._injector_auxes = []
         self.ptcl = []
+        self.diags = []
+        self.checkpoints = []
+        # Reference-API aliases: scripts pass `sim.fld` to FieldDiagnostic
+        # and `sim.comm` to the diagnostics and to track()
+        self.fld = self
+        self.comm = None
         if n_e is not None:
             self.add_new_species(
                 q=-e, m=m_e, n=n_e, dens_func=dens_func,
@@ -368,6 +401,7 @@ class Simulation:
             pstate = pstate.replace(next_free=Ntot,
                                     inj_z_end=self.np_dtype(z_end))
         self.species_configs.append(sc)
+        self._species_counts.append(int(Ntot))
         self._injector_configs.append(injector_cfg)
         self._injector_auxes.append(injector_aux)
         self.state.species.append(pstate)
@@ -400,6 +434,27 @@ class Simulation:
         if self.nd_edge > 0:
             arr = arr[:, self.nd_edge:self.nd_edge + self.Nz_phys, :]
         return arr if m is None else arr[m]
+
+    def deposit_single_species_rho(self, view):
+        """Charge density of one species (diagnostics only), deposited
+        with the scatter deposit: numpy complex (Nm, Nz_phys, Nr)."""
+        idx = view._index
+        sp, sc, cfg = self.state.species[idx], self.species_configs[idx], \
+            self.config
+        rho = deposit_rho_linear(
+            sp.x, sp.y, sp.z, sp.w, sc.q, cfg.Nm, 1.0 / cfg.dz,
+            float(self.state.zmin), cfg.Nz, 1.0 / cfg.dr, 0.0, cfg.Nr,
+            self.aux.ruyten_linear,
+            zfold="periodic" if cfg.boundaries_z == "periodic" else "clamp")
+        rho = (rho * self.aux.invvol[:, None, :]).cpu().numpy()
+        if self.nd_edge > 0:
+            rho = rho[:, self.nd_edge:self.nd_edge + self.Nz_phys, :]
+        return rho
+
+    def get_rmax_gather(self):
+        """Radius beyond which particles gather no field: rmax (the port
+        has no radial PML, whose cells fbpic_tpu excludes)."""
+        return self.config.rmax
 
     def set_interp_EB(self, **fields):
         """Overwrite interpolation-grid E/B components (numpy arrays) and
@@ -436,7 +491,7 @@ class Simulation:
         return StepOptions(
             correct_currents=correct_currents, use_true_rho=use_true_rho,
             filter_currents=self.filter_currents,
-            rmax_gather=self.config.rmax,
+            rmax_gather=self.get_rmax_gather(),
             moving_window_v=self.moving_win,
             injectors=(tuple(self._injector_configs)
                        if self.moving_win is not None else ()),
@@ -445,7 +500,17 @@ class Simulation:
 
     def step(self, N=1, correct_currents=True, use_true_rho=False,
              move_positions=True, move_momenta=True, show_progress=False):
-        """Perform N PIC cycles."""
+        """Perform N PIC cycles.
+
+        Every diagnostic in ``diags`` is written once before the first
+        cycle (it checks its own period), as in fbpic_tpu.  After each
+        cycle, each diagnostic with a ``capture`` method (the
+        back-transformed fields) captures on the device, into a buffer
+        it consumes at most every ``MAX_CAPTURE`` cycles and at the end
+        of the call; every other diagnostic and every checkpoint is
+        written if its period says so.  fbpic_tpu writes the latter at
+        the end of step chunks that stop at their smallest period: the
+        same iterations."""
         options = self.build_options(
             correct_currents=correct_currents, use_true_rho=use_true_rho,
             move_positions=move_positions, move_momenta=move_momenta)
@@ -455,10 +520,21 @@ class Simulation:
         # (reference: main.py:408-415 and :435-449)
         self.state = prepare(self.config, options, self.species_configs,
                              self.state, self.aux)
-        for _ in range(N):
+        for diag in self.diags:
+            diag.write(self)
+        writers = list(self.diags) + list(self.checkpoints)
+        capture = [w for w in writers if hasattr(w, "capture")]
+        plain = [w for w in writers if not hasattr(w, "capture")]
+        for n in range(N):
             self.state = step_fn(self.state, self.aux,
                                  tuple(self._injector_auxes),
                                  self.column_angles, self.generator)
+            for w in capture:
+                w.capture(self, capacity=min(N - n, MAX_CAPTURE))
+            for w in plain:
+                w.write(self)
+        for w in capture:
+            w.process_captures(self)
         self._consume_overflow_counters()
 
     def _ensure_capacity(self, index, min_capacity, factor=1.0):

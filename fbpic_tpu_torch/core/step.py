@@ -270,10 +270,12 @@ def remove_outside_particles(config, sp, zmin):
     z_lo = float(zmin + ng * config.dz)
     z_hi = float(zmin + Lz - ng * config.dz)
     dead = (sp.z < z_lo) | (sp.z > z_hi)
+    ids = (None if sp.ids is None
+           else torch.where(dead, torch.zeros_like(sp.ids), sp.ids))
     return sp.replace(
         w=torch.where(dead, torch.zeros_like(sp.w), sp.w),
         z=torch.where(dead, torch.full_like(sp.z, float(zmin + 0.5 * Lz)),
-                      sp.z))
+                      sp.z), ids=ids)
 
 
 def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
@@ -285,6 +287,8 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     species' storage order is rewritten by every re-sort, so a cursor
     does not track its free slots: the columns go into dead slots (dead
     first, in storage order), and those that find none are counted.
+    A tracked species hands out one id per candidate particle (written
+    or not), as fbpic_tpu does (core/step.py:798-801, :844-847).
     Returns (species, count)."""
     rdt = type(zmin)
     # The plane's offset from zmin summed first, as XLA folds fbpic_tpu's
@@ -312,6 +316,9 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
         if getattr(sp, name) is not None:
             values[name] = torch.zeros_like(new["x"])
     updates = {}
+    if sp.ids is not None:
+        values["ids"] = sp.next_id + torch.arange(n_write, device=dev)
+        updates["next_id"] = sp.next_id + n_cols * col_size
     if not resident:
         slots = torch.remainder(
             sp.next_free + torch.arange(n_write, device=dev), cap)
@@ -432,6 +439,10 @@ def make_step_fn(config, species_configs, options: StepOptions):
                        sp.inv_gamma]
             if sp.comp_x is not None:
                 payload += [sp.comp_x, sp.comp_y, sp.comp_z]
+            # Tracking ids ride the sort as their own (int64) channel,
+            # after the float ones, which the kernels read in place
+            if sp.ids is not None:
+                payload.append(sp.ids)
 
             def full_sort():
                 return build_column_sort(sp.z, sp.w, float(zmin),
@@ -505,6 +516,10 @@ def make_step_fn(config, species_configs, options: StepOptions):
                              for n in ("comp_x", "comp_y", "comp_z")})
             flat["w"] = torch.where(valid, psp.w,
                                     torch.zeros_like(psp.w)).reshape(-1)
+            if sp.ids is not None:
+                ids = pad[-1]
+                flat["ids"] = torch.where(valid, ids,
+                                          torch.zeros_like(ids)).reshape(-1)
             species[i] = sp.replace(**flat)
 
         # --- Non-resident species: linear gather, momentum push, first
@@ -646,6 +661,8 @@ def make_step_fn(config, species_configs, options: StepOptions):
                        for n in ARRAY_FIELDS if getattr(rsp, n) is not None}
                 if n_move > 0:
                     upd["w"][(config.Nz - n_move) * rK:] = 0.0
+                    if "ids" in upd:
+                        upd["ids"][(config.Nz - n_move) * rK:] = 0
                 species[ri] = rsp.replace(**upd)
 
         # --- Fields back to the interpolation grid; open-z damping as a

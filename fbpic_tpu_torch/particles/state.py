@@ -57,6 +57,12 @@ class ParticleState:
     comp_x: Optional[torch.Tensor] = None
     comp_y: Optional[torch.Tensor] = None
     comp_z: Optional[torch.Tensor] = None
+    # Tracking ids (particles/tracking.py): one int64 per slot, 0 in a
+    # dead or never-written slot, and the next id to hand out (host int,
+    # like next_free).  fbpic_tpu keeps two uint32 words per id because
+    # the TPU has no 64-bit integers.
+    ids: Optional[torch.Tensor] = None
+    next_id: int = 0
 
     @property
     def capacity(self):
@@ -68,13 +74,13 @@ class ParticleState:
 
 #: Per-particle tensor fields of ParticleState, in payload order.
 ARRAY_FIELDS = ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w",
-                "comp_x", "comp_y", "comp_z")
+                "comp_x", "comp_y", "comp_z", "ids")
 
 
 def pad_particle_state(sp: ParticleState, new_cap: int,
                        row_shape=None) -> ParticleState:
     """Grow every per-particle tensor to ``new_cap`` slots; the new
-    slots are dead (w = 0, inv_gamma = 1).
+    slots are dead (w = 0, inv_gamma = 1, id 0).
 
     They are appended at the array end (a ring species: its cursor
     ``next_free`` keeps its value), or, with ``row_shape=(Nz, K_old)``,

@@ -933,3 +933,191 @@ def test_ring_paths_on_card_match_cpu(cuda, case, dtype):
         assert np.isfinite(card).all(), name
         err = np.abs(card - ref).max() / np.abs(ref).max()
         assert err < gate, (name, err)
+
+
+# ---------------------------------------------------------------------
+# Diagnostics, checkpoints and tracking on the card
+# ---------------------------------------------------------------------
+
+def _diag_config_sim(device, wdir):
+    """tests/test_diagnostics.py's configuration (Nz = 64, Nr = 16,
+    Nm = 2, a periodic uniform electron cylinder), float64, the resident
+    layout forced (sort_K), tracked, with ``_attach_diags``'s
+    diagnostics."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    Nz, Nr, Nm, zmax, rmax = 64, 16, 2, 6.4e-6, 8.e-6
+    sim = Simulation(Nz, zmax, Nr, rmax, Nm, zmax / Nz / c, random_seed=0,
+                     device=device, dtype=torch.float64)
+    sim.use_fused_deposit = True
+    view = sim.add_new_species(q=-e, m=m_e, n=1.e24, p_zmin=0.,
+                               p_zmax=zmax, p_rmin=0., p_rmax=6.e-6,
+                               p_nz=1, p_nr=1, p_nt=4, sort_K=128)
+    view.track()
+    _attach_diags(sim, wdir)
+    return sim
+
+
+def _attach_diags(sim, wdir):
+    """New field, particle (a select, E, B, gamma, id), charge-density
+    and back-transformed particle diagnostics on sim's species."""
+    from fbpic_tpu_torch import diagnostics as d
+    view = sim.ptcl[0]
+    sim.diags = [
+        d.FieldDiagnostic(4, sim, write_dir=wdir),
+        d.ParticleDiagnostic(
+            4, species={"electrons": view}, select={"x": [0.0, None]},
+            particle_data=("position", "momentum", "weighting", "E", "B",
+                           "gamma", "id"), write_dir=wdir, sim=sim),
+        d.ParticleChargeDensityDiagnostic(4, sim,
+                                          species={"electrons": view},
+                                          write_dir=wdir),
+        d.BackTransformedParticleDiagnostic(
+            0., sim.zmax, 0., 3 * sim.dt, 2, 5.0, sim=sim,
+            species={"electrons": view}, write_dir=wdir)]
+
+
+def _collect_all(sim):
+    """Every diagnostic collected at sim's state; the back-transformed
+    particle diagnostic first catches the particles that crossed its
+    planes in the last step."""
+    files = {}
+    for diag in sim.diags:
+        if hasattr(diag, "collect_snapshot"):
+            diag._t_last = sim.time - sim.dt
+            diag.write(sim)
+            for i, snap in enumerate(diag.snapshots):
+                files.update(diag.collect_snapshot(i, snap))
+        else:
+            files.update({f"{type(diag).__name__}/{k}": v
+                          for k, v in diag.collect(sim).items()})
+    return files
+
+
+@pytest.mark.cuda
+def test_diagnostics_collect_on_card_matches_cpu(cuda, monkeypatch,
+                                                tmp_path):
+    """tests/test_diagnostics.py's configuration stepped 8 steps on the
+    CPU with its diagnostics (their writes replaced by a no-op: h5py
+    need not be installed beside the card), its state carried to the
+    card, and every
+    diagnostic collected from that state on both devices: the same
+    records, ids and counts exactly, float data to 1e-12 of each
+    record's largest value (FFTs, GEMMs and sums in another order).
+    Stepped apart, the runs' fields differ at O(1): at rest and with no
+    initial field, this configuration's fields are the roundoff of
+    rho_next - rho_prev over dt, summed in another order on each
+    device."""
+    import warnings
+    from fbpic_tpu_torch.diagnostics.checkpoint_restart import (
+        checkpoint_dict, load_checkpoint_dict)
+    from fbpic_tpu_torch.diagnostics.generic import (OpenPMDDiagnostic,
+                                                     records_difference)
+    monkeypatch.setattr(OpenPMDDiagnostic, "write_records",
+                        lambda self, files: None)
+    cpu = _diag_config_sim(torch.device("cpu"), str(tmp_path))
+    cpu.step(8)
+    card = _diag_config_sim(cuda, str(tmp_path))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # generator
+        load_checkpoint_dict(card, checkpoint_dict(cpu))
+    _attach_diags(cpu, str(tmp_path))
+    ref, out = _collect_all(cpu), _collect_all(card)
+    errs = records_difference(ref, out)
+    n_btd = sum(1 for k in ref if k.startswith("particles"))
+    n_ids = sum(rec[p][0].shape[0] for rec in ref.values() for p in rec
+                if p.endswith("/id"))
+    assert n_btd == 2 and len(errs) > 30 and n_ids > 0
+    assert max(errs.values()) < 1e-12, max(errs.items(),
+                                           key=lambda kv: kv[1])
+
+
+@pytest.mark.cuda
+def test_boosted_field_capture_on_card_matches_cpu(cuda, tmp_path):
+    """The back-transformed field slices of one state (the CPU run's,
+    carried to the card through a checkpoint dict) on both devices: 1e-12
+    of each field's largest value over the grid, validity exactly."""
+    from fbpic_tpu_torch.diagnostics import BackTransformedFieldDiagnostic
+    from fbpic_tpu_torch.diagnostics.checkpoint_restart import (
+        checkpoint_dict, load_checkpoint_dict)
+    from fbpic_tpu_torch.constants import c
+    sims = {"cuda": _boosted_smoke_sim(cuda),
+            "cpu": _boosted_smoke_sim(torch.device("cpu"))}
+    sims["cpu"].step(40)
+    with pytest.warns(RuntimeWarning, match="generator"):
+        load_checkpoint_dict(sims["cuda"], checkpoint_dict(sims["cpu"]))
+    out = {}
+    for name, sim in sims.items():
+        btd = BackTransformedFieldDiagnostic(
+            -40.e-6, 0., c, 50.e-15, 20, 10., sim=sim,
+            write_dir=str(tmp_path))
+        out[name] = [t.cpu() for t in btd.capture_slices(sim)]
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    assert int(out["cpu"][0].sum()) > 0
+    for f, name in enumerate(btd.names):
+        scale = np.abs(sims["cpu"].get_interp_field(name)).max()
+        err = float((out["cuda"][2][f] - out["cpu"][2][f]).abs().max())
+        assert err <= 1e-12 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_boosted_field_capture_needs_no_host_sync(cuda, tmp_path):
+    """The per-step capture of the back-transformed fields queues device
+    work only: torch's sync debug mode set to raise, ten captures."""
+    from fbpic_tpu_torch.diagnostics import BackTransformedFieldDiagnostic
+    from fbpic_tpu_torch.constants import c
+    sim = _boosted_smoke_sim(cuda)
+    sim.step(5)
+    btd = BackTransformedFieldDiagnostic(
+        -40.e-6, 0., c, 50.e-15, 20, 10., sim=sim, write_dir=str(tmp_path))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(10):
+            btd.capture(sim, capacity=20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert btd._n == 10
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card_is_bit_exact(cuda, tmp_path):
+    """A tracked float32 run on the card saved (torch.save) and loaded
+    into a fresh simulation: every tensor and host value equal."""
+    from fbpic_tpu_torch.diagnostics.checkpoint_restart import (
+        checkpoint_dict, write_checkpoint, read_checkpoint,
+        load_checkpoint_dict)
+    sim = _golden_config_sim(cuda, torch.float32)
+    sim.ptcl[0].track()
+    sim.column_angles = _SeededAngles()
+    sim.step(20)
+    path = str(tmp_path / "checkpoint.pt")
+    write_checkpoint(sim, path)
+    again = _golden_config_sim(cuda, torch.float32)
+    load_checkpoint_dict(again, read_checkpoint(path, cuda))
+    a, b = checkpoint_dict(sim), checkpoint_dict(again)
+    assert a["host"] == b["host"] and sorted(a["tensors"]) == sorted(
+        b["tensors"])
+    for key, t in a["tensors"].items():
+        assert t.device == b["tensors"][key].device
+        assert torch.equal(t, b["tensors"][key]), key
+
+
+@pytest.mark.cuda
+def test_tracking_keeps_k1_k2_launch_counts(cuda):
+    """The golden-wake configuration in float32 on the card, tracked: K1
+    and K2 still launch exactly once a step, and the ids of the live
+    particles stay unique and non-zero."""
+    from fbpic_tpu_torch.particles import cuda_fused, cuda_gather
+    sim = _golden_config_sim(cuda, torch.float32)
+    sim.ptcl[0].track()
+    sim.column_angles = _SeededAngles()
+    n0 = [cuda_fused.fused_onehot_contract.launches,
+          cuda_gather.gather_sorted.launches]
+    sim.step(30)
+    assert [cuda_fused.fused_onehot_contract.launches - n0[0],
+            cuda_gather.gather_sorted.launches - n0[1]] == [30, 30]
+    sp = sim.state.species[0]
+    ids = sp.ids[sp.w != 0]
+    assert int((ids == 0).sum()) == 0
+    assert torch.unique(ids).numel() == ids.numel()

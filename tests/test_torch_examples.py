@@ -1,0 +1,73 @@
+"""The published example scripts run through fbpic_tpu_torch (CPU).
+
+Each script's text is read and only ``fbpic_tpu`` is changed to
+``fbpic_tpu_torch``; it runs in its smoke mode
+(``FBPIC_TPU_EXAMPLE_SMOKE=1``, as tests/test_examples.py runs it for
+fbpic_tpu) with ``fbpic_tpu_torch.Simulation`` bound to
+``device="cpu"`` (the port's default is the card), in a temporary
+directory.  examples/ is not edited.
+
+- lwfa_script.py: tracking, the field and particle diagnostics every 4
+  steps and a checkpoint at 8, in 10 steps: the files of iterations 0,
+  4 and 8, the checkpoint, unique ids in the particle records;
+- boosted_frame_script.py: the back-transformed field diagnostic over
+  8 steps of the boosted frame.
+"""
+import functools
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+h5py = pytest.importorskip("h5py")
+
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+
+
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def run_example(script, tmp_path, monkeypatch):
+    """Run the example's text through the port; its globals."""
+    import fbpic_tpu_torch
+    with open(os.path.join(EXAMPLES, script)) as f:
+        text = f.read().replace("fbpic_tpu", "fbpic_tpu_torch")
+    monkeypatch.setenv("FBPIC_TPU_EXAMPLE_SMOKE", "1")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(fbpic_tpu_torch, "Simulation", functools.partial(
+        fbpic_tpu_torch.Simulation, device="cpu"))
+    namespace = {"__name__": "__main__"}
+    exec(compile(text, script, "exec"), namespace)
+    return namespace
+
+
+def test_lwfa_script_runs_through_the_port(tmp_path, monkeypatch):
+    ns = run_example("lwfa_script.py", tmp_path, monkeypatch)
+    sim = ns["sim"]
+    assert sim.iteration == 10 and sim.device.type == "cpu"
+    hdf5 = tmp_path / "diags" / "hdf5"
+    assert sorted(os.listdir(hdf5)) == ["data%08d.h5" % i for i in (0, 4, 8)]
+    assert os.listdir(tmp_path / "checkpoints") == ["checkpoint_00000008.pt"]
+    with h5py.File(hdf5 / "data00000008.h5", "r") as f:
+        assert "E" in f["/data/8/fields"] and "rho" in f["/data/8/fields"]
+        sp = f["/data/8/particles/electrons"]
+        n = sp["weighting"].shape[0]
+    live = sim.state.species[0].w != 0
+    ids = sim.state.species[0].ids[live]
+    assert int((ids == 0).sum()) == 0
+    assert len(torch.unique(ids)) == int(live.sum())
+    assert n <= int(live.sum())
+
+
+def test_boosted_frame_script_runs_through_the_port(tmp_path, monkeypatch):
+    ns = run_example("boosted_frame_script.py", tmp_path, monkeypatch)
+    sim = ns["sim"]
+    assert sim.iteration == ns["N_step"] and sim.device.type == "cpu"
+    btd, = sim.diags
+    assert type(btd).__module__ == "fbpic_tpu_torch.diagnostics.boosted_diag"
+    assert len(btd.snapshots) == ns["NSNAP"] and btd._buf is None
