@@ -3,11 +3,12 @@
 The constructor arguments follow FBPIC's fbpic/main.py:51-344 so
 that reference input scripts port over; the PIC cycle runs eagerly in
 PyTorch on an explicit ``device`` and ``dtype`` (see core/step.py).
-This port covers linear shapes, resident and non-resident (ring)
-species, empty species, open or periodic z, moving window and
-continuous injection, the standard and the Galilean / comoving PSATD
-solver with curl-free correction, and the boosted-frame conversions of
-species, laser and moving window (``gamma_boost``).
+This port covers linear and cubic shapes, resident and non-resident
+(ring) species, tracers, empty species, open or periodic z, a reflective
+or open (PML) radial boundary, moving window and continuous injection,
+the standard and the Galilean / comoving PSATD solver with curl-free or
+cross-deposition current correction, and the boosted-frame conversions
+of species, laser and moving window (``gamma_boost``).
 """
 import warnings
 from dataclasses import replace
@@ -29,9 +30,15 @@ from ..particles.state import (
 from ..particles.injection import (
     InjectorConfig, GeneratorAngles, build_injector_aux,
 )
-from ..particles.deposit import deposit_rho_linear
+from ..particles.deposit import deposit_rho_linear, deposit_rho_J_linear
+from ..fields import psatd_push as psp
+from ..utils.device import catch_memory_error
+from ..utils.printing import ProgressBar, print_simulation_setup
 from .state import SimState
-from .step import StepOptions, interp2spect_EB, make_step_fn, prepare
+from .step import (
+    StepOptions, interp2spect_EB, make_step_fn, prepare, deposit_rho_spect,
+    deposit_J_spect,
+)
 
 #: Most cycles a capture diagnostic buffers on the device before it
 #: consumes them (fbpic_tpu's step chunk cap)
@@ -59,7 +66,8 @@ def adapt_to_grid(x, p_xmin, p_xmax, p_nx, ncells_empty=0):
 
 
 class SpeciesView:
-    """Numpy view of one species (reference ``Particles`` attributes)."""
+    """Numpy view of one species (reference ``Particles`` attributes):
+    reads return the live slots, writes set them."""
     _arrays = ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w")
 
     def __init__(self, sim, index):
@@ -93,6 +101,21 @@ class SpeciesView:
             return arr[live].cpu().numpy()
         raise AttributeError(name)
 
+    def __setattr__(self, name, value):
+        """Writes to x, y, z, ux, uy, uz, inv_gamma or w set the live
+        slots (in storage order, as the reads return them)."""
+        if name not in SpeciesView._arrays:
+            object.__setattr__(self, name, value)
+            return
+        sim = self._sim
+        sp = sim.state.species[self._index]
+        arr = getattr(sp, name).clone()
+        arr[sp.w != 0] = torch.as_tensor(np.asarray(value), dtype=arr.dtype,
+                                         device=arr.device)
+        species = list(sim.state.species)
+        species[self._index] = sp.replace(**{name: arr})
+        sim.state = replace(sim.state, species=species)
+
 
 class Simulation:
     """Top-level simulation object (API-compatible with the reference).
@@ -107,7 +130,10 @@ class Simulation:
     v_comoving / use_galilean: the Galilean (grid flowing at v_comoving)
     or comoving PSATD scheme; gamma_boost: the Lorentz factor of the
     boosted frame, for the lab-to-boosted conversions of
-    ``add_new_species`` and ``set_moving_window``.
+    ``add_new_species`` and ``set_moving_window``.  initialize_ions: with
+    ``n_e``, a species of ions (q = e, m = 1836.2 m_e) on the electrons'
+    positions.  boundaries r 'open': the radial PML, its ``n_damp["r"]``
+    cells (32 by default) inside ``Nr``, as in fbpic_tpu.
 
     Diagnostics and checkpoints (``fbpic_tpu_torch.diagnostics``) go in
     ``diags`` and ``checkpoints``; ``step`` writes them at their periods.
@@ -119,7 +145,7 @@ class Simulation:
                  p_zmin=-np.inf, p_zmax=np.inf, p_rmin=0, p_rmax=np.inf,
                  p_nz=None, p_nr=None, p_nt=None, n_e=None, zmin=0.0,
                  n_order=-1, dens_func=None, filter_currents=True,
-                 v_comoving=None, use_galilean=True,
+                 v_comoving=None, use_galilean=True, initialize_ions=False,
                  n_guard=None, n_damp=None, exchange_period=None,
                  current_correction="curl-free", boundaries=None,
                  gamma_boost=None, particle_shape="linear", verbose_level=1,
@@ -133,23 +159,17 @@ class Simulation:
                                "available (pass device='cpu' explicitly)")
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, not {dtype}")
-        if current_correction != "curl-free":
-            raise NotImplementedError("only the curl-free correction is "
-                                      "ported")
-        if particle_shape != "linear":
-            raise NotImplementedError("only linear shapes are ported")
         if boundaries is None:
             boundaries = {"z": "periodic", "r": "reflective"}
         if isinstance(boundaries, str):
             boundaries = {"z": boundaries, "r": "reflective"}
-        if boundaries.get("r", "reflective") != "reflective":
-            raise NotImplementedError("radial PML is not ported")
         self.device, self.dtype = device, dtype
         #: Fused sorted deposits and the resident layout (user-overridable)
         self.use_fused_deposit = self._fused_by_default()
         self.np_dtype = np.float32 if dtype == torch.float32 else np.float64
         self.boundaries = boundaries
         self.verbose_level = int(verbose_level)
+        self._banner_printed = False
         boundaries_z = boundaries.get("z", "periodic")
         dz = (zmax - zmin) / Nz
         use_galilean = bool(use_galilean) and v_comoving is not None
@@ -188,12 +208,19 @@ class Simulation:
                 exchange_period = 1
         self.exchange_period = max(1, int(exchange_period))
 
+        # Radial PML (r 'open'): nr_damp cells INSIDE Nr, as in fbpic_tpu
+        use_pml = boundaries.get("r") == "open"
+        nr_damp = 0
+        if use_pml:
+            nr_damp = n_damp["r"] if isinstance(n_damp, dict) else 32
         self.config = GridConfig(
             Nz=Nz + 2 * nd, Nr=Nr, Nm=Nm, dz=dz, dr=rmax / Nr, rmax=rmax,
             dt=dt, n_order=n_order, v_comoving=v_comoving,
-            use_galilean=use_galilean, current_correction=current_correction,
+            use_galilean=use_galilean, use_pml=use_pml,
+            current_correction=current_correction,
             particle_shape=particle_shape, boundaries_z=boundaries_z,
-            n_guard=n_guard_, nz_damp=nz_damp_, n_inject=n_inject_)
+            n_guard=n_guard_, nz_damp=nz_damp_, n_inject=n_inject_,
+            nr_damp=nr_damp)
         self.zmax = zmax
         self.dt = dt
         self.filter_currents = filter_currents
@@ -249,6 +276,12 @@ class Simulation:
                 p_nz=p_nz, p_nr=p_nr, p_nt=p_nt,
                 p_zmin=p_zmin, p_zmax=p_zmax, p_rmin=p_rmin, p_rmax=p_rmax,
                 sort_K=sort_K)
+            if initialize_ions:
+                self.add_new_species(
+                    q=e, m=1836.2 * m_e, n=n_e, dens_func=dens_func,
+                    p_nz=p_nz, p_nr=p_nr, p_nt=p_nt,
+                    p_zmin=p_zmin, p_zmax=p_zmax, p_rmin=p_rmin,
+                    p_rmax=p_rmax, sort_K=sort_K)
 
     def _fused_by_default(self):
         """fbpic_tpu's default of use_fused_deposit and gate of the
@@ -287,8 +320,8 @@ class Simulation:
                         uz_m=0.0, ux_m=0.0, uy_m=0.0,
                         uz_th=0.0, ux_th=0.0, uy_th=0.0,
                         continuous_injection=True,
-                        boost_positions_in_dens_func=False, capacity=None,
-                        name=None, sort_K=None):
+                        boost_positions_in_dens_func=False, is_tracer=False,
+                        capacity=None, name=None, sort_K=None):
         """Create a new species; returns a SpeciesView.  Without ``n``
         the species is empty.
 
@@ -297,12 +330,17 @@ class Simulation:
         (and the dens_func argument z too, with
         boost_positions_in_dens_func).
 
+        is_tracer: the species is pushed but deposits no charge or
+        current (and is never sorted).
+
         sort_K: per-column slot capacity of the sorted layout.  None =
-        automatic on CUDA or in float32 (1.5x the initial maximum column
-        occupancy, at least 86, rounded up to 128), else 0 (the scatter
-        deposits).  With use_fused_deposit on, a species whose capacity
-        fits Nz * sort_K is resident (capacity Nz * sort_K); any other
-        sort_K species is column-sorted afresh every step."""
+        automatic on CUDA or in float32 for a species that is not a
+        tracer (1.5x the initial maximum column occupancy, at least 86,
+        rounded up to 128), else 0 (the scatter deposits).  With
+        use_fused_deposit on, a linear-shape species that is not a
+        tracer and whose capacity fits Nz * sort_K is resident (capacity
+        Nz * sort_K); any other sort_K species is column-sorted afresh
+        every step."""
         injector_cfg = injector_aux = None
         if n is None:
             Ntot = 0
@@ -371,7 +409,7 @@ class Simulation:
                 capacity = max(capacity or 0, needed, int(1.2 * max(Ntot, 1)))
 
         if sort_K is None:
-            if self._fused_by_default() and Ntot > 0:
+            if self._fused_by_default() and Ntot > 0 and not is_tracer:
                 cols = np.floor((np.asarray(z) - self.zmin)
                                 / self.config.dz).astype(int)
                 occ = np.bincount(cols[(cols >= 0) & (cols < self.config.Nz)],
@@ -380,7 +418,8 @@ class Simulation:
             else:
                 sort_K = 0
         resident = False
-        if int(sort_K) > 0 and self.use_fused_deposit:
+        if (int(sort_K) > 0 and not is_tracer and self.use_fused_deposit
+                and self.config.particle_shape == "linear"):
             cap_resident = self.config.Nz * int(sort_K)
             if cap_resident >= (capacity or 0):
                 capacity = cap_resident
@@ -390,7 +429,7 @@ class Simulation:
                   else "full")
         sc = SpeciesConfig(
             q=q, m=m, particle_shape=self.config.particle_shape,
-            name=name or f"species{len(self.species_configs)}",
+            is_tracer=bool(is_tracer), name=name or f"species{len(self.species_configs)}",
             sort_K=int(sort_K), resident=resident, resort=resort)
         pstate = make_particle_state(x, y, z, ux, uy, uz, inv_gamma, w,
                                      capacity=capacity, device=self.device,
@@ -417,7 +456,9 @@ class Simulation:
         {rho, Jr, Jt, Jz} (computed on the fly from spectral space).
         """
         mats, spect = self.aux.mats, self.state.spect
-        if name in ("Er", "Et", "Ez", "Br", "Bt", "Bz"):
+        if name in ("Er", "Et", "Ez", "Br", "Bt", "Bz") or (
+                name in ("Er_pml", "Et_pml", "Br_pml", "Bt_pml")
+                and self.config.use_pml):
             arr = getattr(self.state.interp, name)
         elif name == "rho":
             arr = tr.spect2interp_scal(mats, spect.rho_prev)
@@ -429,7 +470,8 @@ class Simulation:
         else:
             raise ValueError(
                 f"Unknown field {name!r}; expected one of Er, Et, Ez, Br, "
-                "Bt, Bz, rho, Jr, Jt, Jz")
+                "Bt, Bz, rho, Jr, Jt, Jz (and Er_pml, Et_pml, Br_pml, "
+                "Bt_pml with the radial PML)")
         arr = arr.cpu().numpy()
         if self.nd_edge > 0:
             arr = arr[:, self.nd_edge:self.nd_edge + self.Nz_phys, :]
@@ -451,10 +493,67 @@ class Simulation:
             rho = rho[:, self.nd_edge:self.nd_edge + self.Nz_phys, :]
         return rho
 
+    def deposit_species_rho_J_full(self, view):
+        """rho and J of one species on the FULL internal grid, deposited
+        together with the linear scatter (host-side global solves):
+        numpy complex (Nm, Nz, Nr) each, divided by the cell volume."""
+        idx = view._index
+        sp, sc, cfg = self.state.species[idx], self.species_configs[idx], \
+            self.config
+        out = deposit_rho_J_linear(
+            sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz, sp.inv_gamma,
+            cfg.Nm, 1.0 / cfg.dz, float(self.state.zmin), cfg.Nz,
+            1.0 / cfg.dr, 0.0, cfg.Nr, self.aux.ruyten_linear,
+            zfold="periodic" if cfg.boundaries_z == "periodic" else "clamp")
+        return tuple((a * self.aux.invvol[:, None, :]).cpu().numpy()
+                     for a in out)
+
+    def deposit(self, fieldtype, update_spectral=True, exchange=False):
+        """Deposit 'rho_prev' / 'rho_next' (any spectral rho field) or
+        'J' from the current particles, filtered, into spectral space.
+        update_spectral and exchange are the reference API's; on one
+        device there is nothing to exchange (as in fbpic_tpu)."""
+        st, aux = self.state, self.aux
+        if fieldtype.startswith("rho"):
+            rho = deposit_rho_spect(self.config, aux, st.species,
+                                    self.species_configs, st.zmin)
+            if self.filter_currents:
+                rho = psp.filter_scalar(rho, aux.filter_z, aux.filter_r)
+            spect = replace(st.spect, **{fieldtype: rho})
+        elif fieldtype == "J":
+            J = deposit_J_spect(self.config, aux, st.species,
+                                self.species_configs, st.zmin)
+            if self.filter_currents:
+                J = psp.filter_vector(*J, aux.filter_z, aux.filter_r)
+            spect = replace(st.spect, Jp=J[0], Jm=J[1], Jz=J[2])
+        else:
+            raise ValueError(fieldtype)
+        self.state = replace(st, spect=spect)
+
     def get_rmax_gather(self):
-        """Radius beyond which particles gather no field: rmax (the port
-        has no radial PML, whose cells fbpic_tpu excludes)."""
+        """Radius beyond which particles gather no field: rmax, less the
+        radial PML cells (reference: boundary_communicator.py
+        get_rmax)."""
+        if self.config.use_pml:
+            return self.config.rmax - self.config.nr_damp * self.config.dr
         return self.config.rmax
+
+    def reverse_time(self):
+        """Reverse the propagation direction of waves and particles by
+        flipping the magnetic fields (the PML's too) and the particle
+        momenta (reference: main.py:1034-1054)."""
+        st = self.state
+        names = ("Bp", "Bm", "Bz") + (
+            ("Bp_pml", "Bm_pml") if self.config.use_pml else ())
+        spect = replace(st.spect, **{n: -getattr(st.spect, n)
+                                     for n in names})
+        names = ("Br", "Bt", "Bz") + (
+            ("Br_pml", "Bt_pml") if self.config.use_pml else ())
+        interp = replace(st.interp, **{n: -getattr(st.interp, n)
+                                       for n in names})
+        species = [sp.replace(ux=-sp.ux, uy=-sp.uy, uz=-sp.uz)
+                   for sp in st.species]
+        self.state = replace(st, spect=spect, interp=interp, species=species)
 
     def set_interp_EB(self, **fields):
         """Overwrite interpolation-grid E/B components (numpy arrays) and
@@ -465,7 +564,7 @@ class Simulation:
                                   device=self.device)
             for name, value in fields.items()})
         self.state = replace(self.state, interp=interp, spect=interp2spect_EB(
-            self.aux, interp, self.state.spect))
+            self.aux, interp, self.state.spect, use_pml=self.config.use_pml))
 
     def set_moving_window(self, v=None, gamma_boost=None):
         """Attach a moving window of speed v (default c); requires open z
@@ -483,13 +582,13 @@ class Simulation:
         self.state = replace(self.state, mw_zref=self.state.zmin)
 
     # -----------------------------------------------------------------
-    def build_options(self, correct_currents=True, use_true_rho=False,
-                      move_positions=True, move_momenta=True):
-        if not (move_positions and move_momenta):
-            raise NotImplementedError("move_positions / move_momenta = False "
-                                      "are not ported")
+    def build_options(self, correct_currents=True, correct_divE=False,
+                      use_true_rho=False, move_positions=True,
+                      move_momenta=True, reuse_rho_prev=True):
         return StepOptions(
-            correct_currents=correct_currents, use_true_rho=use_true_rho,
+            correct_currents=correct_currents, correct_divE=correct_divE,
+            use_true_rho=use_true_rho, move_positions=move_positions,
+            move_momenta=move_momenta, reuse_rho_prev=reuse_rho_prev,
             filter_currents=self.filter_currents,
             rmax_gather=self.get_rmax_gather(),
             moving_window_v=self.moving_win,
@@ -498,9 +597,16 @@ class Simulation:
             exchange_period=self.exchange_period,
             fused_deposit=self.use_fused_deposit)
 
-    def step(self, N=1, correct_currents=True, use_true_rho=False,
-             move_positions=True, move_momenta=True, show_progress=False):
+    def step(self, N=1, correct_currents=True, correct_divE=False,
+             use_true_rho=False, move_positions=True, move_momenta=True,
+             show_progress=False, reuse_rho_prev=True):
         """Perform N PIC cycles.
+
+        The setup banner is printed before the first call's first cycle
+        (verbose_level >= 1).  show_progress: a progress bar, updated
+        (one device synchronization each) every ceil(N / 35) cycles and
+        after the last.  A device out-of-memory error becomes a
+        MemoryError with advice (utils.device.catch_memory_error).
 
         Every diagnostic in ``diags`` is written once before the first
         cycle (it checks its own period), as in fbpic_tpu.  After each
@@ -511,9 +617,17 @@ class Simulation:
         written if its period says so.  fbpic_tpu writes the latter at
         the end of step chunks that stop at their smallest period: the
         same iterations."""
-        options = self.build_options(
-            correct_currents=correct_currents, use_true_rho=use_true_rho,
-            move_positions=move_positions, move_momenta=move_momenta)
+        if not self._banner_printed:
+            self._banner_printed = True
+            print_simulation_setup(self, self.verbose_level)
+        catch_memory_error(self._step_impl)(
+            N, correct_currents=correct_currents, correct_divE=correct_divE,
+            use_true_rho=use_true_rho, move_positions=move_positions,
+            move_momenta=move_momenta, show_progress=show_progress,
+            reuse_rho_prev=reuse_rho_prev)
+
+    def _step_impl(self, N, show_progress=False, **option_kw):
+        options = self.build_options(**option_kw)
         step_fn = make_step_fn(self.config, self.species_configs, options)
         # Refresh spectral E/B from the interpolation grid (captures any
         # user-set fields), then the initial rho_prev deposit
@@ -525,6 +639,7 @@ class Simulation:
         writers = list(self.diags) + list(self.checkpoints)
         capture = [w for w in writers if hasattr(w, "capture")]
         plain = [w for w in writers if not hasattr(w, "capture")]
+        progress = ProgressBar(N) if show_progress else None
         for n in range(N):
             self.state = step_fn(self.state, self.aux,
                                  tuple(self._injector_auxes),
@@ -533,8 +648,15 @@ class Simulation:
                 w.capture(self, capacity=min(N - n, MAX_CAPTURE))
             for w in plain:
                 w.write(self)
+            if progress is not None and progress.due(n + 1):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                progress.time(n + 1)
+                progress.print_progress()
         for w in capture:
             w.process_captures(self)
+        if progress is not None:
+            progress.print_summary()
         self._consume_overflow_counters()
 
     def _ensure_capacity(self, index, min_capacity, factor=1.0):

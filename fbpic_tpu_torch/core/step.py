@@ -14,6 +14,15 @@ as in the reference, FBPIC's fbpic/main.py:346-585):
     -> Galilean drift + moving-window shift -> spect2interp E,B
     -> open-z damping
 
+Cubic species gather with the 4x4 stencil (gather_fields_cubic) and,
+sorted, deposit through deposit_rho_J_sorted_cubic (plain PyTorch: no
+kernel); tracers are pushed and deposit nothing.  With the radial PML
+(boundaries r = 'open') the split fields are pushed with E/B and damped
+on the interpolation grid, one more E/B round trip a step; with
+cross-deposition the correction uses the charge deposited at two mixed
+positions between the half pushes (_cross_deposit), and the exchange
+block runs every step.
+
 float32 runs of the standard scheme deposit the per-particle d(rho) the
 current correction needs (K1; species without the fused deposit
 difference two scatter deposits instead); float64 runs and the Galilean
@@ -41,14 +50,19 @@ import torch
 from ..fields import transform as tr
 from ..fields import psatd_push as ps
 from ..particles import push as pp
-from ..particles.deposit import deposit_rho_linear, deposit_J_linear
-from ..particles.gather import gather_fields_linear, gather_fields_sorted
+from ..particles.deposit import (
+    deposit_rho_linear, deposit_J_linear, deposit_rho_cubic, deposit_J_cubic,
+)
+from ..particles.gather import (
+    gather_fields_linear, gather_fields_cubic, gather_fields_sorted,
+)
 from ..particles.injection import generate_columns, write_ring
 from ..particles.state import ARRAY_FIELDS
 from ..particles.sorted_deposit import (
     build_column_sort, banded_column_resort, deposit_rho_J_sorted,
-    deposit_rho_sorted, deposit_J_sorted,
+    deposit_rho_sorted, deposit_J_sorted, deposit_rho_J_sorted_cubic,
 )
+from ..fields.solver import SPECT_PML_FIELDS, INTERP_PML_FIELDS
 from .state import SimState
 
 
@@ -56,8 +70,11 @@ from .state import SimState
 class StepOptions:
     """Static options of the PIC cycle."""
     correct_currents: bool = True
+    correct_divE: bool = False
     use_true_rho: bool = False
     filter_currents: bool = True
+    move_positions: bool = True
+    move_momenta: bool = True
     # rmax beyond which particles no longer gather fields
     rmax_gather: float = float("inf")
     # Moving window speed (None = no moving window)
@@ -71,6 +88,8 @@ class StepOptions:
     # Sorted deposits: the resident layout, and the fused deposit of the
     # other sort_K species (off: the legacy sorted plan or the scatter)
     fused_deposit: bool = False
+    # False forces exchange_period = 1 (a fresh rho_prev every step)
+    reuse_rho_prev: bool = True
 
 
 def _zfold(config):
@@ -91,14 +110,17 @@ def _deposit_args(config, zmin):
 
 def deposit_rho_spect(config, aux, species, species_configs, zmin,
                       sorts=None, fused=None):
-    """Charge of all species -> filtered-free spectral rho (Nm, Nz, Nr),
-    summed in species order.
+    """Charge of all species but tracers -> filtered-free spectral rho
+    (Nm, Nz, Nr), summed in species order.
 
     fused: optional {species_index: raw rho} from the fused sorted
     deposits; sorts: optional {species_index: legacy column-sort plan}
-    for deposit_rho_sorted; every other species is scatter-deposited."""
+    for deposit_rho_sorted; every other species is scatter-deposited
+    with its shape."""
     rho = None
     for i, (sp, sc) in enumerate(zip(species, species_configs)):
+        if sc.is_tracer:
+            continue
         if fused and i in fused:
             contrib = fused[i]
         elif sorts and i in sorts:
@@ -106,6 +128,10 @@ def deposit_rho_spect(config, aux, species, species_configs, zmin,
                 sorts[i], sp.x, sp.y, sp.z, sp.w, sc.q,
                 *_deposit_args(config, zmin), aux.ruyten_linear,
                 zfold=_zfold(config))
+        elif sc.particle_shape == "cubic":
+            contrib = deposit_rho_cubic(
+                sp.x, sp.y, sp.z, sp.w, sc.q, *_deposit_args(config, zmin),
+                aux.ruyten_cubic, zfold=_zfold(config), comp=_comp_of(sp))
         else:
             contrib = deposit_rho_linear(
                 sp.x, sp.y, sp.z, sp.w, sc.q, *_deposit_args(config, zmin),
@@ -124,6 +150,8 @@ def deposit_J_spect(config, aux, species, species_configs, zmin,
     species order (fused / sorts / scatter as in deposit_rho_spect)."""
     JrJtJz = None
     for i, (sp, sc) in enumerate(zip(species, species_configs)):
+        if sc.is_tracer:
+            continue
         if fused and i in fused:
             contrib = fused[i]
         elif sorts and i in sorts:
@@ -131,6 +159,11 @@ def deposit_J_spect(config, aux, species, species_configs, zmin,
                 sorts[i], sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
                 sp.inv_gamma, *_deposit_args(config, zmin),
                 aux.ruyten_linear, zfold=_zfold(config))
+        elif sc.particle_shape == "cubic":
+            contrib = deposit_J_cubic(
+                sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
+                sp.inv_gamma, *_deposit_args(config, zmin),
+                aux.ruyten_cubic, zfold=_zfold(config), comp=_comp_of(sp))
         else:
             contrib = deposit_J_linear(
                 sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
@@ -147,8 +180,15 @@ def deposit_J_spect(config, aux, species, species_configs, zmin,
 
 
 def push_fields(config, aux, spect, use_true_rho):
-    """PSATD E/B advance + rho_prev <- rho_next."""
+    """PSATD E/B advance (and the PML split fields) + rho_prev <-
+    rho_next."""
+    pml = {}
     if config.use_comoving:
+        if config.use_pml:
+            pml = dict(zip(SPECT_PML_FIELDS, ps.push_eb_pml_comoving(
+                spect.Ep_pml, spect.Em_pml, spect.Bp_pml, spect.Bm_pml,
+                spect.Ez, spect.Bz, aux.C, aux.S_w, aux.T_eb, aux.kr,
+                aux.kz)))
         Ep, Em, Ez, Bp, Bm, Bz = ps.push_eb_comoving(
             spect.Ep, spect.Em, spect.Ez, spect.Bp, spect.Bm, spect.Bz,
             spect.Jp, spect.Jm, spect.Jz, spect.rho_prev, spect.rho_next,
@@ -157,6 +197,10 @@ def push_fields(config, aux, spect, use_true_rho):
             aux.kr, aux.kz, config.dt, config.v_comoving,
             use_true_rho=use_true_rho)
     else:
+        if config.use_pml:
+            pml = dict(zip(SPECT_PML_FIELDS, ps.push_eb_pml_standard(
+                spect.Ep_pml, spect.Em_pml, spect.Bp_pml, spect.Bm_pml,
+                spect.Ez, spect.Bz, aux.C, aux.S_w, aux.kr, aux.kz)))
         Ep, Em, Ez, Bp, Bm, Bz = ps.push_eb_standard(
             spect.Ep, spect.Em, spect.Ez, spect.Bp, spect.Bm, spect.Bz,
             spect.Jp, spect.Jm, spect.Jz, spect.rho_prev, spect.rho_next,
@@ -165,53 +209,83 @@ def push_fields(config, aux, spect, use_true_rho):
             use_true_rho=use_true_rho)
     return replace(spect, Ep=Ep, Em=Em, Ez=Ez, Bp=Bp, Bm=Bm, Bz=Bz,
                    rho_prev=spect.rho_next,
-                   rho_next=torch.zeros_like(spect.rho_next))
+                   rho_next=torch.zeros_like(spect.rho_next), **pml)
 
 
 def correct_currents(config, aux, spect, drho=None):
-    """Curl-free current correction.  `drho`: the directly-deposited
-    rho_next - rho_prev (float32 runs)."""
-    if config.current_correction != "curl-free":
-        raise NotImplementedError(config.current_correction)
-    if config.use_comoving:
-        Jp, Jm, Jz = ps.correct_currents_curlfree_comoving(
-            spect.rho_prev, spect.rho_next, spect.Jp, spect.Jm, spect.Jz,
-            aux.kz, aux.kr, aux.inv_k2, aux.j_corr_coef, aux.T_eb,
-            aux.T_cc, 1.0 / config.dt)
+    """Curl-free or cross-deposition current correction.  `drho`: the
+    directly-deposited rho_next - rho_prev (float32 runs, curl-free)."""
+    inv_dt = 1.0 / config.dt
+    if config.current_correction == "curl-free":
+        if config.use_comoving:
+            Jp, Jm, Jz = ps.correct_currents_curlfree_comoving(
+                spect.rho_prev, spect.rho_next, spect.Jp, spect.Jm, spect.Jz,
+                aux.kz, aux.kr, aux.inv_k2, aux.j_corr_coef, aux.T_eb,
+                aux.T_cc, inv_dt)
+        else:
+            Jp, Jm, Jz = ps.correct_currents_curlfree_standard(
+                spect.rho_prev, spect.rho_next, spect.Jp, spect.Jm, spect.Jz,
+                aux.kz, aux.kr, aux.inv_k2, inv_dt, drho=drho)
+    elif config.current_correction == "cross-deposition":
+        if config.use_comoving:
+            Jp, Jm, Jz = ps.correct_currents_crossdeposition_comoving(
+                spect.rho_prev, spect.rho_next, spect.rho_next_z,
+                spect.rho_next_xy, spect.Jp, spect.Jm, spect.Jz,
+                aux.kz, aux.kr, aux.j_corr_coef, aux.T_eb, aux.T_cc, inv_dt)
+        else:
+            Jp, Jm, Jz = ps.correct_currents_crossdeposition_standard(
+                spect.rho_prev, spect.rho_next, spect.rho_next_z,
+                spect.rho_next_xy, spect.Jp, spect.Jm, spect.Jz,
+                aux.kz, aux.kr, inv_dt)
     else:
-        Jp, Jm, Jz = ps.correct_currents_curlfree_standard(
-            spect.rho_prev, spect.rho_next, spect.Jp, spect.Jm, spect.Jz,
-            aux.kz, aux.kr, aux.inv_k2, 1.0 / config.dt, drho=drho)
+        raise ValueError(config.current_correction)
     return replace(spect, Jp=Jp, Jm=Jm, Jz=Jz)
 
 
-def spect2interp_EB(aux, spect, interp):
+def spect2interp_EB(aux, spect, interp, use_pml=False):
     Er, Et, Ez, Br, Bt, Bz = tr.spect2interp_EB_fields(
         aux.mats, spect.Ep, spect.Em, spect.Ez, spect.Bp, spect.Bm, spect.Bz)
-    return replace(interp, Er=Er, Et=Et, Ez=Ez, Br=Br, Bt=Bt, Bz=Bz)
+    pml = {}
+    if use_pml:
+        pml["Er_pml"], pml["Et_pml"] = tr.spect2interp_vect(
+            aux.mats, spect.Ep_pml, spect.Em_pml)
+        pml["Br_pml"], pml["Bt_pml"] = tr.spect2interp_vect(
+            aux.mats, spect.Bp_pml, spect.Bm_pml)
+    return replace(interp, Er=Er, Et=Et, Ez=Ez, Br=Br, Bt=Bt, Bz=Bz, **pml)
 
 
-def interp2spect_EB(aux, interp, spect):
+def interp2spect_EB(aux, interp, spect, use_pml=False):
     Ep, Em, Ez, Bp, Bm, Bz = tr.interp2spect_EB_fields(
         aux.mats, interp.Er, interp.Et, interp.Ez,
         interp.Br, interp.Bt, interp.Bz)
-    return replace(spect, Ep=Ep, Em=Em, Ez=Ez, Bp=Bp, Bm=Bm, Bz=Bz)
+    pml = {}
+    if use_pml:
+        pml["Ep_pml"], pml["Em_pml"] = tr.interp2spect_vect(
+            aux.mats, interp.Er_pml, interp.Et_pml)
+        pml["Bp_pml"], pml["Bm_pml"] = tr.interp2spect_vect(
+            aux.mats, interp.Br_pml, interp.Bt_pml)
+    return replace(spect, Ep=Ep, Em=Em, Ez=Ez, Bp=Bp, Bm=Bm, Bz=Bz, **pml)
 
 
 def gather_and_push(config, options, sp, sc, interp, zmin, dt):
-    """Gather E,B at a non-resident species' particles (the linear
-    gather by index) and Vay-push its momenta."""
-    E_B = gather_fields_linear(
+    """Gather E,B at a non-resident species' particles (the linear or
+    cubic gather by index) and Vay-push its momenta (unless
+    move_momenta is off)."""
+    gather = (gather_fields_cubic if sc.particle_shape == "cubic"
+              else gather_fields_linear)
+    E_B = gather(
         sp.x, sp.y, sp.z, interp, options.rmax_gather,
         1.0 / config.dz, float(zmin), config.Nz, 1.0 / config.dr, 0.0,
         config.Nr, comp=_comp_of(sp))
-    if sc.q == 0:
+    if not options.move_momenta or sc.q == 0:
         return sp
     ux, uy, uz, inv_gamma = pp.push_p(sp, E_B[:3], E_B[3:], sc.q, sc.m, dt)
     return sp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
 
 
-def half_push_x(config, sp, zmin):
+def half_push_x(config, options, sp, zmin):
+    if not options.move_positions:
+        return sp
     if sp.comp_x is not None:
         x, y, z, cx, cy, cz = pp.push_x_compensated(sp, 0.5 * config.dt)
         sp = sp.replace(comp_x=cx, comp_y=cy, comp_z=cz)
@@ -223,6 +297,19 @@ def half_push_x(config, sp, zmin):
     return sp.replace(x=x, y=y, z=z)
 
 
+def damp_pml_r(aux, interp):
+    """Anisotropic radial PML damping (reference: pml_damping.py:47-83):
+    the theta split components and the z components are damped; Er/Br
+    are not."""
+    damp = aux.damp_r_pml[None, None, :]
+    Et_pml = interp.Et_pml * damp
+    Bt_pml = interp.Bt_pml * damp
+    return replace(interp, Et=interp.Et - interp.Et_pml + Et_pml,
+                   Bt=interp.Bt - interp.Bt_pml + Bt_pml,
+                   Ez=interp.Ez * damp, Bz=interp.Bz * damp,
+                   Et_pml=Et_pml, Bt_pml=Bt_pml)
+
+
 # ---------------------------------------------------------------------
 # Moving window, open boundaries, continuous injection
 # ---------------------------------------------------------------------
@@ -231,13 +318,13 @@ _SHIFTED = ("Ep", "Em", "Ez", "Bp", "Bm", "Bz", "rho_prev")
 
 
 def shift_spectral_fields(config, aux, spect, n_move, rdt):
-    """Shift all spectral fields by n_move cells (moving window):
-    multiplication by exp(i kz_true dz)^n_move
+    """Shift all spectral fields (and the PML split fields) by n_move
+    cells (moving window): multiplication by exp(i kz_true dz)^n_move
     (reference: boundaries/moving_window.py:134-276)."""
     ph = aux.kz_true * float(rdt(config.dz) * rdt(n_move))
     shift = torch.complex(torch.cos(ph), torch.sin(ph))[None, :, None]
-    return replace(spect, **{n: getattr(spect, n) * shift
-                             for n in _SHIFTED})
+    names = _SHIFTED + (SPECT_PML_FIELDS if config.use_pml else ())
+    return replace(spect, **{n: getattr(spect, n) * shift for n in names})
 
 
 def damp_EB_z_skinny(aux, spect, interp_raw):
@@ -351,14 +438,24 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
 # The step
 # ---------------------------------------------------------------------
 
-def _resident_indices(species_configs, options):
+def _cross_correction(config, options):
+    return (options.correct_currents
+            and config.current_correction == "cross-deposition")
+
+
+def _resident_indices(config, species_configs, options):
     """Species that run the resident column layout: the fused deposit
-    on, sort_K > 0, linear shapes, and Simulation's residency flag
-    (capacity Nz * sort_K)."""
+    on, both half pushes on, no cross-deposition, and per species
+    sort_K > 0, not a tracer, linear shapes and Simulation's residency
+    flag (capacity Nz * sort_K)."""
     if not options.fused_deposit:
         return []
+    if not (options.move_positions and options.move_momenta):
+        return []
+    if _cross_correction(config, options):
+        return []
     return [i for i, sc in enumerate(species_configs)
-            if sc.resident and sc.sort_K > 0
+            if sc.resident and sc.sort_K > 0 and not sc.is_tracer
             and sc.particle_shape == "linear"]
 
 
@@ -369,10 +466,18 @@ def make_step_fn(config, species_configs, options: StepOptions):
     ``column_angles(iteration, species_index, nkey)`` gives the rotation
     of each injected column (see particles/injection.py)."""
     species_configs = tuple(species_configs)
-    for sc in species_configs:
-        if sc.particle_shape != "linear":
-            raise NotImplementedError("only linear shapes are ported")
-    resident_idx = _resident_indices(species_configs, options)
+    resident_idx = _resident_indices(config, species_configs, options)
+    cross = _cross_correction(config, options)
+    # The fused sorted deposit (J and rho_next at once, after the first
+    # half push) does not run under cross-deposition, which deposits
+    # between the half pushes
+    will_fuse = options.fused_deposit and options.move_positions \
+        and not cross
+    # fbpic_tpu forces a fresh rho_prev every step under cross-deposition
+    # or without reuse_rho_prev
+    ep = (max(1, options.exchange_period)
+          if options.reuse_rho_prev and config.current_correction
+          != "cross-deposition" else 1)
     zfold = _zfold(config)
 
     def step(state: SimState, aux, inj_auxes=(), column_angles=None,
@@ -385,7 +490,6 @@ def make_step_fn(config, species_configs, options: StepOptions):
         it = state.iteration
         sort_overflow = state.sort_overflow
         ring_overwrite = state.ring_overwrite
-        ep = max(1, options.exchange_period)
         do_exchange = it % ep == 0
         # Galilean frame: the grid edge flows vg*dt per step; deposits
         # see it at their own time (fbpic_tpu core/step.py:942-956)
@@ -486,7 +590,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 ux, uy, uz, inv_gamma = pp.push_p(psp, E_B[:3], E_B[3:],
                                                   sc.q, sc.m, dt)
                 psp = psp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
-            psp = half_push_x(config, psp, zmin_mid)
+            psp = half_push_x(config, options, psp, zmin_mid)
 
             # Fused J + rho/d(rho) deposit on the pushed padded arrays
             # (sort_at_start: the sort is half a push behind)
@@ -506,7 +610,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
             fused_rho[i] = out[3]
             if want_drho:
                 fused_drho[i] = out[4]
-            psp = half_push_x(config, psp, zmin_next)
+            psp = half_push_x(config, options, psp, zmin_next)
             # Flatten back: the sorted order becomes the storage order;
             # invalid slots (duplicates of neighbours) are dead
             flat = {n: getattr(psp, n).reshape(-1) for n in
@@ -522,29 +626,34 @@ def make_step_fn(config, species_configs, options: StepOptions):
                                           torch.zeros_like(ids)).reshape(-1)
             species[i] = sp.replace(**flat)
 
-        # --- Non-resident species: linear gather, momentum push, first
-        # half position push
+        # --- Non-resident species: linear or cubic gather, momentum
+        # push, first half position push
         for i, sc in enumerate(species_configs):
             if i not in resident_idx:
                 species[i] = half_push_x(
-                    config, gather_and_push(config, options, species[i], sc,
-                                            interp, zmin, dt), zmin_mid)
+                    config, options,
+                    gather_and_push(config, options, species[i], sc,
+                                    interp, zmin, dt), zmin_mid)
 
         # --- Column sort of the non-resident sort_K species at the mid
         # positions (fbpic_tpu core/step.py:1416-1467).  The fused
         # deposit takes the particles through the sort (payload plan);
         # the legacy deposits gather the arrays as they are when they
         # deposit (idx plan), and need an exact-position sort, so a
-        # Galilean grid drift sends them to the scatter deposits.
+        # Galilean grid drift sends them to the scatter deposits.  Cubic
+        # species are sorted only for the fused deposit (the legacy
+        # deposits are linear), tracers never.
         sorts = {}
         for i, sc in enumerate(species_configs):
-            if i in resident_idx or sc.sort_K <= 0:
+            if i in resident_idx or sc.sort_K <= 0 or sc.is_tracer:
                 continue
-            if not (options.fused_deposit or vg == 0.0):
+            if not (will_fuse or vg == 0.0):
+                continue
+            if sc.particle_shape != "linear" and not will_fuse:
                 continue
             sp = species[i]
             payload = None
-            if options.fused_deposit:
+            if will_fuse:
                 payload = [sp.x, sp.y, sp.z, sp.w, sp.ux, sp.uy, sp.uz,
                            sp.inv_gamma]
                 if sp.comp_x is not None:
@@ -555,16 +664,21 @@ def make_step_fn(config, species_configs, options: StepOptions):
             sort_overflow = sort_overflow + sorts[i]["n_over"]
 
         # --- Fused J + rho / d(rho) deposit of the sorted species (K1,
-        # or K3 twice) on their fresh sort
-        if options.fused_deposit and sorts:
+        # or K3 twice; cubic: deposit_rho_J_sorted_cubic) on their fresh
+        # sort
+        if will_fuse and sorts:
             derive_rho_next = want_drho
             for i, sort in sorts.items():
                 sp, sc = species[i], species_configs[i]
-                out = deposit_rho_J_sorted(
+                cubic = sc.particle_shape == "cubic"
+                fused_fn = (deposit_rho_J_sorted_cubic if cubic
+                            else deposit_rho_J_sorted)
+                out = fused_fn(
                     sort, sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
                     sp.inv_gamma, 0.5 * dt, config.Nm, 1.0 / config.dz,
                     float(zmin_mid), config.Nz, 1.0 / config.dr, 0.0,
-                    config.Nr, aux.ruyten_linear, zfold=zfold,
+                    config.Nr, aux.ruyten_cubic if cubic
+                    else aux.ruyten_linear, zfold=zfold,
                     comp=_comp_of(sp), with_drho=want_drho,
                     with_rho=not derive_rho_next, vz_shift=vg)
                 fused_J[i] = out[:3]
@@ -580,21 +694,27 @@ def make_step_fn(config, species_configs, options: StepOptions):
                                           aux.filter_r)
         spect = replace(spect, Jp=Jp, Jm=Jm, Jz=Jz)
 
+        # --- Cross-deposition (between the two position half pushes)
+        if cross:
+            spect = _cross_deposit(config, options, aux, spect, species,
+                                   species_configs, zmin, vg_dt)
+
         # --- float32, species without the fused deposit: their charge at
         # the start-of-step positions, for the grid-difference d(rho)
         scatter_rho1 = {}
         if want_drho:
             for i, (sp, sc) in enumerate(zip(species, species_configs)):
-                if i in fused_drho:
+                if sc.is_tracer or i in fused_drho:
                     continue
                 x0, y0, z0 = pp.push_x(sp, -0.5 * dt)
-                scatter_rho1[i] = deposit_rho_linear(
+                dep, ruy = _scatter_rho(aux, sc)
+                scatter_rho1[i] = dep(
                     x0, y0, z0, sp.w, sc.q, *_deposit_args(config, zmin),
-                    aux.ruyten_linear, zfold=zfold, comp=_comp_of(sp))
+                    ruy, zfold=zfold, comp=_comp_of(sp))
 
         # --- Second half position push of the non-resident species
         species = [sp if i in resident_idx
-                   else half_push_x(config, sp, zmin_next)
+                   else half_push_x(config, options, sp, zmin_next)
                    for i, sp in enumerate(species)]
 
         # --- float32: the per-particle d(rho) of the fused deposits plus
@@ -604,10 +724,10 @@ def make_step_fn(config, species_configs, options: StepOptions):
             contribs = list(fused_drho.values())
             for i, rho1 in scatter_rho1.items():
                 sp, sc = species[i], species_configs[i]
-                rho2 = deposit_rho_linear(
-                    sp.x, sp.y, sp.z, sp.w, sc.q,
-                    *_deposit_args(config, zmin), aux.ruyten_linear,
-                    zfold=zfold, comp=_comp_of(sp))
+                dep, ruy = _scatter_rho(aux, sc)
+                rho2 = dep(sp.x, sp.y, sp.z, sp.w, sc.q,
+                           *_deposit_args(config, zmin), ruy, zfold=zfold,
+                           comp=_comp_of(sp))
                 contribs.append(rho2 - rho1)
             if contribs:
                 tot = contribs[0]
@@ -635,6 +755,11 @@ def make_step_fn(config, species_configs, options: StepOptions):
         if options.correct_currents:
             spect = correct_currents(config, aux, spect, drho=drho)
         spect = push_fields(config, aux, spect, options.use_true_rho)
+        if options.correct_divE:
+            Ep, Em, Ez = ps.correct_divE(spect.rho_prev, spect.Ep, spect.Em,
+                                         spect.Ez, aux.kz, aux.kr,
+                                         aux.inv_k2)
+            spect = replace(spect, Ep=Ep, Em=Em, Ez=Ez)
 
         # --- Galilean frame: the grid edge has flowed vg*dt this step
         # (no spectral shift: the comoving coefficients advance the
@@ -665,15 +790,25 @@ def make_step_fn(config, species_configs, options: StepOptions):
                         upd["ids"][(config.Nz - n_move) * rK:] = 0
                 species[ri] = rsp.replace(**upd)
 
-        # --- Fields back to the interpolation grid; open-z damping as a
-        # skinny spectral correction + elementwise interp profile
-        interp = spect2interp_EB(aux, spect, interp)
-        if config.boundaries_z == "open" and aux.damp_rows is not None:
-            spect = damp_EB_z_skinny(aux, spect, interp)
-            prof = aux.damp_z[None, :, None]
-            interp = replace(interp, **{
-                n: getattr(interp, n) * prof
-                for n in ("Er", "Et", "Ez", "Br", "Bt", "Bz")})
+        # --- Fields back to the interpolation grid.  Open-z damping: the
+        # z profile commutes with the radial transform, so it is applied
+        # elementwise to the interp fields, and to spectral space as a
+        # skinny correction, or through the radial PML's full round trip
+        # (damp the split fields on the interp grid, transform back)
+        damp_z = (config.boundaries_z == "open"
+                  and aux.damp_rows is not None)
+        if aux.damp_r_pml is not None:
+            interp = spect2interp_EB(aux, spect, interp, use_pml=True)
+            if damp_z:
+                interp = _apply_z_profile(aux, interp, _EB + INTERP_PML_FIELDS)
+            interp = damp_pml_r(aux, interp)
+            spect = interp2spect_EB(aux, interp, spect, use_pml=True)
+        else:
+            interp = spect2interp_EB(aux, spect, interp,
+                                     use_pml=config.use_pml)
+            if damp_z:
+                spect = damp_EB_z_skinny(aux, spect, interp)
+                interp = _apply_z_profile(aux, interp, _EB)
 
         return SimState(
             spect=spect, interp=interp, species=species,
@@ -684,10 +819,66 @@ def make_step_fn(config, species_configs, options: StepOptions):
     return step
 
 
+_EB = ("Er", "Et", "Ez", "Br", "Bt", "Bz")
+
+
+def _apply_z_profile(aux, interp, names):
+    """Elementwise open-z damping of interp fields."""
+    prof = aux.damp_z[None, :, None]
+    return replace(interp, **{n: getattr(interp, n) * prof for n in names})
+
+
+def _scatter_rho(aux, sc):
+    """The scatter charge deposit of a species' shape and its Ruyten
+    coefficients."""
+    if sc.particle_shape == "cubic":
+        return deposit_rho_cubic, aux.ruyten_cubic
+    return deposit_rho_linear, aux.ruyten_linear
+
+
+def _cross_deposit(config, options, aux, spect, species, species_configs,
+                   zmin, vg_dt=0.0):
+    """Deposit rho_next_xy and rho_next_z (cross-deposition scheme).
+
+    Particles enter at (z[n+1/2], x[n+1/2]); see reference
+    main.py:672-716.  vg_dt: the Galilean grid drift per step --
+    rho_next_xy (z at t=n) sees the grid at zmin, rho_next_z (z at
+    t=n+1) the grid at zmin + vg*dt (the reference shifts the boundaries
+    between the two deposits, main.py:692,:704)."""
+    def push_species(species, dt, xp, yp, zp, zmin_wrap):
+        if not options.move_positions:
+            return species
+        out = []
+        for sp in species:
+            x, y, z = pp.push_x(sp, dt, x_push=xp, y_push=yp, z_push=zp)
+            if config.boundaries_z == "periodic":
+                Lz = config.Nz * config.dz
+                z = float(zmin_wrap) + torch.remainder(
+                    z - float(zmin_wrap), Lz)
+            out.append(sp.replace(x=x, y=y, z=z))
+        return out
+
+    # z[n+1/2], x[n+1/2] -> z[n], x[n+1]
+    tmp = push_species(species, 0.5 * config.dt, 1.0, 1.0, -1.0, zmin)
+    rho_next_xy = deposit_rho_spect(config, aux, tmp, species_configs, zmin)
+    # z[n], x[n+1] -> z[n+1], x[n]
+    zmin_next = zmin + vg_dt
+    tmp = push_species(tmp, config.dt, -1.0, -1.0, 1.0, zmin_next)
+    rho_next_z = deposit_rho_spect(config, aux, tmp, species_configs,
+                                   zmin_next)
+    if options.filter_currents:
+        rho_next_xy = ps.filter_scalar(rho_next_xy, aux.filter_z,
+                                       aux.filter_r)
+        rho_next_z = ps.filter_scalar(rho_next_z, aux.filter_z, aux.filter_r)
+    return replace(spect, rho_next_xy=rho_next_xy, rho_next_z=rho_next_z)
+
+
 def prepare(config, options, species_configs, state, aux):
-    """Before a run of steps: refresh spectral E/B from the interpolation
-    grid and deposit rho_prev (reference: main.py:408-415, :435-449)."""
-    spect = interp2spect_EB(aux, state.interp, state.spect)
+    """Before a run of steps: refresh spectral E/B (and the PML split
+    fields) from the interpolation grid and deposit rho_prev (reference:
+    main.py:408-415, :435-449)."""
+    spect = interp2spect_EB(aux, state.interp, state.spect,
+                            use_pml=config.use_pml)
     rho = deposit_rho_spect(config, aux, state.species, species_configs,
                             state.zmin)
     if options.filter_currents:

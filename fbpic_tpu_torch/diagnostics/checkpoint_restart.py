@@ -7,7 +7,9 @@ with ``torch.load(weights_only=True)``.  It holds a dict:
 
 - ``tensors``: every state tensor under fbpic_tpu's keypath names
   (``.spect.Ep``, ``.interp.Er``, ``.species[0].x``, ``.species[0].ids``,
-  ``.sort_overflow``, ...; complex fields as complex tensors, where
+  ``.sort_overflow``, ...; the radial PML's ``.spect.Ep_pml`` ... and
+  cross-deposition's ``.spect.rho_next_xy`` / ``_z`` where the
+  simulation has them; complex fields as complex tensors, where
   fbpic_tpu stores ``.re`` / ``.im`` pairs; ids as one int64 per slot),
   and ``generator_state``, the state of ``sim.generator``: the
   injection angles and thermal momenta drawn after a restart depend on
@@ -25,12 +27,12 @@ randomness is derived from a key in the state).
 import glob
 import os
 import warnings
-from dataclasses import fields as dc_fields, replace
+from dataclasses import replace
 
 import torch
 
 from ..core.state import SimState
-from ..fields.solver import SpectralFields, InterpFields
+from ..fields.solver import SpectralFields, InterpFields, present_fields
 from ..particles.state import ARRAY_FIELDS, ParticleState
 
 
@@ -60,10 +62,10 @@ def checkpoint_dict(sim):
     """The checkpoint of ``sim`` as a dict of tensors and host values
     (the tensors are the state's own, not copies)."""
     st = sim.state
-    tensors = {".spect." + f.name: getattr(st.spect, f.name)
-               for f in dc_fields(SpectralFields)}
-    tensors.update({".interp." + f.name: getattr(st.interp, f.name)
-                    for f in dc_fields(InterpFields)})
+    tensors = {".spect." + n: getattr(st.spect, n)
+               for n in present_fields(st.spect)}
+    tensors.update({".interp." + n: getattr(st.interp, n)
+                    for n in present_fields(st.interp)})
     species = []
     for i, (sp, sc) in enumerate(zip(st.species, sim.species_configs)):
         for name in ARRAY_FIELDS:
@@ -110,10 +112,10 @@ def load_checkpoint_dict(sim, ckpt):
                 "the one that wrote it before restarting" % key)
         return tensors[key].to(dev)
 
-    spect = SpectralFields(**{f.name: tensor(".spect." + f.name)
-                              for f in dc_fields(SpectralFields)})
-    interp = InterpFields(**{f.name: tensor(".interp." + f.name)
-                             for f in dc_fields(InterpFields)})
+    spect = SpectralFields(**{n: tensor(".spect." + n)
+                              for n in present_fields(sim.state.spect)})
+    interp = InterpFields(**{n: tensor(".interp." + n)
+                             for n in present_fields(sim.state.interp)})
     species = []
     for i, (sp, h) in enumerate(zip(sim.state.species, host["species"])):
         arrays = {}

@@ -1,13 +1,15 @@
 """PSATD field advance, curl-free current correction and source filters.
 
 Field arrays are complex tensors stacked over azimuthal modes,
-(Nm, Nz, Nr).  Coefficient arrays are real, except those of the
+(Nm, Nz, Nr); the radial-PML split fields (``*_pml``) too.  Coefficient arrays are real, except those of the
 Galilean / comoving scheme (T_eb, T_cc, T_rho, j_corr_coef and its
 j_coef / rho_*_coef), which are complex tensors of the fields' complex
 dtype.  Each function is the elementwise k-space update of the spectral
 solver.  Behavioral reference: FBPIC's fbpic/fields/
 numba_methods.py:64-382.
 """
+import torch
+
 from ..constants import c2, mu_0, epsilon_0
 
 
@@ -48,6 +50,17 @@ def push_eb_standard(
     ) * j_coef
 
     return Ep_new, Em_new, Ez_new, Bp_new, Bm_new, Bz_new
+
+
+def push_eb_pml_standard(Ep_pml, Em_pml, Bp_pml, Bm_pml, Ez, Bz, C, S_w,
+                         kr, kz):
+    """Advance the radial-PML split fields (standard scheme)."""
+    half_iBz = (1j * (Bz * kr)) * (-0.5)
+    half_iEz = (1j * (Ez * kr)) * (-0.5)
+    return (Ep_pml * C + half_iBz * (c2 * S_w),
+            Em_pml * C + half_iBz * (c2 * S_w),
+            Bp_pml * C - half_iEz * S_w,
+            Bm_pml * C - half_iEz * S_w)
 
 
 def push_eb_comoving(
@@ -105,6 +118,19 @@ def push_eb_comoving(
     return Ep_new, Em_new, Ez_new, Bp_new, Bm_new, Bz_new
 
 
+def push_eb_pml_comoving(Ep_pml, Em_pml, Bp_pml, Bm_pml, Ez, Bz, C, S_w,
+                         T_eb, kr, kz):
+    """Advance the radial-PML split fields (Galilean / comoving scheme)."""
+    TC = T_eb * C
+    TS = T_eb * S_w
+    half_iBz = (1j * (Bz * kr)) * (-0.5)
+    half_iEz = (1j * (Ez * kr)) * (-0.5)
+    return (Ep_pml * TC + half_iBz * TS * c2,
+            Em_pml * TC + half_iBz * TS * c2,
+            Bp_pml * TC - half_iEz * TS,
+            Bm_pml * TC - half_iEz * TS)
+
+
 def correct_currents_curlfree_standard(
     rho_prev, rho_next, Jp, Jm, Jz, kz, kr, inv_k2, inv_dt, drho=None
 ):
@@ -126,6 +152,51 @@ def correct_currents_curlfree_comoving(
     F = ((rho_next - rho_prev * T_eb) * (T_cc * j_corr_coef)
          + 1j * (Jz * kz) + (Jp - Jm) * kr) * (-inv_k2)
     return Jp + F * (0.5 * kr), Jm - F * (0.5 * kr), Jz - (1j * F) * kz
+
+
+def _safe_inv(k):
+    """1/k, 0 where k = 0."""
+    return torch.where(k != 0, 1.0 / torch.where(k == 0, torch.ones_like(k),
+                                                 k), torch.zeros_like(k))
+
+
+def correct_currents_crossdeposition_standard(
+    rho_prev, rho_next, rho_next_z, rho_next_xy, Jp, Jm, Jz, kz, kr, inv_dt
+):
+    """Cross-deposition current correction (standard scheme)."""
+    Dz = 1j * (Jz * kz) + (
+        rho_next - rho_next_xy + rho_next_z - rho_prev) * (0.5 * inv_dt)
+    Dxy = (Jp - Jm) * kr + (
+        rho_next - rho_next_z + rho_next_xy - rho_prev) * (0.5 * inv_dt)
+    inv_kr = _safe_inv(kr)
+    inv_kz = _safe_inv(kz)
+    return (Jp - Dxy * (0.5 * inv_kr), Jm + Dxy * (0.5 * inv_kr),
+            Jz + (1j * Dz) * inv_kz)
+
+
+def correct_currents_crossdeposition_comoving(
+    rho_prev, rho_next, rho_next_z, rho_next_xy, Jp, Jm, Jz, kz, kr,
+    j_corr_coef, T_eb, T_cc, inv_dt
+):
+    """Cross-deposition current correction (Galilean / comoving scheme)."""
+    half_coef = T_cc * j_corr_coef * 0.5
+    Dz = 1j * (Jz * kz) + (
+        rho_next - rho_next_xy * T_eb + rho_next_z - rho_prev * T_eb
+    ) * half_coef
+    Dxy = (Jp - Jm) * kr + (
+        rho_next + rho_next_xy * T_eb - rho_next_z - rho_prev * T_eb
+    ) * half_coef
+    inv_kr = _safe_inv(kr)
+    inv_kz = _safe_inv(kz)
+    return (Jp - Dxy * (0.5 * inv_kr), Jm + Dxy * (0.5 * inv_kr),
+            Jz + (1j * Dz) * inv_kz)
+
+
+def correct_divE(rho_prev, Ep, Em, Ez, kz, kr, inv_k2):
+    """Correct E so that div(E) = rho/epsilon_0."""
+    F = (rho_prev * (-1.0 / epsilon_0) + 1j * (Ez * kz)
+         + (Ep - Em) * kr) * (-inv_k2)
+    return Ep + F * (0.5 * kr), Em - F * (0.5 * kr), Ez - (1j * F) * kz
 
 
 def filter_scalar(field, filter_z, filter_r):

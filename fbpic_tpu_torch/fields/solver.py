@@ -44,6 +44,9 @@ class GridConfig:
     # standard scheme); use_galilean: the grid itself flows at v_comoving
     v_comoving: Optional[float] = None
     use_galilean: bool = True
+    # Radial PML (boundaries r = 'open'): split fields, and nr_damp
+    # damping cells INSIDE Nr (reference: pml_damping.py)
+    use_pml: bool = False
     current_correction: str = "curl-free"
     particle_shape: str = "linear"
     boundaries_z: str = "periodic"  # 'periodic' or 'open'
@@ -53,6 +56,7 @@ class GridConfig:
     n_guard: int = 0
     nz_damp: int = 0
     n_inject: int = 0
+    nr_damp: int = 0      # radial PML cells (0 unless use_pml)
 
     @property
     def use_comoving(self):
@@ -77,6 +81,27 @@ class GridConfig:
         return self.n_guard + self.nz_damp + self.n_inject
 
 
+#: Optional fields of SpectralFields / InterpFields (None unless the
+#: configuration needs them)
+CROSS_FIELDS = ("rho_next_z", "rho_next_xy")
+SPECT_PML_FIELDS = ("Ep_pml", "Em_pml", "Bp_pml", "Bm_pml")
+INTERP_PML_FIELDS = ("Er_pml", "Et_pml", "Br_pml", "Bt_pml")
+
+
+def _zeros(cls, names, config, device, dtype):
+    shape = (config.Nm, config.Nz, config.Nr)
+    cdt = complex_dtype(dtype)
+    return cls(**{n: torch.zeros(shape, dtype=cdt, device=device)
+                  for n in names})
+
+
+def present_fields(fields):
+    """Names of the fields a SpectralFields / InterpFields holds (its
+    optional ones only where allocated)."""
+    return [f.name for f in dc_fields(fields)
+            if getattr(fields, f.name) is not None]
+
+
 @dataclass
 class SpectralFields:
     """Spectral-space field state, complex (Nm, Nz, Nr) each."""
@@ -91,14 +116,24 @@ class SpectralFields:
     Jz: torch.Tensor
     rho_prev: torch.Tensor
     rho_next: torch.Tensor
+    # Cross-deposition extras (current_correction = 'cross-deposition')
+    rho_next_z: Optional[torch.Tensor] = None
+    rho_next_xy: Optional[torch.Tensor] = None
+    # Radial-PML split fields (use_pml)
+    Ep_pml: Optional[torch.Tensor] = None
+    Em_pml: Optional[torch.Tensor] = None
+    Bp_pml: Optional[torch.Tensor] = None
+    Bm_pml: Optional[torch.Tensor] = None
 
     @staticmethod
     def zeros(config, device, dtype):
-        shape = (config.Nm, config.Nz, config.Nr)
-        cdt = complex_dtype(dtype)
-        return SpectralFields(**{
-            f.name: torch.zeros(shape, dtype=cdt, device=device)
-            for f in dc_fields(SpectralFields)})
+        names = [f.name for f in dc_fields(SpectralFields)
+                 if f.name not in CROSS_FIELDS + SPECT_PML_FIELDS]
+        if config.current_correction == "cross-deposition":
+            names += CROSS_FIELDS
+        if config.use_pml:
+            names += SPECT_PML_FIELDS
+        return _zeros(SpectralFields, names, config, device, dtype)
 
 
 @dataclass
@@ -111,14 +146,17 @@ class InterpFields:
     Br: torch.Tensor
     Bt: torch.Tensor
     Bz: torch.Tensor
+    Er_pml: Optional[torch.Tensor] = None
+    Et_pml: Optional[torch.Tensor] = None
+    Br_pml: Optional[torch.Tensor] = None
+    Bt_pml: Optional[torch.Tensor] = None
 
     @staticmethod
     def zeros(config, device, dtype):
-        shape = (config.Nm, config.Nz, config.Nr)
-        cdt = complex_dtype(dtype)
-        return InterpFields(**{
-            f.name: torch.zeros(shape, dtype=cdt, device=device)
-            for f in dc_fields(InterpFields)})
+        names = ["Er", "Et", "Ez", "Br", "Bt", "Bz"]
+        if config.use_pml:
+            names += INTERP_PML_FIELDS
+        return _zeros(InterpFields, names, config, device, dtype)
 
 
 @dataclass
@@ -148,8 +186,11 @@ class FieldAux:
     # Deposition normalization:
     invvol: torch.Tensor     # (Nm, Nr) inverse cell volume
     ruyten_linear: torch.Tensor  # (2, Nr+1): [mode 0, modes > 0]
+    ruyten_cubic: torch.Tensor   # (2, Nr+1)
     # Open-z damping profile (None for periodic z):
     damp_z: Optional[torch.Tensor] = None        # (Nz,) multiplicative
+    # Radial PML damping profile (None unless use_pml):
+    damp_r_pml: Optional[torch.Tensor] = None    # (Nr,) 1 outside the PML
     # Skinny spectral damping correction (open z): the z profile differs
     # from 1 only on the guard/damp rows, so damping = spect -
     # Wf[:, rows] (1-prof)[rows] ifft[rows] -- one (Nz, nrows) matmul
@@ -189,9 +230,9 @@ def build_field_aux(config: GridConfig, smoother: BinomialSmoother = None,
     vol_m0, vol_std = cell_volumes(config.dz, Nr, config.rmax,
                                    use_modified_volume=use_modified_volume)
     invvol = np.stack([1.0 / vol_m0] + [1.0 / vol_std] * max(Nm - 1, 0))[:Nm]
-    ruyt_lin0, _ = ruyten_coefficients(
+    ruyt_lin0, ruyt_cub0 = ruyten_coefficients(
         vol_m0, Nr, config.dr, config.dz, use_ruyten_shapes)
-    ruyt_lin1, _ = ruyten_coefficients(
+    ruyt_lin1, ruyt_cub1 = ruyten_coefficients(
         vol_std, Nr, config.dr, config.dz, use_ruyten_shapes)
 
     def dev(x):
@@ -215,6 +256,8 @@ def build_field_aux(config: GridConfig, smoother: BinomialSmoother = None,
             damp["damp_skinny"] = torch.as_tensor(
                 Wf_rows * (1.0 - prof[rows])[None, :],
                 dtype=complex_dtype(dtype), device=device)
+    if config.use_pml and config.nr_damp > 0:
+        damp["damp_r_pml"] = dev(_pml_damp_profile_r(config))
 
     return FieldAux(
         mats=TransformMatrices.build(Nm, Nr, config.rmax, device, dtype),
@@ -232,8 +275,20 @@ def build_field_aux(config: GridConfig, smoother: BinomialSmoother = None,
         filter_z=dev(filter_z), filter_r=dev(filter_r),
         invvol=dev(invvol),
         ruyten_linear=dev(np.stack([ruyt_lin0, ruyt_lin1])),
+        ruyten_cubic=dev(np.stack([ruyt_cub0, ruyt_cub1])),
         **damp,
     )
+
+
+def _pml_damp_profile_r(config: GridConfig):
+    """Radial PML damping: exp(-4 (c dt/dr) x^2) over the last nr_damp
+    cells, 1 elsewhere (reference: pml_damping.py:86-110)."""
+    n_pml = config.nr_damp
+    x_pml = np.arange(n_pml) / n_pml
+    ramp = np.exp(-4.0 * (c * config.dt / config.dr) * x_pml**2)
+    profile = np.ones(config.Nr)
+    profile[config.Nr - n_pml:] = ramp
+    return profile
 
 
 def _damp_profile_z(config: GridConfig):

@@ -242,3 +242,151 @@ def deposit_J_linear(x, y, z, w, q, ux, uy, uz, inv_gamma, Nm,
     out = _deposit_channels(geom, channels, meta, geom["Nzb"],
                             geom["Nrb"], Nz, Nr, zfold)
     return tuple(_unpack_channels(out, 3, Nm))
+
+
+def deposit_rho_J_linear(x, y, z, w, q, ux, uy, uz, inv_gamma, Nm,
+                         invdz, zmin, Nz, invdr, rmin, Nr, ruyten_linear,
+                         zfold="periodic", comp=None):
+    """Deposit rho and J together in one scatter (same positions).
+    Returns (rho, Jr, Jt, Jz) complex (Nm, Nz, Nr)."""
+    geom = _geometry(x, y, z, invdz, zmin, Nz, invdr, rmin, Nr,
+                     ruyten_linear, comp=comp)
+    geom["idx00"] = _spread_dead(geom["idx00"], w, geom["Nzb"] * geom["Nrb"])
+    cos, sin = geom["cos"], geom["sin"]
+    cos_m, sin_m = _mode_phases(cos, sin, Nm)
+    wj = q * w
+    base = (wj,) + current_components(wj, cos, sin, ux, uy, uz, inv_gamma)
+    channels = _pack_channels([_modes(b, cos_m, sin_m) for b in base],
+                              Nm, dim=1)
+    meta = _channel_meta(Nm, 4, [+1.0, -1.0, -1.0, +1.0], x.dtype, x.device)
+    out = _deposit_channels(geom, channels, meta, geom["Nzb"],
+                            geom["Nrb"], Nz, Nr, zfold)
+    return tuple(_unpack_channels(out, 4, Nm))
+
+
+# ---------------------------------------------------------------------
+# Cubic (third-order) shapes: a 4x4 footprint, scattered as 16 corner
+# blocks of channels at one base index (fbpic_tpu computes them with XLA
+# ops, not a Pallas kernel)
+# ---------------------------------------------------------------------
+
+def cubic_shape(u):
+    """The four cubic B-spline weights at sub-cell offset u in [0, 1)
+    (reference: deposition/particle_shapes.py:42-56)."""
+    v = 1.0 - u
+    return ((1.0 / 6.0) * v**3,
+            (1.0 / 6.0) * (3.0 * u**3 - 6.0 * u**2 + 4.0),
+            (1.0 / 6.0) * (3.0 * v**3 - 6.0 * v**2 + 4.0),
+            (1.0 / 6.0) * u**3)
+
+
+def _cubic_axis_weights(cell_pos, extra=None):
+    """Cubic weights s0..s3 with i_low = ceil(pos) - 2.
+
+    u = pos - i_low - 1; ``extra`` (the Kahan residual in cell units,
+    sub-ULP of cell_pos) is added AFTER that cancellation, where it
+    survives in the O(1) offset."""
+    i_low = torch.ceil(cell_pos).long() - 2
+    u = cell_pos - i_low.to(cell_pos.dtype) - 1.0
+    if extra is not None:
+        u = u + extra
+    return i_low, u, cubic_shape(u)
+
+
+def _kahan_cells(x, y, r, comp, invdz, invdr):
+    """The Kahan residuals in z and r cell units (None, None without)."""
+    if comp is None:
+        return None, None
+    cx, cy, cz = comp
+    return (invdz * cz,
+            invdr * ((x * cx + y * cy) / torch.clamp(r, min=1e-30)))
+
+
+def cubic_radial_rows(sr_plain, u, bn_idx, ruyten_cubic):
+    """Radial weights per mode row (mode 0, modes > 0): the Ruyten
+    correction on the two central points (+bn on s1, -bn on s2)."""
+    corr = (1.0 - u) * u
+    rows = []
+    for row in (0, 1):
+        bn = ruyten_cubic[row][bn_idx] * corr
+        rows.append((sr_plain[0], sr_plain[1] + bn, sr_plain[2] - bn,
+                     sr_plain[3]))
+    return rows
+
+
+def _geometry_cubic(x, y, z, invdz, zmin, Nz, invdr, rmin, Nr,
+                    ruyten_cubic, comp=None):
+    """Cubic-shape geometry: 4x4 footprint weights and base index."""
+    r, cos, sin = _cylindrical_projection(x, y)
+    r_cell = invdr * (r - rmin) - 0.5
+    z_cell = invdz * (z - zmin) - 0.5
+    ez, er = _kahan_cells(x, y, r, comp, invdz, invdr)
+    iz_low, _, sz = _cubic_axis_weights(z_cell, extra=ez)
+    ir_low, u, sr_plain = _cubic_axis_weights(r_cell, extra=er)
+    bn_idx = torch.clamp(torch.ceil(r_cell).long(), 0, Nr)
+    sr_m0, sr_mh = cubic_radial_rows(sr_plain, u, bn_idx, ruyten_cubic)
+
+    Nzb, Nrb = Nz + 2 * NGUARD, Nr + 2 * NGUARD
+    iz_buf = torch.clamp(iz_low + NGUARD, 0, Nz + NGUARD - 2)
+    ir_buf = torch.clamp(ir_low + NGUARD, max=Nr)  # footprint cols <= Nr+3
+    return dict(cos=cos, sin=sin, ir_low=ir_low, sz=sz, sr_m0=sr_m0,
+                sr_mh=sr_mh, idx00=iz_buf * Nrb + ir_buf, Nzb=Nzb, Nrb=Nrb)
+
+
+def _deposit_channels_cubic(geom, channel_vals, meta, Nzb, Nrb, Nz, Nr,
+                            zfold):
+    """Cubic 4x4 scatter: the 16 corner blocks as channels at one base
+    index, then shifted adds.  Returns the folded (Nz, Nr, C) tensor."""
+    sz, ir_low = geom["sz"], geom["ir_low"]
+    blocks = []
+    for jr in range(4):
+        sr = torch.where(meta["is_mode0"][None, :], geom["sr_m0"][jr][:, None],
+                         geom["sr_mh"][jr][:, None])           # (Np, C)
+        # Below-axis sign flip where the absolute radial index is < 0
+        below = (ir_low + jr) < 0
+        sr = torch.where(below[:, None], meta["flip"][None, :] * sr, sr)
+        for jz in range(4):
+            blocks.append(channel_vals * (sz[jz][:, None] * sr))
+    vals = torch.cat(blocks, dim=1)                            # (Np, 16 C)
+    C = channel_vals.shape[1]
+    buf = torch.zeros((Nzb * Nrb, 16 * C), dtype=vals.dtype,
+                      device=vals.device)
+    buf.index_add_(0, geom["idx00"], vals)
+    buf = buf.reshape(Nzb, Nrb, 4, 4, C)                       # (z, r, jr, jz)
+    out = torch.zeros((Nzb, Nrb, C), dtype=vals.dtype, device=vals.device)
+    for jr in range(4):
+        for jz in range(4):
+            out[jz:, jr:] += buf[:Nzb - jz, :Nrb - jr, jr, jz]
+    return _fold_guard_cells(out, Nz, Nr, zfold)
+
+
+def deposit_rho_cubic(x, y, z, w, q, Nm, invdz, zmin, Nz, invdr, rmin, Nr,
+                      ruyten_cubic, zfold="periodic", comp=None):
+    """Deposit charge density with cubic shapes; complex (Nm, Nz, Nr)."""
+    geom = _geometry_cubic(x, y, z, invdz, zmin, Nz, invdr, rmin, Nr,
+                           ruyten_cubic, comp=comp)
+    geom["idx00"] = _spread_dead(geom["idx00"], w, geom["Nzb"] * geom["Nrb"])
+    cos_m, sin_m = _mode_phases(geom["cos"], geom["sin"], Nm)
+    channels = _pack_channels([_modes(q * w, cos_m, sin_m)], Nm, dim=1)
+    meta = _channel_meta(Nm, 1, [+1.0], x.dtype, x.device)
+    out = _deposit_channels_cubic(geom, channels, meta, geom["Nzb"],
+                                  geom["Nrb"], Nz, Nr, zfold)
+    return _unpack_channels(out, 1, Nm)[0]
+
+
+def deposit_J_cubic(x, y, z, w, q, ux, uy, uz, inv_gamma, Nm,
+                    invdz, zmin, Nz, invdr, rmin, Nr, ruyten_cubic,
+                    zfold="periodic", comp=None):
+    """Deposit current density with cubic shapes; (Jr, Jt, Jz)."""
+    geom = _geometry_cubic(x, y, z, invdz, zmin, Nz, invdr, rmin, Nr,
+                           ruyten_cubic, comp=comp)
+    geom["idx00"] = _spread_dead(geom["idx00"], w, geom["Nzb"] * geom["Nrb"])
+    cos, sin = geom["cos"], geom["sin"]
+    cos_m, sin_m = _mode_phases(cos, sin, Nm)
+    js = current_components(q * w, cos, sin, ux, uy, uz, inv_gamma)
+    channels = _pack_channels([_modes(j0, cos_m, sin_m) for j0 in js],
+                              Nm, dim=1)
+    meta = _channel_meta(Nm, 3, [-1.0, -1.0, +1.0], x.dtype, x.device)
+    out = _deposit_channels_cubic(geom, channels, meta, geom["Nzb"],
+                                  geom["Nrb"], Nz, Nr, zfold)
+    return tuple(_unpack_channels(out, 3, Nm))

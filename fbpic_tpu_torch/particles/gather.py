@@ -1,9 +1,9 @@
 """Field gathering: grid -> per-particle E, B.
 
 ``gather_fields_sorted`` works on the sorted (Nz, K) layout of resident
-species (K2); ``gather_fields_linear`` on particles in any storage
-order (the non-resident species: plain PyTorch, as fbpic_tpu computes it
-with XLA ops, not a Pallas kernel).
+species (K2); ``gather_fields_linear`` and ``gather_fields_cubic`` on
+particles in any storage order (the non-resident species: plain
+PyTorch, as fbpic_tpu computes them with XLA ops, not a Pallas kernel).
 
 Behavioral reference:
 FBPIC's fbpic/particles/gathering/threading_methods.py:26-208 and
@@ -137,6 +137,84 @@ def gather_fields_linear(x, y, z, interp, rmax_gather, invdz, zmin, Nz,
     Fr_E, Ft_E, Fz_E, Fr_B, Ft_B, Fz_B = out.unbind(1)
     return (cos * Fr_E - sin * Ft_E, sin * Fr_E + cos * Ft_E, Fz_E,
             cos * Fr_B - sin * Ft_B, sin * Fr_B + cos * Ft_B, Fz_B)
+
+
+#: _guard_signs built once per (Nm, dtype, device): the sign of a radial
+#: row below the axis in the cubic gather (a tensor made from a host
+#: list is a blocking copy on a CUDA device)
+_cubic_flip_channels = functools.lru_cache(maxsize=None)(_guard_signs)
+
+
+def gather_fields_cubic(x, y, z, interp, rmax_gather, invdz, zmin, Nz,
+                        invdr, rmin, Nr, comp=None):
+    """Gather E and B at particles in any storage order (cubic shapes).
+
+    The 4x4 stencil: 16 fetches of the (component, mode, re/im) channels
+    by index, each weighted by its radial and z cubic weights; a radial
+    index below the axis reads row -ir - 1 with the sign (-1)^m (z) or
+    -(-1)^m (transverse); rows past the edge clamp to Nr - 1, z wraps
+    mod Nz (reference: gathering/threading_methods.py:208+,
+    gathering/inline_functions.py:93-187).  Then the mode sum
+    Re(F_m e^{-i m theta}) (weights 1 for m = 0, 2 above) and the
+    rotation to Cartesian.  The Kahan words, when given, are folded into
+    the sub-cell offsets.  Particles at r >= rmax_gather gather zero.
+
+    Returns (Ex, Ey, Ez, Bx, By, Bz), each shaped like x.
+    """
+    Nm = interp.Er.shape[0]
+    rdt = x.dtype
+    r, cos, sin = _cylindrical_projection(x, y)
+    r_cell = invdr * (r - rmin) - 0.5
+    z_cell = invdz * (z - zmin) - 0.5
+
+    ir_lowest = torch.floor(r_cell).long() - 1
+    r_local = r_cell - ir_lowest.to(rdt)
+    iz_lowest = torch.floor(z_cell).long() - 1
+    z_local = z_cell - iz_lowest.to(rdt)
+    if comp is not None:
+        cx, cy, cz = comp
+        r_local = r_local + invdr * (
+            (x * cx + y * cy) / torch.clamp(r, min=1e-30))
+        z_local = z_local + invdz * cz
+    Sr = _gather_cubic_weights(r_local)
+    Sz = _gather_cubic_weights(z_local)
+
+    Fflat = _stack_interp_channels(interp, Nm).reshape(Nz * Nr, -1)
+    flip = _cubic_flip_channels(Nm, rdt, x.device)
+    one = torch.ones((), dtype=rdt, device=x.device)
+    Fm = torch.zeros((x.shape[0], Fflat.shape[1]), dtype=rdt,
+                     device=x.device)
+    for jr in range(4):
+        ir = ir_lowest + jr
+        below = ir < 0
+        ir_eff = torch.clamp(torch.where(below, -ir - 1, ir), max=Nr - 1)
+        sign = torch.where(below[:, None], flip[None, :], one)
+        for jz in range(4):
+            iz = torch.remainder(iz_lowest + jz, Nz)
+            vals = Fflat.index_select(0, iz * Nr + ir_eff)
+            Fm = Fm + (Sr[jr] * Sz[jz])[:, None] * sign * vals
+
+    # Mode sum with e^{-i m theta}, weights (1, 2, 2, ...)
+    pr, pi = torch.ones_like(cos), torch.zeros_like(sin)
+    W = [pr, -pi]
+    for _ in range(1, Nm):
+        pr, pi = pr * cos + pi * sin, pi * cos - pr * sin
+        W += [2.0 * pr, -2.0 * pi]
+    W = torch.stack(W, dim=-1).reshape(-1, 1, 2 * Nm)
+    out = (Fm.reshape(-1, 6, 2 * Nm) * W).sum(dim=2)
+    out = out * (r < rmax_gather).to(rdt)[:, None]
+    Fr_E, Ft_E, Fz_E, Fr_B, Ft_B, Fz_B = out.unbind(1)
+    return (cos * Fr_E - sin * Ft_E, sin * Fr_E + cos * Ft_E, Fz_E,
+            cos * Fr_B - sin * Ft_B, sin * Fr_B + cos * Ft_B, Fz_B)
+
+
+def _gather_cubic_weights(s):
+    """Cubic weights of the 4 points at s - 2, s - 1, 2 - s, 1 - s from
+    the lowest one (the gather's form of the B-spline)."""
+    return (-1. / 6. * (s - 2.) ** 3,
+            1. / 6. * (3. * (s - 1.) ** 3 - 6. * (s - 1.) ** 2 + 4.),
+            1. / 6. * (3. * (2. - s) ** 3 - 6. * (2. - s) ** 2 + 4.),
+            -1. / 6. * (1. - s) ** 3)
 
 
 def gather_fields_sorted(

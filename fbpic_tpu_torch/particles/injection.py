@@ -105,8 +105,9 @@ def generate_columns(inj_cfg: InjectorConfig, inj_aux: InjectorAux,
 
     cols_idx = torch.arange(max_cols, device=device)
     active = (cols_idx < n_cols).to(dtype)
-    z_cols = torch.tensor(z_end, dtype=dtype, device=device) \
-        + (cols_idx.to(dtype) + 0.5) * dz_p
+    # z_end (a numpy scalar of the working dtype) joins as a scalar
+    # operand: a tensor made from it would be a blocking host copy
+    z_cols = (cols_idx.to(dtype) + 0.5) * dz_p + float(z_end)
     r = inj_aux.r.repeat(max_cols)
     w = inj_aux.w_base.repeat(max_cols) * active.repeat_interleave(col_size)
     z = z_cols.repeat_interleave(col_size)

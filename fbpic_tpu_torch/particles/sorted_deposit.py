@@ -14,7 +14,11 @@ the true z cell differs from the sort column by a small bounded offset;
 the offsets are extra channel blocks in V and shifted adds on the grid.
 
 The result equals the scatter path (deposit.py) in exact arithmetic --
-same shape factors, folding and edge masking.  The fused J + d(rho)
+same shape factors, folding and edge masking.  Cubic shapes
+(``deposit_rho_J_sorted_cubic``) carry 4 radial corner blocks per z
+offset and contract with the plain segmented sum ``_contract``
+(index_add_): fbpic_tpu computes them with an XLA einsum, not a Pallas
+kernel.  The fused J + d(rho)
 contraction of the float32 path runs in K1
 (``cuda_fused.fused_onehot_contract``); the J and rho contractions of
 the ``with_rho`` branch and of ``deposit_J_sorted`` /
@@ -31,7 +35,8 @@ from ..constants import c
 from .gather import _cylindrical_projection
 from .deposit import (
     NGUARD, _mode_phases, _channel_meta, _pack_channels, _unpack_channels,
-    _fold_guard_cells, _modes, current_components,
+    _fold_guard_cells, _modes, current_components, _cubic_axis_weights,
+    _kahan_cells, cubic_radial_rows, cubic_shape,
 )
 from .cuda_fused import fused_onehot_contract
 from .cuda_dense import dense_onehot_contract
@@ -250,13 +255,20 @@ def _build_V_span_diff(span, dph, ph_b, wj, meta, ruyten, n_blocks=5):
 
 def _contract(ir_buf, blocks, Nrb):
     """Segmented sum out[col, r, ch] = sum_k [ir_buf[col, k] == r]
-    V[col, k, ch] with V = concat(blocks, axis=2)."""
-    V = torch.cat(blocks, dim=2) if len(blocks) > 1 else blocks[0]
-    Nz, _, W = V.shape
-    col = torch.arange(Nz, device=V.device)[:, None]
+    V[col, k, ch] with V = concat(blocks, axis=2): one index_add_ a block
+    into its own channel columns (a concatenated V of a few channels a
+    block costs the card more to copy than to sum)."""
+    Nz = ir_buf.shape[0]
+    W = sum(b.shape[2] for b in blocks)
+    dtype, dev = blocks[0].dtype, blocks[0].device
+    col = torch.arange(Nz, device=dev)[:, None]
     seg = (col * Nrb + ir_buf).reshape(-1)
-    out = torch.zeros((Nz * Nrb, W), dtype=V.dtype, device=V.device)
-    out.index_add_(0, seg, V.reshape(-1, W))
+    out = torch.zeros((Nz * Nrb, W), dtype=dtype, device=dev)
+    a = 0
+    for b in blocks:
+        C = b.shape[2]
+        out[:, a:a + C].index_add_(0, seg, b.reshape(-1, C))
+        a += C
     return out.reshape(Nz, Nrb, W)
 
 
@@ -553,3 +565,211 @@ def dense_contract_operands(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,
                delta_lo=dj_lo, delta_hi=dj_hi, **common),
         rho=dict(geom=geom2, channel_vals=channels2, meta=meta2,
                  delta_lo=dr_lo, delta_hi=dr_hi, **common))
+
+
+# ---------------------------------------------------------------------
+# Cubic (third-order) shapes on the sorted layout: the same design as
+# the linear path with a 4x4 footprint -- 4 radial corner planes ride as
+# channel blocks (reassembled by radial shifts) and z uses 4-point
+# per-offset weight blocks.  The contraction is _contract (index_add_).
+# ---------------------------------------------------------------------
+
+def _padded_geometry_cubic(sort, x, y, z, invdz, zmin, Nz, invdr, rmin,
+                           Nr, ruyten_cubic, zfold, delta_lo, delta_hi,
+                           comp=None):
+    """Cubic-shape geometry on the padded (Nz, K) layout: mirrors
+    deposit._geometry_cubic, with the z contribution as per-offset
+    weight blocks zw[o] relative to the sort column."""
+    r, cos, sin = _cylindrical_projection(x, y)
+    rdt = x.dtype
+    r_cell = invdr * (r - rmin) - 0.5
+    z_cell = invdz * (z - zmin) - 0.5
+    ez, er = _kahan_cells(x, y, r, comp, invdz, invdr)
+    iz_low, uz_, sz = _cubic_axis_weights(z_cell, extra=ez)
+    ir_low, u, sr_plain = _cubic_axis_weights(r_cell, extra=er)
+    ok = sort["valid"].to(rdt)
+    sz = tuple(s_ * ok for s_ in sz)
+
+    col = torch.arange(Nz, device=x.device)[:, None]
+    if zfold == "clamp":
+        delta = torch.clamp(torch.clamp(iz_low, -NGUARD, Nz) - col,
+                            delta_lo, delta_hi)
+    else:
+        delta = torch.remainder(iz_low - col - delta_lo, Nz) + delta_lo
+    # Corner j of the 4-point footprint lands at offset delta + j
+    zw = [sum(sz[j] * (delta == o - j) for j in range(4))
+          for o in range(delta_lo, delta_hi + 4)]
+    bn_idx = torch.clamp(torch.ceil(r_cell).long(), 0, Nr)
+    sr_m0, sr_mh = cubic_radial_rows(sr_plain, u, bn_idx, ruyten_cubic)
+    return dict(cos=cos, sin=sin, below=[(ir_low + j) < 0 for j in range(4)],
+                zw=zw, sr_m0=sr_m0, sr_mh=sr_mh,
+                ir_buf=torch.clamp(ir_low + NGUARD, max=Nr),
+                ir_low=ir_low, u=u, bn_idx=bn_idx, s_sub=uz_, delta=delta,
+                ok=ok)
+
+
+def _corner_weights_cubic(geom, meta, sr_m0=None, sr_mh=None):
+    """Per-corner (Nz, K, C) radial weights with the mode-row select and
+    the below-axis channel flips."""
+    sr_m0 = geom["sr_m0"] if sr_m0 is None else sr_m0
+    sr_mh = geom["sr_mh"] if sr_mh is None else sr_mh
+    out = []
+    for j in range(4):
+        sr = torch.where(meta["is_mode0"][None, None, :],
+                         sr_m0[j][:, :, None], sr_mh[j][:, :, None])
+        out.append(torch.where(geom["below"][j][:, :, None],
+                               meta["flip"][None, None, :] * sr, sr))
+    return out
+
+
+def _build_V_cubic(geom, channel_vals, meta):
+    """Channel blocks [(Nz, K, C)] * (n_off*4) of one cubic deposit."""
+    srj = _corner_weights_cubic(geom, meta)
+    blocks = []
+    for zw in geom["zw"]:
+        zwv = channel_vals * zw[:, :, None]
+        for j in range(4):
+            blocks.append(zwv * srj[j])
+    return blocks
+
+
+def _reassemble_cubic(out, Nz, Nr, zfold, delta_lo, delta_hi, C):
+    """Shifted adds of the (Nz, Nrb, n_off*4*C) cubic contraction output
+    into the folded (Nz, Nr, C) grid."""
+    Nzb, Nrb = Nz + 2 * NGUARD, Nr + 2 * NGUARD
+    n_off = delta_hi + 4 - delta_lo
+    out = out.reshape(Nz, Nrb, n_off, 4, C)
+    buf = torch.zeros((Nzb, Nrb, C), dtype=out.dtype, device=out.device)
+    for i, o in enumerate(range(delta_lo, delta_hi + 4)):
+        plane = out[:, :, i, 0, :].clone()
+        for j in range(1, 4):
+            plane[:, j:, :] += out[:, :-j, i, j, :]
+        _add_shifted_plane(buf, plane, o + NGUARD, Nz, Nzb, zfold)
+    return _fold_guard_cells(buf, Nz, Nr, zfold)
+
+
+def _dense_deposit_cubic(geom, channel_vals, meta, Nz, Nr, zfold,
+                         delta_lo, delta_hi):
+    """Contract padded cubic channels by radial row (``_contract``)."""
+    out = _contract(geom["ir_buf"], _build_V_cubic(geom, channel_vals, meta),
+                    Nr + 2 * NGUARD)
+    return _reassemble_cubic(out, Nz, Nr, zfold, delta_lo, delta_hi,
+                             channel_vals.shape[2])
+
+
+def deposit_rho_J_sorted_cubic(sort, x, y, z, w, q, ux, uy, uz, inv_gamma,
+                               dt_half, Nm, invdz, zmin, Nz, invdr, rmin,
+                               Nr, ruyten_cubic, zfold="periodic",
+                               comp=None, with_drho=False, with_rho=True,
+                               vz_shift=0.0):
+    """Cubic counterpart of deposit_rho_J_sorted (the sort built at the
+    J positions): J at the current positions, rho at the positions one
+    half push later, and optionally the telescoped d(rho), contracted by
+    ``_contract``.  vz_shift: the Galilean grid speed, as in
+    deposit_rho_J_sorted.  Returns (Jr, Jt, Jz, rho[, drho]) raw grids;
+    rho is None when not ``with_rho``."""
+    x, y, z, w, ux, uy, uz, inv_gamma, comp = _padded_particles(
+        sort, x, y, z, w, ux, uy, uz, inv_gamma, comp)
+
+    # --- J at the current (n+1/2) positions: base offsets {-2, -1}
+    geom = _padded_geometry_cubic(sort, x, y, z, invdz, zmin, Nz, invdr,
+                                  rmin, Nr, ruyten_cubic, zfold,
+                                  delta_lo=-2, delta_hi=-1, comp=comp)
+    cos, sin = geom["cos"], geom["sin"]
+    cos_m, sin_m = _mode_phases(cos, sin, Nm)
+    wj = q * w
+    js = current_components(wj, cos, sin, ux, uy, uz, inv_gamma)
+    channels = _pack_padded([_modes(j0, cos_m, sin_m) for j0 in js], Nm)
+    meta = _channel_meta(Nm, 3, [-1.0, -1.0, +1.0], x.dtype, x.device)
+    if not with_drho:
+        out = _dense_deposit_cubic(geom, channels, meta, Nz, Nr, zfold,
+                                   delta_lo=-2, delta_hi=-1)
+        Jr, Jt, Jz = _unpack_channels(out, 3, Nm)
+
+    # --- rho at the half-pushed (n+1) positions (base offsets -3..-1)
+    chdt = c * dt_half
+    rho = None
+    meta1 = _channel_meta(Nm, 1, [+1.0], x.dtype, x.device)
+    if with_rho:
+        x2 = x + chdt * inv_gamma * ux
+        y2 = y + chdt * inv_gamma * uy
+        z2 = z + chdt * inv_gamma * uz - vz_shift * dt_half
+        geom2 = _padded_geometry_cubic(sort, x2, y2, z2, invdz, zmin, Nz,
+                                       invdr, rmin, Nr, ruyten_cubic, zfold,
+                                       delta_lo=-3, delta_hi=-1, comp=comp)
+        cos_m2, sin_m2 = _mode_phases(geom2["cos"], geom2["sin"], Nm)
+        channels2 = _pack_padded([_modes(wj, cos_m2, sin_m2)], Nm)
+        out2 = _dense_deposit_cubic(geom2, channels2, meta1, Nz, Nr, zfold,
+                                    delta_lo=-3, delta_hi=-1)
+        rho = _unpack_channels(out2, 1, Nm)[0]
+    if not with_drho:
+        return Jr, Jt, Jz, rho
+
+    # --- drho via per-particle telescoped differences (see
+    # deposit_rho_J_sorted): endpoint cubic shapes from the mid geometry
+    # plus half-step deltas in cell units; z crossers are split to the
+    # right offset block (exact in z), radial crossers keep the mid bin
+    # frame, as in fbpic_tpu
+    hz = (chdt * inv_gamma * uz - vz_shift * dt_half) * invdz
+    vr = geom["cos"] * ux + geom["sin"] * uy
+    hr = chdt * inv_gamma * vr * invdr
+    s_mid, delta_mid, ok = geom["s_sub"], geom["delta"], geom["ok"]
+
+    def z_blocks(s_shift):
+        """Offset-block cubic z weights (offsets -3..3) at sub-cell
+        s_mid + s_shift, split so crossers land in the right block."""
+        sp_ = s_mid + s_shift
+        shift = torch.ceil(sp_).long() - 1               # u' in (0, 1]
+        sj = tuple(s_ * ok for s_ in cubic_shape(sp_ - shift.to(sp_.dtype)))
+        d = delta_mid + shift
+        return [sum(sj[j] * (d == o - j) for j in range(4))
+                for o in range(-3, 4)]
+
+    zw_a = z_blocks(-hz)
+    zw_b = z_blocks(hz)
+
+    def radial_rows(u_):
+        return cubic_radial_rows(cubic_shape(u_), u_, geom["bn_idx"],
+                                 ruyten_cubic)
+
+    m0_a, mh_a = radial_rows(geom["u"] - hr)
+    m0_b, mh_b = radial_rows(geom["u"] + hr)
+    sr_a = _corner_weights_cubic(geom, meta1, sr_m0=m0_a, sr_mh=mh_a)
+    sr_b = _corner_weights_cubic(geom, meta1, sr_m0=m0_b, sr_mh=mh_b)
+
+    # Endpoint phases (differences are small relative to O(1) inputs)
+    x0e, y0e = x - chdt * inv_gamma * ux, y - chdt * inv_gamma * uy
+    x2e, y2e = x + chdt * inv_gamma * ux, y + chdt * inv_gamma * uy
+    r0e = torch.clamp(torch.sqrt(x0e * x0e + y0e * y0e), min=1e-30)
+    r2e = torch.clamp(torch.sqrt(x2e * x2e + y2e * y2e), min=1e-30)
+    cma, sma = _mode_phases(x0e / r0e, y0e / r0e, Nm)
+    cmb, smb = _mode_phases(x2e / r2e, y2e / r2e, Nm)
+    one = torch.ones_like(w)
+    ph_a = _pack_padded([_modes(one, cma, sma)], Nm)
+    ph_b = _pack_padded([_modes(one, cmb, smb)], Nm)
+    dph = ph_b - ph_a
+    wj3 = wj[:, :, None]
+
+    # Telescoped difference blocks: 7 z offsets x 4 radial corners
+    V_D = []
+    for o in range(7):
+        za = zw_a[o][:, :, None]
+        zb = zw_b[o][:, :, None]
+        dz_ = zb - za
+        for j in range(4):
+            dsr = sr_b[j] - sr_a[j]
+            V_D.append(wj3 * (dph * (za * sr_a[j]) + ph_b * (dz_ * sr_a[j])
+                              + ph_b * (zb * dsr)))
+
+    # ONE contraction for J + drho (they share the mid-position rows)
+    V_J = _build_V_cubic(geom, channels, meta)
+    W_J = sum(b.shape[2] for b in V_J)
+    out_all = _contract(geom["ir_buf"], V_J + V_D, Nr + 2 * NGUARD)
+    out_J = _reassemble_cubic(out_all[..., :W_J], Nz, Nr, zfold, -2, -1,
+                              channels.shape[2])
+    Jr, Jt, Jz = _unpack_channels(out_J, 3, Nm)
+    # drho z blocks span offsets [-3, 3] = base range [-3, 0] + corners
+    out_D = _reassemble_cubic(out_all[..., W_J:], Nz, Nr, zfold, -3, 0,
+                              ph_a.shape[2])
+    drho = _unpack_channels(out_D, 1, Nm)[0]
+    return Jr, Jt, Jz, rho, drho

@@ -21,6 +21,8 @@ class SpeciesConfig:
     q: float                  # charge [C]
     m: float                  # mass [kg]
     particle_shape: str = "linear"
+    # A tracer is pushed but deposits nothing
+    is_tracer: bool = False
     name: str = "species"
     # Per-column slot capacity K of the sorted (Nz, K) layout
     # (0 = the species is not resident).  See sorted_deposit.py.

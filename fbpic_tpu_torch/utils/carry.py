@@ -16,7 +16,7 @@ from ..core.state import SimState
 from ..fields.solver import (
     GridConfig, SpectralFields, InterpFields, complex_dtype,
 )
-from ..particles.state import ARRAY_FIELDS, ParticleState
+from ..particles.state import ARRAY_FIELDS, ParticleState, SpeciesConfig
 
 
 def join_words(lo, hi=None):
@@ -36,13 +36,24 @@ def config_from(config):
                          for f in dc_fields(GridConfig)})
 
 
+def species_configs_from(species_configs):
+    """The port's SpeciesConfig of each of another package's species
+    configs (e.g. fbpic_tpu's), field by field (is_tracer, sort_K,
+    resident, resort, particle_shape too)."""
+    return [SpeciesConfig(**{f.name: getattr(sc, f.name)
+                             for f in dc_fields(SpeciesConfig)})
+            for sc in species_configs]
+
+
 def state_from_numpy(spect, interp, species, time, zmin, iteration,
                      mw_zref=None, sort_overflow=0, ring_overwrite=0,
                      *, device, dtype=torch.float64):
     """SimState from numpy data.
 
     spect / interp: mappings from the SpectralFields / InterpFields field
-    names to complex (Nm, Nz, Nr) arrays.  species: one mapping per
+    names to complex (Nm, Nz, Nr) arrays; the optional fields (the
+    radial PML's ``*_pml``, cross-deposition's ``rho_next_xy`` /
+    ``rho_next_z``) where the mapping holds them (not None).  species: one mapping per
     species with the per-particle arrays x, y, z, ux, uy, uz, inv_gamma,
     w (and comp_x, comp_y, comp_z for float32 runs) in their storage
     order, and the scalars next_free and inj_z_end (None when not
@@ -64,7 +75,8 @@ def state_from_numpy(spect, interp, species, time, zmin, iteration,
     def fields_of(cls, arrays):
         return cls(**{f.name: torch.as_tensor(np.array(arrays[f.name]),
                                               dtype=cdt, device=device)
-                      for f in dc_fields(cls)})
+                      for f in dc_fields(cls)
+                      if arrays.get(f.name) is not None})
 
     parts = []
     for sp in species:

@@ -34,7 +34,10 @@ only PyTorch; there, skip the JAX-based conftest:
   path builds (a fresh mid-step sort, the legacy idx plan) against their
   plain versions; 20 steps of the ring, grown-ring, empty-species,
   fresh-sort and legacy-plan runs on the card against the CPU, with
-  exact launch counts.
+  exact launch counts;
+- cubic shapes with the radial PML, and cross-deposition: 20 steps of
+  each on the card against the CPU, with exact launch counts, and K3 on
+  the cross-deposition plan against its plain version.
 """
 import os
 
@@ -1121,3 +1124,104 @@ def test_tracking_keeps_k1_k2_launch_counts(cuda):
     ids = sp.ids[sp.w != 0]
     assert int((ids == 0).sum()) == 0
     assert torch.unique(ids).numel() == ids.numel()
+
+
+# ---------------------------------------------------------------------
+# Cubic shapes, the radial PML and cross-deposition on the card
+# ---------------------------------------------------------------------
+
+def _window_variant_sim(device, dtype, variant):
+    """tests/test_torch_ring.py's window configuration, with the species
+    sorted (use_fused_deposit, sort_K = 256) on every device alike:
+    "cubic_pml" (cubic shapes, r 'open' with 8 PML cells on Nr = 24: a
+    non-resident species, the fused cubic sorted deposit and the cubic
+    gather, PyTorch only) or "cross" (cross-deposition: sized resident,
+    run on the legacy sorted plan, K3 for J and rho_next)."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, \
+        GaussianLaser
+    kw = dict(zmin=-4.e-6, n_order=16, exchange_period=4, random_seed=0,
+              device=device, dtype=dtype)
+    if variant == "cubic_pml":
+        kw.update(particle_shape="cubic", n_damp={"z": 64, "r": 8},
+                  boundaries={"z": "open", "r": "open"})
+        Nr = 24
+    else:
+        kw.update(current_correction="cross-deposition",
+                  boundaries={"z": "open", "r": "reflective"})
+        Nr = 16
+    sim = Simulation(130, 12.e-6, Nr, 10.e-6 * Nr / 16, 2,
+                     16.e-6 / 130 / c, **kw)
+    sim.use_fused_deposit = True
+    sim.add_new_species(q=-e, m=m_e, n=5.e24, p_zmin=2.e-6, p_zmax=100.e-6,
+                        p_rmin=0., p_rmax=9.e-6, p_nz=1, p_nr=2, p_nt=4,
+                        sort_K=256)
+    assert sim.species_configs[0].resident == (variant == "cross")
+    add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6, tau=8.e-15,
+                                       z0=6.e-6))
+    sim.set_moving_window(v=c)
+    sim.column_angles = _SeededAngles()
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["cubic_pml", "cross"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_new_paths_on_card_match_cpu(cuda, variant, dtype):
+    """20 steps of the cubic + PML and the cross-deposition window runs on
+    the card against the same runs on the CPU: no K1 / K2 launch, K3
+    twice a step on the cross path (J and rho_next on the legacy plan;
+    cross-deposition's two charge deposits are scatter deposits) and
+    never on the cubic one; the on-axis Ez and rho and the mode-1 Er at
+    r = 5 dr within 1e-8 of their scale in float64 (index_add_ and the
+    FFTs sum in another order on the card), within the float32 gates of
+    test_ring_paths_on_card_match_cpu in float32; the live slots alike,
+    zero overflow; the PML split fields finite and non-zero."""
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused, cuda_gather
+    counters = (cuda_fused.fused_onehot_contract, cuda_gather.gather_sorted,
+                cuda_dense.dense_onehot_contract)
+    runs, live = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        sim = _window_variant_sim(dev, dtype, variant)
+        n0 = [fn.launches for fn in counters]
+        sim.step(20)
+        if dev.type == "cuda":
+            assert [fn.launches - n for fn, n in zip(counters, n0)] == (
+                [0, 0, 40] if variant == "cross" else [0, 0, 0])
+        assert sim.overflow_totals == {"sort_overflow": 0,
+                                       "ring_overwrite": 0}
+        if variant == "cubic_pml":
+            Et_pml = sim.state.interp.Et_pml
+            assert bool(Et_pml.isfinite().all())
+            assert float(Et_pml.abs().max()) > 0
+        runs[dev.type] = _profiles(sim)
+        live[dev.type] = (sim.state.species[0].w != 0).cpu()
+    assert torch.equal(live["cuda"], live["cpu"])
+    gates = ({"Ez_axis": 1e-8, "Er1_r5": 1e-8, "rho_axis": 1e-8}
+             if dtype == torch.float64 else
+             {"Ez_axis": 1.5e-2, "Er1_r5": 1.5e-2, "rho_axis": 3e-2})
+    for name, gate in gates.items():
+        card, ref = runs["cuda"][name], runs["cpu"][name]
+        assert np.isfinite(card).all(), name
+        err = np.abs(card - ref).max() / np.abs(ref).max()
+        assert err < gate, (name, err)
+
+
+@pytest.mark.cuda
+def test_k3_on_the_cross_deposition_plan(cuda):
+    """One cross-deposition step on the card: its two K3 calls (J and
+    rho_next on the legacy plan) against their plain version, float32
+    (1e-5) and float64 (1e-12)."""
+    from fbpic_tpu_torch.particles import cuda_dense, sorted_deposit
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        sim = _window_variant_sim(cuda, dtype, "cross")
+        sim.step(2)
+        calls = _captured_contractions(sorted_deposit,
+                                       "dense_onehot_contract",
+                                       lambda: sim.step(1))
+        assert len(calls) == 2
+        for args, kwargs in calls:
+            out = cuda_dense.dense_onehot_contract(*args, **kwargs)
+            plain = cuda_dense.dense_onehot_contract_plain(*args, **kwargs)
+            assert _rel(out, plain) <= tol
