@@ -7,8 +7,10 @@ This port covers linear and cubic shapes, resident and non-resident
 (ring) species, tracers, empty species, open or periodic z, a reflective
 or open (PML) radial boundary, moving window and continuous injection,
 the standard and the Galilean / comoving PSATD solver with curl-free or
-cross-deposition current correction, and the boosted-frame conversions
-of species, laser and moving window (``gamma_boost``).
+cross-deposition current correction, the boosted-frame conversions
+of species, laser and moving window (``gamma_boost``), and the LPA
+utilities' hooks: ``mirrors``, ``external_fields`` and
+``laser_antennas``.
 """
 import warnings
 from dataclasses import replace
@@ -266,6 +268,11 @@ class Simulation:
         self.ptcl = []
         self.diags = []
         self.checkpoints = []
+        #: LaserAntenna objects (add_laser_pulse(method="antenna")),
+        #: ExternalField and Mirror objects (lpa_utils), used by step()
+        self.laser_antennas = []
+        self.external_fields = []
+        self.mirrors = []
         # Reference-API aliases: scripts pass `sim.fld` to FieldDiagnostic
         # and `sim.comm` to the diagnostics and to track()
         self.fld = self
@@ -595,7 +602,9 @@ class Simulation:
             injectors=(tuple(self._injector_configs)
                        if self.moving_win is not None else ()),
             exchange_period=self.exchange_period,
-            fused_deposit=self.use_fused_deposit)
+            fused_deposit=self.use_fused_deposit,
+            external_fields=tuple(self.external_fields),
+            mirrors=tuple(self.mirrors))
 
     def step(self, N=1, correct_currents=True, correct_divE=False,
              use_true_rho=False, move_positions=True, move_momenta=True,
@@ -616,7 +625,8 @@ class Simulation:
         of the call; every other diagnostic and every checkpoint is
         written if its period says so.  fbpic_tpu writes the latter at
         the end of step chunks that stop at their smallest period: the
-        same iterations."""
+        same iterations.  The laser antennas' currents are computed for
+        the same chunks, one upload each (``_antenna_block``)."""
         if not self._banner_printed:
             self._banner_printed = True
             print_simulation_setup(self, self.verbose_level)
@@ -640,10 +650,14 @@ class Simulation:
         capture = [w for w in writers if hasattr(w, "capture")]
         plain = [w for w in writers if not hasattr(w, "capture")]
         progress = ProgressBar(N) if show_progress else None
+        series, block_end = (), 0
         for n in range(N):
+            if self.laser_antennas and n == block_end:
+                series, block_end = self._antenna_block(N, n, plain)
             self.state = step_fn(self.state, self.aux,
                                  tuple(self._injector_auxes),
-                                 self.column_angles, self.generator)
+                                 self.column_angles, self.generator,
+                                 antenna_series=series)
             for w in capture:
                 w.capture(self, capacity=min(N - n, MAX_CAPTURE))
             for w in plain:
@@ -658,6 +672,25 @@ class Simulation:
         if progress is not None:
             progress.print_summary()
         self._consume_overflow_counters()
+
+    def _antenna_block(self, N, n, plain):
+        """The antennas' current series for the block of steps from
+        cycle n of a step(N) call: fbpic_tpu's step chunk -- at most
+        MAX_CAPTURE steps, ending where the plain writers' smallest
+        period ends (core/simulation.py:915-941) -- computed on the host
+        with t0 = iteration * dt and uploaded in one copy each.
+        Returns (series, the cycle after the block)."""
+        it = self.state.iteration
+        chunk = min(N - n, MAX_CAPTURE)
+        if plain:
+            period = min(getattr(w, "period", N) for w in plain)
+            chunk = min(chunk, max(1, period - it % period))
+        series = tuple(
+            antenna.compute_series(it * self.dt, chunk, self.config.dz,
+                                   device=self.device, dtype=self.dtype,
+                                   it0=it)
+            for antenna in self.laser_antennas)
+        return series, n + chunk
 
     def _ensure_capacity(self, index, min_capacity, factor=1.0):
         """Grow species ``index`` to at least ``min_capacity`` slots

@@ -12,7 +12,11 @@ as in the reference, FBPIC's fbpic/main.py:346-585):
        -> J (scatter, or the legacy sorted plan: K3) -> push x (dt/2)
     -> rho_next -> correct currents -> PSATD push
     -> Galilean drift + moving-window shift -> spect2interp E,B
-    -> open-z damping
+    -> open-z damping and mirrors
+
+The user's external fields are applied after every gather; a ballistic
+species keeps its momenta behind its injection plane; the laser
+antennas add their current slice to the grid J before the transform.
 
 Cubic species gather with the 4x4 stencil (gather_fields_cubic) and,
 sorted, deposit through deposit_rho_J_sorted_cubic (plain PyTorch: no
@@ -63,6 +67,7 @@ from ..particles.sorted_deposit import (
     deposit_rho_sorted, deposit_J_sorted, deposit_rho_J_sorted_cubic,
 )
 from ..fields.solver import SPECT_PML_FIELDS, INTERP_PML_FIELDS
+from ..lpa_utils.laser.antenna_injection import add_antenna_current
 from .state import SimState
 
 
@@ -90,6 +95,10 @@ class StepOptions:
     fused_deposit: bool = False
     # False forces exchange_period = 1 (a fresh rho_prev every step)
     reuse_rho_prev: bool = True
+    # ExternalField objects (applied to the gathered per-particle fields)
+    external_fields: tuple = ()
+    # Mirror objects (zero E/B in thin z-slabs each step)
+    mirrors: tuple = ()
 
 
 def _zfold(config):
@@ -145,9 +154,15 @@ def deposit_rho_spect(config, aux, species, species_configs, zmin,
 
 
 def deposit_J_spect(config, aux, species, species_configs, zmin,
-                    sorts=None, fused=None):
+                    antenna_series=(), iteration=None, sorts=None,
+                    fused=None):
     """Current of all species -> spectral (Jp, Jm, Jz), summed in
-    species order (fused / sorts / scatter as in deposit_rho_spect)."""
+    species order (fused / sorts / scatter as in deposit_rho_spect).
+
+    antenna_series: the laser antennas' current blocks
+    (lpa_utils/laser/antenna_injection.py), whose slice of the host
+    ``iteration`` is added onto the grid before the transform (and so
+    before the filter), as fbpic_tpu does."""
     JrJtJz = None
     for i, (sp, sc) in enumerate(zip(species, species_configs)):
         if sc.is_tracer:
@@ -176,6 +191,9 @@ def deposit_J_spect(config, aux, species, species_configs, zmin,
                         dtype=aux.S_w.dtype, device=aux.S_w.device)
         JrJtJz = [torch.complex(z, z)] * 3
     Jr, Jt, Jz = [a * aux.invvol[:, None, :] for a in JrJtJz]
+    for series in antenna_series:
+        Jr, Jt = add_antenna_current(Jr, Jt, series, iteration, zmin,
+                                     config.dz, config.Nz)
     return tr.interp2spect_J_fields(aux.mats, Jr, Jt, Jz)
 
 
@@ -267,19 +285,45 @@ def interp2spect_EB(aux, interp, spect, use_pml=False):
     return replace(spect, Ep=Ep, Em=Em, Ez=Ez, Bp=Bp, Bm=Bm, Bz=Bz, **pml)
 
 
-def gather_and_push(config, options, sp, sc, interp, zmin, dt):
+def apply_external_fields(options, E_B, sp, time, species_index):
+    """The user's external fields on the gathered (Ex, Ey, Ez, Bx, By,
+    Bz) of one species, in list order (those restricted to another
+    species skipped); time: a 0-d tensor of the working dtype."""
+    if not options.external_fields:
+        return E_B
+    fields = dict(zip(("Ex", "Ey", "Ez", "Bx", "By", "Bz"), E_B))
+    for ext in options.external_fields:
+        if ext.applies_to(species_index):
+            fields = ext.apply(fields, sp.x, sp.y, sp.z, time)
+    return tuple(fields[n] for n in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
+
+
+def ballistic_plane(sc, time, dt):
+    """z of a ballistic species' injection plane at t + dt/2 (host
+    value of the working dtype), or None."""
+    if sc.ballistic_z0 is None:
+        return None
+    return sc.ballistic_z0 + sc.ballistic_v * (time + 0.5 * dt)
+
+
+def gather_and_push(config, options, sp, sc, interp, zmin, dt, time=None,
+                    species_index=None, time_t=None):
     """Gather E,B at a non-resident species' particles (the linear or
-    cubic gather by index) and Vay-push its momenta (unless
-    move_momenta is off)."""
+    cubic gather by index), apply the external fields and Vay-push its
+    momenta (unless move_momenta is off; behind a ballistic species'
+    plane the momenta stay).  time: the host time of the step;
+    time_t: the same as a 0-d tensor, for the external fields."""
     gather = (gather_fields_cubic if sc.particle_shape == "cubic"
               else gather_fields_linear)
     E_B = gather(
         sp.x, sp.y, sp.z, interp, options.rmax_gather,
         1.0 / config.dz, float(zmin), config.Nz, 1.0 / config.dr, 0.0,
         config.Nr, comp=_comp_of(sp))
+    E_B = apply_external_fields(options, E_B, sp, time_t, species_index)
     if not options.move_momenta or sc.q == 0:
         return sp
-    ux, uy, uz, inv_gamma = pp.push_p(sp, E_B[:3], E_B[3:], sc.q, sc.m, dt)
+    ux, uy, uz, inv_gamma = pp.push_p(sp, E_B[:3], E_B[3:], sc.q, sc.m, dt,
+                                      z_plane=ballistic_plane(sc, time, dt))
     return sp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
 
 
@@ -325,6 +369,49 @@ def shift_spectral_fields(config, aux, spect, n_move, rdt):
     shift = torch.complex(torch.cos(ph), torch.sin(ph))[None, :, None]
     names = _SHIFTED + (SPECT_PML_FIELDS if config.use_pml else ())
     return replace(spect, **{n: getattr(spect, n) * shift for n in names})
+
+
+def _z_profile(config, options, aux, zmin, time):
+    """The multiplicative z profile of the step's E/B: the open-z
+    damping times the mirrors' slabs set to zero, a per-mode (Nm, Nz)
+    mask when there are mirrors (a mirror zeroes its modes ``m`` only),
+    else the (Nz,) damping, or None (fbpic_tpu core/step.py:492-523).
+    zmin, time: host values of the working dtype, so the mask is built
+    on the device without a host read."""
+    profile = (aux.damp_z if config.boundaries_z == "open"
+               and config.nz_damp > 0 else None)
+    if not options.mirrors:
+        return profile
+    rdt, dev = aux.S_w.dtype, aux.S_w.device
+    z_cells = float(zmin) + (torch.arange(config.Nz, dtype=rdt, device=dev)
+                             + 0.5) * config.dz
+    mask = torch.ones((config.Nm, config.Nz), dtype=rdt, device=dev)
+    for mirror in options.mirrors:
+        z0, v = mirror.z_boost_and_beta()
+        zm = float(z0) + float(v) * time
+        inside = (z_cells >= float(zm)) & (
+            z_cells < float(zm + mirror.n_cells * config.dz))
+        modes = (range(config.Nm) if mirror.m == "all"
+                 else [mirror.m] if isinstance(mirror.m, int) else mirror.m)
+        for m in modes:
+            mask[m] = torch.where(inside, torch.zeros_like(mask[m]), mask[m])
+    if profile is not None:
+        mask = mask * profile[None, :]
+    return mask
+
+
+def damp_EB_z(config, aux, spect, profile):
+    """Apply a z profile ((Nz,) or per-mode (Nm, Nz)) to the spectral
+    E/B (and the PML split fields) through one inverse / forward z-DFT
+    round trip, in partial-interpolation space (reference:
+    main.py:719-768, exchange_and_damp_EB)."""
+    names = ("Ep", "Em", "Ez", "Bp", "Bm", "Bz") + (
+        SPECT_PML_FIELDS if config.use_pml else ())
+    damp = (profile[None, :, None] if profile.dim() == 1
+            else profile[:, :, None])
+    return replace(spect, **{
+        n: tr.partial_interp2spect(aux.mats, tr.spect2partial_interp(
+            aux.mats, getattr(spect, n)) * damp) for n in names})
 
 
 def damp_EB_z_skinny(aux, spect, interp_raw):
@@ -419,15 +506,18 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
         dead_order = torch.argsort((sp.w != 0).to(torch.int8), stable=True)
         n_dead = (sp.w == 0).sum()
         slots = dead_order[:n_write]
-        ok = torch.zeros(n_write, dtype=torch.bool, device=dev)
-        ok[pos[mask]] = True
-        ok = ok & (torch.arange(n_write, device=dev) < n_dead)
+        # The candidates go to their packed positions, the others to a
+        # spare last row: an index, not a boolean mask, so no host read
+        dest = torch.where(mask, pos, torch.full_like(pos, n_write))
+        ok = torch.zeros(n_write + 1, dtype=torch.bool, device=dev)
+        ok.index_fill_(0, dest, True)
+        ok = ok[:n_write] & (torch.arange(n_write, device=dev) < n_dead)
         count = mask.sum() - ok.sum()
         for name, vals in values.items():
             arr = getattr(sp, name).clone()
-            packed = torch.zeros(n_write, dtype=vals.dtype, device=dev)
-            packed[pos[mask]] = vals[mask]
-            arr[slots] = torch.where(ok, packed, arr[slots])
+            packed = torch.zeros(n_write + 1, dtype=vals.dtype, device=dev)
+            packed[dest] = vals
+            arr[slots] = torch.where(ok, packed[:n_write], arr[slots])
             updates[name] = arr
     updates["next_free"] = (sp.next_free + n_cols * col_size) % cap
     updates["inj_z_end"] = new_z_end
@@ -481,9 +571,15 @@ def make_step_fn(config, species_configs, options: StepOptions):
     zfold = _zfold(config)
 
     def step(state: SimState, aux, inj_auxes=(), column_angles=None,
-             generator=None) -> SimState:
+             generator=None, antenna_series=()) -> SimState:
         dt = config.dt
         rdt = type(state.zmin)
+        # The external fields see the step's time as a 0-d tensor of the
+        # working dtype (a fill: no host-to-device copy)
+        time_t = None
+        if options.external_fields:
+            time_t = torch.full((), float(state.time), dtype=aux.S_w.dtype,
+                                device=aux.S_w.device)
         spect, interp = state.spect, state.interp
         species = list(state.species)
         zmin = state.zmin
@@ -586,9 +682,13 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 1.0 / config.dz, float(zmin), config.Nz,
                 1.0 / config.dr, 0.0, config.Nr, comp=_comp_of(psp),
                 zfold=zfold)
+            # On the padded (Nz, K) layout: dead slots see the field
+            # harmlessly
+            E_B = apply_external_fields(options, E_B, psp, time_t, i)
             if sc.q != 0:
-                ux, uy, uz, inv_gamma = pp.push_p(psp, E_B[:3], E_B[3:],
-                                                  sc.q, sc.m, dt)
+                ux, uy, uz, inv_gamma = pp.push_p(
+                    psp, E_B[:3], E_B[3:], sc.q, sc.m, dt,
+                    z_plane=ballistic_plane(sc, state.time, dt))
                 psp = psp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
             psp = half_push_x(config, options, psp, zmin_mid)
 
@@ -633,7 +733,9 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 species[i] = half_push_x(
                     config, options,
                     gather_and_push(config, options, species[i], sc,
-                                    interp, zmin, dt), zmin_mid)
+                                    interp, zmin, dt, time=state.time,
+                                    species_index=i, time_t=time_t),
+                    zmin_mid)
 
         # --- Column sort of the non-resident sort_K species at the mid
         # positions (fbpic_tpu core/step.py:1416-1467).  The fused
@@ -688,7 +790,9 @@ def make_step_fn(config, species_configs, options: StepOptions):
 
         # --- Current at t = (n+1/2) dt
         Jp, Jm, Jz = deposit_J_spect(config, aux, species, species_configs,
-                                     zmin_mid, sorts=sorts, fused=fused_J)
+                                     zmin_mid, antenna_series=antenna_series,
+                                     iteration=it, sorts=sorts,
+                                     fused=fused_J)
         if options.filter_currents:
             Jp, Jm, Jz = ps.filter_vector(Jp, Jm, Jz, aux.filter_z,
                                           aux.filter_r)
@@ -790,23 +894,30 @@ def make_step_fn(config, species_configs, options: StepOptions):
                         upd["ids"][(config.Nz - n_move) * rK:] = 0
                 species[ri] = rsp.replace(**upd)
 
-        # --- Fields back to the interpolation grid.  Open-z damping: the
-        # z profile commutes with the radial transform, so it is applied
-        # elementwise to the interp fields, and to spectral space as a
-        # skinny correction, or through the radial PML's full round trip
-        # (damp the split fields on the interp grid, transform back)
-        damp_z = (config.boundaries_z == "open"
-                  and aux.damp_rows is not None)
-        if aux.damp_r_pml is not None:
+        # --- Open-z damping and mirrors: one z profile (fbpic_tpu
+        # core/step.py:1701-1733).  The damping alone commutes with the
+        # radial transform, so it is applied elementwise to the interp
+        # fields, and to spectral space as a skinny correction or through
+        # the radial PML's full round trip (damp the split fields on the
+        # interp grid, transform back).  With mirrors (time-dependent
+        # rows) the profile goes through damp_EB_z's full z round trip
+        # first, and the PML round trip follows without it.
+        profile = _z_profile(config, options, aux, zmin, state.time)
+        pml_active = aux.damp_r_pml is not None
+        plain_damp = (not options.mirrors and profile is not None
+                      and (aux.damp_rows is not None or pml_active))
+        if profile is not None and not plain_damp:
+            spect = damp_EB_z(config, aux, spect, profile)
+        if pml_active:
             interp = spect2interp_EB(aux, spect, interp, use_pml=True)
-            if damp_z:
+            if plain_damp:
                 interp = _apply_z_profile(aux, interp, _EB + INTERP_PML_FIELDS)
             interp = damp_pml_r(aux, interp)
             spect = interp2spect_EB(aux, interp, spect, use_pml=True)
         else:
             interp = spect2interp_EB(aux, spect, interp,
                                      use_pml=config.use_pml)
-            if damp_z:
+            if plain_damp:
                 spect = damp_EB_z_skinny(aux, spect, interp)
                 interp = _apply_z_profile(aux, interp, _EB)
 

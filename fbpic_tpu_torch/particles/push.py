@@ -37,14 +37,24 @@ def push_p_vay(ux, uy, uz, inv_gamma, Ex, Ey, Ez, Bx, By, Bz, econst, bconst):
     return ux_f, uy_f, uz_f, inv_gamma_f
 
 
-def push_p(ptcl, E, B, q, m, dt):
+def push_p(ptcl, E, B, q, m, dt, z_plane=None):
     """Momentum push for a whole species; returns (ux, uy, uz, inv_gamma).
 
-    E, B: tuples (Ex, Ey, Ez) / (Bx, By, Bz) of per-particle fields."""
+    E, B: tuples (Ex, Ey, Ez) / (Bx, By, Bz) of per-particle fields.
+    z_plane: optional host float -- particles with z <= z_plane keep
+    their momenta (ballistic-before-plane injection)."""
     econst = q * dt / (m * c)
     bconst = 0.5 * q * dt / m
-    return push_p_vay(ptcl.ux, ptcl.uy, ptcl.uz, ptcl.inv_gamma,
-                      *E, *B, econst, bconst)
+    ux, uy, uz, inv_gamma = push_p_vay(ptcl.ux, ptcl.uy, ptcl.uz,
+                                       ptcl.inv_gamma, *E, *B, econst,
+                                       bconst)
+    if z_plane is not None:
+        keep = ptcl.z > float(z_plane)
+        ux = torch.where(keep, ux, ptcl.ux)
+        uy = torch.where(keep, uy, ptcl.uy)
+        uz = torch.where(keep, uz, ptcl.uz)
+        inv_gamma = torch.where(keep, inv_gamma, ptcl.inv_gamma)
+    return ux, uy, uz, inv_gamma
 
 
 def push_x(ptcl, dt, x_push=1.0, y_push=1.0, z_push=1.0):

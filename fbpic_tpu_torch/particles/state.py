@@ -24,6 +24,11 @@ class SpeciesConfig:
     # A tracer is pushed but deposits nothing
     is_tracer: bool = False
     name: str = "species"
+    # Ballistic-before-plane injection (None = normal push): particles
+    # behind the plane z = ballistic_z0 + ballistic_v * t keep their
+    # momenta
+    ballistic_z0: object = None
+    ballistic_v: float = 0.0
     # Per-column slot capacity K of the sorted (Nz, K) layout
     # (0 = the species is not resident).  See sorted_deposit.py.
     sort_K: int = 0

@@ -37,7 +37,12 @@ only PyTorch; there, skip the JAX-based conftest:
   exact launch counts;
 - cubic shapes with the radial PML, and cross-deposition: 20 steps of
   each on the card against the CPU, with exact launch counts, and K3 on
-  the cross-deposition plan against its plain version.
+  the cross-deposition plan against its plain version;
+- the LPA utilities: a resident plasma beside a Gaussian bunch with its
+  space-charge field (the bunch a ring: the grid-difference d(rho)), an
+  antenna-emitted laser, and a window run with a mirror and an external
+  field on the resident layout, each on the card against the CPU, with
+  exact launch counts.
 """
 import os
 
@@ -1225,3 +1230,144 @@ def test_k3_on_the_cross_deposition_plan(cuda):
             out = cuda_dense.dense_onehot_contract(*args, **kwargs)
             plain = cuda_dense.dense_onehot_contract_plain(*args, **kwargs)
             assert _rel(out, plain) <= tol
+
+
+# ---------------------------------------------------------------------
+# The LPA utilities on the card: bunches, antennas, mirrors, external
+# fields
+# ---------------------------------------------------------------------
+
+def _k_counts():
+    from fbpic_tpu_torch.particles import cuda_dense, cuda_fused, cuda_gather
+    return [cuda_fused.fused_onehot_contract.launches,
+            cuda_gather.gather_sorted.launches,
+            cuda_dense.dense_onehot_contract.launches]
+
+
+def _close_profiles(runs, gates):
+    for name, gate in gates.items():
+        card, ref = runs["cuda"][name], runs["cpu"][name]
+        assert np.isfinite(card).all(), name
+        err = np.abs(card - ref).max() / np.abs(ref).max()
+        assert err < gate, (name, err)
+
+
+@pytest.mark.cuda
+def test_plasma_and_bunch_on_card_match_cpu(cuda):
+    """A resident plasma beside a Gaussian bunch with its space-charge
+    field, float32, periodic z, 20 steps on the card and on the CPU:
+    K1 and K2 once a step (the plasma), the bunch a ring with sort_K = 0
+    (linear gather, scatter J, the d(rho) of two scatter deposits);
+    the space-charge fields after init within 1e-5 of their scale (the
+    host solve is float64, the deposit float32), the profiles within
+    tests/test_golden_wake.py's 100-step float32 gates, the bunch's
+    live count kept."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.bunch import add_particle_bunch_gaussian
+    runs, init = {}, {}
+    for key, dev in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        sim = Simulation(160, 16.e-6, 16, 12.e-6, 2, 0.1e-6 / c,
+                         p_zmin=0., p_zmax=16.e-6, p_rmax=10.e-6, p_nz=1,
+                         p_nr=1, p_nt=4, n_e=4.e24, n_order=32,
+                         random_seed=0, verbose_level=0, device=dev,
+                         dtype=torch.float32)
+        sim.use_fused_deposit = True
+        add_particle_bunch_gaussian(
+            sim, -e, m_e, 1.5e-6, 1.5e-6, 1.e-6, 200., 2., 2.e8, 2000,
+            zf=8.e-6, symmetrize=True)
+        sc = sim.species_configs
+        assert sc[0].resident and sc[1].sort_K == 0 and not sc[1].resident
+        init[key] = {n: sim.get_interp_field(n, 0).real
+                          for n in ("Er", "Bt")}
+        n0 = _k_counts()
+        sim.step(20)
+        if dev.type == "cuda":
+            assert [a - b for a, b in zip(_k_counts(), n0)] == [20, 20, 0]
+        assert sim.ptcl[1].Ntot == 2000
+        assert sim.overflow_totals == {"sort_overflow": 0,
+                                       "ring_overwrite": 0}
+        runs[key] = _profiles(sim)
+    for n in ("Er", "Bt"):
+        ref = init["cpu"][n]
+        assert np.abs(init["cuda"][n] - ref).max() <= 1e-5 * np.abs(ref).max()
+    _close_profiles(runs, {"Ez_axis": 1.5e-2, "Er0_r5": 1.5e-2,
+                           "rho_axis": 3e-2})
+
+
+def _lpa_window_sim(device, dtype, variant):
+    """tests/test_torch_ring.py's window box: "antenna" -- vacuum, a
+    laser emitted by a lab-static antenna; "mirror_ext" -- a resident
+    plasma (sort_K = 256, the fused deposit forced), the a0 = 0.5 laser,
+    a mirror 1 um inside the right edge and a uniform external Ez on the
+    species."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils import ExternalField, Mirror
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, \
+        GaussianLaser
+    sim = Simulation(130, 12.e-6, 16, 10.e-6, 2, 16.e-6 / 130 / c,
+                     zmin=-4.e-6, n_order=16,
+                     boundaries={"z": "open", "r": "reflective"},
+                     exchange_period=4, random_seed=0, verbose_level=0,
+                     device=device, dtype=dtype)
+    if variant == "antenna":
+        add_laser_pulse(sim, GaussianLaser(
+            a0=0.5, waist=4.e-6, tau=6.e-15, z0=8.e-6 - 3 * c * 6.e-15,
+            zf=8.e-6), method="antenna", z0_antenna=8.e-6)
+    else:
+        sim.use_fused_deposit = True
+        view = sim.add_new_species(q=-e, m=m_e, n=5.e24, p_zmin=2.e-6,
+                                   p_zmax=100.e-6, p_rmin=0., p_rmax=9.e-6,
+                                   p_nz=1, p_nr=2, p_nt=4, sort_K=256)
+        assert sim.species_configs[0].resident
+        add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6,
+                                           tau=8.e-15, z0=6.e-6))
+        sim.mirrors.append(Mirror(z_lab=11.e-6, n_cells=2))
+        sim.external_fields.append(ExternalField(
+            lambda F, x, y, z, t, amplitude, length_scale: F + amplitude,
+            "Ez", 1.e9, 0., species=view))
+        sim.column_angles = _SeededAngles()
+    sim.set_moving_window(v=c)
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["antenna", "mirror_ext"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lpa_window_runs_on_card_match_cpu(cuda, variant, dtype):
+    """20 steps of an antenna-emitted laser in vacuum, and of a resident
+    plasma with a mirror and an external field, on the card against the
+    CPU: no kernel launch in vacuum; K2 once a step and K1 once (float32)
+    or K3 twice (float64) with the plasma; the on-axis Ez (and rho) and
+    the mode-1 Er at r = 5 dr within 1e-8 of their scale in float64 and
+    the float32 gates of test_ring_paths_on_card_match_cpu in float32;
+    the mirror's cells zero on the card (to 1e-5 of the field's
+    largest value: z transforms there and back)."""
+    runs = {}
+    for key, dev in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        sim = _lpa_window_sim(dev, dtype, variant)
+        n0 = _k_counts()
+        sim.step(20)
+        if dev.type == "cuda":
+            want = ([0, 0, 0] if variant == "antenna"
+                    else [20, 20, 0] if dtype == torch.float32
+                    else [0, 20, 40])
+            assert [a - b for a, b in zip(_k_counts(), n0)] == want
+        assert sim.overflow_totals == {"sort_overflow": 0,
+                                       "ring_overwrite": 0}
+        runs[key] = dict(
+            Ez_axis=sim.get_interp_field("Ez", 0).real[:, 0],
+            Er1_r5=np.abs(sim.get_interp_field("Er", 1))[:, 5])
+        if variant == "mirror_ext":
+            runs[key]["rho_axis"] = \
+                sim.get_interp_field("rho", 0).real[:, 0]
+            z = sim.grid_z()
+            inside = (z >= 11.e-6) & (z < 11.e-6 + 2 * sim.config.dz)
+            assert inside.any()
+            Er1 = np.abs(sim.get_interp_field("Er", 1))
+            assert Er1[inside].max() <= 1e-5 * Er1.max()
+    gates = ({n: 1e-8 for n in runs["cpu"]} if dtype == torch.float64
+             else {"Ez_axis": 1.5e-2, "Er1_r5": 1.5e-2, "rho_axis": 3e-2})
+    _close_profiles(runs, {n: g for n, g in gates.items()
+                           if n in runs["cpu"]})
