@@ -8,9 +8,11 @@ This port covers linear and cubic shapes, resident and non-resident
 or open (PML) radial boundary, moving window and continuous injection,
 the standard and the Galilean / comoving PSATD solver with curl-free or
 cross-deposition current correction, the boosted-frame conversions
-of species, laser and moving window (``gamma_boost``), and the LPA
+of species, laser and moving window (``gamma_boost``), the LPA
 utilities' hooks: ``mirrors``, ``external_fields`` and
-``laser_antennas``.
+``laser_antennas``, and the elementary processes: ADK ionization
+(``SpeciesView.make_ionizable``) and Compton scattering
+(``SpeciesView.activate_compton``).
 """
 import warnings
 from dataclasses import replace
@@ -32,6 +34,7 @@ from ..particles.state import (
 from ..particles.injection import (
     InjectorConfig, GeneratorAngles, build_injector_aux,
 )
+from ..particles.draws import GeneratorDraws
 from ..particles.deposit import deposit_rho_linear, deposit_rho_J_linear
 from ..fields import psatd_push as psp
 from ..utils.device import catch_memory_error
@@ -91,10 +94,76 @@ class SpeciesView:
 
     def track(self, comm=None):
         """Give the species' particles unique ids, carried through the
-        step and handed out to injected particles (reference API:
-        ``Particles.track``)."""
+        step and handed out to injected and created particles
+        (reference API: ``Particles.track``)."""
         from ..particles.tracking import enable_tracking
         enable_tracking(self._sim, self)
+
+    def activate_compton(self, target_species, laser_energy,
+                         laser_wavelength, laser_waist, laser_ctau,
+                         laser_initial_z0, ratio_w_electron_photon=1.0,
+                         boost=None):
+        """Compton scattering of this species against a rigid
+        counter-propagating Gaussian laser; the photons go to
+        ``target_species`` (reference API: particles.py:394,
+        activate_compton).  The target grows to hold one creation buffer
+        (8192 slots) at least."""
+        from ..particles.compton import ComptonConfig, build_compton_aux
+        sim = self._sim
+        cfg = ComptonConfig(target_index=target_species._index,
+                            ratio_w_electron_photon=ratio_w_electron_photon)
+        sim.species_configs[self._index] = replace(
+            sim.species_configs[self._index], compton=cfg)
+        sim._compton_auxes[self._index] = build_compton_aux(
+            laser_energy, laser_wavelength, laser_waist, laser_ctau,
+            laser_initial_z0, boost=boost or sim.boost, device=sim.device,
+            dtype=sim.dtype)
+        sim._make_process_target(cfg.target_index, cfg.buffer_size)
+
+    def make_ionizable(self, element, target_species, level_start=0,
+                       level_max=None):
+        """ADK ionization of this species (reference API: particles.py:441,
+        make_ionizable).  ``target_species``: the SpeciesView receiving
+        the electrons, or a dict {level: SpeciesView} routing the
+        electrons of each ionizable level to its own species (reference
+        ionizer.py:123-146).  The species' charge becomes e (times each
+        particle's level, which starts at level_start); each target grows
+        to hold one creation buffer (8192 slots) at least."""
+        from ..particles.ionization import IonizerConfig, build_ionizer_aux
+        sim = self._sim
+        idx = self._index
+        aux, n_levels = build_ionizer_aux(element, sim.dt, level_max,
+                                          device=sim.device, dtype=sim.dtype)
+        if level_max is None:
+            level_max = n_levels
+        per_level = ()
+        if isinstance(target_species, dict):
+            for level in range(level_start, level_max):
+                if level not in target_species:
+                    raise ValueError(
+                        "When passing a dict for `target_species`, its "
+                        "keys must be the ionizable levels "
+                        f"{level_start}..{level_max - 1} of {element}.")
+            per_level = tuple(target_species[level]._index
+                              for level in range(level_start, level_max))
+            target_index = per_level[0]
+        else:
+            target_index = target_species._index
+        cfg = IonizerConfig(element=element, level_start=level_start,
+                            level_max=level_max, target_index=target_index,
+                            per_level_targets=per_level)
+        # The charge becomes e: the deposits and the push use
+        # ionization_level * q (reference: particles.py:488-490)
+        sim.species_configs[idx] = replace(
+            sim.species_configs[idx], ionizer=cfg, q=e)
+        sp = sim.state.species[idx]
+        level = torch.full((sp.capacity,), level_start, dtype=torch.int32,
+                           device=sp.w.device)
+        sim.state.species[idx] = sp.replace(ionization_level=torch.where(
+            sp.w != 0, level, torch.zeros_like(level)))
+        sim._ionizer_auxes[idx] = aux
+        for tgt in dict.fromkeys(cfg.targets):
+            sim._make_process_target(tgt, cfg.buffer_size)
 
     def __getattr__(self, name):
         if name in SpeciesView._arrays:
@@ -247,6 +316,10 @@ class Simulation:
         #: column_angles(iteration, species_index, nkey) -> angles of the
         #: injected plasma columns; replaceable by the caller
         self.column_angles = GeneratorAngles(self.generator)
+        #: process_draws(name, iteration, species_index, shape, dtype) ->
+        #: the uniform draws of ionization and Compton scattering
+        #: (particles/draws.py); replaceable by the caller
+        self.process_draws = GeneratorDraws(self.generator)
 
         zmin_total = self.np_dtype(zmin - nd * dz)
         self.state = SimState(
@@ -259,12 +332,17 @@ class Simulation:
                                        device=device))
         #: Overflow counts summed over all step() calls of this object
         self.overflow_totals = {"sort_overflow": 0, "ring_overwrite": 0}
+        #: (iteration, species index, new capacity) of every ring grown
+        self.ring_growth = []
         self.species_configs = []
         #: Particles each species was loaded with (fbpic_tpu's counts)
         self._species_counts = []
         self.moving_win = None
         self._injector_configs = []
         self._injector_auxes = []
+        #: Per species: its IonizerAux / ComptonAux, or None
+        self._ionizer_auxes = []
+        self._compton_auxes = []
         self.ptcl = []
         self.diags = []
         self.checkpoints = []
@@ -450,6 +528,8 @@ class Simulation:
         self._species_counts.append(int(Ntot))
         self._injector_configs.append(injector_cfg)
         self._injector_auxes.append(injector_aux)
+        self._ionizer_auxes.append(None)
+        self._compton_auxes.append(None)
         self.state.species.append(pstate)
         view = SpeciesView(self, len(self.species_configs) - 1)
         self.ptcl.append(view)
@@ -491,7 +571,7 @@ class Simulation:
         sp, sc, cfg = self.state.species[idx], self.species_configs[idx], \
             self.config
         rho = deposit_rho_linear(
-            sp.x, sp.y, sp.z, sp.w, sc.q, cfg.Nm, 1.0 / cfg.dz,
+            sp.x, sp.y, sp.z, sp.w_eff, sc.q, cfg.Nm, 1.0 / cfg.dz,
             float(self.state.zmin), cfg.Nz, 1.0 / cfg.dr, 0.0, cfg.Nr,
             self.aux.ruyten_linear,
             zfold="periodic" if cfg.boundaries_z == "periodic" else "clamp")
@@ -657,7 +737,10 @@ class Simulation:
             self.state = step_fn(self.state, self.aux,
                                  tuple(self._injector_auxes),
                                  self.column_angles, self.generator,
-                                 antenna_series=series)
+                                 antenna_series=series,
+                                 ion_auxes=tuple(self._ionizer_auxes),
+                                 comp_auxes=tuple(self._compton_auxes),
+                                 draws=self.process_draws)
             for w in capture:
                 w.capture(self, capacity=min(N - n, MAX_CAPTURE))
             for w in plain:
@@ -692,6 +775,40 @@ class Simulation:
             for antenna in self.laser_antennas)
         return series, n + chunk
 
+    def creates_at_run_time(self, index):
+        """Whether particles are created into species ``index`` while the
+        simulation runs: continuous injection, or the target of an
+        ionization or Compton process (fbpic_tpu's ``_can_grow``)."""
+        if self._injector_configs[index] is not None:
+            return True
+        return self.is_process_target(index)
+
+    def is_process_target(self, index):
+        """Whether an ionization or Compton process writes into species
+        ``index``."""
+        return any(
+            (sc.ionizer is not None and index in sc.ionizer.targets)
+            or (sc.compton is not None and sc.compton.target_index == index)
+            for sc in self.species_configs)
+
+    def _make_process_target(self, index, buffer_size):
+        """Species ``index`` receives created particles: grow it to hold
+        one creation buffer (a full ring would otherwise wrap within one
+        append) and make its ring cursor and id counter 0-d device
+        tensors (the counts created are data-dependent)."""
+        self._ensure_capacity(index, buffer_size)
+        sp = self.state.species[index]
+        self.state.species[index] = sp.replace(
+            next_free=self._device_counter(sp.next_free),
+            next_id=self._device_counter(sp.next_id))
+
+    def _device_counter(self, value):
+        """A cursor or counter as a 0-d int64 tensor on the device."""
+        if torch.is_tensor(value):
+            return value
+        return torch.tensor(int(value), dtype=torch.int64,
+                            device=self.device)
+
     def _ensure_capacity(self, index, min_capacity, factor=1.0):
         """Grow species ``index`` to at least ``min_capacity`` slots
         (and ``factor`` times its capacity), rounded up to 128, with dead
@@ -710,18 +827,31 @@ class Simulation:
         return new_cap
 
     def _consume_overflow_counters(self):
-        """Read the overflow counters (one host read per step() call).
+        """Read the overflow counters, and the live count of every ring
+        that ionization or Compton scattering write into (one host read
+        per step() call).
 
         sort_overflow > 0: some z column exceeded its sort_K slots and
         the excess particles were lost (resident) or their charge was
         dropped (sorted each step); warn and bump sort_K (1.5x, rounded
         to 128), re-padding every row of a resident layout.
-        ring_overwrite > 0: injected particles overwrote live ones in a
-        full ring, or found no dead slot in a resident species; warn and
-        double the capacity of every non-resident injecting species
-        that is more than half full (one more host read each)."""
-        n_sort = int(self.state.sort_overflow)
-        n_ring = int(self.state.ring_overwrite)
+        ring_overwrite > 0: injected or created particles overwrote live
+        ones in a full ring, were cut off, or found no dead slot in a
+        resident species; warn and double the capacity of every
+        non-resident species that creates particles at run time and is
+        more than half full (one more host read each for the injecting
+        ones).  A process target's ring more than half full is doubled
+        in any case (fbpic_tpu grows it only after an overflow): the
+        particles created during the next call then fit as long as they
+        are fewer than half its slots."""
+        targets = [i for i, sc in enumerate(self.species_configs)
+                   if not sc.resident and self.is_process_target(i)]
+        counts = torch.stack(
+            [self.state.sort_overflow, self.state.ring_overwrite]
+            + [(self.state.species[i].w != 0).sum() for i in targets]
+        ).tolist()
+        n_sort, n_ring = counts[:2]
+        live = dict(zip(targets, counts[2:]))
         self.overflow_totals["sort_overflow"] += n_sort
         self.overflow_totals["ring_overwrite"] += n_ring
         if n_sort > 0:
@@ -744,17 +874,24 @@ class Simulation:
                 f"lost, or their charge dropped); sort_K auto-bumped "
                 f"({'; '.join(bumped)}).  Pass a larger sort_K to "
                 f"add_new_species to avoid this.", RuntimeWarning)
-        if n_ring > 0:
-            grown = []
-            for i, sc in enumerate(self.species_configs):
-                sp = self.state.species[i]
-                if sc.resident or self._injector_configs[i] is None:
-                    continue
+        grown = []
+        for i, sc in enumerate(self.species_configs):
+            sp = self.state.species[i]
+            if sc.resident or not self.creates_at_run_time(i):
+                continue
+            if i in live:
+                n_live = live[i]
+            elif n_ring > 0:
                 n_live = int((sp.w != 0).sum())
-                if n_live > 0.5 * sp.capacity:
-                    new_cap = self._ensure_capacity(i, 0, factor=2.0)
-                    if new_cap:
-                        grown.append(f"{sc.name}: -> {new_cap}")
+            else:
+                continue
+            if n_live > 0.5 * sp.capacity:
+                new_cap = self._ensure_capacity(i, 0, factor=2.0)
+                if new_cap:
+                    grown.append(f"{sc.name}: -> {new_cap}")
+                    self.ring_growth.append((self.state.iteration, i,
+                                             new_cap))
+        if n_ring > 0:
             warnings.warn(
                 f"{n_ring} created/injected particle(s) found their "
                 "species' ring buffer full this step() call (they were "

@@ -5,9 +5,11 @@ as in the reference, FBPIC's fbpic/main.py:346-585):
 
     [exchange: remove, inject, deposit rho_prev]
     -> resident species: re-sort (banded, or full) -> sorted gather E,B
-       (K2) -> Vay push p -> push x (dt/2) -> fused J + d(rho) deposit
-       (K1), or J and rho deposits (K3) -> push x (dt/2)
+       (K2) -> Vay push p -> push x (dt/2) -> [Compton, ionization]
+       -> fused J + d(rho) deposit (K1), or J and rho deposits (K3)
+       -> push x (dt/2)
     -> other species: linear gather E,B -> Vay push p -> push x (dt/2)
+       -> [Compton, ionization; the newborns to their targets]
        -> [sort_K > 0: column sort, fused deposits (K1 / K3)]
        -> J (scatter, or the legacy sorted plan: K3) -> push x (dt/2)
     -> rho_next -> correct currents -> PSATD push
@@ -17,6 +19,21 @@ as in the reference, FBPIC's fbpic/main.py:346-585):
 The user's external fields are applied after every gather; a ballistic
 species keeps its momenta behind its injection plane; the laser
 antennas add their current slice to the grid J before the transform.
+
+The elementary processes (ADK ionization, Compton scattering) run at
+t = (n+1/2) dt, between the first half push and the deposits.  An
+ionizable species carries an int32 ``ionization_level``: its charge is
+level * q in the push, and every deposit weighs it by w * level (a new
+tensor: the kernels read the weight channel as they read w).  The
+particles a process creates leave it in a fixed-size creation buffer
+(w = 0 past them) and go to their target species: a ring takes them at
+its cursor (``append_new_particles``), a resident species in dead slots
+of their own z rows (``append_into_padded``), its birth-step J and rho /
+d(rho) scatter-deposited onto its fused grids.  The counts created stay
+on the device: a target's cursor and id counter are 0-d device tensors,
+and what finds no room is counted into ring_overwrite / sort_overflow,
+which grow the target after the step() call.  The uniform draws come
+from a replaceable source (particles/draws.py).
 
 Cubic species gather with the 4x4 stencil (gather_fields_cubic) and,
 sorted, deposit through deposit_rho_J_sorted_cubic (plain PyTorch: no
@@ -51,6 +68,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..constants import c
 from ..fields import transform as tr
 from ..fields import psatd_push as ps
 from ..particles import push as pp
@@ -61,6 +79,8 @@ from ..particles.gather import (
     gather_fields_linear, gather_fields_cubic, gather_fields_sorted,
 )
 from ..particles.injection import generate_columns, write_ring
+from ..particles.ionization import ionize, select_level_electrons
+from ..particles.compton import handle_compton
 from ..particles.state import ARRAY_FIELDS
 from ..particles.sorted_deposit import (
     build_column_sort, banded_column_resort, deposit_rho_J_sorted,
@@ -120,7 +140,8 @@ def _deposit_args(config, zmin):
 def deposit_rho_spect(config, aux, species, species_configs, zmin,
                       sorts=None, fused=None):
     """Charge of all species but tracers -> filtered-free spectral rho
-    (Nm, Nz, Nr), summed in species order.
+    (Nm, Nz, Nr), summed in species order (an ionizable species weighted
+    by its levels).
 
     fused: optional {species_index: raw rho} from the fused sorted
     deposits; sorts: optional {species_index: legacy column-sort plan}
@@ -134,17 +155,19 @@ def deposit_rho_spect(config, aux, species, species_configs, zmin,
             contrib = fused[i]
         elif sorts and i in sorts:
             contrib = deposit_rho_sorted(
-                sorts[i], sp.x, sp.y, sp.z, sp.w, sc.q,
+                sorts[i], sp.x, sp.y, sp.z, sp.w_eff, sc.q,
                 *_deposit_args(config, zmin), aux.ruyten_linear,
                 zfold=_zfold(config))
         elif sc.particle_shape == "cubic":
             contrib = deposit_rho_cubic(
-                sp.x, sp.y, sp.z, sp.w, sc.q, *_deposit_args(config, zmin),
-                aux.ruyten_cubic, zfold=_zfold(config), comp=_comp_of(sp))
+                sp.x, sp.y, sp.z, sp.w_eff, sc.q,
+                *_deposit_args(config, zmin), aux.ruyten_cubic,
+                zfold=_zfold(config), comp=_comp_of(sp))
         else:
             contrib = deposit_rho_linear(
-                sp.x, sp.y, sp.z, sp.w, sc.q, *_deposit_args(config, zmin),
-                aux.ruyten_linear, zfold=_zfold(config), comp=_comp_of(sp))
+                sp.x, sp.y, sp.z, sp.w_eff, sc.q,
+                *_deposit_args(config, zmin), aux.ruyten_linear,
+                zfold=_zfold(config), comp=_comp_of(sp))
         rho = contrib if rho is None else rho + contrib
     if rho is None:
         rho = torch.zeros((config.Nm, config.Nz, config.Nr),
@@ -171,17 +194,17 @@ def deposit_J_spect(config, aux, species, species_configs, zmin,
             contrib = fused[i]
         elif sorts and i in sorts:
             contrib = deposit_J_sorted(
-                sorts[i], sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
-                sp.inv_gamma, *_deposit_args(config, zmin),
+                sorts[i], sp.x, sp.y, sp.z, sp.w_eff, sc.q, sp.ux, sp.uy,
+                sp.uz, sp.inv_gamma, *_deposit_args(config, zmin),
                 aux.ruyten_linear, zfold=_zfold(config))
         elif sc.particle_shape == "cubic":
             contrib = deposit_J_cubic(
-                sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
+                sp.x, sp.y, sp.z, sp.w_eff, sc.q, sp.ux, sp.uy, sp.uz,
                 sp.inv_gamma, *_deposit_args(config, zmin),
                 aux.ruyten_cubic, zfold=_zfold(config), comp=_comp_of(sp))
         else:
             contrib = deposit_J_linear(
-                sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
+                sp.x, sp.y, sp.z, sp.w_eff, sc.q, sp.ux, sp.uy, sp.uz,
                 sp.inv_gamma, *_deposit_args(config, zmin),
                 aux.ruyten_linear, zfold=_zfold(config), comp=_comp_of(sp))
         JrJtJz = (list(contrib) if JrJtJz is None
@@ -312,7 +335,9 @@ def gather_and_push(config, options, sp, sc, interp, zmin, dt, time=None,
     cubic gather by index), apply the external fields and Vay-push its
     momenta (unless move_momenta is off; behind a ballistic species'
     plane the momenta stay).  time: the host time of the step;
-    time_t: the same as a 0-d tensor, for the external fields."""
+    time_t: the same as a 0-d tensor, for the external fields.
+    Returns (the species, the gathered (Ex, Ey, Ez, Bx, By, Bz)): an
+    ionizable species ionizes in them."""
     gather = (gather_fields_cubic if sc.particle_shape == "cubic"
               else gather_fields_linear)
     E_B = gather(
@@ -321,10 +346,10 @@ def gather_and_push(config, options, sp, sc, interp, zmin, dt, time=None,
         config.Nr, comp=_comp_of(sp))
     E_B = apply_external_fields(options, E_B, sp, time_t, species_index)
     if not options.move_momenta or sc.q == 0:
-        return sp
+        return sp, E_B
     ux, uy, uz, inv_gamma = pp.push_p(sp, E_B[:3], E_B[3:], sc.q, sc.m, dt,
                                       z_plane=ballistic_plane(sc, time, dt))
-    return sp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
+    return sp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma), E_B
 
 
 def half_push_x(config, options, sp, zmin):
@@ -444,16 +469,19 @@ def remove_outside_particles(config, sp, zmin):
     z_lo = float(zmin + ng * config.dz)
     z_hi = float(zmin + Lz - ng * config.dz)
     dead = (sp.z < z_lo) | (sp.z > z_hi)
-    ids = (None if sp.ids is None
-           else torch.where(dead, torch.zeros_like(sp.ids), sp.ids))
+
+    def zero_dead(a):
+        return None if a is None else torch.where(dead, torch.zeros_like(a),
+                                                  a)
     return sp.replace(
-        w=torch.where(dead, torch.zeros_like(sp.w), sp.w),
+        w=zero_dead(sp.w),
         z=torch.where(dead, torch.full_like(sp.z, float(zmin + 0.5 * Lz)),
-                      sp.z), ids=ids)
+                      sp.z), ids=zero_dead(sp.ids),
+        ionization_level=zero_dead(sp.ionization_level))
 
 
 def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
-                         phi_of, generator, resident):
+                         phi_of, generator, resident, level=0):
     """Inject the plasma columns the window uncovered since the last
     exchange.  A non-resident species keeps a stable storage order:
     the columns go into its ring at the cursor ``next_free``, and the
@@ -462,8 +490,9 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     does not track its free slots: the columns go into dead slots (dead
     first, in storage order), and those that find none are counted.
     A tracked species hands out one id per candidate particle (written
-    or not), as fbpic_tpu does (core/step.py:798-801, :844-847).
-    Returns (species, count)."""
+    or not), as fbpic_tpu does (core/step.py:798-801, :844-847); the
+    particles of an ionizable species start at ``level``.  The cursors
+    may be host ints or 0-d device tensors.  Returns (species, count)."""
     rdt = type(zmin)
     # The plane's offset from zmin summed first, as XLA folds fbpic_tpu's
     # constant terms (the plane sits on a column edge: rounding picks
@@ -489,6 +518,9 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     for name in ("comp_x", "comp_y", "comp_z"):
         if getattr(sp, name) is not None:
             values[name] = torch.zeros_like(new["x"])
+    if sp.ionization_level is not None:
+        values["ionization_level"] = torch.full(
+            (n_write,), level, dtype=torch.int32, device=dev)
     updates = {}
     if sp.ids is not None:
         values["ids"] = sp.next_id + torch.arange(n_write, device=dev)
@@ -524,6 +556,95 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     return sp.replace(**updates), count
 
 
+def _newborn_values(esp, new):
+    """The channels a creation buffer writes into species ``esp``: its
+    particles, zero Kahan words, and (tracked) consecutive ids from the
+    species' counter, one per buffer slot (the buffer is front-packed,
+    so the newborns take the first)."""
+    values = {name: new[name] for name in
+              ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w")}
+    for name in ("comp_x", "comp_y", "comp_z"):
+        if getattr(esp, name) is not None:
+            values[name] = torch.zeros_like(new["x"])
+    if esp.ids is not None:
+        values["ids"] = esp.next_id + torch.arange(new["x"].shape[0],
+                                                   device=new["x"].device)
+    return values
+
+
+def append_new_particles(esp, new):
+    """Write a front-packed creation buffer (w = 0 past the newborns)
+    into a ring species at its cursor ``next_free`` (fbpic_tpu's
+    ``_append_new_particles``, core/step.py:546-638, one device).  A
+    buffer longer than the ring is cut to the ring (the excess is
+    dropped).  Returns (species, dropped, overwritten): the newborns cut
+    off, and the live particles the write overwrote -- fbpic_tpu counts
+    the first only; both go to ring_overwrite, which grows the ring
+    after the step() call (Simulation._consume_overflow_counters).
+    Every count stays on the device."""
+    mask = new["w"] != 0
+    n_new = mask.sum()
+    cap = esp.capacity
+    values = _newborn_values(esp, new)
+    if new["x"].shape[0] > cap:
+        values = {name: v[:cap] for name, v in values.items()}
+        mask = mask[:cap]
+    nb = mask.shape[0]
+    slots = torch.remainder(
+        esp.next_free + torch.arange(nb, device=mask.device), cap)
+    overwritten = (mask & (esp.w[slots] != 0)).sum()
+    updates = {name: write_ring(getattr(esp, name), esp.next_free, vals,
+                                cap, mask)
+               for name, vals in values.items()}
+    if esp.ids is not None:
+        updates["next_id"] = esp.next_id + n_new
+    updates["next_free"] = (esp.next_free + n_new) % cap
+    return esp.replace(**updates), n_new - mask.sum(), overwritten
+
+
+def append_into_padded(esp, new, Nz, K, zmin, invdz, zfold):
+    """Write a creation buffer into dead slots of a resident species'
+    (Nz, K) layout, each newborn in a dead slot of its own z row, so the
+    next banded re-sort keeps it (fbpic_tpu's ``_append_into_padded``,
+    core/step.py:641-708).  ``new`` holds the end-of-step positions;
+    ``zmin`` is the grid edge of the next re-sort.  Returns (species,
+    dropped): the newborns whose row had no dead slot (a device count,
+    for sort_overflow)."""
+    dev = new["x"].device
+    mask = new["w"] != 0
+    nb = mask.shape[0]
+    values = _newborn_values(esp, new)
+    col = torch.floor(invdz * (values["z"] - float(zmin))).long()
+    col = (torch.remainder(col, Nz) if zfold == "periodic"
+           else torch.clamp(col, 0, Nz - 1))
+    # Stable column sort of the buffer -> the rank within each column;
+    # empty buffer slots sort last (key Nz)
+    key_col = torch.where(mask, col, torch.full_like(col, Nz))
+    order = torch.argsort(key_col, stable=True)
+    cs = key_col[order]
+    mask_s = mask[order]
+    within = torch.arange(nb, device=dev) - torch.searchsorted(cs, cs)
+    # Each row's dead slots, dead first
+    dead = (esp.w == 0).reshape(Nz, K)
+    dead_order = torch.argsort((~dead).to(torch.int8), dim=1, stable=True)
+    n_dead_row = dead.sum(dim=1)
+    row = torch.clamp(cs, 0, Nz - 1)
+    ok = (mask_s & (cs < Nz) & (within < n_dead_row[row]) & (within < K))
+    slot_in_row = dead_order[row, torch.clamp(within, max=K - 1)]
+    # The others go to a spare last slot: an index, not a boolean mask
+    flat_slot = torch.where(ok, row * K + slot_in_row,
+                            torch.full_like(row, Nz * K))
+    updates = {}
+    for name, vals in values.items():
+        arr = getattr(esp, name)
+        ext = torch.cat([arr, arr.new_zeros(1)])
+        ext[flat_slot] = vals[order].to(arr.dtype)
+        updates[name] = ext[:Nz * K]
+    if esp.ids is not None:
+        updates["next_id"] = esp.next_id + mask.sum()
+    return esp.replace(**updates), mask.sum() - ok.sum()
+
+
 # ---------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------
@@ -550,11 +671,16 @@ def _resident_indices(config, species_configs, options):
 
 
 def make_step_fn(config, species_configs, options: StepOptions):
-    """Build the single-step function
-    ``step(state, aux, inj_auxes, column_angles, generator)``.
+    """Build the single-step function ``step(state, aux, inj_auxes,
+    column_angles, generator, antenna_series, ion_auxes, comp_auxes,
+    draws)``.
 
     ``column_angles(iteration, species_index, nkey)`` gives the rotation
-    of each injected column (see particles/injection.py)."""
+    of each injected column (see particles/injection.py);
+    ``draws(name, iteration, species_index, shape, dtype)`` the uniform
+    draws of ionization and Compton scattering (``GeneratorDraws``);
+    ion_auxes / comp_auxes: each species' IonizerAux / ComptonAux (or
+    None)."""
     species_configs = tuple(species_configs)
     resident_idx = _resident_indices(config, species_configs, options)
     cross = _cross_correction(config, options)
@@ -571,7 +697,8 @@ def make_step_fn(config, species_configs, options: StepOptions):
     zfold = _zfold(config)
 
     def step(state: SimState, aux, inj_auxes=(), column_angles=None,
-             generator=None, antenna_series=()) -> SimState:
+             generator=None, antenna_series=(), ion_auxes=(), comp_auxes=(),
+             draws=None) -> SimState:
         dt = config.dt
         rdt = type(state.zmin)
         # The external fields see the step's time as a 0-d tensor of the
@@ -606,10 +733,12 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 for i, inj_cfg in enumerate(options.injectors):
                     if inj_cfg is None:
                         continue
+                    ion = species_configs[i].ionizer
                     species[i], count = continuous_injection(
                         config, options, species[i], inj_cfg, inj_auxes[i],
                         zmin, lambda nkey, i=i: column_angles(it, i, nkey),
-                        generator, resident=i in resident_idx)
+                        generator, resident=i in resident_idx,
+                        level=0 if ion is None else ion.level_start)
                     ring_overwrite = ring_overwrite + count
             rho_prev = deposit_rho_spect(config, aux, species,
                                          species_configs, zmin)
@@ -628,6 +757,14 @@ def make_step_fn(config, species_configs, options: StepOptions):
         fused_J, fused_rho, fused_drho = {}, {}, {}
         # With the fused deposit's d(rho), rho_next = rho_prev + d(rho)
         derive_rho_next = want_drho and bool(resident_idx)
+        # Creation buffers of the resident sources' processes
+        resident_new = {}
+
+        def _draw_of(i):
+            """Species i's uniform draws of this step: draw(name, shape),
+            on the step's device (a no-op for the default source)."""
+            return lambda name, shape: draws(
+                name, it, i, shape, aux.S_w.dtype).to(aux.S_w.device)
 
         for i in resident_idx:
             sp, sc = species[i], species_configs[i]
@@ -639,10 +776,14 @@ def make_step_fn(config, species_configs, options: StepOptions):
                        sp.inv_gamma]
             if sp.comp_x is not None:
                 payload += [sp.comp_x, sp.comp_y, sp.comp_z]
-            # Tracking ids ride the sort as their own (int64) channel,
-            # after the float ones, which the kernels read in place
+            # Tracking ids (int64) and the ionization level (int32) ride
+            # the sort as channels of their own, after the float ones,
+            # which the kernels read in place
+            n_float = len(payload)
             if sp.ids is not None:
                 payload.append(sp.ids)
+            if sp.ionization_level is not None:
+                payload.append(sp.ionization_level)
 
             def full_sort():
                 return build_column_sort(sp.z, sp.w, float(zmin),
@@ -672,6 +813,8 @@ def make_step_fn(config, species_configs, options: StepOptions):
             pad, valid = sort["padded"], sort["valid"]
             comp_kw = ({"comp_x": pad[8], "comp_y": pad[9],
                         "comp_z": pad[10]} if sp.comp_x is not None else {})
+            if sp.ionization_level is not None:
+                comp_kw["ionization_level"] = pad[-1]
             psp = sp.replace(
                 x=pad[0], y=pad[1], z=pad[2],
                 w=torch.where(valid, pad[3], torch.zeros_like(pad[3])),
@@ -692,15 +835,36 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 psp = psp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
             psp = half_push_x(config, options, psp, zmin_mid)
 
+            # Elementary processes at t = (n+1/2) dt, between the push
+            # and the deposit (the reference order, main.py:468-511), on
+            # flat views of the padded layout: the deposit sees the new
+            # levels and the recoiled momenta; the newborns are routed
+            # after the resident block
+            if sc.compton is not None:
+                u, resident_new[("compton", i)] = handle_compton(
+                    _flat(psp), sc.compton, comp_auxes[i], dt,
+                    state.time + 0.5 * dt, _draw_of(i))
+                psp = psp.replace(**{n: a.reshape(psp.x.shape) for n, a in
+                                     zip(("ux", "uy", "uz", "inv_gamma"), u)})
+            if sc.ionizer is not None:
+                level, resident_new[("ionize", i)] = ionize(
+                    _flat(psp), [a.reshape(-1) for a in E_B[:3]],
+                    [a.reshape(-1) for a in E_B[3:]], sc.ionizer,
+                    ion_auxes[i], _draw_of(i)("ionize", (psp.w.numel(),)))
+                psp = psp.replace(ionization_level=level.reshape(
+                    psp.x.shape))
+
             # Fused J + rho/d(rho) deposit on the pushed padded arrays
-            # (sort_at_start: the sort is half a push behind)
-            pad_dep = [psp.x, psp.y, psp.z, psp.w, psp.ux, psp.uy, psp.uz,
+            # (sort_at_start: the sort is half a push behind); the
+            # weight of an ionizable species times its new levels
+            w_dep = psp.w_eff
+            pad_dep = [psp.x, psp.y, psp.z, w_dep, psp.ux, psp.uy, psp.uz,
                        psp.inv_gamma]
             if psp.comp_x is not None:
                 pad_dep += [psp.comp_x, psp.comp_y, psp.comp_z]
             out = deposit_rho_J_sorted(
                 dict(valid=valid, padded=pad_dep), psp.x, psp.y, psp.z,
-                psp.w, sc.q, psp.ux, psp.uy, psp.uz, psp.inv_gamma,
+                w_dep, sc.q, psp.ux, psp.uy, psp.uz, psp.inv_gamma,
                 0.5 * dt, config.Nm, 1.0 / config.dz, float(zmin_mid),
                 config.Nz, 1.0 / config.dr, 0.0, config.Nr,
                 aux.ruyten_linear, zfold=zfold, comp=_comp_of(psp),
@@ -721,21 +885,111 @@ def make_step_fn(config, species_configs, options: StepOptions):
             flat["w"] = torch.where(valid, psp.w,
                                     torch.zeros_like(psp.w)).reshape(-1)
             if sp.ids is not None:
-                ids = pad[-1]
+                ids = pad[n_float]
                 flat["ids"] = torch.where(valid, ids,
                                           torch.zeros_like(ids)).reshape(-1)
+            if sp.ionization_level is not None:
+                lev = psp.ionization_level
+                flat["ionization_level"] = torch.where(
+                    valid, lev, torch.zeros_like(lev)).reshape(-1)
             species[i] = sp.replace(**flat)
 
         # --- Non-resident species: linear or cubic gather, momentum
         # push, first half position push
+        gathered = {}
         for i, sc in enumerate(species_configs):
             if i not in resident_idx:
-                species[i] = half_push_x(
-                    config, options,
-                    gather_and_push(config, options, species[i], sc,
-                                    interp, zmin, dt, time=state.time,
-                                    species_index=i, time_t=time_t),
-                    zmin_mid)
+                sp, E_B = gather_and_push(
+                    config, options, species[i], sc, interp, zmin, dt,
+                    time=state.time, species_index=i, time_t=time_t)
+                species[i] = half_push_x(config, options, sp, zmin_mid)
+                if sc.ionizer is not None:
+                    gathered[i] = E_B
+
+        # --- Elementary processes at t = (n+1/2) dt (reference:
+        # main.py:499-503): Compton scattering, then ionization, species
+        # by species; a resident source already ran its process in the
+        # resident block.  The newborns go to their target species.
+        def route_newborns(tgt, new):
+            """Append a creation buffer (positions at t = (n+1/2) dt) to
+            the target species.  A ring target takes it at its cursor
+            before its deposits (the newborns ride the normal path).  A
+            resident target's fused deposit already ran: the newborns'
+            birth-step J and rho / d(rho) are scatter-deposited from the
+            buffer onto its fused grids, and the buffer, half-pushed to
+            t = (n+1) dt, lands in dead slots of its own z rows."""
+            nonlocal ring_overwrite, sort_overflow
+            if tgt not in resident_idx:
+                species[tgt], dropped, overwritten = append_new_particles(
+                    species[tgt], new)
+                ring_overwrite = ring_overwrite + dropped + overwritten
+                return
+            q_t = species_configs[tgt].q
+            xb, yb, zb, wb = new["x"], new["y"], new["z"], new["w"]
+            uxb, uyb, uzb, igb = (new["ux"], new["uy"], new["uz"],
+                                  new["inv_gamma"])
+            Jb = deposit_J_linear(xb, yb, zb, wb, q_t, uxb, uyb, uzb, igb,
+                                  *_deposit_args(config, zmin_mid),
+                                  aux.ruyten_linear, zfold=zfold)
+            fused_J[tgt] = tuple(a + b for a, b in zip(fused_J[tgt], Jb))
+            chdt = c * 0.5 * dt
+            x2 = xb + chdt * igb * uxb
+            y2 = yb + chdt * igb * uyb
+            z2 = zb + chdt * igb * uzb
+            if want_drho:
+                # The fused path's telescoped difference rho(x + h) -
+                # rho(x - h): the missing pre-birth term cancels against
+                # the parent's level change at the same position
+                x0 = xb - chdt * igb * uxb
+                y0 = yb - chdt * igb * uyb
+                z0 = zb - chdt * igb * uzb
+                r2 = deposit_rho_linear(x2, y2, z2, wb, q_t,
+                                        *_deposit_args(config, zmin),
+                                        aux.ruyten_linear, zfold=zfold)
+                r0 = deposit_rho_linear(x0, y0, z0, wb, q_t,
+                                        *_deposit_args(config, zmin),
+                                        aux.ruyten_linear, zfold=zfold)
+                fused_drho[tgt] = fused_drho[tgt] + (r2 - r0)
+            elif fused_rho.get(tgt) is not None:
+                fused_rho[tgt] = fused_rho[tgt] + deposit_rho_linear(
+                    x2, y2, z2, wb, q_t, *_deposit_args(config, zmin_next),
+                    aux.ruyten_linear, zfold=zfold)
+            species[tgt], dropped = append_into_padded(
+                species[tgt], dict(new, x=x2, y=y2, z=z2), config.Nz,
+                species_configs[tgt].sort_K, zmin, 1.0 / config.dz, zfold)
+            sort_overflow = sort_overflow + dropped
+
+        for i, sc in enumerate(species_configs):
+            if sc.compton is None:
+                continue
+            if i in resident_idx:
+                new = resident_new[("compton", i)]
+            else:
+                sp = species[i]
+                u, new = handle_compton(sp, sc.compton, comp_auxes[i], dt,
+                                        state.time + 0.5 * dt, _draw_of(i))
+                species[i] = sp.replace(**dict(zip(
+                    ("ux", "uy", "uz", "inv_gamma"), u)))
+            route_newborns(sc.compton.target_index, new)
+        for i, sc in enumerate(species_configs):
+            if sc.ionizer is None:
+                continue
+            if i in resident_idx:
+                new = resident_new[("ionize", i)]
+            else:
+                sp = species[i]
+                level, new = ionize(
+                    sp, gathered[i][:3], gathered[i][3:], sc.ionizer,
+                    ion_auxes[i], _draw_of(i)("ionize", (sp.w.shape[0],)))
+                species[i] = sp.replace(ionization_level=level)
+            if sc.ionizer.per_level_targets:
+                # Each level's electrons to their own species (reference
+                # ionizer.py:123-146)
+                for off, tgt in enumerate(sc.ionizer.per_level_targets):
+                    route_newborns(tgt, select_level_electrons(
+                        new, sc.ionizer.level_start + off))
+            else:
+                route_newborns(sc.ionizer.target_index, new)
 
         # --- Column sort of the non-resident sort_K species at the mid
         # positions (fbpic_tpu core/step.py:1416-1467).  The fused
@@ -754,13 +1008,16 @@ def make_step_fn(config, species_configs, options: StepOptions):
             if sc.particle_shape != "linear" and not will_fuse:
                 continue
             sp = species[i]
+            # The payload's weight is the deposit weight (w times the
+            # level of an ionizable species)
+            w_eff = sp.w_eff
             payload = None
             if will_fuse:
-                payload = [sp.x, sp.y, sp.z, sp.w, sp.ux, sp.uy, sp.uz,
+                payload = [sp.x, sp.y, sp.z, w_eff, sp.ux, sp.uy, sp.uz,
                            sp.inv_gamma]
                 if sp.comp_x is not None:
                     payload += [sp.comp_x, sp.comp_y, sp.comp_z]
-            sorts[i] = build_column_sort(sp.z, sp.w, float(zmin_mid),
+            sorts[i] = build_column_sort(sp.z, w_eff, float(zmin_mid),
                                          1.0 / config.dz, config.Nz,
                                          sc.sort_K, payload)
             sort_overflow = sort_overflow + sorts[i]["n_over"]
@@ -776,10 +1033,10 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 fused_fn = (deposit_rho_J_sorted_cubic if cubic
                             else deposit_rho_J_sorted)
                 out = fused_fn(
-                    sort, sp.x, sp.y, sp.z, sp.w, sc.q, sp.ux, sp.uy, sp.uz,
-                    sp.inv_gamma, 0.5 * dt, config.Nm, 1.0 / config.dz,
-                    float(zmin_mid), config.Nz, 1.0 / config.dr, 0.0,
-                    config.Nr, aux.ruyten_cubic if cubic
+                    sort, sp.x, sp.y, sp.z, sp.w_eff, sc.q, sp.ux, sp.uy,
+                    sp.uz, sp.inv_gamma, 0.5 * dt, config.Nm,
+                    1.0 / config.dz, float(zmin_mid), config.Nz,
+                    1.0 / config.dr, 0.0, config.Nr, aux.ruyten_cubic if cubic
                     else aux.ruyten_linear, zfold=zfold,
                     comp=_comp_of(sp), with_drho=want_drho,
                     with_rho=not derive_rho_next, vz_shift=vg)
@@ -813,7 +1070,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 x0, y0, z0 = pp.push_x(sp, -0.5 * dt)
                 dep, ruy = _scatter_rho(aux, sc)
                 scatter_rho1[i] = dep(
-                    x0, y0, z0, sp.w, sc.q, *_deposit_args(config, zmin),
+                    x0, y0, z0, sp.w_eff, sc.q, *_deposit_args(config, zmin),
                     ruy, zfold=zfold, comp=_comp_of(sp))
 
         # --- Second half position push of the non-resident species
@@ -829,7 +1086,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
             for i, rho1 in scatter_rho1.items():
                 sp, sc = species[i], species_configs[i]
                 dep, ruy = _scatter_rho(aux, sc)
-                rho2 = dep(sp.x, sp.y, sp.z, sp.w, sc.q,
+                rho2 = dep(sp.x, sp.y, sp.z, sp.w_eff, sc.q,
                            *_deposit_args(config, zmin), ruy, zfold=zfold,
                            comp=_comp_of(sp))
                 contribs.append(rho2 - rho1)
@@ -889,9 +1146,9 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 upd = {n: torch.roll(getattr(rsp, n), -n_move * rK)
                        for n in ARRAY_FIELDS if getattr(rsp, n) is not None}
                 if n_move > 0:
-                    upd["w"][(config.Nz - n_move) * rK:] = 0.0
-                    if "ids" in upd:
-                        upd["ids"][(config.Nz - n_move) * rK:] = 0
+                    for n in ("w", "ids", "ionization_level"):
+                        if n in upd:
+                            upd[n][(config.Nz - n_move) * rK:] = 0
                 species[ri] = rsp.replace(**upd)
 
         # --- Open-z damping and mirrors: one z profile (fbpic_tpu
@@ -931,6 +1188,15 @@ def make_step_fn(config, species_configs, options: StepOptions):
 
 
 _EB = ("Er", "Et", "Ez", "Br", "Bt", "Bz")
+
+
+def _flat(psp):
+    """A padded (Nz, K) species as flat (Nz * K,) tensors, for the
+    elementary processes (1-D creation buffers)."""
+    return psp.replace(**{n: getattr(psp, n).reshape(-1) for n in
+                          ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w",
+                           "ionization_level")
+                          if getattr(psp, n) is not None})
 
 
 def _apply_z_profile(aux, interp, names):

@@ -7,7 +7,8 @@ with ``torch.load(weights_only=True)``.  It holds a dict:
 
 - ``tensors``: every state tensor under fbpic_tpu's keypath names
   (``.spect.Ep``, ``.interp.Er``, ``.species[0].x``, ``.species[0].ids``,
-  ``.sort_overflow``, ...; the radial PML's ``.spect.Ep_pml`` ... and
+  ``.species[0].ionization_level``, ``.sort_overflow``, ...; the radial
+  PML's ``.spect.Ep_pml`` ... and
   cross-deposition's ``.spect.rho_next_xy`` / ``_z`` where the
   simulation has them; complex fields as complex tensors, where
   fbpic_tpu stores ``.re`` / ``.im`` pairs; ids as one int64 per slot),
@@ -19,7 +20,9 @@ with ``torch.load(weights_only=True)``.  It holds a dict:
   ``zmin``, ``mw_zref``, each species' ``next_free``, ``inj_z_end``,
   ``next_id``, ``sort_K``, ``resident`` and capacity (sort_K and the
   capacity change at run time), the loaded particle counts and the
-  overflow totals.
+  overflow totals.  The cursor and id counter of a species that
+  ionization or Compton scattering write into are device tensors: they
+  are written as ints and read back onto the device.
 
 fbpic_tpu stores neither ``sort_K`` nor a generator state (its
 randomness is derived from a key in the state).
@@ -123,8 +126,12 @@ def load_checkpoint_dict(sim, ckpt):
             key = ".species[%d].%s" % (i, name)
             if key in tensors or getattr(sp, name) is not None:
                 arrays[name] = tensor(key)
+        next_free, next_id = h["next_free"], h["next_id"]
+        if sim.is_process_target(i):
+            next_free, next_id = (sim._device_counter(v)
+                                  for v in (next_free, next_id))
         species.append(ParticleState(
-            next_free=h["next_free"], next_id=h["next_id"],
+            next_free=next_free, next_id=next_id,
             inj_z_end=None if h["inj_z_end"] is None else rdt(h["inj_z_end"]),
             **arrays))
         sc = sim.species_configs[i]

@@ -42,9 +42,15 @@ def push_p(ptcl, E, B, q, m, dt, z_plane=None):
 
     E, B: tuples (Ex, Ey, Ez) / (Bx, By, Bz) of per-particle fields.
     z_plane: optional host float -- particles with z <= z_plane keep
-    their momenta (ballistic-before-plane injection)."""
+    their momenta (ballistic-before-plane injection).  An ionizable
+    species' charge is ionization_level * q."""
     econst = q * dt / (m * c)
     bconst = 0.5 * q * dt / m
+    level = getattr(ptcl, "ionization_level", None)
+    if level is not None:
+        lev = level.to(ptcl.ux.dtype)
+        econst = econst * lev
+        bconst = bconst * lev
     ux, uy, uz, inv_gamma = push_p_vay(ptcl.ux, ptcl.uy, ptcl.uz,
                                        ptcl.inv_gamma, *E, *B, econst,
                                        bconst)

@@ -2,7 +2,8 @@
 
 Particle arrays are allocated with a fixed capacity and unused slots
 carry ``w = 0`` (they deposit nothing and their push is harmless).
-Injection / removal write into free slots instead of reallocating.
+Injection, removal, ionization and Compton scattering write into free
+slots instead of reallocating.
 The host-side loaders (`generate_evenly_spaced`, `unalign_angles`) are
 plain numpy with the same ``random_seed`` behaviour as fbpic_tpu, so
 both packages load bit-identical initial plasma.
@@ -18,7 +19,8 @@ import torch
 @dataclass(frozen=True)
 class SpeciesConfig:
     """Static per-species data."""
-    q: float                  # charge [C]
+    q: float                  # charge [C] (the elementary charge for an
+    #                           ionizable species: times the level)
     m: float                  # mass [kg]
     particle_shape: str = "linear"
     # A tracer is pushed but deposits nothing
@@ -40,6 +42,10 @@ class SpeciesConfig:
     # 2*band+1 neighbour rows, with a full sort on the steps whose
     # exchange block rewrote the storage order.
     resort: str = "full"
+    # ADK ionization (particles/ionization.py): an IonizerConfig or None
+    ionizer: object = None
+    # Compton scattering (particles/compton.py): a ComptonConfig or None
+    compton: object = None
 
 
 @dataclass
@@ -53,10 +59,14 @@ class ParticleState:
     uz: torch.Tensor
     inv_gamma: torch.Tensor
     w: torch.Tensor               # macroparticle weight; 0 marks a dead slot
-    # Continuous-injection bookkeeping: ring cursor (host int) and the
-    # end of the loaded plasma (numpy scalar of the working dtype, so
-    # the host arithmetic rounds exactly like the device dtype)
-    next_free: int = 0
+    # Ring cursor: a host int where continuous injection alone writes
+    # the ring (its counts are known on the host), a 0-d int64 device
+    # tensor in a species that ionization or Compton scattering write
+    # into (their counts are data-dependent: a host int would cost a
+    # host read a step).  The end of the loaded plasma: a numpy scalar
+    # of the working dtype, so the host arithmetic rounds exactly like
+    # the device dtype.
+    next_free: object = 0
     inj_z_end: Optional[np.floating] = None
     # Kahan compensation words of the positions (float32 runs only):
     # per-step wake displacements are far below the float32 ULP of the
@@ -65,15 +75,26 @@ class ParticleState:
     comp_y: Optional[torch.Tensor] = None
     comp_z: Optional[torch.Tensor] = None
     # Tracking ids (particles/tracking.py): one int64 per slot, 0 in a
-    # dead or never-written slot, and the next id to hand out (host int,
-    # like next_free).  fbpic_tpu keeps two uint32 words per id because
-    # the TPU has no 64-bit integers.
+    # dead or never-written slot, and the next id to hand out (a host
+    # int or a 0-d device tensor, like next_free).  fbpic_tpu keeps two
+    # uint32 words per id because the TPU has no 64-bit integers.
     ids: Optional[torch.Tensor] = None
-    next_id: int = 0
+    next_id: object = 0
+    # Charge state of an ionizable species (int32 per slot, 0 in dead
+    # slots): its charge is ionization_level * q
+    ionization_level: Optional[torch.Tensor] = None
 
     @property
     def capacity(self):
         return self.x.shape[0]
+
+    @property
+    def w_eff(self):
+        """The deposit weight: w, times the level of an ionizable
+        species (a new tensor)."""
+        if self.ionization_level is None:
+            return self.w
+        return self.w * self.ionization_level.to(self.w.dtype)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -81,13 +102,13 @@ class ParticleState:
 
 #: Per-particle tensor fields of ParticleState, in payload order.
 ARRAY_FIELDS = ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w",
-                "comp_x", "comp_y", "comp_z", "ids")
+                "comp_x", "comp_y", "comp_z", "ids", "ionization_level")
 
 
 def pad_particle_state(sp: ParticleState, new_cap: int,
                        row_shape=None) -> ParticleState:
     """Grow every per-particle tensor to ``new_cap`` slots; the new
-    slots are dead (w = 0, inv_gamma = 1, id 0).
+    slots are dead (w = 0, inv_gamma = 1, id 0, level 0).
 
     They are appended at the array end (a ring species: its cursor
     ``next_free`` keeps its value), or, with ``row_shape=(Nz, K_old)``,

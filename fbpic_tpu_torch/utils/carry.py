@@ -39,15 +39,28 @@ def config_from(config):
 def species_configs_from(species_configs):
     """The port's SpeciesConfig of each of another package's species
     configs (e.g. fbpic_tpu's), field by field (is_tracer, sort_K,
-    resident, resort, particle_shape too)."""
-    return [SpeciesConfig(**{f.name: getattr(sc, f.name)
-                             for f in dc_fields(SpeciesConfig)})
-            for sc in species_configs]
+    resident, resort, particle_shape too; an ionizer or Compton config
+    becomes the port's IonizerConfig / ComptonConfig, field by field)."""
+    from ..particles.ionization import IonizerConfig
+    from ..particles.compton import ComptonConfig
+
+    def converted(value, cls):
+        if value is None:
+            return None
+        return cls(**{f.name: getattr(value, f.name)
+                      for f in dc_fields(cls)})
+    out = []
+    for sc in species_configs:
+        kw = {f.name: getattr(sc, f.name) for f in dc_fields(SpeciesConfig)}
+        kw["ionizer"] = converted(kw["ionizer"], IonizerConfig)
+        kw["compton"] = converted(kw["compton"], ComptonConfig)
+        out.append(SpeciesConfig(**kw))
+    return out
 
 
 def state_from_numpy(spect, interp, species, time, zmin, iteration,
                      mw_zref=None, sort_overflow=0, ring_overwrite=0,
-                     *, device, dtype=torch.float64):
+                     *, device, dtype=torch.float64, process_targets=()):
     """SimState from numpy data.
 
     spect / interp: mappings from the SpectralFields / InterpFields field
@@ -59,7 +72,12 @@ def state_from_numpy(spect, interp, species, time, zmin, iteration,
     order, and the scalars next_free and inj_z_end (None when not
     injecting); a tracked species also has its ids, either one int64 per
     slot or fbpic_tpu's two uint32 words ``ids`` (low) and ``ids_hi``,
-    joined as ``hi << 32 | lo``, and ``next_id`` (with ``next_id_hi``).
+    joined as ``hi << 32 | lo``, and ``next_id`` (with ``next_id_hi``);
+    an ionizable species has its ``ionization_level`` (int32).  The
+    species whose indices are in ``process_targets`` (those ionization
+    or Compton scattering write into) get their cursor next_free and
+    counter next_id as 0-d int64 device tensors, as Simulation gives
+    them; the others as host ints.
     The capacity is the arrays' length: Nz * sort_K for a resident
     species, any length for a ring species (whose cursor is next_free),
     zero for an empty species without slots.  time, zmin,
@@ -82,9 +100,14 @@ def state_from_numpy(spect, interp, species, time, zmin, iteration,
     for sp in species:
         arrays = {}
         for name in ARRAY_FIELDS:
-            if sp.get(name) is not None and name != "ids":
+            if sp.get(name) is not None and name not in (
+                    "ids", "ionization_level"):
                 arrays[name] = torch.as_tensor(np.array(sp[name]),
                                                dtype=dtype, device=device)
+        if sp.get("ionization_level") is not None:
+            arrays["ionization_level"] = torch.as_tensor(
+                np.array(sp["ionization_level"]).astype(np.int32),
+                device=device)
         next_id = 0
         if sp.get("ids") is not None:
             arrays["ids"] = torch.as_tensor(
@@ -93,8 +116,13 @@ def state_from_numpy(spect, interp, species, time, zmin, iteration,
             next_id = int(join_words(sp.get("next_id") or 0,
                                      sp.get("next_id_hi")))
         z_end = sp.get("inj_z_end")
+        next_free = int(sp.get("next_free") or 0)
+        if len(parts) in process_targets:
+            next_free, next_id = (
+                torch.tensor(v, dtype=torch.int64, device=device)
+                for v in (next_free, next_id))
         parts.append(ParticleState(
-            next_free=int(sp.get("next_free") or 0), next_id=next_id,
+            next_free=next_free, next_id=next_id,
             inj_z_end=None if z_end is None else np_dtype(z_end), **arrays))
 
     def counter(v):
@@ -114,7 +142,8 @@ _LEAF = re.compile(r"^\.(spect|interp)\.(\w+)\.(re|im)$"
                    r"|^\.species\[(\d+)\]\.(\w+)$|^\.(\w+)$")
 
 
-def state_from_leaves(leaves, *, device, dtype=torch.float64):
+def state_from_leaves(leaves, *, device, dtype=torch.float64,
+                      process_targets=()):
     """SimState from an fbpic_tpu checkpoint's named leaves: the mapping
     from each leaf's keypath (``.spect.Ep.re``, ``.species[0].ids``,
     ``.time``, ...: fbpic_tpu's diagnostics/checkpoint_restart.py:50-66)
@@ -153,4 +182,4 @@ def state_from_leaves(leaves, *, device, dtype=torch.float64):
         iteration=scalar("iteration"), mw_zref=scalar("mw_zref"),
         sort_overflow=scalar("sort_overflow", 0),
         ring_overwrite=scalar("ring_overwrite", 0),
-        device=device, dtype=dtype)
+        device=device, dtype=dtype, process_targets=process_targets)

@@ -42,7 +42,11 @@ only PyTorch; there, skip the JAX-based conftest:
   space-charge field (the bunch a ring: the grid-difference d(rho)), an
   antenna-emitted laser, and a window run with a mirror and an external
   field on the resident layout, each on the card against the CPU, with
-  exact launch counts.
+  exact launch counts;
+- ionization and Compton scattering: K1 on a layout weighted by w *
+  level (levels 5-7) against its plain version, and 10 steps of a ring
+  ionizer, a resident ionizer and a Compton source on the card against
+  the CPU with the same seeded draws, with exact launch counts.
 """
 import os
 
@@ -1371,3 +1375,120 @@ def test_lpa_window_runs_on_card_match_cpu(cuda, variant, dtype):
              else {"Ez_axis": 1.5e-2, "Er1_r5": 1.5e-2, "rho_axis": 3e-2})
     _close_profiles(runs, {n: g for n, g in gates.items()
                            if n in runs["cpu"]})
+
+
+# ---------------------------------------------------------------------
+# Ionization and Compton scattering on the card
+# ---------------------------------------------------------------------
+
+class _SeededDraws:
+    """The processes' uniform draws from a numpy seed per (name,
+    iteration, species): the same draws whichever device the run is on
+    (the port's draw-source interface, particles/draws.py)."""
+
+    def __call__(self, name, iteration, species_index, shape, dtype):
+        seed = [iteration, species_index, sum(map(ord, name))]
+        u = np.random.default_rng(seed).random(shape)
+        if name == "compton_phi":
+            u = 2 * np.pi * u
+        return torch.as_tensor(u, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_with_ionization_levels_matches_plain(cuda, dtype):
+    """K1 on a resident layout whose deposit weight is w * level, levels
+    5 to 7 from a seed (a new tensor, as the resident step builds it),
+    against its plain version; two launches bit for bit."""
+    from fbpic_tpu_torch.particles import cuda_fused
+    sim, sort = _sorted_particles(cuda, dtype, seed=31)
+    rs = np.random.RandomState(31)
+    level = torch.as_tensor(rs.randint(5, 8, tuple(sort["valid"].shape)),
+                            dtype=torch.int32, device=cuda)
+    pad = list(sort["padded"])
+    pad[3] = pad[3] * level.to(dtype)
+    ops = _k1_ops(sim, dict(sort, padded=pad))
+    out = _twice(lambda: cuda_fused.fused_onehot_contract(**ops))
+    ref = cuda_fused.fused_onehot_contract_plain(**ops)
+    W_J = ops["n_offJ"] * 2 * ops["channels"].shape[2]
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert _rel(out[..., :W_J], ref[..., :W_J]) <= tol
+    assert _rel(out[..., W_J:], ref[..., W_J:]) <= tol
+
+
+def _process_sim(device, case):
+    """tests/test_ionization.py's static-field harness (hydrogen atoms,
+    the electrons a tracked ring: case "ionize_ring"; both resident:
+    "ionize_resident") or tests/test_compton.py's photon bath (a thermal
+    electron beam, the photons a ring: "compton"), float64, with
+    _SeededDraws."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e, m_p
+    from fbpic_tpu_torch.lpa_utils import ExternalField
+    Nz, Nr, Nm, zmax, rmax = 16, 8, 1, 1.6e-6, 2.e-6
+    sim = Simulation(Nz, zmax, Nr, rmax, Nm, zmax / Nz / c, random_seed=3,
+                     device=device, dtype=torch.float64)
+    resident = case == "ionize_resident"
+    sim.use_fused_deposit = resident
+    K = 512 if resident else 0
+    plasma = dict(n=1e20, p_nz=4, p_nr=4, p_nt=4, p_zmin=0, p_zmax=zmax,
+                  p_rmin=0, p_rmax=1.5e-6, continuous_injection=False,
+                  sort_K=K)
+    if case == "compton":
+        elec = sim.add_new_species(q=-e, m=m_e, uz_m=3., ux_th=0.05,
+                                   uy_th=0.05, uz_th=0.05, **plasma)
+        photons = sim.add_new_species(q=0., m=0., capacity=131072,
+                                      continuous_injection=False)
+        elec.activate_compton(photons, laser_energy=4.e6,
+                              laser_wavelength=0.8e-6, laser_waist=1.e-3,
+                              laser_ctau=1.e-2, laser_initial_z0=0.)
+    else:
+        atoms = sim.add_new_species(q=e, m=m_p, **plasma)
+        elec = sim.add_new_species(q=-e, m=m_e, continuous_injection=False,
+                                   capacity=None if resident else 65536,
+                                   sort_K=K)
+        atoms.make_ionizable("H", elec, level_start=0)
+        elec.track()
+        sim.external_fields.append(ExternalField(
+            lambda F, x, y, z, t, amplitude, length_scale: F + amplitude,
+            "Ex", 3.2e10, 0.0, species=atoms))
+    assert all(sc.resident == resident for sc in sim.species_configs)
+    sim.process_draws = _SeededDraws()
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ionize_ring", "ionize_resident",
+                                  "compton"])
+def test_process_steps_on_card_match_cpu(cuda, case):
+    """10 steps of each process on the card and on the CPU from the same
+    particles and draws (float64): the same slots live, the same levels
+    and ids (ionization), the same photon count; the on-axis Ez and rho
+    within 1e-8 of their scale; K2 twice and K3 four times a step on the
+    resident path (two resident species, J and rho each), no launch on
+    the rings."""
+    runs, states = {}, {}
+    for key, dev in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        sim = _process_sim(dev, case)
+        n0 = _k_counts()
+        sim.step(10, correct_currents=case == "compton")
+        if dev.type == "cuda":
+            want = [0, 20, 40] if case == "ionize_resident" else [0, 0, 0]
+            assert [a - b for a, b in zip(_k_counts(), n0)] == want
+        assert sim.overflow_totals == {"sort_overflow": 0,
+                                       "ring_overwrite": 0}
+        runs[key] = dict(Ez_axis=sim.get_interp_field("Ez", 0).real[:, 0],
+                         rho_axis=sim.get_interp_field("rho", 0).real[:, 0])
+        states[key] = [{n: getattr(sp, n).cpu() for n in
+                        ("w", "ionization_level", "ids")
+                        if getattr(sp, n) is not None}
+                       for sp in sim.state.species]
+    created = int((states["cpu"][1]["w"] != 0).sum())
+    assert created > 100
+    for a, b in zip(states["cuda"], states["cpu"]):
+        live = b["w"] != 0
+        assert torch.equal(a["w"] != 0, live)
+        for n in ("ionization_level", "ids"):
+            if n in b:
+                assert torch.equal(a[n][live], b[n][live]), n
+    _close_profiles(runs, {"Ez_axis": 1e-8, "rho_axis": 1e-8})

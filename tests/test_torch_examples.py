@@ -11,7 +11,12 @@ directory.  examples/ is not edited.
   steps and a checkpoint at 8, in 10 steps: the files of iterations 0,
   4 and 8, the checkpoint, unique ids in the particle records;
 - boosted_frame_script.py: the back-transformed field diagnostic over
-  8 steps of the boosted frame.
+  8 steps of the boosted frame;
+- ionization_script.py: He electrons and an N5+ dopant made ionizable
+  into a tracked species, its field and particle diagnostics every 4
+  steps, 8 steps: the files of iterations 0, 4 and 8, the ionizer's
+  configuration, and that every electron the dopant lost was created
+  (ids unique).
 """
 import functools
 import os
@@ -71,3 +76,22 @@ def test_boosted_frame_script_runs_through_the_port(tmp_path, monkeypatch):
     btd, = sim.diags
     assert type(btd).__module__ == "fbpic_tpu_torch.diagnostics.boosted_diag"
     assert len(btd.snapshots) == ns["NSNAP"] and btd._buf is None
+
+
+def test_ionization_script_runs_through_the_port(tmp_path, monkeypatch):
+    ns = run_example("ionization_script.py", tmp_path, monkeypatch)
+    sim = ns["sim"]
+    assert sim.iteration == ns["N_step"] and sim.device.type == "cpu"
+    hdf5 = tmp_path / "diags" / "hdf5"
+    assert sorted(os.listdir(hdf5)) == ["data%08d.h5" % i for i in (0, 4, 8)]
+    ion, elec = ns["ion"]._index, ns["elec_from_N"]._index
+    cfg = sim.species_configs[ion].ionizer
+    assert (cfg.element, cfg.level_start, cfg.level_max,
+            cfg.target_index) == ("N", 5, 7, elec)
+    sp_i, sp_e = sim.state.species[ion], sim.state.species[elec]
+    live = sp_i.w != 0
+    gained = int((sp_i.ionization_level[live] - 5).sum())
+    born = sp_e.w != 0
+    assert int(born.sum()) == gained
+    ids = sp_e.ids[born]
+    assert int((ids == 0).sum()) == 0 and len(torch.unique(ids)) == gained
