@@ -190,7 +190,33 @@ Phases (any failure raises, and the script exits non-zero):
  20. tests/test_ionization.py (the ADK rate, Chen 2013's N5+ fraction,
      the small-capacity target), tests/test_resident_processes.py and
      tests/test_compton.py through the port on the card at their files'
-     sizes and tolerances, float32 and, where float32 misses, float64.
+     sizes and tolerances, float32 and, where float32 misses, float64;
+ 21. the bench LWFA built from fbpic_tpu_torch.picmi objects (the bench
+     grid with fbpic_tpu's PICMI axis order, 4e24 m^-3 electrons as an
+     AnalyticDistribution with a 5 um linear ramp, 2x2x4 per cell, phase
+     4's a0 = 1 laser, a field and a particle diagnostic every 50
+     steps, collected; the infinite-order stencil, as the PICMI wrapper
+     passes no n_order), float32, resident: a 200-step run-up with
+     exactly one K1 and one K2 launch a step; the same configuration
+     built by hand through Simulation gives the same state bit for bit
+     but rho_prev (a scatter deposit: float32 atomics; 1e-6 of its
+     scale); 5 + 30 timed
+     steps with one K1 and one K2 a step, zero overflow, the live count;
+     the host syncs of one exchange period (step(14)), a profiled window,
+     K1 and K2 against their plain versions on this path's operands; on
+     to 560 steps and the wake wavelength within 15%;
+ 22. FBPIC's documented LWFA script (tests/test_reference_script.py's
+     body through fbpic_tpu_torch.main, use_cuda=True, tracking, its
+     diagnostics collected, checkpoints and restart) at its reduced size
+     on the card, float32: as the file runs it (32 steps, then the
+     restart, which resumes from the latest checkpoint), one K1 and one
+     K2 a step; and the restart from 16 against the uninterrupted run
+     with the same step() call boundary: the records at 20 and 30 equal
+     bit for bit but rho (rho_prev: 1e-6 of its scale);
+ 23. tests/test_golden_wake.py's configuration in float64 on the card
+     (resident: two K3 and one K2 launch a step) with fbpic_tpu's
+     injection angles from tests/data/torch_golden_angles.npz: the 100-
+     and 450-step profiles of tests/data/golden_wake.npz at 2e-3.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.  Exits non-zero without a result
@@ -2930,29 +2956,46 @@ def make_ionization_sim(pml=False):
 
 def run_up(sim, n_to, chunk, label):
     """Step to iteration n_to in step() calls of `chunk` steps; the
-    process targets' rings grow between calls.  Returns the per-call
-    record (iteration, live created particles, capacity) and the
-    overflow totals of the run-up, which are then reset (the timed
-    windows must add none)."""
+    process targets' rings grow between calls.  A call whose ring appends
+    overwrote live particles (ring_overwrite grew) must end with the
+    growth of a process target's ring at that call's last iteration
+    (sim.ring_growth), or this raises.  Returns the per-call record
+    (iteration, live created particles, capacity), the overflow totals
+    of the run-up, which are then reset (the timed windows must add
+    none), and the calls that dropped (iteration, dropped, the targets
+    grown then)."""
     import torch
     tgt = [i for i in range(len(sim.species_configs))
            if sim.is_process_target(i)]
-    log = []
+    log, drops = [], []
     t0 = time.perf_counter()
     while sim.iteration < n_to:
+        before = sim.overflow_totals["ring_overwrite"]
         sim.step(min(chunk, n_to - sim.iteration))
         log.append((sim.iteration,
                     [int((sim.state.species[i].w != 0).sum()) for i in tgt],
                     [sim.state.species[i].capacity for i in tgt]))
+        dropped = sim.overflow_totals["ring_overwrite"] - before
+        if dropped:
+            grown = [g[1] for g in sim.ring_growth
+                     if g[0] == sim.iteration and g[1] in tgt]
+            drops.append(dict(iteration=sim.iteration, dropped=dropped,
+                              grown=grown))
+            if not grown:
+                raise RuntimeError(f"{label}: {dropped} particles dropped "
+                                   f"in the call ending at step "
+                                   f"{sim.iteration}, and no target ring "
+                                   f"of {tgt} grew then")
     torch.cuda.synchronize()
     totals = dict(sim.overflow_totals)
     print(f"{label}: run-up to {sim.iteration} steps in "
           f"{time.perf_counter() - t0:.1f} s; created (live) and capacity "
           f"of the targets every {chunk * 10} steps: "
           f"{log[9::10]}; rings grown {sim.ring_growth}; overflow "
-          f"{totals}", flush=True)
+          f"{totals}; calls that dropped, each followed by its target's "
+          f"growth: {drops}", flush=True)
     sim.overflow_totals = {k: 0 for k in sim.overflow_totals}
-    return log, totals
+    return log, totals, drops
 
 
 def process_syncs(sim, label, toggle):
@@ -3110,7 +3153,7 @@ def phase_ionization_lwfa(counters):
         for d in sim.diags:
             collect_only(d, sink)
     label = "ionization LWFA"
-    log, run_up_totals = run_up(sim, ION_RUN_UP, ION_CHUNK, label)
+    log, run_up_totals, _ = run_up(sim, ION_RUN_UP, ION_CHUNK, label)
     n_created = int((sim.state.species[2].w != 0).sum())
     if n_created == 0:
         raise RuntimeError(f"{label}: no electron created in "
@@ -3161,7 +3204,7 @@ def phase_ionization_lwfa(counters):
 
     sim, elec, ion, tgt = make_ionization_sim(pml=True)
     label = "ionization LWFA + radial PML"
-    _, pml_totals = run_up(sim, ION_PML_RUN_UP, ION_CHUNK, label)
+    _, pml_totals, _ = run_up(sim, ION_PML_RUN_UP, ION_CHUNK, label)
     pml_launches, pml = drive_path(sim, counters, 1, N_NEW_TIMED, label,
                                    {"K1": 2, "K2": 2, "K3": 0})
     check_pml_fields(sim, label)
@@ -3263,7 +3306,8 @@ def phase_compton_pwfa(counters):
           f"expected a step)", flush=True)
     label = "Compton-active PWFA"
     n_before = CMP_T_PEAK - N_WARMUP - N_NEW_TIMED // 2
-    log, run_up_totals = run_up(sim, n_before, CMP_CHUNK, label)
+    _, run_up_totals, run_up_drops = run_up(sim, n_before, CMP_CHUNK,
+                                            label)
     launches, metrics = drive_path(sim, counters, N_WARMUP, N_NEW_TIMED,
                                    label, {"K1": 1, "K2": 1, "K3": 0})
     metrics["peak_memory_gb"] = (torch.cuda.max_memory_allocated()
@@ -3276,7 +3320,8 @@ def phase_compton_pwfa(counters):
                                   / metrics["ms_per_step"])
     metrics["profile"] = prof
     k1 = phase_k1_resident(sim, "resident plasma of the Compton PWFA")
-    log2, rest_totals = run_up(sim, CMP_STEPS, CMP_CHUNK * 2, label)
+    _, rest_totals, rest_drops = run_up(sim, CMP_STEPS, CMP_CHUNK * 2,
+                                        label)
     check_fields(sim, label)
     sp = sim.state.species[2]
     live = sp.w != 0
@@ -3299,14 +3344,22 @@ def phase_compton_pwfa(counters):
           f"{metrics['peak_memory_gb']:.3f} GB", flush=True)
     if n_ph == 0 or abs(edge / e_max - 1) > CMP_EDGE_TOL:
         raise RuntimeError(f"{label}: photon upper edge {edge} vs {e_max}")
-    if rest_totals["ring_overwrite"] and not sim.ring_growth:
-        raise RuntimeError(f"{label}: photons dropped without growth")
+    # The drop gate: run_up raised unless every call that dropped photons
+    # ended with the photon ring's growth at that call's last iteration
+    drops = run_up_drops + rest_drops
+    if any(d["grown"] != [2] for d in drops):
+        raise RuntimeError(f"{label}: photons dropped without the photon "
+                           f"ring's growth: {drops}")
+    print(f"{label}: drop gate: {len(drops)} step() calls dropped photons "
+          f"({sum(d['dropped'] for d in drops)} in all), each ending with "
+          f"the photon ring's growth: {drops}", flush=True)
     metrics.update(laser_energy=energy, laser_z0=z0,
                    expected_photons_per_step=energy * per_joule,
                    photons=n_ph, photon_capacity=sp.capacity,
                    ring_growth=list(sim.ring_growth),
                    run_up_overflow=run_up_totals,
-                   rest_overflow=rest_totals, photon_edge=edge,
+                   rest_overflow=rest_totals, photon_drops=drops,
+                   photon_edge=edge,
                    edge_formula=e_max, edge_ratio=edge / e_max,
                    photon_quantiles=q, bunch_mean_gamma=gamma,
                    host_syncs=syncs)
@@ -3707,6 +3760,468 @@ def phase_process_gates():
     return out
 
 
+# The PICMI LWFA (phase 21): the bench grid and plasma (a linear ramp
+# over the first PICMI_RAMP of the plasma) and phase 4's laser, built
+# from fbpic_tpu_torch.picmi objects; the PICMI wrapper passes no
+# n_order, so the infinite-order stencil runs (n_guard = 64)
+PICMI_RAMP = 5.e-6
+PICMI_DENSITY = f"{N_E!r}*where(z < {PICMI_RAMP!r}, z/{PICMI_RAMP!r}, 1.)"
+PICMI_LAMBDA0 = 0.8e-6
+PICMI_RUN_UP, PICMI_DIAG = 200, 50
+#: spect.rho_prev (the field diagnostic's rho record) is what the step
+#: deposits afresh by scatter (index_add_: float32 atomics, summed
+#: in an order that changes from run to run on the card) at every
+#: exchange and at the start of every step() call; E, B, J and the
+#: particles do not depend on its bits (the curl-free correction takes
+#: the deposited d(rho)).  Its records are held to this share of their
+#: largest value, every other record bit for bit
+TOL_ATOMIC_RHO = 1e-6
+
+
+def picmi_density(z, r):
+    """PICMI_DENSITY written by hand, with the same numpy operations."""
+    return N_E * np.where(z < PICMI_RAMP, z / PICMI_RAMP, 1.)
+
+
+def picmi_lwfa(workdir):
+    """Phase 21's configuration through fbpic_tpu_torch.picmi on the
+    card (the wrapper's defaults: device "cuda", float32), with a field
+    and a particle diagnostic every PICMI_DIAG steps.  The wrapper
+    passes no random_seed (as fbpic_tpu's does): the host RNG and the
+    run-time generator are seeded here as random_seed = 0 seeds them."""
+    from fbpic_tpu_torch import picmi
+    from fbpic_tpu_torch.constants import c
+    grid = picmi.CylindricalGrid(
+        number_of_cells=[NZ, NR], lower_bound=[0., ZMIN],
+        upper_bound=[RMAX, ZMAX],
+        lower_boundary_conditions=["reflective", "open"],
+        upper_boundary_conditions=["reflective", "open"],
+        n_azimuthal_modes=NM, moving_window_velocity=[0., c])
+    solver = picmi.ElectromagneticSolver(grid=grid, method="PSATD", cfl=1.0)
+    psim = picmi.Simulation(solver=solver, particle_shape="linear")
+    seed_as_random_seed_0(psim.sim)
+    electrons = picmi.Species(
+        particle_type="electron", name="electrons",
+        initial_distribution=picmi.AnalyticDistribution(
+            density_expression=PICMI_DENSITY,
+            lower_bound=[None, None, P_ZMIN],
+            upper_bound=[P_RMAX, None, None], fill_in=True))
+    psim.add_species(electrons, layout=picmi.GriddedLayout(
+        grid=grid, n_macroparticle_per_cell={"r": P_NR, "z": P_NZ,
+                                             "theta": P_NT}))
+    psim.add_laser(picmi.GaussianLaser(
+        wavelength=PICMI_LAMBDA0, waist=W0, duration=TAU,
+        focal_position=[0., 0., WAKE_Z0],
+        centroid_position=[0., 0., WAKE_Z0], a0=WAKE_A0))
+    psim.add_diagnostic(picmi.FieldDiagnostic(
+        grid=grid, period=PICMI_DIAG, write_dir=workdir))
+    psim.add_diagnostic(picmi.ParticleDiagnostic(
+        period=PICMI_DIAG, species=[electrons], write_dir=workdir))
+    return psim
+
+
+def seed_as_random_seed_0(sim):
+    """The host RNG and the run-time generator of sim as
+    Simulation(random_seed=0) seeds them."""
+    from fbpic_tpu_torch import Simulation
+    ref = Simulation(8, 1.e-6, 4, 1.e-6, 1, 1.e-15, random_seed=0,
+                     verbose_level=0, device=sim.device)
+    sim._rng = ref._rng
+    sim.device_seed = ref.device_seed
+    sim.generator.manual_seed(sim.device_seed)
+
+
+def picmi_twin(workdir):
+    """The PICMI configuration built by hand through the port's
+    Simulation API, in the order the PICMI wrapper calls it."""
+    import torch
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.diagnostics import (
+        FieldDiagnostic, ParticleDiagnostic)
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
+    sim = Simulation(NZ, ZMAX, NR, RMAX, NM, 1.0 * ((ZMAX - ZMIN) / NZ) / c,
+                     zmin=ZMIN, boundaries={"z": "open", "r": "reflective"},
+                     particle_shape="linear", random_seed=0, verbose_level=0,
+                     device=DEVICE, dtype=torch.float32)
+    sim.set_moving_window(v=c)
+    elec = sim.add_new_species(
+        q=-e, m=m_e, n=1.0, dens_func=picmi_density, p_nz=P_NZ, p_nr=P_NR,
+        p_nt=P_NT, p_zmin=P_ZMIN, p_zmax=np.inf, p_rmin=0, p_rmax=P_RMAX,
+        uz_m=0.0, uz_th=0.0, continuous_injection=True, name="electrons")
+    add_laser_pulse(sim, GaussianLaser(
+        a0=WAKE_A0, waist=W0, tau=TAU, z0=WAKE_Z0, zf=WAKE_Z0,
+        theta_pol=0.0, lambda0=PICMI_LAMBDA0, propagation_direction=1))
+    sim.diags = [FieldDiagnostic(PICMI_DIAG, sim, write_dir=workdir),
+                 ParticleDiagnostic(PICMI_DIAG, species={"electrons": elec},
+                                    sim=sim, write_dir=workdir)]
+    return sim
+
+
+def twin_difference(a, b):
+    """The arrays of two simulations' states (every field and particle
+    array) that differ, each with its largest difference relative to its
+    largest value, and whether their host values are equal."""
+    from fbpic_tpu_torch.diagnostics.checkpoint_restart import checkpoint_dict
+    da, db = checkpoint_dict(a), checkpoint_dict(b)
+    diffs, exact = state_difference(da, db)
+    rel = {key: (diffs[key] / max(float(t.abs().max()), 1e-300)
+                 if t.is_floating_point() or t.is_complex() else float("inf"))
+           for key, t in da["tensors"].items() if key not in exact}
+    return rel, da["host"] == db["host"]
+
+
+def phase_picmi_lwfa(counters):
+    """21. The LWFA built from fbpic_tpu_torch.picmi objects at full width
+    (PICMI_* above): the run-up of PICMI_RUN_UP steps with exactly one K1
+    and one K2 launch a step, the diagnostics collected; the same
+    configuration built by hand through the port's Simulation API, with
+    the same seeds, gives the same state after the run-up: every array
+    bit for bit (K1 and K2 sum in slot order) but spect.rho_prev, a
+    scatter deposit (TOL_ATOMIC_RHO); 5 + 30 timed steps with one K1
+    and one K2 a step, zero overflow, the live count against the
+    injection front, finite fields; the host syncs of one exchange period (step(14)); a profiled
+    window; K1 and K2 against their plain versions on this path's own
+    operands; on to WAKE_STEPS and the wake wavelength within 15%."""
+    import torch
+    from fbpic_tpu_torch.constants import c, e, m_e
+    label = "PICMI LWFA"
+    workdir = tempfile.mkdtemp()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    psim = picmi_lwfa(workdir)
+    sim = psim.sim
+    sinks = [[] for _ in sim.diags]
+    if not h5py_available():
+        for diag, sink in zip(sim.diags, sinks):
+            collect_only(diag, sink)
+    sc = sim.species_configs[0]
+    print(f"{label}: built in {time.perf_counter() - t0:.1f} s from PICMI "
+          f"objects on {sim.device}, {sim.dtype}: n_order "
+          f"{sim.config.n_order} (infinite order: the wrapper passes none), "
+          f"internal Nz {sim.config.Nz}, sort_K {sc.sort_K}, resident "
+          f"{sc.resident}, exchange period {sim.exchange_period}",
+          flush=True)
+    if not (sc.resident and sim.config.n_order == -1
+            and sim.device.type == "cuda" and sim.dtype == torch.float32):
+        raise RuntimeError(f"{label}: not the resident float32 card path")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    psim.step(PICMI_RUN_UP)
+    torch.cuda.synchronize()
+    run_up_s = time.perf_counter() - t0
+    run_up_launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"{label}: run-up of {PICMI_RUN_UP} steps in {run_up_s:.2f} s; "
+          f"launches {run_up_launches}", flush=True)
+    if run_up_launches != {"K1": PICMI_RUN_UP, "K2": PICMI_RUN_UP, "K3": 0}:
+        raise RuntimeError(f"{label}: run-up launches {run_up_launches}")
+    # The hand-built twin
+    twin = picmi_twin(workdir)
+    twin_sinks = [[] for _ in twin.diags]
+    for diag, sink in zip(twin.diags, twin_sinks):
+        collect_only(diag, sink)
+    twin.step(PICMI_RUN_UP)
+    rel, same_host = twin_difference(sim, twin)
+    identical = same_host and not rel
+    worst = max(rel.values(), default=0.0)
+    print(f"{label}: the hand-built twin after {PICMI_RUN_UP} steps: "
+          f"bit-identical {identical}, host values equal {same_host}, "
+          f"largest relative difference {worst:.3e} {rel}", flush=True)
+    off = {k: v for k, v in rel.items()
+           if k != ".spect.rho_prev" or v > TOL_ATOMIC_RHO}
+    if not same_host or off:
+        raise RuntimeError(f"{label}: the hand-built twin differs: {rel}")
+    del twin, twin_sinks
+    torch.cuda.empty_cache()
+    # The timed window
+    launches, metrics = drive_path(sim, counters, N_WARMUP, N_NEW_TIMED,
+                                   label, {"K1": 1, "K2": 1, "K3": 0})
+    check_live_count(sim, label)
+    metrics.update(twin_bit_identical=identical, twin_max_rel_diff=worst,
+                   run_up_s=run_up_s, n_order=sim.config.n_order,
+                   exchange_period=sim.exchange_period)
+    syncs = count_syncs(sim, label, n_steps=sim.exchange_period)
+    prof = profile_steps(sim, N_PROFILED)
+    if prof is not None:
+        prof["idle_share"] = 1 - (prof["device_ms_per_step"]
+                                  / metrics["ms_per_step"])
+    metrics["profile"] = prof
+    metrics["host_syncs_exchange_period"] = syncs
+    k1 = phase_k1_resident(sim, "resident PICMI LWFA layout")
+    k2 = phase_k2_resident(sim, "resident PICMI LWFA layout")
+    # The wake behind the laser, as phase 4
+    sim.step(WAKE_STEPS - sim.iteration)
+    check_fields(sim, label)
+    if any(sim.overflow_totals.values()):
+        raise RuntimeError(f"{label}: overflow {sim.overflow_totals}")
+    wp = np.sqrt(N_E * e**2 / (m_e * 8.8541878128e-12))
+    lam_a = 2 * np.pi * c / wp
+    lam = wake_wavelength(sim.get_interp_field("Ez", 0).real[:, 0],
+                          sim.config.dz)
+    iters = [sorted({int(name[4:12]) for files in sink for name in files})
+             for sink in sinks] if not h5py_available() else None
+    print(f"{label}: {sim.iteration} steps; wake wavelength {lam} m vs "
+          f"2 pi c / omega_p = {lam_a} m; diagnostics collected at "
+          f"{iters}", flush=True)
+    if lam is None or abs(lam / lam_a - 1) >= 0.15:
+        raise RuntimeError(f"{label}: wake wavelength {lam} vs {lam_a}")
+    want = list(range(0, WAKE_STEPS, PICMI_DIAG))
+    if iters is not None and any(its[:len(want)] != want for its in iters):
+        raise RuntimeError(f"{label}: collected iterations {iters}")
+    metrics.update(wake_ratio=lam / lam_a, steps=sim.iteration)
+    del psim, sim, sinks
+    torch.cuda.empty_cache()
+    return launches, metrics, syncs, k1, k2
+
+
+@contextlib.contextmanager
+def records_to(sink):
+    """Every openPMD diagnostic's write goes to ``sink`` (a list of
+    {file name: Records}) instead of a file while the block runs: the
+    collect step runs as in a run that writes."""
+    from fbpic_tpu_torch.diagnostics import generic
+    real = generic.OpenPMDDiagnostic.write_records
+    generic.OpenPMDDiagnostic.write_records = \
+        lambda self, files: sink.append(files)
+    try:
+        yield
+    finally:
+        generic.OpenPMDDiagnostic.write_records = real
+
+
+def reference_script_namespace():
+    """The body of tests/test_reference_script.py (FBPIC's documented
+    LWFA script, reduced) with only fbpic_tpu changed to fbpic_tpu_torch;
+    its ``import h5py`` line is left out (only the file's test function,
+    not run here, reads files)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_reference_script.py")
+    with open(path) as f:
+        lines = [ln for ln in f.read().splitlines()
+                 if ln.strip() != "import h5py"]
+    namespace = {"__name__": "reference_script"}
+    exec(compile("\n".join(lines).replace("fbpic_tpu", "fbpic_tpu_torch"),
+                 path, "exec"), namespace)
+    return namespace
+
+
+def records_by_file(sink):
+    out = {}
+    for files in sink:
+        for name, rec in files.items():
+            out.setdefault(name, []).append(rec)
+    return out
+
+
+def record_differences(a, b):
+    """{HDF5 path: largest |a - b| relative to the largest |a|} of the
+    datasets that differ between two lists of Records (the attributes
+    carry a date and are not compared); raises if their layouts differ."""
+    if len(a) != len(b) or any(ra.keys() != rb.keys()
+                               for ra, rb in zip(a, b)):
+        raise RuntimeError("the collected records differ in layout")
+    out = {}
+    for ra, rb in zip(a, b):
+        for path, (da, _) in ra.items():
+            db = rb[path][0]
+            if da is not None and not np.array_equal(da, db):
+                scale = float(np.abs(da).max()) if da.size else 0.0
+                out[path] = max(out.get(path, 0.0), float(
+                    np.abs(da - db).max()) / max(scale, 1e-300))
+    return out
+
+
+def phase_reference_script(counters):
+    """22. FBPIC's documented LWFA script (tests/test_reference_script.py's
+    body: fbpic_tpu_torch.main.Simulation, use_cuda=True, a dens_func,
+    tracking, the field and particle diagnostics every 10 steps,
+    set_periodic_checkpoint / restart_from_checkpoint) on the card at its
+    reduced size, float32 (the port's default):
+    - as the file runs it: 32 steps with checkpoints at 16 and 32, then
+      the restart, which takes the latest checkpoint (32) and steps to 48;
+      exactly one K1 and one K2 launch a step;
+    - the restart from 16: the uninterrupted run with its step() call
+      boundary at 16 (run(16), then step(16)) and the restart from the
+      checkpoint at 16 to 32 must collect the same records at 20 and 30,
+      bit for bit but for the rho record (TOL_ATOMIC_RHO); the single
+      step(32) call's records are printed beside them (the restarted
+      call re-deposits rho_prev and refreshes the spectral E / B at 16,
+      where one call carries them)."""
+    import torch
+    label = "reference script"
+    ns = reference_script_namespace()
+    run = ns["run"]
+    if ns["use_cuda"] is not True:
+        raise RuntimeError(f"{label}: the script's use_cuda changed")
+    out = {}
+    as_written, wdir = [], tempfile.mkdtemp()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with records_to(as_written):
+        sim = run(32, use_restart=False, wdir=wdir, save_checkpoints=True)
+        rest = run(16, use_restart=True, wdir=wdir, save_checkpoints=False)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ckpts = sorted(f for f in os.listdir(wdir) if f.startswith("check"))
+    print(f"{label} as written: {time.perf_counter() - t0:.2f} s on "
+          f"{sim.device}, {sim.dtype}; iterations {sim.iteration} then "
+          f"{rest.iteration} (the restart took the latest checkpoint); "
+          f"checkpoints {ckpts}; launches {launches}; overflow "
+          f"{sim.overflow_totals} / {rest.overflow_totals}", flush=True)
+    if (sim.device.type != "cuda" or sim.iteration != 32
+            or rest.iteration != 48 or ckpts != [
+                "checkpoint_00000016.pt", "checkpoint_00000032.pt"]):
+        raise RuntimeError(f"{label}: unexpected run")
+    if launches != {"K1": 48, "K2": 48, "K3": 0}:
+        raise RuntimeError(f"{label}: launches {launches}")
+    for s in (sim, rest):
+        check_fields(s, label)
+        if any(s.overflow_totals.values()):
+            raise RuntimeError(f"{label}: overflow {s.overflow_totals}")
+    single = records_by_file(as_written)
+    del sim, rest
+    # The restart from 16 against the uninterrupted run with the same
+    # step() call boundaries
+    uninterrupted, restarted, wdir = [], [], tempfile.mkdtemp()
+    with records_to(uninterrupted):
+        sim = run(16, use_restart=False, wdir=wdir, save_checkpoints=True)
+        sim.step(16)
+    os.remove(os.path.join(wdir, "checkpoint_00000032.pt"))
+    with records_to(restarted):
+        again = run(16, use_restart=True, wdir=wdir, save_checkpoints=False)
+    if again.iteration != 32:
+        raise RuntimeError(f"{label}: the restart ended at {again.iteration}")
+    u, r = records_by_file(uninterrupted), records_by_file(restarted)
+    for it in (20, 30):
+        name = "data%08d.h5" % it
+        diff = record_differences(u[name], r[name])
+        one_call = record_differences(single[name], r[name])
+        n_paths = sum(1 for rec in r[name] for d, _ in rec.values()
+                      if d is not None)
+        worst = max(one_call, key=one_call.get, default=None)
+        print(f"{label}: restart from 16, the {n_paths} datasets at {it}: "
+              f"those that differ from the uninterrupted run's, relative "
+              f"to their largest value: {diff} (the rest bit for bit); "
+              f"{len(one_call)} differ from the single step(32) call's, "
+              f"the most {worst} by {one_call.get(worst)}", flush=True)
+        off = {p: v for p, v in diff.items()
+               if not p.endswith("/fields/rho") or v > TOL_ATOMIC_RHO}
+        if off:
+            raise RuntimeError(f"{label}: the restart's records at {it} "
+                               f"differ: {off}")
+        out[it] = dict(datasets=n_paths, differing=diff,
+                       vs_single_call=one_call)
+    del sim, again
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+class RecordedAngles:
+    """fbpic_tpu's injection angles of the golden-wake run, read from
+    tests/data/torch_golden_angles.npz (tools/torch_golden_angles.py): a
+    column-angle source that answers only the (iteration, species,
+    column keys) calls that run made, and raises on any other."""
+
+    def __init__(self, path):
+        d = np.load(path)
+        self.seed = int(d["seed"])
+        self.table = {(int(i), int(s)): (k, a) for i, s, k, a in zip(
+            d["iteration"], d["species"], d["nkey"], d["angles"])}
+        self.calls = 0
+
+    def __call__(self, iteration, species_index, nkey):
+        import torch
+        keys, angles = self.table[(int(iteration), int(species_index))]
+        if not np.array_equal(keys, nkey.cpu().numpy()):
+            raise RuntimeError(f"injection at {iteration}: column keys "
+                               f"differ from the recorded run's")
+        self.calls += 1
+        return torch.as_tensor(angles, device=nkey.device)
+
+
+# tests/test_golden_wake.py's configuration and its 450-step profiles
+GOLDEN_STEPS = (100, 450)
+TOL_GOLDEN = 2e-3
+
+
+def golden_profiles(sim):
+    """tests/test_golden_wake.py's four profiles."""
+    return dict(
+        Ez_axis=sim.get_interp_field("Ez", 0).real[:, 0],
+        Er0_r5=sim.get_interp_field("Er", 0).real[:, 5],
+        Er1_r5=np.abs(sim.get_interp_field("Er", 1))[:, 5],
+        rho_axis=sim.get_interp_field("rho", 0).real[:, 0])
+
+
+def phase_golden_f64(counters):
+    """23. tests/test_golden_wake.py's configuration (Nz = 400, Nr = 24,
+    open z, moving window, continuous injection, a0 = 1) in float64 on
+    the card, the resident layout forced (as tests/test_torch_golden.py
+    forces it), with fbpic_tpu's injection angles from
+    tests/data/torch_golden_angles.npz: exactly two K3 and one K2 launch
+    a step, and the profiles at 100 (pin_*) and 450 steps (full_*) of
+    tests/data/golden_wake.npz at the golden's own 2e-3 of each
+    profile's scale."""
+    import torch
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
+    label = "golden wake, float64"
+    root = os.path.dirname(os.path.abspath(__file__))
+    gold = np.load(os.path.join(root, "tests", "data", "golden_wake.npz"))
+    angles = RecordedAngles(os.path.join(root, "tests", "data",
+                                         "torch_golden_angles.npz"))
+    Nz, Nr, Nm = 400, 24, 2
+    zmax, zmin, rmax = 30.e-6, -10.e-6, 20.e-6
+    sim = Simulation(Nz, zmax, Nr, rmax, Nm, (zmax - zmin) / Nz / c,
+                     zmin=zmin, n_order=32,
+                     boundaries={"z": "open", "r": "reflective"},
+                     random_seed=0, verbose_level=0, device=DEVICE,
+                     dtype=torch.float64)
+    sim.use_fused_deposit = True         # force the resident layout
+    sim.add_new_species(q=-e, m=m_e, n=4.e24, p_zmin=24.e-6, p_zmax=500.e-6,
+                        p_rmin=0., p_rmax=14.e-6, p_nz=1, p_nr=1, p_nt=4,
+                        sort_K=256)
+    add_laser_pulse(sim, GaussianLaser(a0=1.0, waist=8.e-6, tau=10.e-15,
+                                       z0=20.e-6))
+    sim.set_moving_window(v=c)
+    if angles.seed != sim.device_seed or not sim.species_configs[0].resident:
+        raise RuntimeError(f"{label}: not the recorded configuration")
+    sim.column_angles = angles
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    errs = {}
+    for horizon, n_to in zip(("pin", "full"), GOLDEN_STEPS):
+        sim.step(n_to - sim.iteration)
+        for name, arr in golden_profiles(sim).items():
+            g = gold[f"{horizon}_{name}"]
+            if not np.isfinite(arr).all():
+                raise RuntimeError(f"{label}: non-finite {name}")
+            errs[f"{horizon}_{name}"] = float(np.abs(arr - g).max()
+                                              / np.abs(g).max())
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n = GOLDEN_STEPS[-1]
+    print(f"{label}: {n} steps in {time.perf_counter() - t0:.2f} s; "
+          f"launches {launches}; {angles.calls} injections with the "
+          f"recorded angles; overflow {sim.overflow_totals}; profile "
+          f"errors relative to the golden's scale (gate {TOL_GOLDEN}): "
+          f"{errs}", flush=True)
+    if launches != {"K1": 0, "K2": n, "K3": 2 * n}:
+        raise RuntimeError(f"{label}: launches {launches}")
+    if any(sim.overflow_totals.values()) or angles.calls == 0:
+        raise RuntimeError(f"{label}: overflow {sim.overflow_totals} or "
+                           f"no injection")
+    if max(errs.values()) >= TOL_GOLDEN:
+        raise RuntimeError(f"{label}: profiles off the golden: {errs}")
+    del sim
+    torch.cuda.empty_cache()
+    return launches, dict(profile_errors=errs, injections=angles.calls)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3826,6 +4341,17 @@ def main():
     k1["launches_compton"] = cmp_launches["K1"]
     k2["launches_compton"] = cmp_launches["K2"]
     process_gates = phase_process_gates()
+    (picmi_launches, picmi_metrics, syncs["PICMI LWFA step(14)"],
+     k1["resident_picmi"], k2["resident"]["PICMI"]) = \
+        phase_picmi_lwfa(counters)
+    k1["launches_picmi"] = picmi_launches["K1"]
+    k2["launches_picmi"] = picmi_launches["K2"]
+    ref_launches, reference_script = phase_reference_script(counters)
+    k1["launches_reference_script"] = ref_launches["K1"]
+    k2["launches_reference_script"] = ref_launches["K2"]
+    golden_launches, golden_f64 = phase_golden_f64(counters)
+    k2["launches_golden_f64"] = golden_launches["K2"]
+    k3["launches_golden_f64"] = golden_launches["K3"]
 
     print(json.dumps({"main_path": main_metrics, "wake_ratio": ratio,
                       "boosted_path": boosted_metrics,
@@ -3854,6 +4380,12 @@ def main():
                       "compton_pwfa_path": dict(cmp_metrics,
                                                 launches=cmp_launches),
                       "process_gates": process_gates,
+                      "picmi_lwfa_path": dict(picmi_metrics,
+                                              launches=picmi_launches),
+                      "reference_script": dict(reference_script,
+                                               launches=ref_launches),
+                      "golden_f64": dict(golden_f64,
+                                         launches=golden_launches),
                       "seconds": time.perf_counter() - t_start},
                      default=float))
     print(smi)

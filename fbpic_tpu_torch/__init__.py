@@ -16,5 +16,7 @@ CUDA, float32).
 __version__ = "0.1.0"
 
 from .core.simulation import Simulation  # noqa: E402
+from .fields.smoothing import BinomialSmoother  # noqa: E402
+from .lpa_utils.boosted_frame import BoostConverter  # noqa: E402
 
-__all__ = ["Simulation", "__version__"]
+__all__ = ["BinomialSmoother", "BoostConverter", "Simulation", "__version__"]

@@ -14,6 +14,7 @@ utilities' hooks: ``mirrors``, ``external_fields`` and
 (``SpeciesView.make_ionizable``) and Compton scattering
 (``SpeciesView.activate_compton``).
 """
+import os
 import warnings
 from dataclasses import replace
 
@@ -206,6 +207,13 @@ class Simulation:
     positions.  boundaries r 'open': the radial PML, its ``n_damp["r"]``
     cells (32 by default) inside ``Nr``, as in fbpic_tpu.
 
+    use_cuda is accepted for the reference's scripts and changes
+    nothing: ``device`` decides where the run goes.  use_all_mpi_ranks
+    False pins a CUDA run to the task device ``cuda:k``, k being
+    ``FBPIC_TPU_TASK_DEVICE`` (default 0) modulo the number of devices,
+    as fbpic_tpu pins its parameter-scan runs; ``task_device`` is that
+    device, or None.
+
     Diagnostics and checkpoints (``fbpic_tpu_torch.diagnostics``) go in
     ``diags`` and ``checkpoints``; ``step`` writes them at their periods.
     ``fld`` is the Simulation itself and ``comm`` is None (one device),
@@ -217,9 +225,10 @@ class Simulation:
                  p_nz=None, p_nr=None, p_nt=None, n_e=None, zmin=0.0,
                  n_order=-1, dens_func=None, filter_currents=True,
                  v_comoving=None, use_galilean=True, initialize_ions=False,
-                 n_guard=None, n_damp=None, exchange_period=None,
-                 current_correction="curl-free", boundaries=None,
-                 gamma_boost=None, particle_shape="linear", verbose_level=1,
+                 use_cuda=False, n_guard=None, n_damp=None,
+                 exchange_period=None, current_correction="curl-free",
+                 boundaries=None, gamma_boost=None, use_all_mpi_ranks=True,
+                 particle_shape="linear", verbose_level=1,
                  smoother=None,
                  use_ruyten_shapes=True, use_modified_volume=True,
                  random_seed=None, device="cuda", dtype=torch.float32,
@@ -228,6 +237,15 @@ class Simulation:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Simulation(device='cuda'): CUDA is not "
                                "available (pass device='cpu' explicitly)")
+        self.use_all_devices = use_all_mpi_ranks
+        self.task_device = None
+        if not use_all_mpi_ranks and device.type == "cuda":
+            k = int(os.environ.get("FBPIC_TPU_TASK_DEVICE", "0"))
+            device = torch.device("cuda", k % torch.cuda.device_count())
+            # the current device too, as fbpic_tpu sets JAX's default
+            # device: the kernels launch on the current device's stream
+            torch.cuda.set_device(device)
+            self.task_device = device
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, not {dtype}")
         if boundaries is None:

@@ -46,7 +46,11 @@ only PyTorch; there, skip the JAX-based conftest:
 - ionization and Compton scattering: K1 on a layout weighted by w *
   level (levels 5-7) against its plain version, and 10 steps of a ring
   ionizer, a resident ionizer and a Compton source on the card against
-  the CPU with the same seeded draws, with exact launch counts.
+  the CPU with the same seeded draws, with exact launch counts;
+- the 100- and 450-step float64 golden-wake profiles on the card with
+  fbpic_tpu's injection angles (tests/data/torch_golden_angles.npz);
+  the task device of use_all_mpi_ranks=False; tests/test_picmi.py's
+  setup through fbpic_tpu_torch.picmi on the card against the CPU.
 """
 import os
 
@@ -1491,4 +1495,183 @@ def test_process_steps_on_card_match_cpu(cuda, case):
         for n in ("ionization_level", "ids"):
             if n in b:
                 assert torch.equal(a[n][live], b[n][live]), n
+    _close_profiles(runs, {"Ez_axis": 1e-8, "rho_axis": 1e-8})
+
+
+#: fbpic_tpu's injection angles of the 450-step golden run
+#: (tools/torch_golden_angles.py; checked against fbpic_tpu's draws by
+#: tests/test_torch_golden.py)
+GOLDEN_ANGLES = os.path.join(os.path.dirname(__file__), "data",
+                             "torch_golden_angles.npz")
+
+
+class _RecordedAngles:
+    """A column-angle source that answers the recorded (iteration,
+    species, column keys) calls of the golden run, and raises on any
+    other."""
+
+    def __init__(self):
+        d = np.load(GOLDEN_ANGLES)
+        self.seed = int(d["seed"])
+        self.table = {(int(i), int(s)): (k, a) for i, s, k, a in zip(
+            d["iteration"], d["species"], d["nkey"], d["angles"])}
+
+    def __call__(self, iteration, species_index, nkey):
+        keys, angles = self.table[(int(iteration), int(species_index))]
+        assert np.array_equal(keys, nkey.cpu().numpy()), iteration
+        return torch.as_tensor(angles, device=nkey.device)
+
+
+@pytest.mark.cuda
+def test_golden_full_profiles_float64_on_card(cuda):
+    """tests/test_golden_wake.py's float64 pins on the card: the
+    configuration resident (two K3 and one K2 launch a step) with
+    fbpic_tpu's injection angles, the 100-step pin_* and the 450-step
+    full_* profiles of tests/data/golden_wake.npz at the golden's own
+    2e-3 of each profile's scale."""
+    sim = _golden_config_sim(cuda, torch.float64)
+    angles = _RecordedAngles()
+    assert angles.seed == sim.device_seed
+    sim.column_angles = angles
+    gold = np.load(GOLDEN)
+    n0 = _k_counts()
+    for horizon, n_to in (("pin", 100), ("full", 450)):
+        sim.step(n_to - sim.iteration)
+        for name, arr in _profiles(sim).items():
+            g = gold[f"{horizon}_{name}"]
+            assert np.isfinite(arr).all(), name
+            err = np.abs(arr - g).max() / np.abs(g).max()
+            assert err < 2e-3, (horizon, name, err)
+    assert [a - b for a, b in zip(_k_counts(), n0)] == [0, 450, 900]
+    assert sim.overflow_totals == {"sort_overflow": 0, "ring_overwrite": 0}
+
+
+@pytest.mark.cuda
+def test_task_device_selection_on_card(cuda, monkeypatch):
+    """use_all_mpi_ranks=False pins the run to cuda:k, k being
+    FBPIC_TPU_TASK_DEVICE modulo the device count; use_cuda changes
+    nothing."""
+    from fbpic_tpu_torch.main import Simulation
+    n = torch.cuda.device_count()
+    monkeypatch.setenv("FBPIC_TPU_TASK_DEVICE", str(n + 1))
+    sim = Simulation(64, 10.e-6, 16, 5.e-6, 2, 1.e-15, use_cuda=False,
+                     use_all_mpi_ranks=False, verbose_level=0)
+    want = torch.device("cuda", (n + 1) % n)
+    assert sim.device == want and sim.task_device == want
+    assert torch.cuda.current_device() == want.index
+    sim.step(2)
+    assert sim.state.interp.Ez.device == want
+    torch.cuda.set_device(0)
+
+
+def _picmi_sim(device, dtype):
+    """tests/test_picmi.py's setup through fbpic_tpu_torch.picmi (device
+    None: the wrapper's default, the card), the host RNG seeded as
+    random_seed = 0 seeds it."""
+    from fbpic_tpu_torch import picmi
+    from fbpic_tpu_torch.constants import c
+    grid = picmi.CylindricalGrid(
+        number_of_cells=[100, 20], lower_bound=[0., 0.],
+        upper_bound=[10.e-6, 10.e-6],
+        lower_boundary_conditions=["reflective", "open"],
+        upper_boundary_conditions=["reflective", "open"],
+        n_azimuthal_modes=2, moving_window_velocity=[0., c])
+    on = {} if device is None else dict(device=device)
+    psim = picmi.Simulation(solver=picmi.ElectromagneticSolver(
+        grid=grid, source_smoother=picmi.BinomialSmoother(n_pass=1)),
+        dtype=dtype, **on)
+    psim.sim.verbose_level = 0
+    psim.sim._rng = np.random.RandomState(0)
+    plasma = picmi.Species(
+        particle_type="electron", name="plasma",
+        initial_distribution=picmi.AnalyticDistribution(
+            density_expression="1e24*exp(-(r/3e-6)**2)",
+            lower_bound=[None, None, 8.e-6], fill_in=True))
+    psim.add_species(plasma, layout=picmi.GriddedLayout(
+        n_macroparticle_per_cell={"r": 1, "z": 1, "theta": 4},
+        grid=grid))
+    psim.add_laser(picmi.GaussianLaser(
+        wavelength=0.8e-6, waist=4.e-6, duration=8.e-15,
+        focal_position=[0, 0, 5.e-6], centroid_position=[0, 0, 5.e-6],
+        a0=0.5, polarization_direction=[0, 1, 0]))
+    psim.sim.column_angles = _SeededAngles()
+    return psim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_picmi_on_card_matches_cpu(cuda, dtype):
+    """20 steps of tests/test_picmi.py's setup built through
+    fbpic_tpu_torch.picmi on the card (its default device) and on the
+    CPU (float64: the ring path there, equal to the resident one to ~2e-14
+    on the CPU): one K1 (float32) or two K3 (float64) and one K2 launch a
+    step on the card (resident); E_z and rho on the axis within 1e-8 of
+    their scale in float64, and the 100-step float32 gates of
+    tests/test_golden_wake.py (1.5e-2, 3e-2 for rho) in float32."""
+    runs = {}
+    for key, dev in (("cuda", None), ("cpu", "cpu")):
+        psim = _picmi_sim(dev, dtype)
+        n0 = _k_counts()
+        psim.step(20)
+        if key == "cuda":
+            assert psim.sim.device.type == "cuda"
+            assert psim.sim.species_configs[0].resident
+            want = [20, 20, 0] if dtype == torch.float32 else [0, 20, 40]
+            assert [a - b for a, b in zip(_k_counts(), n0)] == want
+        assert psim.sim.overflow_totals == {"sort_overflow": 0,
+                                            "ring_overwrite": 0}
+        runs[key] = dict(
+            Ez_axis=psim.sim.get_interp_field("Ez", 0).real[:, 0],
+            rho_axis=psim.sim.get_interp_field("rho", 0).real[:, 0])
+    _close_profiles(runs, {"Ez_axis": 1e-8, "rho_axis": 1e-8}
+                    if dtype == torch.float64 else
+                    {"Ez_axis": 1.5e-2, "rho_axis": 3e-2})
+
+
+@pytest.mark.cuda
+def test_picmi_applied_field_and_mirror_on_card_match_cpu(cuda):
+    """A Gaussian bunch (PseudoRandomLayout) pushed by a PICMI
+    ConstantAppliedField (ExternalField(lambda F, ...: F + amplitude),
+    which gets the card's tensors) beside a Mirror, 10 steps on the card
+    and on the CPU, float64: the bunch's uz and E_z / rho on the axis
+    within 1e-8 of their scale (tests/test_torch_picmi.py holds the same
+    setup against fbpic_tpu on the CPU); a ring with sort_K = 0, so no
+    kernel launch."""
+    from fbpic_tpu_torch import picmi
+    from fbpic_tpu_torch.constants import c
+    runs, uz = {}, {}
+    for key, dev in (("cuda", None), ("cpu", "cpu")):
+        grid = picmi.CylindricalGrid(
+            number_of_cells=[64, 16], lower_bound=[0., 0.],
+            upper_bound=[8.e-6, 16.e-6],
+            lower_boundary_conditions=["reflective", "periodic"],
+            upper_boundary_conditions=["reflective", "periodic"])
+        on = {} if dev is None else dict(device=dev)
+        psim = picmi.Simulation(solver=picmi.ElectromagneticSolver(
+            grid=grid), dtype=torch.float64, **on)
+        psim.sim.verbose_level = 0
+        psim.sim._rng = np.random.RandomState(0)
+        psim.add_species(picmi.Species(
+            particle_type="electron", name="bunch",
+            initial_distribution=picmi.GaussianBunchDistribution(
+                n_physical_particles=1.e8,
+                rms_bunch_size=[1.e-6, 1.e-6, 1.e-6],
+                centroid_position=[0., 0., 6.e-6],
+                centroid_velocity=[0., 0., 0.99 * c])),
+            layout=picmi.PseudoRandomLayout(n_macroparticles=2000))
+        psim.add_applied_field(picmi.ConstantAppliedField(Ez=-1.e10,
+                                                          Bx=0.2))
+        psim.add_applied_field(picmi.Mirror(z_front_location=14.e-6))
+        n0 = _k_counts()
+        psim.step(10)
+        if key == "cuda":
+            assert psim.sim.device.type == "cuda"
+            assert _k_counts() == n0
+        sp = psim.sim.state.species[0]
+        uz[key] = sp.uz.cpu().numpy()
+        runs[key] = dict(
+            Ez_axis=psim.sim.get_interp_field("Ez", 0).real[:, 0],
+            rho_axis=psim.sim.get_interp_field("rho", 0).real[:, 0])
+    assert np.abs(uz["cuda"] - uz["cpu"]).max() < 1e-8 * np.abs(
+        uz["cpu"]).max()
     _close_profiles(runs, {"Ez_axis": 1e-8, "rho_axis": 1e-8})

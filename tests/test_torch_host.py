@@ -132,10 +132,14 @@ def test_injector_template_bit_equal():
 
 
 def test_import_leaves_jax_out():
-    """fbpic_tpu_torch and its whole main path import without JAX."""
+    """fbpic_tpu_torch, its whole main path, PICMI, the fbpic.main alias
+    and the utils import without JAX."""
     code = ("import sys; import fbpic_tpu_torch; "
             "import fbpic_tpu_torch.core.step, "
-            "fbpic_tpu_torch.lpa_utils.laser, fbpic_tpu_torch.utils.carry; "
+            "fbpic_tpu_torch.lpa_utils.laser, fbpic_tpu_torch.utils.carry, "
+            "fbpic_tpu_torch.picmi, fbpic_tpu_torch.main, "
+            "fbpic_tpu_torch.utils.random_seed, "
+            "fbpic_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'fbpic_tpu.'))]; "
             "assert not bad, bad; print('ok')")
