@@ -217,6 +217,33 @@ Phases (any failure raises, and the script exits non-zero):
      (resident: two K3 and one K2 launch a step) with fbpic_tpu's
      injection angles from tests/data/torch_golden_angles.npz: the 100-
      and 450-step profiles of tests/data/golden_wake.npz at 2e-3.
+ 24. examples/multichip_lwfa_script.py as written (fbpic_tpu changed to
+     fbpic_tpu_torch, float32; Simulation bound to random_seed=0, which
+     the script leaves out, so that its twin loads the same plasma):
+     Nz=800, Nr=50, Nm=2, 2x2x4 per cell, a0=4, n_order=32, open z,
+     moving window, its FieldDiagnostic every 100 steps collected,
+     through distribute_simulation on 2 slabs (both on cuda:0 on a
+     one-card machine, one per card on two or more; the phase prints
+     which) beside its single-card twin (the same script, sim.step on
+     the same schedule): exactly one K1 and one K2 launch per slab per
+     step and no K3, zero migration loss and sort overflow, the
+     gathered live count and total weight (1e-6) equal to the twin's at
+     every diagnostic, Ez (m = 0, 1) within 5e-3 of the twin's scale at
+     50 steps (printed at 200), the E, B and J records at 0 and 100
+     within 5e-3, rho too on the rows more than 2 n_guard from the slab
+     seam (rho_prev is each slab's own deposit; the seam rows printed),
+     K1 and K2 on each slab's own operands (one more step, captured)
+     against their plain versions; ms/step, device busy, idle share,
+     launches a step and the host syncs of step(14) for both, and the
+     halo exchanges' and the migration's device time a step on the
+     run's tensors;
+ 25. tests/test_resident.py's resident mesh (4 slabs, n_guard 24,
+     exchange period 4, 40 steps) in float64 on the card and on the
+     card machine's CPU with the same injection angles: two K3 and one
+     K2 launch per slab per step, the same live slots, every field and
+     the live particles within 1e-10 of their vector's scale (the same
+     configuration on one device, card against CPU, printed beside it),
+     rho_prev (float64 atomics) within 1e-6.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.  Exits non-zero without a result
@@ -1771,7 +1798,8 @@ def btd_reference_slices(sim, btd):
     from fbpic_tpu_torch.constants import c
     valid, _, _ = btd.capture_slices(sim)
     st, cfg = sim.state, sim.config
-    z_b = (btd._t_lab / btd.gamma_boost - float(st.time)) * c \
+    t_lab = btd._t_lab[(st.interp.Er.device, st.interp.Er.real.dtype)]
+    z_b = (t_lab / btd.gamma_boost - float(st.time)) * c \
         / btd.beta_boost
     iz_f = (z_b - float(st.zmin)) / cfg.dz - 0.5
     iz0 = torch.clamp(torch.floor(iz_f).long(), 0, cfg.Nz - 2)
@@ -3512,8 +3540,8 @@ def counted_removal(n_species):
     removed = [[] for _ in range(n_species)]
     calls = [0]
 
-    def counted(config, sp, zmin):
-        out = real(config, sp, zmin)
+    def counted(config, sp, zmin, bounds=None):
+        out = real(config, sp, zmin, bounds)
         removed[calls[0] % n_species].append(
             sp.w.to(torch.float64).sum() - out.w.to(torch.float64).sum())
         calls[0] += 1
@@ -4222,6 +4250,533 @@ def phase_golden_f64(counters):
     return launches, dict(profile_errors=errs, injections=angles.calls)
 
 
+# examples/multichip_lwfa_script.py at full width: two slabs (one per
+# card when there are two or more), its FieldDiagnostic every 100 steps,
+# 50 steps to the Ez gate, then on to 200
+MC_SLABS = 2
+MC_STEPS = (50, 100, 200)
+TOL_MULTICHIP = 5e-3
+# The float64 resident mesh of tests/test_resident.py:240-304 (4 slabs,
+# n_guard 24, exchange_period 4), card against the card machine's CPU;
+# rho_prev is a scatter deposit (float64 atomics on the card)
+MC64_SLABS, MC64_STEPS = 4, 40
+TOL_MESH_F64 = 1e-10
+# A component whose largest value is above this share of its family's
+# is also held to TOL_MESH_F64 of its own largest value
+MESH_OWN_SHARE = 1e-3
+
+
+class Deferred:
+    """What the example script's ``distribute_simulation`` returns here:
+    its ``run.step(N_step)`` (2000 steps) is recorded, not run, and the
+    phase drives ``run`` itself."""
+
+    def __init__(self, run):
+        self.run = run
+        self.asked = None
+
+    def step(self, N):
+        self.asked = N
+
+
+class Twin:
+    """The single-card twin of a DistributedRun: ``sim.step`` on the
+    same schedule, the run's observation methods."""
+
+    def __init__(self, sim):
+        self.sim = sim
+
+    def step(self, N):
+        self.sim.step(N)
+
+    def get_interp_field(self, name, m=0):
+        from fbpic_tpu_torch.fields import transform as tr
+        F = getattr(self.sim.state.spect, name)
+        return tr.spect2interp_scal(self.sim.aux.mats, F)[m].cpu().numpy()
+
+    def live(self):
+        w = self.sim.state.species[0].w
+        return int((w != 0).sum()), float(w.double().sum())
+
+
+def run_live(run):
+    counts = [((s.species[0].w != 0).sum(), s.species[0].w.double().sum())
+              for s in run.states]
+    return (sum(int(n) for n, _ in counts), sum(float(w) for _, w in counts))
+
+
+def multichip_script(distribute, sink):
+    """examples/multichip_lwfa_script.py as written, fbpic_tpu changed to
+    fbpic_tpu_torch (float32 on the card, the port's defaults), its
+    ``distribute_simulation`` replaced by ``distribute``; the script
+    passes no random_seed, so Simulation is bound to random_seed=0 (the
+    twin must load and inject the same plasma).  The FieldDiagnostic
+    collects into ``sink``.  Returns the script's globals."""
+    import functools
+    import fbpic_tpu_torch
+    import fbpic_tpu_torch.parallel.api as api
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "examples", "multichip_lwfa_script.py")
+    with open(path) as f:
+        text = f.read().replace("fbpic_tpu", "fbpic_tpu_torch")
+    real_sim, real_dist = fbpic_tpu_torch.Simulation, api.distribute_simulation
+    fbpic_tpu_torch.Simulation = functools.partial(real_sim, random_seed=0)
+    api.distribute_simulation = distribute
+    try:
+        ns = {"__name__": "__main__"}
+        exec(compile(text, path, "exec"), ns)
+    finally:
+        fbpic_tpu_torch.Simulation, api.distribute_simulation = \
+            real_sim, real_dist
+    for diag in ns["sim"].diags:
+        collect_only(diag, sink)
+    return ns
+
+
+def exchange_device_ms(run):
+    """Device time a step of the halo exchanges (exchange_add of the
+    three corrected J fields, exchange_replace of the six E / B fields)
+    and of the migration (every exchange period; here per step), timed
+    with CUDA events on the run's own slab tensors through its slab
+    group (the threads issue on the card's default stream)."""
+    from fbpic_tpu_torch.fields import transform as tr
+    from fbpic_tpu_torch.parallel import domain
+    group, g = run.group, run.g
+    spect = [s.spect for s in run.states]
+
+    def add():
+        group.run(lambda r: domain.exchange_guards_add(
+            [tr.ifft_z(getattr(spect[r], n)) for n in ("Jp", "Jm", "Jz")],
+            g, group.comm(r)))
+
+    def replace():
+        group.run(lambda r: domain.exchange_guards_replace(
+            [tr.ifft_z(getattr(spect[r], n))
+             for n in ("Ep", "Em", "Ez", "Bp", "Bm", "Bz")],
+            g, group.comm(r)))
+
+    def migrate():
+        def one(r):
+            st = run.states[r]
+            zmin = st.zmin + run.multi_step.halos[r].offset(type(st.zmin))
+            domain.migrate_particles(
+                st.species[0], run.config_local, zmin, group.comm(r),
+                run.migration_buffer, global_open=True)
+        group.run(one)
+    ms = {"exchange_add_J": cuda_ms(add, n_iter=10),
+          "exchange_replace_EB": cuda_ms(replace, n_iter=10),
+          "migration": cuda_ms(migrate, n_iter=5) / run.exchange_period}
+    print(f"  halo device ms/step on the run's tensors (CUDA events, "
+          f"the inverse z-FFTs before them included): {ms}", flush=True)
+    return ms
+
+
+def capture_slab_calls(run, targets):
+    """{name: {slab rank: (args, kwargs)}} of each module.<name> in
+    ``targets`` (pairs) during one more step of the decomposed run: one
+    call of each per slab."""
+    from fbpic_tpu_torch.utils import kernels
+    calls = {name: {} for _, name in targets}
+    reals = {name: getattr(module, name) for module, name in targets}
+
+    def recorder(name):
+        def record(*args, **kwargs):
+            by_rank = calls[name]
+            rank = kernels.current_slab.rank
+            if rank in by_rank:
+                raise RuntimeError(f"slab {rank} called {name} twice")
+            by_rank[rank] = (args, kwargs)
+            return reals[name](*args, **kwargs)
+        return record
+    for module, name in targets:
+        setattr(module, name, recorder(name))
+    try:
+        run.step(1)
+    finally:
+        for module, name in targets:
+            setattr(module, name, reals[name])
+    for name, by_rank in calls.items():
+        if sorted(by_rank) != list(range(run.ndev)):
+            raise RuntimeError(f"{name} called by the slabs {sorted(by_rank)}")
+    return calls
+
+
+def phase_multichip_kernels(run, label):
+    """K1 and K2 on each slab's own operands (Nz_local rows), captured in
+    one more step of the decomposed run, against their plain versions at
+    TOL_K1 / TOL_K2 (measure_k1 / measure_k2 raise); timed.  K1's d(rho)
+    is measured relative to the rho_next it adds to, with the planted
+    fault (measure_k1(drho_vs_rho=True)): the slab ahead of the laser
+    holds only cold plasma at rest, whose d(rho) is the rounding of
+    equal endpoint weights (relative to its own largest value, the two
+    versions' roundings differ by ~2e-5)."""
+    import inspect
+    import torch
+    from fbpic_tpu_torch.core import step
+    from fbpic_tpu_torch.particles import (cuda_fused, cuda_gather,
+                                           sorted_deposit)
+    calls = capture_slab_calls(run, ((sorted_deposit, "fused_onehot_contract"),
+                                     (step, "gather_fields_sorted")))
+    k1, k2 = {}, {}
+    for r, device in enumerate(run.devices):
+        with torch.cuda.device(device):
+            args, kwargs = calls["fused_onehot_contract"][r]
+            ops = inspect.signature(cuda_fused.fused_onehot_contract_plain
+                                    ).bind(*args, **kwargs).arguments
+            k1[r] = measure_k1(dict(ops), f"{label}, slab {r}",
+                               drho_vs_rho=True)
+            args, kwargs = calls["gather_fields_sorted"][r]
+            ops = inspect.signature(cuda_gather.gather_sorted).bind(
+                *args, **kwargs).arguments
+            m = measure_k2(dict(ops), f"{label}, slab {r}", True)
+            k2[r] = {k: m[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "live_fraction",
+                                       "rel_err", "max_abs_err")}
+    del calls
+    torch.cuda.empty_cache()
+    return k1, k2
+
+
+def phase_multichip_lwfa(counters):
+    """24. examples/multichip_lwfa_script.py at full width (Nz = 800,
+    Nr = 50, Nm = 2, 2x2x4 per cell, n_e = 4e24, a0 = 4, n_order = 32,
+    open z, moving window, its FieldDiagnostic every 100 steps collected),
+    float32, through distribute_simulation on MC_SLABS slabs -- both on
+    cuda:0 on a one-card machine, one per card on two or more -- and
+    its single-card twin (the same script, sim.step on the same
+    schedule):
+    - exactly one K1 and one K2 launch per slab per step, no K3;
+    - zero migration loss and zero sort overflow;
+    - the gathered live count equal to the twin's, and the total weight
+      within 1e-6, at every diagnostic;
+    - Ez (m = 0, 1) within TOL_MULTICHIP of the twin's scale at 50 steps
+      (fbpic_tpu's gate of the per-slab current correction's locality);
+      at 100 and 200 printed;
+    - the E, B and J records collected at 0 and 100 within TOL_MULTICHIP
+      of the twin's, and the rho record too on the rows more than
+      2 n_guard from a slab seam (rho_prev is each slab's own deposit,
+      so the seam rows differ; their deviation is printed);
+    - K1 and K2 on each slab's own operands, captured in one more step,
+      against their plain versions at TOL_K1 / TOL_K2;
+    then, for both, ms/step, device busy, idle share, launches a step,
+    the host syncs of step(14), and the halo's device time a step.
+    Returns the launches of the decomposed run (the sums over its
+    slabs; the twin's are not counted)."""
+    import torch
+    from fbpic_tpu_torch.parallel import api
+    n_cards = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(MC_SLABS)] if n_cards >= MC_SLABS
+               else ["cuda:0"] * MC_SLABS)
+    label = f"multichip LWFA, {MC_SLABS} slabs on {devices}"
+    print(f"{label}: {n_cards} card(s) on this machine", flush=True)
+    sink_run, sink_twin = [], []
+    real_dist = api.distribute_simulation
+    ns = multichip_script(lambda sim, **kw: Deferred(real_dist(
+        sim, devices=devices, **kw)), sink_run)
+    run, asked = ns["run"].run, ns["run"].asked
+    tw = multichip_script(lambda sim, **kw: Deferred(Twin(sim)), sink_twin)
+    twin = tw["run"].run
+    sim = ns["sim"]
+    cfg, cfgl = sim.config, run.config_local
+    print(f"{label}: internal Nz {cfg.Nz}, n_guard {run.g}, slab Nz "
+          f"{cfgl.Nz}, exchange period {run.exchange_period} (single card "
+          f"{sim.exchange_period}), migration buffer {run.migration_buffer}"
+          f", sort_K {sim.species_configs[0].sort_K}, slab capacity "
+          f"{run.states[0].species[0].capacity}; the script asked for "
+          f"{asked} steps", flush=True)
+    if not all(s.species[0].capacity == cfgl.Nz
+               * sim.species_configs[0].sort_K for s in run.states):
+        raise RuntimeError(f"{label}: a slab is not resident")
+    for fn in counters.values():
+        fn.launches = 0
+        fn.launches_by_slab = {}
+    out, checks = {}, {}
+    t0 = time.perf_counter()
+    done = 0
+    for n_to in MC_STEPS:
+        run.step(n_to - done)
+        twin.step(n_to - done)
+        done = n_to
+        dev = {}
+        for m in (0, 1):
+            a = twin.get_interp_field("Ez", m)
+            b = run.get_interp_field("Ez", m)
+            dev[m] = float(np.abs(a - b).max() / np.abs(a).max())
+        checks[n_to] = dict(Ez_deviation=dev, live=run_live(run),
+                            live_twin=twin.live())
+        print(f"{label}: step {n_to}: Ez deviation from the twin (m = 0, "
+              f"1): {dev}; live, weight: {checks[n_to]['live']} (twin "
+              f"{checks[n_to]['live_twin']})", flush=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = MC_STEPS[-1]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    by_slab = {k: dict(fn.launches_by_slab) for k, fn in counters.items()}
+    # the twin's launches count in the totals too, none per slab
+    want_slab = {"K1": {r: n for r in range(MC_SLABS)},
+                 "K2": {r: n for r in range(MC_SLABS)}, "K3": {}}
+    print(f"{label}: {n} steps of the run and its twin in {wall:.2f} s; "
+          f"launches {launches}, per slab {by_slab}; overflow "
+          f"{run.overflow_totals} (twin {sim_totals(twin.sim)})",
+          flush=True)
+    if by_slab != want_slab or launches != {"K1": (MC_SLABS + 1) * n,
+                                            "K2": (MC_SLABS + 1) * n,
+                                            "K3": 0}:
+        raise RuntimeError(f"{label}: launches {launches} / {by_slab}")
+    if any(run.overflow_totals.values()) or any(
+            twin.sim.overflow_totals.values()):
+        raise RuntimeError(f"{label}: overflow {run.overflow_totals} / "
+                           f"{twin.sim.overflow_totals}")
+    if checks[MC_STEPS[0]]["Ez_deviation"][0] >= TOL_MULTICHIP or \
+            checks[MC_STEPS[0]]["Ez_deviation"][1] >= TOL_MULTICHIP:
+        raise RuntimeError(f"{label}: Ez off the twin: {checks}")
+    # (the twin's sim.step writes its diagnostics at the start of every
+    # call as well: a call that starts on a period writes that iteration
+    # a second time; its first record is compared)
+    recs, recs_twin = records_by_file(sink_run), records_by_file(sink_twin)
+    period = sim.diags[0].period
+    diag_its = sorted(int(k[4:12]) for k in recs)
+    if sorted(recs) != sorted(recs_twin) or diag_its != list(
+            range(0, n + 1, period)) or any(len(v) != 1
+                                            for v in recs.values()):
+        raise RuntimeError(f"{label}: diagnostics at {sorted(recs)} / "
+                           f"{sorted(recs_twin)}")
+    rec_dev = {}
+    # the record's z rows (the physical grid) within 2 n_guard of a seam
+    rows = np.arange(sim.Nz_phys) + sim.nd_edge
+    near_seam = np.abs(rows[:, None] - run.Nz_int * np.arange(
+        1, MC_SLABS)).min(axis=1) < 2 * run.g
+    for it in (0, period):
+        name = "data%08d.h5" % it
+        diff = record_differences(recs_twin[name][:1], recs[name])
+        path = "/data/%d/fields/rho" % it
+        a, b = recs_twin[name][0][path][0], recs[name][0][path][0]
+        by_row = np.abs(a - b).max(axis=(0, 1)) / np.abs(a).max()
+        diff["rho away from the seams"] = float(by_row[~near_seam].max())
+        diff["rho at the seams"] = float(by_row[near_seam].max())
+        rec_dev[it] = diff
+        off = {p: v for p, v in diff.items()
+               if p not in (path, "rho at the seams")
+               and v >= TOL_MULTICHIP}
+        print(f"{label}: records at {it}, deviation from the twin's "
+              f"relative to each dataset's largest value (rho also by "
+              f"rows: {int(near_seam.sum())} of {len(rows)} within "
+              f"{2 * run.g} rows of a seam): {diff}", flush=True)
+        if off:
+            raise RuntimeError(f"{label}: records at {it} off the twin: "
+                               f"{off}")
+    for it in MC_STEPS:
+        (n_run, w_run) = checks[it]["live"]
+        (n_twin, w_twin) = checks[it]["live_twin"]
+        if n_run != n_twin or abs(w_run - w_twin) > 1e-6 * w_twin:
+            raise RuntimeError(f"{label}: live {n_run}, {w_run} against "
+                               f"the twin's {n_twin}, {w_twin} at {it}")
+    for s in run.states:
+        for name in ("Er", "Et", "Ez", "Br", "Bt", "Bz"):
+            if not bool(getattr(s.interp, name).isfinite().all()):
+                raise RuntimeError(f"{label}: non-finite {name}")
+    out["gates"] = dict(checks={str(k): v for k, v in checks.items()},
+                        records={str(k): v for k, v in rec_dev.items()},
+                        launches_with_twin=launches,
+                        launches_by_slab=by_slab)
+    out["k1_slabs"], out["k2_slabs"] = phase_multichip_kernels(run, label)
+    # Cost: the decomposed run and its twin, in the same call
+    for key, obj, live in (("slabs", run, run_live(run)[0]),
+                           ("twin", twin, twin.live()[0])):
+        obj.step(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obj.step(N_COST)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / N_COST * 1e3
+        prof = profile_steps(obj, N_PROFILED)
+        syncs = count_syncs(obj, f"{label} ({key})", 14)
+        m = dict(ms_per_step=ms, live=live,
+                 ns_per_particle_step=ms * 1e6 / live, host_syncs_step14=syncs)
+        if prof is not None:
+            m.update(device_ms_per_step=prof["device_ms_per_step"],
+                     idle_share=1 - prof["device_ms_per_step"] / ms,
+                     launches_per_step=prof["launches_per_step"],
+                     kernel_ms_per_step=prof["kernel_ms_per_step"])
+        print(f"{label} ({key}): {ms:.4f} ms/step over {N_COST} steps, "
+              f"{m.get('device_ms_per_step')} ms/step device busy, idle "
+              f"share {m.get('idle_share')}, {m.get('launches_per_step')} "
+              f"launches a step, {syncs['count']} host syncs in step(14)",
+              flush=True)
+        out[key] = m
+    out["slabs"]["halo_device_ms_per_step"] = exchange_device_ms(run)
+    del run, twin, ns, tw, sim
+    torch.cuda.empty_cache()
+    return {k: sum(v.values()) for k, v in by_slab.items()}, out
+
+
+def sim_totals(sim):
+    return dict(sim.overflow_totals)
+
+
+class NumpyAngles:
+    """Injection angles from a numpy generator keyed by (iteration,
+    species): the same numbers on the card and on the CPU."""
+
+    def __call__(self, iteration, species_index, nkey):
+        import torch
+        rng = np.random.RandomState(1000 * int(iteration)
+                                    + int(species_index))
+        return torch.as_tensor(2 * np.pi * rng.random_sample(nkey.shape[0]),
+                               device=nkey.device)
+
+
+def resident_mesh_run(device, n_slabs=MC64_SLABS):
+    """tests/test_resident.py:240-304's resident mesh in float64 on
+    n_slabs slabs of ``device`` (n_slabs 0: the single device, not
+    decomposed), MC64_STEPS steps; the run (or the Simulation)."""
+    import torch
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
+    from fbpic_tpu_torch.parallel import distribute_simulation
+    nz, zmax, zmin = 130, 12.e-6, -4.e-6
+    sim = Simulation(nz, zmax, 16, 10.e-6, 2, (zmax - zmin) / nz / c,
+                     zmin=zmin, n_order=16,
+                     boundaries={"z": "open", "r": "reflective"},
+                     exchange_period=4, random_seed=0, verbose_level=0,
+                     device=device, dtype=torch.float64)
+    sim.use_fused_deposit = True
+    sim.add_new_species(q=-e, m=m_e, n=5.e24, p_zmin=2.e-6, p_zmax=100.e-6,
+                        p_rmin=0., p_rmax=9.e-6, p_nz=1, p_nr=2, p_nt=4,
+                        continuous_injection=True, sort_K=256)
+    add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6, tau=8.e-15,
+                                       z0=6.e-6))
+    sim.set_moving_window(v=c)
+    sim.column_angles = NumpyAngles()
+    if not n_slabs:
+        sim.step(MC64_STEPS)
+        return sim
+    run = distribute_simulation(sim, devices=[device] * n_slabs,
+                                n_guard=24)
+    if 0 not in run._resident_idx or run.exchange_period != 4:
+        raise RuntimeError("resident mesh: not the test's configuration")
+    run.step(MC64_STEPS)
+    return run
+
+
+#: Families of arrays held to one scale (a component that is roundoff in
+#: this configuration, as Bz or the m = 1 parts of a linearly polarized
+#: laser, is held to its vector's scale)
+MESH_FAMILIES = {
+    "spect E": ("spect", ("Ep", "Em", "Ez")),
+    "spect B": ("spect", ("Bp", "Bm", "Bz")),
+    "spect J": ("spect", ("Jp", "Jm", "Jz")),
+    "rho_prev": ("spect", ("rho_prev",)),
+    "interp E": ("interp", ("Er", "Et", "Ez")),
+    "interp B": ("interp", ("Br", "Bt", "Bz")),
+    "positions": ("species", ("x", "y", "z")),
+    "momenta": ("species", ("ux", "uy", "uz")),
+    "weights": ("species", ("w",)),
+}
+
+
+def family_deviations(cpu_states, card_states):
+    """Largest |card - CPU| of each MESH_FAMILIES family, relative to the
+    family's largest |CPU| value, over the slabs (or the single states);
+    the particles over the live slots, which must be the same.  Also,
+    per component ("family.name"), its largest |card - CPU| relative to
+    its own largest |CPU| value, and its share: that value over the
+    family's."""
+    import torch
+    out, own = {}, {}
+    for fam, (part, names) in MESH_FAMILIES.items():
+        comp = {n: [0.0, 0.0] for n in names}       # [diff, scale]
+        for a, b in zip(cpu_states, card_states):
+            live = a.species[0].w != 0
+            if not torch.equal(live, (b.species[0].w != 0).cpu()):
+                raise RuntimeError("the live slots differ")
+            for n in names:
+                if part == "species":
+                    x = getattr(a.species[0], n)[live].numpy()
+                    y = getattr(b.species[0], n).cpu()[live].numpy()
+                else:
+                    x = getattr(getattr(a, part), n).numpy()
+                    y = getattr(getattr(b, part), n).cpu().numpy()
+                if x.size:
+                    comp[n][0] = max(comp[n][0], float(np.abs(x - y).max()))
+                    comp[n][1] = max(comp[n][1], float(np.abs(x).max()))
+        scale = max(max(v[1] for v in comp.values()), 1e-300)
+        out[fam] = max(v[0] for v in comp.values()) / scale
+        for n, (d, sc) in comp.items():
+            own[f"{fam}.{n}"] = dict(own=d / max(sc, 1e-300),
+                                     share=sc / scale)
+    return out, own
+
+
+def phase_resident_mesh_f64(counters):
+    """25. tests/test_resident.py's resident mesh in float64 (4 slabs,
+    n_guard 24, exchange period 4, 40 steps) on the card and on the card
+    machine's CPU, the same injection angles: two K3 and one K2 launch
+    per slab per step; the same live slots; every field and the live
+    particles within TOL_MESH_F64 of their vector's scale (a component
+    that is roundoff here, as Bz, is held to its vector's scale; a stale
+    guard cell, from a missing stream dependency in an exchange, would
+    be off by far more), rho_prev (a scatter deposit) within
+    TOL_ATOMIC_RHO.  The same configuration on one device, card against
+    CPU, is printed beside it (the control)."""
+    import torch
+    label = "resident mesh, float64"
+    for fn in counters.values():
+        fn.launches = 0
+        fn.launches_by_slab = {}
+    t0 = time.perf_counter()
+    card = resident_mesh_run("cuda:0")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    by_slab = {k: dict(fn.launches_by_slab) for k, fn in counters.items()}
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        t0 = time.perf_counter()
+        cpu = resident_mesh_run("cpu")
+        t_cpu = time.perf_counter() - t0
+        one_card = resident_mesh_run("cuda:0", 0)
+        one_cpu = resident_mesh_run("cpu", 0)
+    finally:
+        torch.set_num_threads(n_threads)
+    n = MC64_STEPS
+    want = {"K1": {}, "K2": {r: n for r in range(MC64_SLABS)},
+            "K3": {r: 2 * n for r in range(MC64_SLABS)}}
+    mesh, mesh_own = family_deviations(cpu.states, card.states)
+    control, control_own = family_deviations([one_cpu.state],
+                                             [one_card.state])
+    print(f"{label}: {n} steps on {MC64_SLABS} slabs, card {t_card:.2f} s, "
+          f"CPU {t_cpu:.2f} s; launches per slab {by_slab}; card against "
+          f"CPU, relative to each family's scale: {mesh}; the single "
+          f"device (control): {control}", flush=True)
+    print(f"{label}: per component, card against CPU relative to the "
+          f"component's own scale, and its share of the family's scale "
+          f"(mesh / single-device control):", flush=True)
+    for k, v in mesh_own.items():
+        c = control_own[k]
+        print(f"  {k}: own {v['own']:.3e} / {c['own']:.3e}, share "
+              f"{v['share']:.3e} / {c['share']:.3e}", flush=True)
+    if by_slab != want:
+        raise RuntimeError(f"{label}: launches per slab {by_slab}")
+    off = {k: v for k, v in mesh.items()
+           if v >= (TOL_ATOMIC_RHO if k == "rho_prev" else TOL_MESH_F64)}
+    off.update({k: v for k, v in mesh_own.items()
+                if not k.startswith("rho_prev")
+                and v["share"] > MESH_OWN_SHARE
+                and v["own"] >= TOL_MESH_F64})
+    if off:
+        raise RuntimeError(f"{label}: card against CPU off: {off} "
+                           f"(control {control})")
+    if any(card.overflow_totals.values()):
+        raise RuntimeError(f"{label}: overflow {card.overflow_totals}")
+    del card, cpu, one_card, one_cpu
+    torch.cuda.empty_cache()
+    return {k: sum(v.values()) for k, v in by_slab.items()}, dict(
+        deviations=mesh, control=control, components=mesh_own,
+        control_components=control_own, card_s=t_card, cpu_s=t_cpu,
+        launches_by_slab=by_slab)
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4352,6 +4907,14 @@ def main():
     golden_launches, golden_f64 = phase_golden_f64(counters)
     k2["launches_golden_f64"] = golden_launches["K2"]
     k3["launches_golden_f64"] = golden_launches["K3"]
+    mc_launches, multichip = phase_multichip_lwfa(counters)
+    k1["launches_multichip"] = mc_launches["K1"]
+    k2["launches_multichip"] = mc_launches["K2"]
+    k1["multichip_slabs"] = multichip.pop("k1_slabs")
+    k2["multichip_slabs"] = multichip.pop("k2_slabs")
+    mesh64_launches, mesh_f64 = phase_resident_mesh_f64(counters)
+    k2["launches_mesh_f64"] = mesh64_launches["K2"]
+    k3["launches_mesh_f64"] = mesh64_launches["K3"]
 
     print(json.dumps({"main_path": main_metrics, "wake_ratio": ratio,
                       "boosted_path": boosted_metrics,
@@ -4386,6 +4949,10 @@ def main():
                                                launches=ref_launches),
                       "golden_f64": dict(golden_f64,
                                          launches=golden_launches),
+                      "multichip_lwfa": dict(multichip,
+                                             launches=mc_launches),
+                      "resident_mesh_f64": dict(mesh_f64,
+                                                launches=mesh64_launches),
                       "seconds": time.perf_counter() - t_start},
                      default=float))
     print(smi)

@@ -316,6 +316,10 @@ class Simulation:
         self.boost = (None if gamma_boost is None
                       else BoostConverter(gamma_boost))
         self.smoother = smoother or BinomialSmoother(1, False)
+        #: build_field_aux's options (a decomposed run builds its slabs'
+        #: aux with them)
+        self.aux_options = dict(use_ruyten_shapes=use_ruyten_shapes,
+                                use_modified_volume=use_modified_volume)
         self.aux = build_field_aux(
             self.config, self.smoother, use_ruyten_shapes=use_ruyten_shapes,
             use_modified_volume=use_modified_volume, device=device,

@@ -31,3 +31,6 @@ class SimState:
     sort_overflow: torch.Tensor = None
     # Running count of injected particles that found no free slot
     ring_overwrite: torch.Tensor = None
+    # z-decomposed runs (parallel/): running count of the particles a
+    # migration buffer or a slab's dead slots could not take
+    migration_overflow: torch.Tensor = None

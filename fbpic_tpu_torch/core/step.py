@@ -178,14 +178,15 @@ def deposit_rho_spect(config, aux, species, species_configs, zmin,
 
 def deposit_J_spect(config, aux, species, species_configs, zmin,
                     antenna_series=(), iteration=None, sorts=None,
-                    fused=None):
+                    fused=None, antenna_bounds=None):
     """Current of all species -> spectral (Jp, Jm, Jz), summed in
     species order (fused / sorts / scatter as in deposit_rho_spect).
 
     antenna_series: the laser antennas' current blocks
     (lpa_utils/laser/antenna_injection.py), whose slice of the host
     ``iteration`` is added onto the grid before the transform (and so
-    before the filter), as fbpic_tpu does."""
+    before the filter), as fbpic_tpu does; ``antenna_bounds`` (a slab's
+    owned z interval) keeps an antenna plane outside it off this grid."""
     JrJtJz = None
     for i, (sp, sc) in enumerate(zip(species, species_configs)):
         if sc.is_tracer:
@@ -216,7 +217,8 @@ def deposit_J_spect(config, aux, species, species_configs, zmin,
     Jr, Jt, Jz = [a * aux.invvol[:, None, :] for a in JrJtJz]
     for series in antenna_series:
         Jr, Jt = add_antenna_current(Jr, Jt, series, iteration, zmin,
-                                     config.dz, config.Nz)
+                                     config.dz, config.Nz,
+                                     own_bounds=antenna_bounds)
     return tr.interp2spect_J_fields(aux.mats, Jr, Jt, Jz)
 
 
@@ -396,15 +398,19 @@ def shift_spectral_fields(config, aux, spect, n_move, rdt):
     return replace(spect, **{n: getattr(spect, n) * shift for n in names})
 
 
-def _z_profile(config, options, aux, zmin, time):
+def _z_profile(config, options, aux, zmin, time, halo=None):
     """The multiplicative z profile of the step's E/B: the open-z
     damping times the mirrors' slabs set to zero, a per-mode (Nm, Nz)
     mask when there are mirrors (a mirror zeroes its modes ``m`` only),
     else the (Nz,) damping, or None (fbpic_tpu core/step.py:492-523).
     zmin, time: host values of the working dtype, so the mask is built
-    on the device without a host read."""
-    profile = (aux.damp_z if config.boundaries_z == "open"
-               and config.nz_damp > 0 else None)
+    on the device without a host read.  On a slab (``halo``) the
+    damping is the slab's cut of the global profile."""
+    if halo is not None:
+        profile = halo.damp_profile(aux.S_w)
+    else:
+        profile = (aux.damp_z if config.boundaries_z == "open"
+                   and config.nz_damp > 0 else None)
     if not options.mirrors:
         return profile
     rdt, dev = aux.S_w.dtype, aux.S_w.device
@@ -425,18 +431,25 @@ def _z_profile(config, options, aux, zmin, time):
     return mask
 
 
-def damp_EB_z(config, aux, spect, profile):
-    """Apply a z profile ((Nz,) or per-mode (Nm, Nz)) to the spectral
-    E/B (and the PML split fields) through one inverse / forward z-DFT
-    round trip, in partial-interpolation space (reference:
-    main.py:719-768, exchange_and_damp_EB)."""
+def damp_EB_z(config, aux, spect, profile, halo=None):
+    """Apply a z profile ((Nz,) or per-mode (Nm, Nz), or None) to the
+    spectral E/B (and the PML split fields) through one inverse /
+    forward z-DFT round trip, in partial-interpolation space, the guard
+    cells of a slab (``halo``) first replaced from its neighbours
+    (reference: main.py:719-768, exchange_and_damp_EB)."""
     names = ("Ep", "Em", "Ez", "Bp", "Bm", "Bz") + (
         SPECT_PML_FIELDS if config.use_pml else ())
-    damp = (profile[None, :, None] if profile.dim() == 1
-            else profile[:, :, None])
+    partial = [tr.spect2partial_interp(aux.mats, getattr(spect, n))
+               for n in names]
+    if halo is not None:
+        partial = halo.exchange_replace(partial)
+    if profile is not None:
+        damp = (profile[None, :, None] if profile.dim() == 1
+                else profile[:, :, None])
+        partial = [F * damp for F in partial]
     return replace(spect, **{
-        n: tr.partial_interp2spect(aux.mats, tr.spect2partial_interp(
-            aux.mats, getattr(spect, n)) * damp) for n in names})
+        n: tr.partial_interp2spect(aux.mats, F)
+        for n, F in zip(names, partial)})
 
 
 def damp_EB_z_skinny(aux, spect, interp_raw):
@@ -460,14 +473,18 @@ def damp_EB_z_skinny(aux, spect, interp_raw):
         for n, X in zip(names, rows_spect)})
 
 
-def remove_outside_particles(config, sp, zmin):
+def remove_outside_particles(config, sp, zmin, bounds=None):
     """Mark particles that reached the guard cells as dead (w = 0) and
     park them at the box center (reference removal bounds,
-    particle_buffer_handling.py:89-92)."""
+    particle_buffer_handling.py:89-92).  bounds: (z_lo, z_hi) in place
+    of the box's own (a slab of a decomposed run: the global box's)."""
     Lz = config.Nz * config.dz
-    ng = max(config.n_guard, 1)
-    z_lo = float(zmin + ng * config.dz)
-    z_hi = float(zmin + Lz - ng * config.dz)
+    if bounds is not None:
+        z_lo, z_hi = (float(b) for b in bounds)
+    else:
+        ng = max(config.n_guard, 1)
+        z_lo = float(zmin + ng * config.dz)
+        z_hi = float(zmin + Lz - ng * config.dz)
     dead = (sp.z < z_lo) | (sp.z > z_hi)
 
     def zero_dead(a):
@@ -481,7 +498,8 @@ def remove_outside_particles(config, sp, zmin):
 
 
 def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
-                         phi_of, generator, resident, level=0):
+                         phi_of, generator, resident, level=0,
+                         grid_globals=None, inject_bounds=None):
     """Inject the plasma columns the window uncovered since the last
     exchange.  A non-resident species keeps a stable storage order:
     the columns go into its ring at the cursor ``next_free``, and the
@@ -489,18 +507,29 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     species' storage order is rewritten by every re-sort, so a cursor
     does not track its free slots: the columns go into dead slots (dead
     first, in storage order), and those that find none are counted.
+    A slab of a decomposed run (fbpic_tpu core/step.py:735-855) places
+    the plane on the global grid (``grid_globals``: zmin, Nz, n_guard,
+    n_inject of the global box), writes only the particles inside its
+    ``inject_bounds`` and always into dead slots (the slabs' occupancies
+    differ); every slab draws the same columns and advances the cursors
+    alike.
     A tracked species hands out one id per candidate particle (written
     or not), as fbpic_tpu does (core/step.py:798-801, :844-847); the
     particles of an ionizable species start at ``level``.  The cursors
     may be host ints or 0-d device tensors.  Returns (species, count)."""
     rdt = type(zmin)
+    if grid_globals is not None:
+        zmin_g, Nz_g, n_guard_g, n_inject_g = grid_globals
+    else:
+        zmin_g, Nz_g = zmin, config.Nz
+        n_guard_g, n_inject_g = config.n_guard, config.n_inject
     # The plane's offset from zmin summed first, as XLA folds fbpic_tpu's
     # constant terms (the plane sits on a column edge: rounding picks
     # the column count)
-    z_inject = zmin + ((rdt((config.Nz - config.n_guard) * config.dz)
-                        + rdt((3 - config.n_inject) * config.dz))
-                       + rdt(config.dt * (options.moving_window_v
-                                          - inj_cfg.v_end_plasma)))
+    z_inject = zmin_g + ((rdt((Nz_g - n_guard_g) * config.dz)
+                          + rdt((3 - n_inject_g) * config.dz))
+                         + rdt(config.dt * (options.moving_window_v
+                                            - inj_cfg.v_end_plasma)))
     # times the reciprocal, as XLA computes a division by a constant
     n_cols = int(np.clip(np.floor((z_inject - sp.inj_z_end)
                                   * (rdt(1.0) / rdt(inj_cfg.dz_particles))),
@@ -512,6 +541,9 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     cap = sp.capacity
     dev = sp.x.device
     mask = torch.arange(n_write, device=dev) < n_cols * col_size
+    if inject_bounds is not None:
+        lo, hi = (float(b) for b in inject_bounds)
+        mask = mask & (new["z"] >= lo) & (new["z"] < hi)
 
     values = {name: new[name] for name in
               ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w")}
@@ -525,7 +557,7 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     if sp.ids is not None:
         values["ids"] = sp.next_id + torch.arange(n_write, device=dev)
         updates["next_id"] = sp.next_id + n_cols * col_size
-    if not resident:
+    if not resident and inject_bounds is None:
         slots = torch.remainder(
             sp.next_free + torch.arange(n_write, device=dev), cap)
         z_lo = float(zmin + max(config.n_guard, 1) * config.dz)
@@ -556,23 +588,41 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     return sp.replace(**updates), count
 
 
-def _newborn_values(esp, new):
+def _newborn_values(esp, new, id_offset=0):
     """The channels a creation buffer writes into species ``esp``: its
     particles, zero Kahan words, and (tracked) consecutive ids from the
-    species' counter, one per buffer slot (the buffer is front-packed,
-    so the newborns take the first)."""
+    species' counter plus ``id_offset``, one per buffer slot (the buffer
+    is front-packed, so the newborns take the first)."""
     values = {name: new[name] for name in
               ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w")}
     for name in ("comp_x", "comp_y", "comp_z"):
         if getattr(esp, name) is not None:
             values[name] = torch.zeros_like(new["x"])
     if esp.ids is not None:
-        values["ids"] = esp.next_id + torch.arange(new["x"].shape[0],
-                                                   device=new["x"].device)
+        values["ids"] = (esp.next_id + id_offset) + torch.arange(
+            new["x"].shape[0], device=new["x"].device)
     return values
 
 
-def append_new_particles(esp, new):
+def _rank_prescan(n_new, halo):
+    """(offset, total) of this slab's creation count among the slabs':
+    the counts of the lower ranks summed, and all of them (fbpic_tpu's
+    all_gather prescan, core/step.py:568-576); (0, n_new) on one
+    device."""
+    if halo is None:
+        return 0, n_new
+    counts = halo.all_gather(n_new)
+    off = torch.zeros((), dtype=n_new.dtype, device=n_new.device)
+    total = off
+    for r, cnt in enumerate(counts):
+        cnt = cnt.to(n_new.device, non_blocking=True)
+        if r < halo.rank:
+            off = off + cnt
+        total = total + cnt
+    return off, total
+
+
+def append_new_particles(esp, new, halo=None):
     """Write a front-packed creation buffer (w = 0 past the newborns)
     into a ring species at its cursor ``next_free`` (fbpic_tpu's
     ``_append_new_particles``, core/step.py:546-638, one device).  A
@@ -581,15 +631,38 @@ def append_new_particles(esp, new):
     off, and the live particles the write overwrote -- fbpic_tpu counts
     the first only; both go to ring_overwrite, which grows the ring
     after the step() call (Simulation._consume_overflow_counters).
-    Every count stays on the device."""
+    Every count stays on the device.
+
+    A slab of a decomposed run (``halo``) keeps the cursor and the id
+    counter replicated: its ids start after the lower ranks' newborns,
+    every slab advances both by the total, the writes go into this
+    slab's dead slots (its occupancy differs from the others'), and the
+    newborns that find none are counted, psum'd (fbpic_tpu
+    ``_append_new_particles``, core/step.py:546-630)."""
     mask = new["w"] != 0
     n_new = mask.sum()
     cap = esp.capacity
-    values = _newborn_values(esp, new)
+    off, total = _rank_prescan(n_new, halo)
+    values = _newborn_values(esp, new, off)
     if new["x"].shape[0] > cap:
         values = {name: v[:cap] for name, v in values.items()}
         mask = mask[:cap]
     nb = mask.shape[0]
+    if halo is not None:
+        dead_order = torch.argsort((esp.w != 0).to(torch.int8), stable=True)
+        n_dead = (esp.w == 0).sum()
+        slots = dead_order[:nb]
+        ok = mask & (torch.arange(nb, device=mask.device) < n_dead)
+        updates = {}
+        for name, vals in values.items():
+            arr = getattr(esp, name).clone()
+            arr[slots] = torch.where(ok, vals.to(arr.dtype), arr[slots])
+            updates[name] = arr
+        if esp.ids is not None:
+            updates["next_id"] = esp.next_id + total
+        updates["next_free"] = (esp.next_free + total) % cap
+        dropped = halo.psum(n_new - ok.sum())
+        return esp.replace(**updates), dropped, torch.zeros_like(dropped)
     slots = torch.remainder(
         esp.next_free + torch.arange(nb, device=mask.device), cap)
     overwritten = (mask & (esp.w[slots] != 0)).sum()
@@ -602,18 +675,21 @@ def append_new_particles(esp, new):
     return esp.replace(**updates), n_new - mask.sum(), overwritten
 
 
-def append_into_padded(esp, new, Nz, K, zmin, invdz, zfold):
+def append_into_padded(esp, new, Nz, K, zmin, invdz, zfold, halo=None):
     """Write a creation buffer into dead slots of a resident species'
     (Nz, K) layout, each newborn in a dead slot of its own z row, so the
     next banded re-sort keeps it (fbpic_tpu's ``_append_into_padded``,
     core/step.py:641-708).  ``new`` holds the end-of-step positions;
     ``zmin`` is the grid edge of the next re-sort.  Returns (species,
     dropped): the newborns whose row had no dead slot (a device count,
-    for sort_overflow)."""
+    for sort_overflow).  On a slab of a decomposed run (``halo``) the ids
+    follow the rank prescan of append_new_particles and the count is
+    psum'd."""
     dev = new["x"].device
     mask = new["w"] != 0
     nb = mask.shape[0]
-    values = _newborn_values(esp, new)
+    off, total = _rank_prescan(mask.sum(), halo)
+    values = _newborn_values(esp, new, off)
     col = torch.floor(invdz * (values["z"] - float(zmin))).long()
     col = (torch.remainder(col, Nz) if zfold == "periodic"
            else torch.clamp(col, 0, Nz - 1))
@@ -641,8 +717,11 @@ def append_into_padded(esp, new, Nz, K, zmin, invdz, zfold):
         ext[flat_slot] = vals[order].to(arr.dtype)
         updates[name] = ext[:Nz * K]
     if esp.ids is not None:
-        updates["next_id"] = esp.next_id + mask.sum()
-    return esp.replace(**updates), mask.sum() - ok.sum()
+        updates["next_id"] = esp.next_id + total
+    dropped = mask.sum() - ok.sum()
+    if halo is not None:
+        dropped = halo.psum(dropped)
+    return esp.replace(**updates), dropped
 
 
 # ---------------------------------------------------------------------
@@ -670,10 +749,21 @@ def _resident_indices(config, species_configs, options):
             and sc.particle_shape == "linear"]
 
 
-def make_step_fn(config, species_configs, options: StepOptions):
+def make_step_fn(config, species_configs, options: StepOptions, halo=None):
     """Build the single-step function ``step(state, aux, inj_auxes,
     column_angles, generator, antenna_series, ion_auxes, comp_auxes,
     draws)``.
+
+    ``halo``: one slab's exchange and global-geometry hooks in a
+    z-decomposed run (parallel/domain.py's Halo), called where
+    fbpic_tpu's step calls its Halo: the removal bounds, the injection
+    plane and the window count on the global grid; the counters psum'd;
+    the antenna deposited by its owning slab; the corrected J (and both
+    rho's with use_true_rho or correct_divE) guard-added; the E/B guards
+    replaced in the damping pass, which is then never the skinny one.
+    Every branch around a collective is decided on replicated values
+    (the iteration, host geometry) or psum'd ones, so all slabs take it
+    alike.
 
     ``column_angles(iteration, species_index, nkey)`` gives the rotation
     of each injected column (see particles/injection.py);
@@ -701,6 +791,9 @@ def make_step_fn(config, species_configs, options: StepOptions):
              draws=None) -> SimState:
         dt = config.dt
         rdt = type(state.zmin)
+        # The global grid's left edge (the local one but on a slab)
+        zmin_g = halo.global_zmin(state.zmin) if halo is not None \
+            else state.zmin
         # The external fields see the step's time as a 0-d tensor of the
         # working dtype (a fill: no host-to-device copy)
         time_t = None
@@ -727,7 +820,9 @@ def make_step_fn(config, species_configs, options: StepOptions):
         # main.py:435-449).  In between, rho_prev is the window-shifted
         # previous rho_next.
         if config.boundaries_z == "open" and do_exchange:
-            species = [remove_outside_particles(config, sp, zmin)
+            bounds = (halo.removal_bounds(zmin_g) if halo is not None
+                      else None)
+            species = [remove_outside_particles(config, sp, zmin, bounds)
                        for sp in species]
             if options.moving_window_v is not None:
                 for i, inj_cfg in enumerate(options.injectors):
@@ -738,7 +833,13 @@ def make_step_fn(config, species_configs, options: StepOptions):
                         config, options, species[i], inj_cfg, inj_auxes[i],
                         zmin, lambda nkey, i=i: column_angles(it, i, nkey),
                         generator, resident=i in resident_idx,
-                        level=0 if ion is None else ion.level_start)
+                        level=0 if ion is None else ion.level_start,
+                        grid_globals=None if halo is None
+                        else halo.grid_globals(zmin_g),
+                        inject_bounds=None if halo is None
+                        else halo.ownership_bounds(zmin))
+                    if halo is not None:
+                        count = halo.psum(count)
                     ring_overwrite = ring_overwrite + count
             rho_prev = deposit_rho_spect(config, aux, species,
                                          species_configs, zmin)
@@ -762,9 +863,13 @@ def make_step_fn(config, species_configs, options: StepOptions):
 
         def _draw_of(i):
             """Species i's uniform draws of this step: draw(name, shape),
-            on the step's device (a no-op for the default source)."""
+            on the step's device (a no-op for the default source); on a
+            slab the source is also given the slab's rank, which
+            fbpic_tpu folds into the key (core/step.py:92-109)."""
+            rank = {} if halo is None else {"rank": halo.rank}
             return lambda name, shape: draws(
-                name, it, i, shape, aux.S_w.dtype).to(aux.S_w.device)
+                name, it, i, shape, aux.S_w.dtype, **rank).to(
+                    aux.S_w.device)
 
         for i in resident_idx:
             sp, sc = species[i], species_configs[i]
@@ -809,7 +914,10 @@ def make_step_fn(config, species_configs, options: StepOptions):
                     # exact full sort (host read of the count)
                     if int(sort["n_over"]) > 0:
                         sort = full_sort()
-            sort_overflow = sort_overflow + sort["n_over"]
+            n_over = sort["n_over"]
+            if halo is not None:
+                n_over = halo.psum(n_over)
+            sort_overflow = sort_overflow + n_over
             pad, valid = sort["padded"], sort["valid"]
             comp_kw = ({"comp_x": pad[8], "comp_y": pad[9],
                         "comp_z": pad[10]} if sp.comp_x is not None else {})
@@ -921,7 +1029,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
             nonlocal ring_overwrite, sort_overflow
             if tgt not in resident_idx:
                 species[tgt], dropped, overwritten = append_new_particles(
-                    species[tgt], new)
+                    species[tgt], new, halo)
                 ring_overwrite = ring_overwrite + dropped + overwritten
                 return
             q_t = species_configs[tgt].q
@@ -956,7 +1064,8 @@ def make_step_fn(config, species_configs, options: StepOptions):
                     aux.ruyten_linear, zfold=zfold)
             species[tgt], dropped = append_into_padded(
                 species[tgt], dict(new, x=x2, y=y2, z=z2), config.Nz,
-                species_configs[tgt].sort_K, zmin, 1.0 / config.dz, zfold)
+                species_configs[tgt].sort_K, zmin, 1.0 / config.dz, zfold,
+                halo)
             sort_overflow = sort_overflow + dropped
 
         for i, sc in enumerate(species_configs):
@@ -1020,7 +1129,10 @@ def make_step_fn(config, species_configs, options: StepOptions):
             sorts[i] = build_column_sort(sp.z, w_eff, float(zmin_mid),
                                          1.0 / config.dz, config.Nz,
                                          sc.sort_K, payload)
-            sort_overflow = sort_overflow + sorts[i]["n_over"]
+            n_over = sorts[i]["n_over"]
+            if halo is not None:
+                n_over = halo.psum(n_over)
+            sort_overflow = sort_overflow + n_over
 
         # --- Fused J + rho / d(rho) deposit of the sorted species (K1,
         # or K3 twice; cubic: deposit_rho_J_sorted_cubic) on their fresh
@@ -1045,11 +1157,14 @@ def make_step_fn(config, species_configs, options: StepOptions):
                 if want_drho:
                     fused_drho[i] = out[4]
 
-        # --- Current at t = (n+1/2) dt
-        Jp, Jm, Jz = deposit_J_spect(config, aux, species, species_configs,
-                                     zmin_mid, antenna_series=antenna_series,
-                                     iteration=it, sorts=sorts,
-                                     fused=fused_J)
+        # --- Current at t = (n+1/2) dt; on a slab the antenna deposits
+        # only where the slab owns its plane (its guard spill reaches
+        # the neighbour through the exchange, as particles' does)
+        Jp, Jm, Jz = deposit_J_spect(
+            config, aux, species, species_configs, zmin_mid,
+            antenna_series=antenna_series, iteration=it, sorts=sorts,
+            fused=fused_J, antenna_bounds=None if halo is None
+            else halo.own_bounds(zmin_mid))
         if options.filter_currents:
             Jp, Jm, Jz = ps.filter_vector(Jp, Jm, Jz, aux.filter_z,
                                           aux.filter_r)
@@ -1058,7 +1173,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
         # --- Cross-deposition (between the two position half pushes)
         if cross:
             spect = _cross_deposit(config, options, aux, spect, species,
-                                   species_configs, zmin, vg_dt)
+                                   species_configs, zmin, vg_dt, halo)
 
         # --- float32, species without the fused deposit: their charge at
         # the start-of-step positions, for the grid-difference d(rho)
@@ -1113,8 +1228,22 @@ def make_step_fn(config, species_configs, options: StepOptions):
                                             aux.filter_r)
         spect = replace(spect, rho_next=rho_next)
 
+        # On a slab the correction runs on the LOCAL sources (it is
+        # linear: the slabs' corrected currents sum to a current that
+        # satisfies the global continuity equation); the corrected J is
+        # then guard-added, rho only with use_true_rho / correct_divE,
+        # which read it (fbpic_tpu core/step.py:1605-1636: rho_prev
+        # exchanged and reused would break the next corrections)
         if options.correct_currents:
             spect = correct_currents(config, aux, spect, drho=drho)
+        if halo is not None:
+            names = ["Jp", "Jm", "Jz"]
+            if options.use_true_rho or options.correct_divE:
+                names += ["rho_next", "rho_prev"]
+            fs = halo.exchange_add([tr.ifft_z(getattr(spect, n))
+                                    for n in names])
+            spect = replace(spect, **{n: tr.fft_z(f)
+                                      for n, f in zip(names, fs)})
         spect = push_fields(config, aux, spect, options.use_true_rho)
         if options.correct_divE:
             Ep, Em, Ez = ps.correct_divE(spect.rho_prev, spect.Ep, spect.Em,
@@ -1127,6 +1256,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
         # fields in the flowing frame).  Before the window comparison, so
         # the window shifts only the excess over the drift.
         zmin = zmin + vg_dt
+        zmin_g = zmin_g + vg_dt
 
         # --- Moving window: shift the spectral fields and the grid edge;
         # roll the resident rows so row == column still holds
@@ -1135,7 +1265,7 @@ def make_step_fn(config, species_configs, options: StepOptions):
             mw_zref = mw_zref + options.moving_window_v * dt
             # 1e-3-cell guard: with v = c and dt = dz/c the argument
             # lands on integers (see fbpic_tpu core/step.py)
-            n_move = int(np.floor((mw_zref - zmin) / config.dz + 1e-3))
+            n_move = int(np.floor((mw_zref - zmin_g) / config.dz + 1e-3))
             spect = shift_spectral_fields(config, aux, spect, n_move, rdt)
             zmin = zmin + rdt(n_move) * config.dz
             for ri in resident_idx:
@@ -1159,12 +1289,15 @@ def make_step_fn(config, species_configs, options: StepOptions):
         # interp grid, transform back).  With mirrors (time-dependent
         # rows) the profile goes through damp_EB_z's full z round trip
         # first, and the PML round trip follows without it.
-        profile = _z_profile(config, options, aux, zmin, state.time)
+        # On a slab the profile is its cut of the global one, and the E/B
+        # guards are replaced in the same full round trip.
+        profile = _z_profile(config, options, aux, zmin, state.time, halo)
         pml_active = aux.damp_r_pml is not None
-        plain_damp = (not options.mirrors and profile is not None
+        plain_damp = (halo is None and not options.mirrors
+                      and profile is not None
                       and (aux.damp_rows is not None or pml_active))
-        if profile is not None and not plain_damp:
-            spect = damp_EB_z(config, aux, spect, profile)
+        if (profile is not None or halo is not None) and not plain_damp:
+            spect = damp_EB_z(config, aux, spect, profile, halo)
         if pml_active:
             interp = spect2interp_EB(aux, spect, interp, use_pml=True)
             if plain_damp:
@@ -1182,7 +1315,8 @@ def make_step_fn(config, species_configs, options: StepOptions):
             spect=spect, interp=interp, species=species,
             time=state.time + dt, zmin=zmin, iteration=it + 1,
             mw_zref=mw_zref, sort_overflow=sort_overflow,
-            ring_overwrite=ring_overwrite)
+            ring_overwrite=ring_overwrite,
+            migration_overflow=state.migration_overflow)
 
     return step
 
@@ -1214,7 +1348,7 @@ def _scatter_rho(aux, sc):
 
 
 def _cross_deposit(config, options, aux, spect, species, species_configs,
-                   zmin, vg_dt=0.0):
+                   zmin, vg_dt=0.0, halo=None):
     """Deposit rho_next_xy and rho_next_z (cross-deposition scheme).
 
     Particles enter at (z[n+1/2], x[n+1/2]); see reference
@@ -1243,6 +1377,9 @@ def _cross_deposit(config, options, aux, spect, species, species_configs,
     tmp = push_species(tmp, config.dt, -1.0, -1.0, 1.0, zmin_next)
     rho_next_z = deposit_rho_spect(config, aux, tmp, species_configs,
                                    zmin_next)
+    if halo is not None:
+        fs = halo.exchange_add([tr.ifft_z(rho_next_xy), tr.ifft_z(rho_next_z)])
+        rho_next_xy, rho_next_z = (tr.fft_z(f) for f in fs)
     if options.filter_currents:
         rho_next_xy = ps.filter_scalar(rho_next_xy, aux.filter_z,
                                        aux.filter_r)

@@ -46,6 +46,7 @@
 // blockIdx.y.
 
 #include "contract_common.cuh"
+#include "launch_common.cuh"
 
 namespace {
 
@@ -141,14 +142,11 @@ int launch(const void* const* ptrs, int Nz, int K, int C, int n_off, int Nrb,
   a.K = K; a.C = C; a.n_off = n_off; a.Nrb = Nrb; a.Rt = Rt;
 
   const size_t smem = smem_bytes<T>(C, n_off, Rt);
-  static size_t granted = 0;   // largest dynamic shared memory asked so far
-  if (smem > granted) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dense_contract_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = smem;
-  }
+  // largest dynamic shared memory granted so far, per device
+  static size_t granted[fbpic_launch::MAX_DEVICES] = {};
+  const int err =
+      fbpic_launch::grant_smem(dense_contract_kernel<T>, smem, granted);
+  if (err != 0) return err;
   dim3 grid(Nz, (Nrb + Rt - 1) / Rt);
   dense_contract_kernel<T><<<grid, N_THREADS, smem,
                              static_cast<cudaStream_t>(stream)>>>(a);

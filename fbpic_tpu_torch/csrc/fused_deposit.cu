@@ -43,6 +43,7 @@
 // blockIdx.y.
 
 #include "contract_common.cuh"
+#include "launch_common.cuh"
 
 namespace {
 
@@ -194,14 +195,11 @@ int launch(const void* const* ptrs, int Nz, int K, int CJ, int nJ, int CD,
   a.Nrb = Nrb; a.NT = NT; a.Rt = Rt;
 
   const size_t smem = smem_bytes<T>(CJ, nJ, CD, nD, NT, Rt);
-  static size_t granted = 0;   // largest dynamic shared memory asked so far
-  if (smem > granted) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_contract_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = smem;
-  }
+  // largest dynamic shared memory granted so far, per device
+  static size_t granted[fbpic_launch::MAX_DEVICES] = {};
+  const int err =
+      fbpic_launch::grant_smem(fused_contract_kernel<T>, smem, granted);
+  if (err != 0) return err;
   dim3 grid(Nz, (Nrb + Rt - 1) / Rt);
   fused_contract_kernel<T><<<grid, N_THREADS, smem,
                              static_cast<cudaStream_t>(stream)>>>(a);

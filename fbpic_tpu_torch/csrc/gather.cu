@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_common.cuh"
+
 namespace {
 
 constexpr int N_THREADS = 256;
@@ -385,23 +387,14 @@ gather_sorted_kernel(const __grid_constant__ GatherArgs<T> a) {
 
 template <typename T, bool STAGED>
 int launch_kernel(const GatherArgs<T>& a, size_t smem, void* stream) {
-  static size_t granted = 0;   // largest dynamic shared memory asked so far
-  if (smem > granted) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gather_sorted_kernel<T, STAGED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = smem;
-  }
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  // largest dynamic shared memory granted so far, per device
+  static size_t granted[fbpic_launch::MAX_DEVICES] = {};
+  const int err = fbpic_launch::grant_smem(
+      gather_sorted_kernel<T, STAGED>, smem, granted);
+  if (err != 0) return err;
+  static int sms[fbpic_launch::MAX_DEVICES] = {};
+  const int n_sm = fbpic_launch::sm_count(sms);
+  if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int bz = STAGED ? a.bz : 1;
   const int gx = (a.Nz + bz - 1) / bz;
   // split each column's slots until the grid fills the card, but keep at

@@ -90,7 +90,7 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
                 t_lab, zmin_lab + v_lab * t_lab, zmax_lab + v_lab * t_lab,
                 self.dz_lab, cfg.Nr, cfg.Nm, self.fieldtypes))
         self.names = list(self.snapshots[0].names) if self.snapshots else []
-        self._t_lab = None       # (S,) device tensor, made at first use
+        self._t_lab = {}         # (S,) tensor per (device, dtype)
         self._buf = None         # (valid, z_lab, slices) device buffers
         self._n = 0              # cycles in the buffer
 
@@ -109,25 +109,64 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
         (S,) bool, ``z_lab`` (S,) and ``slices`` (F, Nm, S, Nr) complex,
         F in ``self.names`` order (fbpic_tpu boosted_diag.py:193-247).
         ``strict``: a plane at the last row's centre is not valid."""
-        cfg, st = sim.config, sim.state
+        return self._slices(sim.config, sim.state, sim.aux.mats, strict)
+
+    def capture_decomposed(self, state, config_local, mats, comm,
+                           capacity=1):
+        """The capture of one slab of a z-decomposed run (fbpic_tpu's
+        ``device_capture(config, mats, own, axis_name)``,
+        boosted_diag.py:145-260): each slab slices the interior it owns
+        (state.zmin its local edge), the slices of the planes it does
+        not claim zeroed -- the interiors tile the global box, so at
+        most one slab claims a plane -- and the slices are summed over
+        the slabs in rank order.  Slab 0 appends the sum to the device
+        buffer (made for ``capacity`` cycles); ``process_captures``
+        consumes it.  No host synchronization."""
+        if not self.snapshots:
+            return
+        g = config_local.n_guard
+        own = (g, config_local.Nz - 2 * g, comm.rank, comm.size)
+        valid, z_lab, slices = self._slices(config_local, state, mats,
+                                            own=own)
+        mask = valid.to(slices.real.dtype)[None, None, :, None]
+        slices, n_claims = comm.psum([slices * mask, valid.to(torch.int32)])
+        if comm.rank == 0:
+            self._append((n_claims > 0, z_lab, slices), capacity)
+
+    def _slices(self, cfg, st, mats, strict=False, own=None):
+        """capture_slices of a state on grid ``cfg`` with radial
+        matrices ``mats``; ``own`` = (g, Nz_int, rank, size) on a slab:
+        a plane is valid where this slab owns it (the edge slabs' claims
+        opened to -+inf, as fbpic_tpu widens them) inside the global
+        box."""
         dev = st.interp.Er.device
         rdt = st.interp.Er.real.dtype
-        if self._t_lab is None or self._t_lab.device != dev:
+        t_lab = self._t_lab.get((dev, rdt))
+        if t_lab is None:
             # i * dt_snapshots_lab in float64, made on the device: a
             # host-to-device copy would synchronize
-            self._t_lab = (torch.arange(len(self.snapshots), device=dev,
-                                        dtype=torch.float64)
-                           * self.dt_snapshots_lab).to(rdt)
+            t_lab = self._t_lab[(dev, rdt)] = (
+                torch.arange(len(self.snapshots), device=dev,
+                             dtype=torch.float64)
+                * self.dt_snapshots_lab).to(rdt)
         gamma, beta = self.gamma_boost, self.beta_boost
         Nz, S = cfg.Nz, len(self.snapshots)
         t_b = float(st.time)
-        z_b = (self._t_lab / gamma - t_b) * c / beta
+        z_b = (t_lab / gamma - t_b) * c / beta
         z_lab = gamma * (z_b + beta * c * t_b)
         iz_f = (z_b - float(st.zmin)) / cfg.dz - 0.5
         iz0 = torch.clamp(torch.floor(iz_f).long(), 0, Nz - 2)
         s1 = torch.clamp(iz_f - iz0.to(rdt), 0.0, 1.0)
-        valid = (iz_f >= 0.0) & ((iz_f < Nz - 1.0) if strict
-                                 else (iz_f <= Nz - 1.0))
+        if own is None:
+            valid = (iz_f >= 0.0) & ((iz_f < Nz - 1.0) if strict
+                                     else (iz_f <= Nz - 1.0))
+        else:
+            g, Nz_int, rank, size = own
+            lo = -np.inf if rank == 0 else float(g)
+            hi = np.inf if rank == size - 1 else float(g + Nz_int)
+            glob = iz_f + (rank * Nz_int - g)
+            valid = ((iz_f >= lo) & (iz_f < hi) & (glob >= 0.0)
+                     & (glob <= size * Nz_int - 1.0))
         rows = torch.cat([iz0, iz0 + 1])
         w0, w1 = (1 - s1)[:, None], s1[:, None]
         out = {}
@@ -162,7 +201,7 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
             Nm, Nr = G.shape[1], G.shape[3]
             cols = torch.matmul(W, G.reshape(Nz, -1))
             cols = cols.reshape(S, Nm, n_f, Nr).permute(2, 1, 0, 3)
-            mats = torch.stack([getattr(sim.aux.mats, M) for _, _, M in spect])
+            mats = torch.stack([getattr(mats, M) for _, _, M in spect])
             F = tr.dht(mats, cols)                   # (F, Nm, S, Nr)
             F = dict(zip([n for n, _, _ in spect], F.unbind(0)))
             if "rho" in F:
@@ -179,17 +218,21 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
         when it is full."""
         if not self.snapshots:
             return
-        valid, z_lab, slices = self.capture_slices(sim, strict)
+        self._append(self.capture_slices(sim, strict), capacity)
+        if self._n == self._buf[0].shape[0]:
+            self.process_captures(sim)
+
+    def _append(self, captured, capacity):
+        """Append (valid, z_lab, slices) to the device buffer (made for
+        ``capacity`` cycles when there is none)."""
         if self._buf is None:
             self._buf = tuple(torch.empty((capacity,) + t.shape,
                                           dtype=t.dtype, device=t.device)
-                              for t in (valid, z_lab, slices))
+                              for t in captured)
             self._n = 0
-        for buf, t in zip(self._buf, (valid, z_lab, slices)):
+        for buf, t in zip(self._buf, captured):
             buf[self._n] = t
         self._n += 1
-        if self._n == self._buf[0].shape[0]:
-            self.process_captures(sim)
 
     def process_captures(self, sim):
         """Copy the buffered captures to the host (one synchronization)

@@ -126,13 +126,14 @@ class LaserAntenna(object):
 
 
 def add_antenna_current(Jr_grid, Jt_grid, series: AntennaSeries,
-                        iteration, zmin, dz, Nz):
+                        iteration, zmin, dz, Nz, own_bounds=None):
     """Add the antenna's current slice of host ``iteration`` onto the
     grid currents (complex (Nm, Nz, Nr)): linear weights on the two z
     cells next to the antenna, nothing when those leave the box.  The
     index and weights are host numbers of the working dtype (zmin: a
     numpy scalar of it), computed as fbpic_tpu computes them on its
-    device."""
+    device.  ``own_bounds``: on a slab of a decomposed run, the (z_lo,
+    z_hi) interval it owns -- the antenna deposits only there."""
     n_steps = series.z_pos.shape[0]
     i = min(max(iteration - series.it0, 0), n_steps - 1)
     z_ant = series.z_pos[i]
@@ -144,6 +145,9 @@ def add_antenna_current(Jr_grid, Jt_grid, series: AntennaSeries,
     iz0c = min(max(iz0, 0), Nz - 1)
     iz1c = min(max(iz0 + 1, 0), Nz - 1)
     if not 0 <= iz0 < Nz - 1:
+        return Jr_grid, Jt_grid
+    if own_bounds is not None and not (
+            own_bounds[0] <= z_ant < own_bounds[1]):
         return Jr_grid, Jt_grid
 
     def add(G, S):

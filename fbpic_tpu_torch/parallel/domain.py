@@ -1,0 +1,448 @@
+"""z-domain decomposition: slabs, guard exchange and particle migration.
+
+The port of fbpic_tpu's parallel/domain.py.  The z axis is cut into
+slabs, one per mesh device.  Each slab runs the full local spectral
+solve on its interior extended by n_guard cells at each end; the
+finite-order stencil keeps the spectral operator local, so the
+wrap-around error stays inside the guards (reference FBPIC:
+docs/source/overview/parallelisation.rst).
+
+Per step, between the slab threads (``parallel.group``):
+  - E/B guard cells REPLACED from the neighbour's interior (in partial
+    interpolation space, fused with the damping pass);
+  - corrected J guard strips ADDED into the neighbour's interior;
+  - particles that crossed a slab edge migrate through fixed-capacity
+    buffers (validity by weight) every exchange period.
+
+Layout (reference boundary_communicator.py:556-620):
+    local grid = [ng | nc | interior | nc | ng], ng = nc = n_guard
+    consecutive local grids overlap by 2*n_guard cells.
+
+A decomposed state is a list of per-slab ``SimState``: fields
+(Nm, Nz_local, Nr) and particle arrays (cap_local,) on the slab's
+device, each slab's ``zmin`` the GLOBAL grid edge (as fbpic_tpu keeps it
+replicated); the counters are psum'd, so every slab holds the totals.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..constants import c
+from ..fields.solver import build_field_aux, SpectralFields, InterpFields
+from ..particles.compaction import topk_compact
+from ..particles.state import ParticleState
+from ..core import step as step_mod
+from ..core.state import SimState
+from .group import SlabGroup
+
+
+MIGRATION_FIELDS = ("x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w")
+#: Per-particle channels that migrate with the particle where present
+_OPTIONAL_FIELDS = ("ionization_level", "ids", "comp_x", "comp_y", "comp_z")
+
+
+def local_grid_config(config_global, n_devices, n_guard):
+    """GridConfig of one slab (interior + 2*n_guard cells).
+
+    config_global.Nz must be divisible by n_devices.  The slab never
+    wraps particles periodically and never folds deposits around its
+    own edges: it is an 'open' local box whose boundary handling is
+    replaced by the halo exchange."""
+    if config_global.Nz % n_devices != 0:
+        raise ValueError("Nz must be divisible by the number of devices")
+    Nz_int = config_global.Nz // n_devices
+    return dataclasses.replace(
+        config_global, Nz=Nz_int + 2 * n_guard, n_guard=n_guard,
+        boundaries_z="open", nz_damp=0, n_inject=0)
+
+
+def exchange_guards_replace(fields, g, comm):
+    """Replace the z guard cells from the neighbours' interiors.
+
+    fields: list of complex (Nm, Nzl, Nr) tensors.  The strip a
+    neighbour needs is my 'nc' region; my guards are overwritten by what
+    I receive.  Returns new tensors."""
+    Nzl = [F.shape[1] for F in fields]
+    to_right = [F[:, n - 2 * g:n - g] for F, n in zip(fields, Nzl)]
+    to_left = [F[:, g:2 * g] for F in fields]
+    from_left, from_right = comm.shift_both(to_right, to_left)
+    out = []
+    for F, n, a, b in zip(fields, Nzl, from_left, from_right):
+        F = F.clone()
+        F[:, :g] = a
+        F[:, n - g:] = b
+        out.append(F)
+    return out
+
+
+def exchange_guards_add(fields, g, comm):
+    """Add the 2g-wide edge strips into the neighbours' matching
+    region (left strip first, as fbpic_tpu adds them)."""
+    Nzl = [F.shape[1] for F in fields]
+    send_right = [F[:, n - 2 * g:] for F, n in zip(fields, Nzl)]
+    send_left = [F[:, :2 * g] for F in fields]
+    from_left, from_right = comm.shift_both(send_right, send_left)
+    out = []
+    for F, n, a, b in zip(fields, Nzl, from_left, from_right):
+        F = F.clone()
+        F[:, :2 * g] += a
+        F[:, n - 2 * g:] += b
+        out.append(F)
+    return out
+
+
+def migrate_particles(sp, config_local, zmin, comm, buffer_size,
+                      global_open=False):
+    """Move the particles that crossed the slab's ownership boundary.
+
+    Ownership: [zmin + g dz, zmin + (Nzl - g) dz), zmin the slab's local
+    edge (a numpy scalar of the working dtype).  Outgoing particles are
+    compacted into fixed-size buffers (validity by weight) and sent to
+    the neighbours; the arrivals are compacted together and written into
+    dead slots only (``argsort(w != 0)``, dead first, stable), so a live
+    particle is never overwritten.  Every per-particle channel of the
+    species (ionization level, ids, Kahan words) migrates.
+
+    global_open: the GLOBAL box has open z boundaries -- the edge slabs
+    kill the particles leaving outward instead of wrapping them around
+    the ring; otherwise the arrivals that wrapped are shifted by the
+    global box length.
+
+    Returns (species, n_lost): the particles dropped because a buffer or
+    the dead slots ran out (a 0-d int64 tensor, this slab only)."""
+    g, dz, Nzl = config_local.n_guard, config_local.dz, config_local.Nz
+    rank, n = comm.rank, comm.size
+    rdt = type(zmin)
+    z_lo = float(zmin + rdt(g * dz))
+    z_hi = float(zmin + rdt((Nzl - g) * dz))
+    names = list(MIGRATION_FIELDS) + [
+        f for f in _OPTIONAL_FIELDS if getattr(sp, f) is not None]
+
+    alive = sp.w != 0
+    go_left = alive & (sp.z < z_lo)
+    go_right = alive & (sp.z >= z_hi)
+    kill = torch.zeros_like(go_left)
+    if global_open:
+        if rank == 0:
+            kill = kill | go_left
+            go_left = torch.zeros_like(go_left)
+        if rank == n - 1:
+            kill = kill | go_right
+            go_right = torch.zeros_like(go_right)
+
+    arrays = {f: getattr(sp, f) for f in names}
+    left_buf, sel_l, taken_l = topk_compact(go_left, buffer_size, arrays)
+    right_buf, sel_r, taken_r = topk_compact(go_right, buffer_size, arrays)
+    n_lost = (sel_l - taken_l) + (sel_r - taken_r)
+
+    out_mask = go_left | go_right | kill
+    w = torch.where(out_mask, torch.zeros_like(sp.w), sp.w)
+
+    # My right-going buffer to my right neighbour, left-going to my left
+    got_l, got_r = comm.shift_both([right_buf[f] for f in names],
+                                   [left_buf[f] for f in names])
+    from_left, from_right = dict(zip(names, got_l)), dict(zip(names, got_r))
+    if not global_open:
+        Lz_global = (Nzl - 2 * g) * dz * n
+        if rank == 0:
+            from_left["z"] = torch.where(from_left["w"] != 0,
+                                         from_left["z"] - Lz_global,
+                                         from_left["z"])
+        if rank == n - 1:
+            from_right["z"] = torch.where(from_right["w"] != 0,
+                                          from_right["z"] + Lz_global,
+                                          from_right["z"])
+
+    # Compact the two received buffers together BEFORE any length clamp,
+    # so the right buffer's arrivals are never truncated away
+    incoming = {f: torch.cat([from_left[f], from_right[f]]) for f in names}
+    capacity = sp.capacity
+    n_in = min(2 * buffer_size, capacity)
+    packed, n_live_in, _ = topk_compact(incoming["w"] != 0, n_in, incoming)
+
+    # Arrival i lands in the i-th dead slot; beyond the dead count it is
+    # lost (counted), never written over a live particle
+    dead_order = torch.argsort((w != 0).to(torch.int8), stable=True)
+    n_dead = (w == 0).sum()
+    slots = dead_order[:n_in]
+    valid = (packed["w"] != 0) & (
+        torch.arange(n_in, device=w.device) < n_dead)
+    n_lost = n_lost + (n_live_in - valid.sum())
+    updates = {}
+    for f in names:
+        arr = w if f == "w" else getattr(sp, f)
+        arr = arr.clone()
+        arr[slots] = torch.where(valid, packed[f].to(arr.dtype), arr[slots])
+        updates[f] = arr
+    return sp.replace(**updates), n_lost
+
+
+def default_n_guard(config_global):
+    """The finite-order stencil's reach + 1 (reference:
+    boundary_communicator.py:240-250); an infinite-order stencil has no
+    reach and cannot be decomposed."""
+    from ..fields.stencil import get_stencil_reach
+    if config_global.n_order == -1:
+        raise ValueError(
+            "Multi-chip decomposition needs a finite stencil order "
+            "(n_order > 0), like the reference's MPI mode.")
+    return get_stencil_reach(
+        config_global.Nz, config_global.dz, c * config_global.dt,
+        config_global.n_order, config_global.v_comoving,
+        config_global.use_galilean) + 1
+
+
+def clamped_exchange_period(config_global, g, exchange_period):
+    """The exchange period, clamped so particles stray at most half the
+    guard region between two migrations: max(1, int((g/2 - 3) /
+    (2 c dt / dz))) (reference: boundary_communicator.py:280-304)."""
+    cells_per_step = 2.0 * c * config_global.dt / config_global.dz
+    max_period = max(1, int((g / 2 - 3) / cells_per_step))
+    return max(1, min(int(exchange_period), max_period))
+
+
+def _damp_profile_padded(config_global, g):
+    """The global open-z damping profile padded by g zero cells at each
+    end (a slab's guards beyond the global box are damped to zero), or
+    None."""
+    if not (config_global.boundaries_z == "open"
+            and config_global.nz_damp > 0):
+        return None
+    from ..fields.solver import _damp_profile_z
+    return np.pad(_damp_profile_z(config_global), g, mode="constant")
+
+
+class Halo:
+    """Exchange and global-geometry hooks of slab ``comm.rank`` for the
+    decomposed step (core/step.py calls them where fbpic_tpu's step
+    calls its Halo)."""
+
+    def __init__(self, comm, config_global, config_local, damp_padded=None):
+        self.comm = comm
+        self.rank = comm.rank
+        self._cg, self._cl = config_global, config_local
+        self.g = config_local.n_guard
+        self.Nz_int = config_local.Nz - 2 * self.g
+        self.global_open = config_global.boundaries_z == "open"
+        self._damp_padded = damp_padded
+        self._damp = {}
+
+    def exchange_add(self, fields):
+        return exchange_guards_add(fields, self.g, self.comm)
+
+    def exchange_replace(self, fields):
+        return exchange_guards_replace(fields, self.g, self.comm)
+
+    def psum(self, value):
+        return self.comm.psum(value)
+
+    def all_gather(self, value):
+        return self.comm.all_gather(value)
+
+    def offset(self, rdt):
+        """The slab's local edge minus the global edge, in the working
+        dtype: (rank * Nz_int - g) dz."""
+        return rdt(self.rank * self.Nz_int - self.g) * rdt(self._cl.dz)
+
+    def global_zmin(self, zmin_local):
+        return zmin_local - self.offset(type(zmin_local))
+
+    def removal_bounds(self, zmin_g):
+        if not self.global_open:
+            return (-np.inf, np.inf)
+        ng = max(self._cg.n_guard, 1)
+        dz = self._cg.dz
+        return (zmin_g + ng * dz, zmin_g + (self._cg.Nz - ng) * dz)
+
+    def grid_globals(self, zmin_g):
+        return (zmin_g, self._cg.Nz, self._cg.n_guard, self._cg.n_inject)
+
+    def is_last(self):
+        return self.rank == self.comm.size - 1
+
+    def own_bounds(self, zmin_local):
+        dz = self._cl.dz
+        return (zmin_local + self.g * dz,
+                zmin_local + (self._cl.Nz - self.g) * dz)
+
+    def ownership_bounds(self, zmin_local):
+        """Half-open z interval of the particles this slab owns, the
+        global edges opened to -+inf: the slabs tile the global box, so
+        a new particle is written by the one slab that owns its
+        position."""
+        lo, hi = self.own_bounds(zmin_local)
+        if self.rank == 0:
+            lo = -np.inf
+        if self.is_last():
+            hi = np.inf
+        return lo, hi
+
+    def damp_profile(self, like):
+        """This slab's cut of the padded global damping profile, on the
+        device and in the real dtype of tensor ``like``, or None."""
+        if self._damp_padded is None:
+            return None
+        key = (like.device, like.dtype)
+        if key not in self._damp:
+            s = self.rank * self.Nz_int
+            self._damp[key] = torch.as_tensor(
+                self._damp_padded[s:s + self._cl.Nz], dtype=like.dtype,
+                device=like.device)
+        return self._damp[key]
+
+
+def make_multichip_step(config_global, species_configs, options, mesh,
+                        axis_name="z", migration_buffer=None, n_guard=None,
+                        capture_fns=(), group=None):
+    """Build the decomposed N-step function over ``mesh``.
+
+    config_global: the full-box grid config (for open z its Nz already
+    includes the edge guard / damp / injection cells, as in the
+    single-card Simulation).  Each slab owns Nz / n interior cells plus
+    2 n_guard halo cells; n_guard defaults to the stencil reach + 1.
+    The exchange period is clamped (``clamped_exchange_period``) and the
+    migration buffer defaults to max(2048, (period + 1) max(sort_K,
+    256)) slots.
+
+    capture_fns: callables ``cap(state_local, aux, comm)`` evaluated by
+    every slab after every step, the state's ``zmin`` the slab's LOCAL
+    edge (the back-transformed diagnostics' captures; each reduces over
+    the slabs itself).
+
+    Returns (multi_step, config_local) with
+    ``multi_step(states, auxes, n_steps, slab_kwargs=None)``: states and
+    auxes one per slab (a slab's aux on its device; slabs sharing a
+    device may share one), slab_kwargs one dict per slab of the step
+    function's keyword arguments (inj_auxes, column_angles, generator,
+    antenna_series, ion_auxes, comp_auxes, draws).  Returns the new
+    per-slab states.  ``multi_step.group``, ``.halos``,
+    ``.exchange_period`` and ``.migration_buffer`` are exposed."""
+    n = mesh.size
+    if n_guard is None:
+        n_guard = default_n_guard(config_global)
+    g = int(n_guard)
+    config_local = local_grid_config(config_global, n, g)
+    Nz_int = config_local.Nz - 2 * g
+    global_open = config_global.boundaries_z == "open"
+    exchange_period = clamped_exchange_period(config_global, g,
+                                              options.exchange_period)
+    options = dataclasses.replace(options, exchange_period=exchange_period)
+    if migration_buffer is None:
+        occ = max((sc.sort_K for sc in species_configs), default=0)
+        migration_buffer = max(2048, (exchange_period + 1) * max(occ, 256))
+    group = group or SlabGroup(mesh.devices)
+    damp_padded = _damp_profile_padded(config_global, g)
+    halos = [Halo(group.comm(r), config_global, config_local, damp_padded)
+             for r in range(n)]
+    step_fns = [step_mod.make_step_fn(config_local, species_configs, options,
+                                      halo=h) for h in halos]
+
+    def local_step(rank, state, aux, kw):
+        halo = halos[rank]
+        rdt = type(state.zmin)
+        zmin_global = state.zmin
+        zmin_local = zmin_global + halo.offset(rdt)
+        # 1. Migration every exchange period (the cadence of removal,
+        #    injection and the fresh rho_prev in the base step); the
+        #    guard clamp keeps strays inside the halo in between
+        species = list(state.species)
+        overflow = state.migration_overflow
+        if state.iteration % exchange_period == 0:
+            n_lost = torch.zeros((), dtype=torch.int64,
+                                 device=overflow.device)
+            for i, sp in enumerate(species):
+                species[i], lost = migrate_particles(
+                    sp, config_local, zmin_local, halo.comm,
+                    migration_buffer, global_open=global_open)
+                n_lost = n_lost + lost
+            overflow = overflow + halo.psum(n_lost)
+        state = dataclasses.replace(state, species=species, zmin=zmin_local,
+                                    migration_overflow=overflow)
+        # 2. The local PIC cycle (the halo exchanges happen inside)
+        state = step_fns[rank](state, aux, **kw)
+        state = dataclasses.replace(state, migration_overflow=overflow)
+        return state, zmin_global + (state.zmin - zmin_local)
+
+    def multi_step(states, auxes, n_steps, slab_kwargs=None):
+        kwargs = slab_kwargs or [{}] * n
+
+        def slab(rank):
+            state = states[rank]
+            if state.migration_overflow is None:
+                state = dataclasses.replace(
+                    state, migration_overflow=torch.zeros(
+                        (), dtype=torch.int64,
+                        device=state.spect.Ez.device))
+            for _ in range(n_steps):
+                state, zmin_g = local_step(rank, state, auxes[rank],
+                                           kwargs[rank])
+                for cap in capture_fns:
+                    cap(state, auxes[rank], halos[rank].comm)
+                state = dataclasses.replace(state, zmin=zmin_g)
+            return state
+
+        return group.run(slab)
+
+    multi_step.group = group
+    multi_step.halos = halos
+    multi_step.exchange_period = exchange_period
+    multi_step.migration_buffer = migration_buffer
+    return multi_step, config_local
+
+
+def local_aux(config_local, **kwargs):
+    """Field aux of one slab (build_field_aux of the local config; pass
+    device= and dtype=)."""
+    return build_field_aux(config_local, **kwargs)
+
+
+def build_multichip_state(config_global, config_local, n_devices,
+                          particles_by_species, zmin_global=0.0,
+                          cap_local=None, *, devices, dtype=torch.float64):
+    """The per-slab SimStates of a decomposed run from global particles.
+
+    particles_by_species: one dict per species of numpy arrays x, y, z,
+    ux, uy, uz, inv_gamma, w (global); each slab gets the particles
+    whose z falls in its interior (clamped at the ends), packed at the
+    front of a block of cap_local slots (default: 1.3 times the fullest
+    slab's count, rounded up to 256).  Fields start at zero; ``devices``
+    holds each slab's device."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    Nz_int = config_local.Nz - 2 * config_local.n_guard
+    Lz_int = Nz_int * config_local.dz
+    blocks = []
+    for arrays in particles_by_species:
+        z = np.asarray(arrays["z"])
+        dev = np.clip(((z - zmin_global) // Lz_int).astype(int), 0,
+                      n_devices - 1)
+        max_count = max(int((dev == i).sum()) for i in range(n_devices))
+        cap = cap_local or int(-(-(int(1.3 * max_count) + 1) // 256) * 256)
+        per = []
+        for i in range(n_devices):
+            sel = dev == i
+            cnt = int(sel.sum())
+            b = {k: np.zeros(cap) for k in MIGRATION_FIELDS}
+            b["inv_gamma"][:] = 1.0
+            for k in MIGRATION_FIELDS:
+                b[k][:cnt] = np.asarray(arrays[k])[sel]
+            per.append(b)
+        blocks.append(per)
+    states = []
+    for i in range(n_devices):
+        device = torch.device(devices[i])
+        species = [ParticleState(**{
+            k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in per[i].items()}) for per in blocks]
+        states.append(SimState(
+            spect=SpectralFields.zeros(config_local, device, dtype),
+            interp=InterpFields.zeros(config_local, device, dtype),
+            species=species, time=np_dtype(0.0),
+            zmin=np_dtype(zmin_global), iteration=0,
+            mw_zref=np_dtype(zmin_global),
+            sort_overflow=torch.zeros((), dtype=torch.int64, device=device),
+            ring_overwrite=torch.zeros((), dtype=torch.int64,
+                                       device=device),
+            migration_overflow=torch.zeros((), dtype=torch.int64,
+                                           device=device)))
+    return states

@@ -103,9 +103,11 @@ def dense_onehot_contract(geom, channel_vals, meta, Nrb):
     code = fn(table, Nz, K, C, n_off, Nrb, Rt,
               torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(code, "dense deposit")
-    dense_onehot_contract.launches += 1
+    kernels.count_launch(dense_onehot_contract)
     return out
 
 
-#: Kernel launches (CUDA path only), read by the chip smoke run.
+#: Kernel launches (CUDA path only), read by the chip smoke run; in a
+#: decomposed run also counted per slab (kernels.count_launch).
 dense_onehot_contract.launches = 0
+dense_onehot_contract.launches_by_slab = {}

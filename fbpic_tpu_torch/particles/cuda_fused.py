@@ -148,9 +148,11 @@ def fused_onehot_contract(geom, channels, meta, span, dph, ph_b, wj,
     code = fn(table, Nz, K, CJ, n_offJ, CD, n_offD, Nrb, Nr + 1, Rt,
               torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(code, "fused deposit")
-    fused_onehot_contract.launches += 1
+    kernels.count_launch(fused_onehot_contract)
     return out
 
 
-#: Kernel launches (CUDA path only), read by the chip smoke run.
+#: Kernel launches (CUDA path only), read by the chip smoke run; in a
+#: decomposed run also counted per slab (kernels.count_launch).
 fused_onehot_contract.launches = 0
+fused_onehot_contract.launches_by_slab = {}

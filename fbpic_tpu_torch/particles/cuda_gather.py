@@ -206,9 +206,11 @@ def gather_sorted(xp, yp, zp, valid, interp, rmax_gather, invdz, zmin, Nz,
               int(zfold == "periodic"), bz,
               torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(code, what)
-    gather_sorted.launches += 1
+    kernels.count_launch(gather_sorted)
     return tuple(out.unbind(0))
 
 
-#: Kernel launches (CUDA path only), read by the chip smoke run.
+#: Kernel launches (CUDA path only), read by the chip smoke run; in a
+#: decomposed run also counted per slab (kernels.count_launch).
 gather_sorted.launches = 0
+gather_sorted.launches_by_slab = {}

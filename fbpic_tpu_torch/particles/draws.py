@@ -17,7 +17,10 @@ fbpic_tpu ``jax.random`` call:
 - ``compton_recoil`` (slots,): the recoil decision.
 
 A caller may substitute any callable, e.g. one that reproduces
-fbpic_tpu's draws.
+fbpic_tpu's draws.  On a slab of a z-decomposed run (parallel/) the
+source is also called with ``rank=`` the slab's rank, which fbpic_tpu
+folds into its key so that the slabs draw independently; the default
+source ignores it (each slab draws from a generator of its own).
 """
 import numpy as np
 import torch
@@ -30,7 +33,8 @@ class GeneratorDraws:
     def __init__(self, generator):
         self.generator = generator
 
-    def __call__(self, name, iteration, species_index, shape, dtype):
+    def __call__(self, name, iteration, species_index, shape, dtype,
+                 rank=None):
         u = torch.rand(shape, generator=self.generator, dtype=dtype,
                        device=self.generator.device)
         return 2.0 * np.pi * u if name == "compton_phi" else u

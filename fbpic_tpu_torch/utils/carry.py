@@ -183,3 +183,48 @@ def state_from_leaves(leaves, *, device, dtype=torch.float64,
         sort_overflow=scalar("sort_overflow", 0),
         ring_overwrite=scalar("ring_overwrite", 0),
         device=device, dtype=dtype, process_targets=process_targets)
+
+
+def slab_states_from_numpy(spect, interp, species, time, zmin, iteration,
+                           n_slabs, mw_zref=None, sort_overflow=0,
+                           ring_overwrite=0, migration_overflow=0, *,
+                           devices, dtype=torch.float64,
+                           process_targets=()):
+    """The per-slab SimStates of a z-decomposed run from the numpy
+    leaves of fbpic_tpu's ``DistributedRun.state``: its fields are the
+    slabs' (Nm, Nz_local, Nr) blocks concatenated along z, its particle
+    arrays the slabs' (cap_local,) blocks concatenated; its scalars and
+    counters are replicated (the arguments as ``state_from_numpy``
+    takes them).  Slab i's block goes to ``devices[i]`` (a list, one per
+    slab, or one device for all); every slab's ``zmin`` is the global
+    edge, as the port's DistributedRun keeps it."""
+    if not isinstance(devices, (list, tuple)):
+        devices = [devices] * n_slabs
+
+    def block(arr, i, axis):
+        if arr is None:
+            return None
+        arr = np.asarray(arr)
+        n = arr.shape[axis] // n_slabs
+        return np.take(arr, np.arange(i * n, (i + 1) * n), axis=axis)
+
+    states = []
+    for i in range(n_slabs):
+        parts = []
+        for sp in species:
+            part = {}
+            for name, value in sp.items():
+                is_array = name in ARRAY_FIELDS or name == "ids_hi"
+                part[name] = block(value, i, 0) if is_array else value
+            parts.append(part)
+        st = state_from_numpy(
+            {n: block(v, i, 1) for n, v in spect.items()},
+            {n: block(v, i, 1) for n, v in interp.items()}, parts,
+            time, zmin, iteration, mw_zref=mw_zref,
+            sort_overflow=sort_overflow, ring_overwrite=ring_overwrite,
+            device=devices[i], dtype=dtype,
+            process_targets=process_targets)
+        st.migration_overflow = torch.as_tensor(
+            int(migration_overflow), dtype=torch.int64, device=devices[i])
+        states.append(st)
+    return states

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -45,6 +46,25 @@ _SIGNATURES = {
 }
 
 _libs = {}
+#: Builds and library loads happen under this lock: the slab threads of
+#: a decomposed run (parallel/) never start two nvcc on one source
+_build_lock = threading.RLock()
+#: Launch counts are read-modify-written under this lock
+_count_lock = threading.Lock()
+#: The slab (rank) of the running thread in a decomposed run, or None
+current_slab = threading.local()
+
+
+def count_launch(fn):
+    """Count one launch of kernel wrapper ``fn``: ``fn.launches`` and,
+    in a slab thread of a decomposed run, ``fn.launches_by_slab[rank]``
+    (safe across threads)."""
+    rank = getattr(current_slab, "rank", None)
+    with _count_lock:
+        fn.launches += 1
+        if rank is not None:
+            by_slab = fn.__dict__.setdefault("launches_by_slab", {})
+            by_slab[rank] = by_slab.get(rank, 0) + 1
 
 
 def _nvcc():
@@ -68,6 +88,11 @@ def build_all():
     Returns {name: compiler log} for the sources built by this call
     (``-Xptxas -v`` prints each kernel's registers, shared memory and
     spills).  Raises with the compiler output if a build fails."""
+    with _build_lock:
+        return _build_all()
+
+
+def _build_all():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in SOURCES:
@@ -90,6 +115,14 @@ def build_all():
 
 def library(name):
     """The loaded ctypes library of csrc/<name>.cu (built if needed)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _build_lock:
+        return _load(name)
+
+
+def _load(name):
     if name not in _libs:
         if not _lib_path(name).exists():
             build_all()

@@ -50,7 +50,16 @@ only PyTorch; there, skip the JAX-based conftest:
 - the 100- and 450-step float64 golden-wake profiles on the card with
   fbpic_tpu's injection angles (tests/data/torch_golden_angles.npz);
   the task device of use_all_mpi_ranks=False; tests/test_picmi.py's
-  setup through fbpic_tpu_torch.picmi on the card against the CPU.
+  setup through fbpic_tpu_torch.picmi on the card against the CPU;
+- the z decomposition (parallel/): make_mesh on the card; the float64
+  resident mesh of tests/test_resident.py (4 slabs sharing the card)
+  against the same 4 slabs on the CPU, within 1e-10 of each vector's
+  scale over the slabs but rho_prev (1e-6),
+  with exactly two K3 and one K2 launch per slab per step; a float32
+  LWFA on 2 slabs of the card against its single-card twin (5e-3) with
+  one K1 and one K2 per slab per step; the mesh's slabs spread over
+  the cards against the same slabs sharing one, where the machine has
+  two or more.
 """
 import os
 
@@ -1675,3 +1684,166 @@ def test_picmi_applied_field_and_mirror_on_card_match_cpu(cuda):
     assert np.abs(uz["cuda"] - uz["cpu"]).max() < 1e-8 * np.abs(
         uz["cpu"]).max()
     _close_profiles(runs, {"Ez_axis": 1e-8, "rho_axis": 1e-8})
+
+
+def _k_counters():
+    from fbpic_tpu_torch.particles.cuda_dense import dense_onehot_contract
+    from fbpic_tpu_torch.particles.cuda_fused import fused_onehot_contract
+    from fbpic_tpu_torch.particles.cuda_gather import gather_sorted
+    return {"K1": fused_onehot_contract, "K2": gather_sorted,
+            "K3": dense_onehot_contract}
+
+
+def _reset_slab_counts():
+    for fn in _k_counters().values():
+        fn.launches_by_slab = {}
+
+
+def _slab_counts():
+    return {k: dict(fn.launches_by_slab) for k, fn in _k_counters().items()}
+
+
+@pytest.mark.cuda
+def test_make_mesh_on_card(cuda):
+    from fbpic_tpu_torch.parallel import make_mesh
+    n = torch.cuda.device_count()
+    mesh = make_mesh()
+    assert [str(d) for d in mesh.devices] == [f"cuda:{i}" for i in range(n)]
+    assert make_mesh(devices=["cuda"] * 3).devices == [
+        torch.device("cuda", 0)] * 3
+    with pytest.raises(ValueError, match=f"requested a {n + 1}-device mesh"):
+        make_mesh(n + 1)
+
+
+def _resident_mesh(device, n_steps, devices=None):
+    """tests/test_resident.py's resident mesh in float64 (4 slabs,
+    n_guard 24, exchange_period 4) with numpy-drawn injection angles."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
+    from fbpic_tpu_torch.parallel import distribute_simulation
+
+    def angles(iteration, species_index, nkey):
+        rng = np.random.RandomState(1000 * int(iteration) + species_index)
+        return torch.as_tensor(2 * np.pi * rng.random_sample(nkey.shape[0]),
+                               device=nkey.device)
+    nz, zmax, zmin = 130, 12.e-6, -4.e-6
+    sim = Simulation(nz, zmax, 16, 10.e-6, 2, (zmax - zmin) / nz / c,
+                     zmin=zmin, n_order=16,
+                     boundaries={"z": "open", "r": "reflective"},
+                     exchange_period=4, random_seed=0, verbose_level=0,
+                     device=device, dtype=torch.float64)
+    sim.use_fused_deposit = True
+    sim.add_new_species(q=-e, m=m_e, n=5.e24, p_zmin=2.e-6, p_zmax=100.e-6,
+                        p_rmin=0., p_rmax=9.e-6, p_nz=1, p_nr=2, p_nt=4,
+                        continuous_injection=True, sort_K=256)
+    add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6, tau=8.e-15,
+                                       z0=6.e-6))
+    sim.set_moving_window(v=c)
+    sim.column_angles = angles
+    run = distribute_simulation(sim, devices=devices or [device] * 4,
+                                n_guard=24)
+    run.step(n_steps)
+    return run
+
+
+_FAMILIES = (("spect", ("Ep", "Em", "Ez")), ("spect", ("Bp", "Bm", "Bz")),
+             ("spect", ("Jp", "Jm", "Jz")), ("interp", ("Er", "Et", "Ez")),
+             ("interp", ("Br", "Bt", "Bz")), ("species", ("x", "y", "z")),
+             ("species", ("ux", "uy", "uz")), ("species", ("w",)))
+
+
+def _states_close(a_states, b_states, tol, tol_rho=1e-6):
+    """Per-slab states within tol of each vector's scale over the slabs
+    (the live particles only; the live slots equal), rho_prev within
+    tol_rho of its scale."""
+    lives = []
+    for a, b in zip(a_states, b_states):
+        lives.append((a.species[0].w != 0).cpu())
+        assert torch.equal(lives[-1], (b.species[0].w != 0).cpu())
+
+    def arrays(st, part, n, live):
+        if part == "species":
+            return getattr(st.species[0], n).cpu()[live]
+        return getattr(getattr(st, part), n).cpu()
+    for part, names in _FAMILIES + (("spect", ("rho_prev",)),):
+        pairs = [(arrays(a, part, n, lv), arrays(b, part, n, lv))
+                 for a, b, lv in zip(a_states, b_states, lives)
+                 for n in names]
+        scale = max(float(x.abs().max()) for x, _ in pairs if x.numel())
+        t = tol_rho if names == ("rho_prev",) else tol
+        for x, y in pairs:
+            if x.numel():
+                assert float((x - y).abs().max()) <= t * scale, (part, names)
+
+
+@pytest.mark.cuda
+def test_resident_mesh_on_card_matches_cpu(cuda):
+    n_steps = 12
+    _reset_slab_counts()
+    card = _resident_mesh("cuda:0", n_steps)
+    assert _slab_counts() == {"K1": {},
+                              "K2": {r: n_steps for r in range(4)},
+                              "K3": {r: 2 * n_steps for r in range(4)}}
+    cpu = _resident_mesh("cpu", n_steps)
+    _states_close(cpu.states, card.states, 1e-10)
+    assert card.overflow_totals == cpu.overflow_totals == {
+        "migration_overflow": 0, "sort_overflow": 0, "ring_overwrite": 0}
+
+
+@pytest.mark.cuda
+def test_slabs_on_several_cards_match_slabs_sharing_one(cuda):
+    """The 4 slabs of the float64 resident mesh spread over the cards
+    (cross-card exchanges: torch's copy between the cards' streams)
+    against the same 4 slabs sharing cuda:0."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two cards")
+    n_steps = 12
+    devices = [f"cuda:{r * min(n_cards, 4) // 4}" for r in range(4)]
+    one = _resident_mesh("cuda:0", n_steps)
+    many = _resident_mesh("cuda:0", n_steps, devices=devices)
+    assert [str(s.spect.Ez.device) for s in many.states] == devices
+    _states_close(one.states, many.states, 1e-10)
+
+
+@pytest.mark.cuda
+def test_float32_lwfa_on_two_slabs_of_the_card(cuda):
+    """tests/test_multichip.py's LWFA in float32 (the card's resident
+    layout: K1 and K2) on 2 slabs sharing the card against the single
+    card, 30 steps: Ez within 5e-3, the live count equal, one K1 and one
+    K2 per slab per step."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
+    from fbpic_tpu_torch.parallel import distribute_simulation
+    from fbpic_tpu_torch.fields import transform as tr
+    n_steps = 30
+
+    def build():
+        nz, zmax, zmin = 130, 12.e-6, -4.e-6
+        sim = Simulation(nz, zmax, 20, 10.e-6, 2, (zmax - zmin) / nz / c,
+                         p_zmin=2.e-6, p_zmax=200.e-6, p_rmin=0.,
+                         p_rmax=9.e-6, p_nz=1, p_nr=2, p_nt=4, n_e=5.e24,
+                         zmin=zmin, n_order=16,
+                         boundaries={"z": "open", "r": "reflective"},
+                         exchange_period=1, random_seed=0, verbose_level=0)
+        add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6,
+                                           tau=8.e-15, z0=6.e-6))
+        sim.set_moving_window(v=c)
+        return sim
+    single = build()
+    assert single.species_configs[0].resident
+    single.step(n_steps)
+    _reset_slab_counts()
+    run = distribute_simulation(build(), devices=["cuda:0"] * 2)
+    run.step(n_steps)
+    assert _slab_counts() == {"K1": {0: n_steps, 1: n_steps},
+                              "K2": {0: n_steps, 1: n_steps}, "K3": {}}
+    Ez1 = tr.spect2interp_scal(single.aux.mats,
+                               single.state.spect.Ez)[0].cpu().numpy()
+    Ez2 = run.get_interp_field("Ez", 0)
+    assert np.abs(Ez2 - Ez1).max() < 5e-3 * np.abs(Ez1).max()
+    assert sum(int((s.species[0].w != 0).sum()) for s in run.states) == int(
+        (single.state.species[0].w != 0).sum())
+    assert run.overflow_totals["migration_overflow"] == 0

@@ -16,7 +16,12 @@ directory.  examples/ is not edited.
   into a tracked species, its field and particle diagnostics every 4
   steps, 8 steps: the files of iterations 0, 4 and 8, the ionizer's
   configuration, and that every electron the dopant lost was created
-  (ids unique).
+  (ids unique);
+- multichip_lwfa_script.py: ``distribute_simulation`` bound to
+  ``devices=["cpu"] * 4`` (the port's default is every CUDA device), 6
+  steps on 4 slabs with the field diagnostic every 4 steps: the files of
+  iterations 0 and 4, and the live particles of the slabs the
+  Simulation's after the last gather.
 """
 import functools
 import os
@@ -40,6 +45,9 @@ def _few_torch_threads():
 def run_example(script, tmp_path, monkeypatch):
     """Run the example's text through the port; its globals."""
     import fbpic_tpu_torch
+    import fbpic_tpu_torch.parallel.api as api
+    monkeypatch.setattr(api, "distribute_simulation", functools.partial(
+        api.distribute_simulation, devices=["cpu"] * 4))
     with open(os.path.join(EXAMPLES, script)) as f:
         text = f.read().replace("fbpic_tpu", "fbpic_tpu_torch")
     monkeypatch.setenv("FBPIC_TPU_EXAMPLE_SMOKE", "1")
@@ -95,3 +103,20 @@ def test_ionization_script_runs_through_the_port(tmp_path, monkeypatch):
     assert int(born.sum()) == gained
     ids = sp_e.ids[born]
     assert int((ids == 0).sum()) == 0 and len(torch.unique(ids)) == gained
+
+
+def test_multichip_lwfa_script_runs_through_the_port(tmp_path, monkeypatch):
+    ns = run_example("multichip_lwfa_script.py", tmp_path, monkeypatch)
+    run, sim = ns["run"], ns["sim"]
+    assert run.iteration == ns["N_step"] and run.ndev == 4
+    assert all(s.iteration == ns["N_step"] for s in run.states)
+    assert all(d.type == "cpu" for d in run.devices)
+    hdf5 = tmp_path / "diags" / "hdf5"
+    assert sorted(os.listdir(hdf5)) == ["data%08d.h5" % i for i in (0, 4)]
+    with h5py.File(hdf5 / "data00000004.h5", "r") as f:
+        assert "E" in f["/data/4/fields"]
+    assert run.overflow_totals["migration_overflow"] == 0
+    run.sync_to_sim()
+    assert sim.iteration == ns["N_step"]
+    assert sim.ptcl[0].Ntot == sum(int((s.species[0].w != 0).sum())
+                                   for s in run.states)
