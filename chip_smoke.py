@@ -244,6 +244,30 @@ Phases (any failure raises, and the script exits non-zero):
      the live particles within 1e-10 of their vector's scale (the same
      configuration on one device, card against CPU, printed beside it),
      rho_prev (float64 atomics) within 1e-6.
+ 26. the chunk runner (core/graph.py): the bench LWFA, the boosted LWFA
+     of phase 6 and the PICMI LWFA of phase 21, each run 200 steps (the
+     boosted one 210: its window shifts 1 cell instead of 2 at step 200,
+     its second graph variant) through Simulation.step (the exchange
+     steps eager, every other step replayed from a captured CUDA graph)
+     beside an eager twin built from the same seeds (eager_steps: the
+     eager step function called in a loop): exactly one K1 and one K2 a
+     step (two K3 and one K2 on the boosted path), counted per replay,
+     and the expected graph variants; every array equal bit for bit but
+     rho_prev (an atomic scatter deposit: TOL_ATOMIC_RHO of its scale;
+     the boosted pair under torch's deterministic index_add_, its
+     correction reading rho_prev, and rho_prev too); no loss; each run's ms/step, peak memory, device busy,
+     idle share, device launches and host launch calls a step
+     (cudaLaunchKernel, cudaGraphLaunch) and the host syncs of an
+     exchange period; on the bench path a column overflow planted in
+     both runs, whose graphed chunk rolls back (one rollback) and ends
+     equal to the twin.
+
+Phases 1-25 run the paths through Simulation.step, so the
+configurations that take the chunk runner (every species resident, no
+processes, antennas, external fields, mirrors or capturing diagnostic)
+run replayed graphs there too.  Where a phase takes a running
+simulation's kernel operands (capture_calls), that one step runs through
+the eager twin's loop: a replay runs no Python.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.  Exits non-zero without a result
@@ -610,10 +634,48 @@ def phase_k1(sim):
                 **measure_k1(ops, "random half-full layout"))
 
 
+def eager_steps(sim, n_steps):
+    """The eager twin of sim.step(n_steps): the preparation, then the
+    eager step function called directly n_steps times in a loop, the
+    plain writers after each step, then the overflow read -- the loop
+    Simulation.step runs where the configuration keeps it
+    (core/graph.py's graph_blockers), without its antennas and capturing
+    diagnostics (raises if sim has either)."""
+    from fbpic_tpu_torch.core.step import make_prepare, make_step
+    if sim.laser_antennas or any(hasattr(d, "capture") for d in sim.diags):
+        raise ValueError("eager_steps: antennas or a capturing diagnostic")
+    options = sim.build_options()
+    step = make_step(sim.config, sim.species_configs, options)
+    sim.state = make_prepare(sim.config, sim.species_configs, options)(
+        sim.state, sim.aux)
+    writers = list(sim.diags) + list(sim.checkpoints)
+    for diag in sim.diags:
+        diag.write(sim)
+    for _ in range(n_steps):
+        sim.state = step(sim.state, sim.aux, tuple(sim._injector_auxes),
+                         sim.column_angles, sim.generator,
+                         ion_auxes=tuple(sim._ionizer_auxes),
+                         comp_auxes=tuple(sim._compton_auxes),
+                         draws=sim.process_draws)
+        for w in writers:
+            w.write(sim)
+    sim._consume_overflow_counters()
+
+
+def lost(totals):
+    """The overflow totals that count lost or dropped particles (not the
+    chunk runner's rollbacks, which lose nothing)."""
+    return {k: v for k, v in totals.items() if k != "rollbacks" and v}
+
+
 def capture_calls(sim, module, name):
     """The (args, kwargs) of every call of module.<name> (a kernel
     wrapper, or the function of the step that calls one) during one more
-    step of the running simulation."""
+    step of the running simulation: its eager step where the
+    configuration takes the chunk runner (a replayed step runs no
+    Python; a captured one's arguments are the graph's, not yet
+    computed), else sim.step(1)."""
+    from fbpic_tpu_torch.core.graph import graph_blockers
     real = getattr(module, name)
     calls = []
 
@@ -623,7 +685,10 @@ def capture_calls(sim, module, name):
 
     setattr(module, name, recorder)
     try:
-        sim.step(1)
+        if graph_blockers(sim, sim.build_options()):
+            sim.step(1)
+        else:
+            eager_steps(sim, 1)
     finally:
         setattr(module, name, real)
     if not calls:
@@ -671,6 +736,12 @@ def measure_k2(ops, label, timed):
     import torch
     from fbpic_tpu_torch.particles import cuda_gather
     tname = str(ops["xp"].dtype).split(".")[-1]
+    if not torch.is_tensor(ops["zmin"]):
+        # K2 reads zmin from device memory: a 0-d tensor, made once here
+        # (a host number would add a fill launch to every call)
+        ops = dict(ops, zmin=torch.full((), float(ops["zmin"]),
+                                        dtype=ops["xp"].dtype,
+                                        device=ops["xp"].device))
     kern = assert_bitwise_repeatable(
         lambda: torch.stack(cuda_gather.gather_sorted(**ops)),
         f"K2 ({label})")
@@ -790,7 +861,9 @@ def phase_k2(sim):
                 ops = dict(xp=pad[0], yp=pad[1], zp=pad[2],
                            valid=sort["valid"], interp=interp,
                            rmax_gather=cfg.rmax, invdz=1 / cfg.dz,
-                           zmin=sim.zmin, Nz=cfg.Nz, invdr=1 / cfg.dr,
+                           zmin=torch.full((), sim.zmin, dtype=dtype,
+                                           device=DEVICE),
+                           Nz=cfg.Nz, invdr=1 / cfg.dr,
                            rmin=0.0, Nr=cfg.Nr,
                            comp=comp if with_comp else None, zfold=zfold)
                 if zfold == "periodic" and with_comp:
@@ -845,12 +918,12 @@ def phase_k2_resident(sim, label):
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
-def count_syncs(sim, label, n_steps=1):
-    """Host synchronizations of one more step(n_steps) call, as torch's
-    CUDA sync debug mode reports them (a warning for every blocking
-    call), by the line of the port (or of chip_smoke) that made them: the
-    innermost frame of the call stack in fbpic_tpu_torch, whatever torch
-    function the warning names."""
+def count_syncs(sim, label, n_steps=1, run=None):
+    """Host synchronizations of one more step(n_steps) call (or of
+    run(n_steps)), as torch's CUDA sync debug mode reports them (a
+    warning for every blocking call), by the line of the port (or of
+    chip_smoke) that made them: the innermost frame of the call stack in
+    fbpic_tpu_torch, whatever torch function the warning names."""
     import collections
     import os
     import traceback
@@ -873,7 +946,7 @@ def count_syncs(sim, label, n_steps=1):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            sim.step(n_steps)
+            (run or sim.step)(n_steps)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     n = sum(where.values())
@@ -918,7 +991,7 @@ def phase_main(sim, counters):
     if launches != [n_steps, n_steps]:
         raise RuntimeError(f"K1 / K2 ran {launches} times in {n_steps} "
                            f"steps, not once a step each")
-    if any(sim.overflow_totals.values()):
+    if lost(sim.overflow_totals):
         raise RuntimeError(f"column/ring overflow: {sim.overflow_totals}")
     check_fields(sim, "main path")
     return launches, dict(ms_per_step=wall / N_TIMED * 1e3,
@@ -1126,18 +1199,26 @@ def phase_k3_resident(sim):
     return k3_step_total(windows, "resident boosted layout")
 
 
-def profile_steps(sim, n_steps):
+#: The host's launch calls as the profiler names them: a kernel launch
+#: and a CUDA graph's replay (one call for all the graph's kernels)
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cudaGraphLaunch")
+
+
+def profile_steps(sim, n_steps, run=None):
     """Device time per step and the kernels that take it, from
-    torch.profiler over n_steps steps (None when the profiler shows no
-    device time)."""
+    torch.profiler over n_steps steps (sim.step, or run(n)) (None when
+    the profiler shows no device time); also the host's launch calls a
+    step (HOST_LAUNCH_CALLS, each counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    sim.step(1)
+    run = run or sim.step
+    run(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.step(n_steps)
+        run(n_steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Kernel rows only: the CPU-op rows carry their kernels' device time
@@ -1151,20 +1232,28 @@ def profile_steps(sim, n_steps):
         print("profiler: no device time recorded (not measured)")
         return None
     n_launch = sum(ev.count for ev in kernels) / n_steps
+    host_calls = {}
+    for ev in prof.key_averages():
+        if ev.key in HOST_LAUNCH_CALLS:
+            host_calls[ev.key] = host_calls.get(ev.key, 0) + ev.count
+    host_calls = {k: v / n_steps for k, v in host_calls.items()}
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:12]
     port = {k: sum(ev.self_device_time_total for ev in kernels
                    if name in ev.key) / n_steps / 1e3
             for k, name in PORT_KERNELS.items()}
     print(f"profiled {n_steps} steps: {wall / n_steps * 1e3:.4f} ms/step "
           f"wall under the profiler, {busy_us / n_steps / 1e3:.4f} ms/step "
-          f"device busy, {n_launch:.1f} kernel launches/step; the port's "
-          f"kernels, ms/step: {port}", flush=True)
+          f"device busy, {n_launch:.1f} kernel launches/step; host launch "
+          f"calls/step {host_calls}; the port's kernels, ms/step: {port}",
+          flush=True)
     for ev in top:
         print(f"  {ev.self_device_time_total / n_steps / 1e3:9.4f} ms/step "
               f"{ev.count / n_steps:7.1f}/step  {ev.key[:90]}")
     return dict(device_ms_per_step=busy_us / n_steps / 1e3,
                 profiled_wall_ms_per_step=wall / n_steps * 1e3,
-                launches_per_step=n_launch, kernel_ms_per_step=port,
+                launches_per_step=n_launch,
+                host_launch_calls_per_step=host_calls,
+                kernel_ms_per_step=port,
                 top_rows=[dict(name=ev.key[:90], count_per_step=ev.count
                                / n_steps, ms_per_step=ev.self_device_time_total
                                / n_steps / 1e3) for ev in top[:5]])
@@ -1201,7 +1290,7 @@ def drive_path(sim, counters, n_warm, n_timed, label, per_step):
     want = {k: v * n_steps for k, v in per_step.items()}
     if launches != want:
         raise RuntimeError(f"{label} launches {launches} != {want}")
-    if any(sim.overflow_totals.values()):
+    if lost(sim.overflow_totals):
         raise RuntimeError(f"{label}: column/ring overflow "
                            f"{sim.overflow_totals}")
     check_fields(sim, label)
@@ -1386,7 +1475,7 @@ def nci_slope(scheme, dtype):
     rms_a = er_rms()
     sim.step(NCI_STEPS[1])
     rms_b = er_rms()
-    if any(sim.overflow_totals.values()):
+    if lost(sim.overflow_totals):
         raise RuntimeError(f"NCI run overflow: {sim.overflow_totals}")
     return float(np.log(rms_b) - np.log(rms_a))
 
@@ -1576,7 +1665,7 @@ def phase_lwfa_script(counters, untracked_ms, workdir):
     if launches != {"K1": LWFA_STEPS, "K2": LWFA_STEPS, "K3": 0}:
         raise RuntimeError(f"lwfa_script launches {launches}, not one K1 "
                            f"and one K2 a step")
-    if any(sim.overflow_totals.values()):
+    if lost(sim.overflow_totals):
         raise RuntimeError(f"lwfa_script overflow {sim.overflow_totals}")
     check_fields(sim, "lwfa_script")
     # Diagnostics: written files read back, or the collected records
@@ -2455,7 +2544,7 @@ def phase_pwfa(counters):
     t_rest = time.perf_counter() - t0
     check_fields(sim, label)
     live = sim.ptcl[1].Ntot
-    if live != n_bunch or any(sim.overflow_totals.values()):
+    if live != n_bunch or lost(sim.overflow_totals):
         raise RuntimeError(f"{label}: {live} bunch particles, overflow "
                            f"{sim.overflow_totals}")
     z_drive = float(np.mean(sim.ptcl[1].z))
@@ -2536,7 +2625,10 @@ def phase_antenna_lwfa(counters, lwfa_syncs):
     syncs = count_syncs(sim, label, ep)
     antennas = list(sim.laser_antennas)
     sim.laser_antennas.clear()
-    plain = count_syncs(sim, f"{label} without the antenna", ep)
+    # Without the antenna the configuration takes the chunk runner: count
+    # the eager loop's syncs, which the antenna run's are held against
+    plain = count_syncs(sim, f"{label} without the antenna", ep,
+                        run=lambda n: eager_steps(sim, n))
     sim.laser_antennas.extend(antennas)
     in_antenna = {k: v for k, v in syncs["where"].items()
                   if "antenna" in k}
@@ -3889,9 +3981,12 @@ def picmi_twin(workdir):
 def twin_difference(a, b):
     """The arrays of two simulations' states (every field and particle
     array) that differ, each with its largest difference relative to its
-    largest value, and whether their host values are equal."""
+    largest value, and whether their host values are equal (the chunk
+    runner's rollbacks aside: they are not state)."""
     from fbpic_tpu_torch.diagnostics.checkpoint_restart import checkpoint_dict
     da, db = checkpoint_dict(a), checkpoint_dict(b)
+    for d in (da, db):
+        d["host"]["overflow_totals"].pop("rollbacks", None)
     diffs, exact = state_difference(da, db)
     rel = {key: (diffs[key] / max(float(t.abs().max()), 1e-300)
                  if t.is_floating_point() or t.is_complex() else float("inf"))
@@ -3981,7 +4076,7 @@ def phase_picmi_lwfa(counters):
     # The wake behind the laser, as phase 4
     sim.step(WAKE_STEPS - sim.iteration)
     check_fields(sim, label)
-    if any(sim.overflow_totals.values()):
+    if lost(sim.overflow_totals):
         raise RuntimeError(f"{label}: overflow {sim.overflow_totals}")
     wp = np.sqrt(N_E * e**2 / (m_e * 8.8541878128e-12))
     lam_a = 2 * np.pi * c / wp
@@ -4106,7 +4201,7 @@ def phase_reference_script(counters):
         raise RuntimeError(f"{label}: launches {launches}")
     for s in (sim, rest):
         check_fields(s, label)
-        if any(s.overflow_totals.values()):
+        if lost(s.overflow_totals):
             raise RuntimeError(f"{label}: overflow {s.overflow_totals}")
     single = records_by_file(as_written)
     del sim, rest
@@ -4240,7 +4335,7 @@ def phase_golden_f64(counters):
           f"{errs}", flush=True)
     if launches != {"K1": 0, "K2": n, "K3": 2 * n}:
         raise RuntimeError(f"{label}: launches {launches}")
-    if any(sim.overflow_totals.values()) or angles.calls == 0:
+    if lost(sim.overflow_totals) or angles.calls == 0:
         raise RuntimeError(f"{label}: overflow {sim.overflow_totals} or "
                            f"no injection")
     if max(errs.values()) >= TOL_GOLDEN:
@@ -4523,8 +4618,7 @@ def phase_multichip_lwfa(counters):
                                             "K2": (MC_SLABS + 1) * n,
                                             "K3": 0}:
         raise RuntimeError(f"{label}: launches {launches} / {by_slab}")
-    if any(run.overflow_totals.values()) or any(
-            twin.sim.overflow_totals.values()):
+    if lost(run.overflow_totals) or lost(twin.sim.overflow_totals):
         raise RuntimeError(f"{label}: overflow {run.overflow_totals} / "
                            f"{twin.sim.overflow_totals}")
     if checks[MC_STEPS[0]]["Ez_deviation"][0] >= TOL_MULTICHIP or \
@@ -4709,6 +4803,258 @@ def family_deviations(cpu_states, card_states):
     return out, own
 
 
+#: Steps of each graph-path run beside its eager twin (they cross the
+#: exchange steps of every 14th step on the bench LWFA); the boosted
+#: window shifts 2 cells a step but 1 at steps 200, 399, ... (it gains
+#: 1.995 cells a step on the drifting grid), so its run takes 210 steps
+#: to capture and compare both variants
+GRAPH_STEPS = 200
+GRAPH_STEPS_BOOSTED = 210
+#: Steps of the call after the planted column overflow
+GRAPH_PLANT_STEPS = 10
+
+
+def plant_column_overflow(sim):
+    """Move the live particles of the two rows around the fullest
+    three-row run into its middle column: more than sort_K of them then
+    belong to that column, which the next banded re-sort counts as
+    overflow (a lone particle past the band is clamped into the nearest
+    in-band row and counts nothing).  Returns the row."""
+    import torch
+    sp, K = sim.state.species[0], sim.species_configs[0].sort_K
+    Nz, dz = sim.config.Nz, sim.config.dz
+    live = (sp.w != 0).reshape(Nz, K)
+    counts = live.sum(1)
+    row = int(torch.argmax(counts[:-2] + counts[1:-1] + counts[2:])) + 1
+    if int(counts[row - 1:row + 2].sum()) <= K:
+        raise RuntimeError("plant_column_overflow: no three rows hold more "
+                           "than sort_K particles")
+    z = sp.z.clone().reshape(Nz, K)
+    z[row - 1] = torch.where(live[row - 1], z[row - 1] + dz, z[row - 1])
+    z[row + 1] = torch.where(live[row + 1], z[row + 1] - dz, z[row + 1])
+    sim.state.species[0] = sp.replace(z=z.reshape(-1))
+    return row
+
+
+def twin_gate(label, graphed, twin, when):
+    """Every array of the graphed run equal to its eager twin's bit for
+    bit, but rho_prev (TOL_ATOMIC_RHO of its scale: an atomic scatter
+    deposit); the host values equal.  Returns the differing arrays."""
+    rel, same_host = twin_difference(graphed, twin)
+    print(f"{label}, {when}: graphed against the eager twin: host values "
+          f"equal {same_host}, differing arrays {rel}", flush=True)
+    off = {k: v for k, v in rel.items()
+           if k != ".spect.rho_prev" or v > TOL_ATOMIC_RHO}
+    if not same_host or off:
+        raise RuntimeError(f"{label}: graphed and eager differ {when}: "
+                           f"{rel}, host equal {same_host}")
+    return rel
+
+
+def timed_run(run, n_steps):
+    """ms/step of run(n_steps), synchronized, and the peak memory it
+    allocated above what was allocated before it (GB)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(n_steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    return ms, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+@contextlib.contextmanager
+def deterministic_scatter(on):
+    """With ``on``: torch's deterministic algorithms while the block runs
+    (index_add_ as a sorted segment sum instead of float atomics; other
+    ops warn only; no fill of new memory), so that the scatter deposit of
+    rho_prev gives the same bits in every run."""
+    import torch
+    import torch.utils.deterministic as det
+    if not on:
+        yield
+        return
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        det.fill_uninitialized_memory = fill
+
+
+def graph_pair(label, build, per_step, counters, variants_want, n_steps,
+               plant=False, deterministic=False):
+    """One path's graphed run (Simulation.step) beside its eager twin
+    (eager_steps), both built by build() from the same seeds: n_steps
+    steps each in one call, the graphed run's kernel counts (set to 0
+    just before it) exactly per_step a step, its graph variants (n_move,
+    full re-sort) variants_want; every array bit for bit but rho_prev; no
+    loss; then each run's ms/step, peak memory, profiled
+    window (device busy, launches, host launch calls) and host syncs of
+    an exchange period, in the same calls on both, and the equality once
+    more; with plant, a column overflow planted in both at a
+    non-exchange step, and the graphed call that rolls back equal to the
+    twin's.  With deterministic, the n_steps steps of both runs run
+    under deterministic_scatter, and two eager runs without it show what
+    the atomics alone change: the path's correction reads rho_prev (the
+    Galilean / comoving scheme), so its bits reach E, B, J and the
+    particles; the timed windows follow without it, and the equality is
+    then not held again."""
+    import torch
+    import warnings
+    graphed, twin = build(), build()
+    eager = lambda n: eager_steps(twin, n)   # noqa: E731
+    with deterministic_scatter(deterministic):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        # from the first call: the static buffers, the chunk's input kept
+        # aside and the graph pool count in the graphed run's peak
+        _, peak_graphed = timed_run(graphed.step, n_steps)
+        t_graphed = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        _, peak_eager = timed_run(eager, n_steps)
+        t_eager = time.perf_counter() - t0
+    twin_launches = {k: fn.launches for k, fn in counters.items()}
+    runner = graphed._multi_step
+    variants = sorted(runner.graphs) if runner is not None else None
+    print(f"{label}: {n_steps} steps graphed in {t_graphed:.2f} s "
+          f"(captures included; variants {variants}), eager twin "
+          f"{t_eager:.2f} s; launches graphed {launches} (counted per "
+          f"replay), eager {twin_launches}; overflow graphed "
+          f"{graphed.overflow_totals}, twin {twin.overflow_totals}; peak "
+          f"memory above the run's start: graphed {peak_graphed:.3f} GB, "
+          f"eager {peak_eager:.3f} GB", flush=True)
+    want = {k: v * n_steps for k, v in per_step.items()}
+    if runner is None or variants != variants_want:
+        raise RuntimeError(f"{label}: graph variants {variants}, not "
+                           f"{variants_want}")
+    if launches != want or twin_launches != want:
+        raise RuntimeError(f"{label}: launches {launches} / eager "
+                           f"{twin_launches} != {want}")
+    if lost(graphed.overflow_totals) or lost(twin.overflow_totals):
+        raise RuntimeError(f"{label}: overflow {graphed.overflow_totals} / "
+                           f"{twin.overflow_totals}")
+    check_fields(graphed, label)
+    rel = twin_gate(label, graphed, twin, f"after {n_steps} steps")
+    out = dict(steps=n_steps, launches=launches, variants=[
+        list(v) for v in variants], rho_prev_rel_diff=rel.get(
+            ".spect.rho_prev", 0.0), deterministic_scatter=deterministic,
+        rollbacks=graphed.overflow_totals.get("rollbacks", 0),
+        first_call_peak_gb=dict(graphed=peak_graphed, eager=peak_eager))
+    # The graph's copy of the step's results into the static buffers
+    # (every state tensor once): its bytes and its time on the card
+    from fbpic_tpu_torch.core.graph import state_tensors
+    pairs = list(zip(runner._static, state_tensors(graphed.state)))
+    state_bytes = sum(t.numel() * t.element_size() for _, t in pairs)
+    copy_ms = cuda_ms(lambda: [s.copy_(t) for s, t in pairs])
+    copy_bound, _ = bound(2 * state_bytes, 0)      # read and write once
+    print(f"{label}: the state is {state_bytes / 1e6:.1f} MB in "
+          f"{len(pairs)} tensors; copying it into the static buffers takes "
+          f"{copy_ms:.4f} ms (bound {copy_bound:.4f} ms)", flush=True)
+    out.update(state_bytes=state_bytes, copy_back_ms=copy_ms,
+               copy_back_bound_ms=copy_bound)
+    del pairs
+    if deterministic:
+        pair = [build() for _ in range(2)]
+        for sim in pair:
+            eager_steps(sim, n_steps)
+        atomics, _ = twin_difference(*pair)
+        print(f"{label}: two eager runs with the atomic scatter, "
+              f"{n_steps} steps: differing arrays {atomics}", flush=True)
+        out["eager_vs_eager_atomics"] = atomics
+        del pair
+        torch.cuda.empty_cache()
+    for name, sim, run in (("graphed", graphed, graphed.step),
+                           ("eager", twin, eager)):
+        ms, peak = timed_run(run, N_TIMED)
+        prof = profile_steps(sim, N_PROFILED, run=run)
+        syncs = count_syncs(sim, f"{label} {name}", sim.exchange_period,
+                            run=run)
+        out[name] = dict(
+            ms_per_step=ms, peak_gb_above_start=peak,
+            reserved_gb=torch.cuda.memory_reserved() / 1e9,
+            host_syncs_exchange_period=syncs,
+            profile=prof, idle_share=None if prof is None else
+            1 - prof["device_ms_per_step"] / ms)
+        busy = None if prof is None else prof["device_ms_per_step"]
+        print(f"{label} {name}: {ms:.4f} ms/step, device busy {busy} "
+              f"ms/step, idle share {out[name]['idle_share']}, peak "
+              f"{peak:.3f} GB above the run's start, "
+              f"{syncs['count']} host syncs in step({sim.exchange_period})",
+              flush=True)
+    if not deterministic:
+        twin_gate(label, graphed, twin, "after the timed windows")
+    if plant:
+        if graphed.iteration % graphed.exchange_period == 0:
+            graphed.step(1)
+            eager(1)
+        rows = [plant_column_overflow(sim) for sim in (graphed, twin)]
+        before = graphed.overflow_totals.get("rollbacks", 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            graphed.step(GRAPH_PLANT_STEPS)
+            eager(GRAPH_PLANT_STEPS)
+        rolled = graphed.overflow_totals.get("rollbacks", 0) - before
+        print(f"{label}: column overflow planted at row {rows[0]} at "
+              f"iteration {graphed.iteration - GRAPH_PLANT_STEPS}: "
+              f"{rolled} rollback(s); sort_overflow graphed "
+              f"{graphed.overflow_totals['sort_overflow']}, twin "
+              f"{twin.overflow_totals['sort_overflow']}; sort_K now "
+              f"{graphed.species_configs[0].sort_K}", flush=True)
+        if rolled != 1 or graphed.overflow_totals["sort_overflow"] == 0:
+            raise RuntimeError(f"{label}: the planted overflow made "
+                               f"{rolled} rollbacks")
+        twin_gate(label, graphed, twin, "after the planted rollback")
+        graphed.step(GRAPH_PLANT_STEPS)
+        eager(GRAPH_PLANT_STEPS)
+        twin_gate(label, graphed, twin, "after the re-captured call")
+        out["planted_rollbacks"] = rolled
+    return out
+
+
+def phase_graph_paths(counters, smi):
+    """26. The chunk runner (core/graph.py: the non-exchange steps
+    replayed from captured CUDA graphs) on the bench LWFA, the boosted
+    LWFA (phase 6; n_move alternates: two variants) and the PICMI LWFA
+    (phase 21; its dens_func on the host at the exchange steps), each
+    beside its eager twin (graph_pair); the bench run also rolls back a
+    planted column overflow."""
+    import torch
+    workdir = tempfile.mkdtemp()
+
+    def picmi_sim():
+        sim = picmi_lwfa(workdir).sim
+        for diag in sim.diags:
+            collect_only(diag, [])
+        return sim
+
+    # (label, build, launches a step, graph variants, steps, plant an
+    # overflow, deterministic)
+    paths = (("bench LWFA", make_sim, {"K1": 1, "K2": 1, "K3": 0},
+              [(1, False)], GRAPH_STEPS, True, False),
+             ("boosted LWFA", make_boosted_sim, {"K1": 0, "K2": 1, "K3": 2},
+              [(1, False), (2, False)], GRAPH_STEPS_BOOSTED, False, True),
+             ("PICMI LWFA", picmi_sim, {"K1": 1, "K2": 1, "K3": 0},
+              [(1, False)], GRAPH_STEPS, False, False))
+    out = {}
+    for label, build, per_step, variants, n_steps, plant, det in paths:
+        out[label] = graph_pair(label, build, per_step, counters, variants,
+                                n_steps, plant, det)
+        torch.cuda.empty_cache()
+    print(f"graph paths on {smi}", flush=True)
+    return out
+
+
 def phase_resident_mesh_f64(counters):
     """25. tests/test_resident.py's resident mesh in float64 (4 slabs,
     n_guard 24, exchange period 4, 40 steps) on the card and on the card
@@ -4768,7 +5114,7 @@ def phase_resident_mesh_f64(counters):
     if off:
         raise RuntimeError(f"{label}: card against CPU off: {off} "
                            f"(control {control})")
-    if any(card.overflow_totals.values()):
+    if lost(card.overflow_totals):
         raise RuntimeError(f"{label}: overflow {card.overflow_totals}")
     del card, cpu, one_card, one_cpu
     torch.cuda.empty_cache()
@@ -4915,6 +5261,13 @@ def main():
     mesh64_launches, mesh_f64 = phase_resident_mesh_f64(counters)
     k2["launches_mesh_f64"] = mesh64_launches["K2"]
     k3["launches_mesh_f64"] = mesh64_launches["K3"]
+    graph_paths = phase_graph_paths(counters, smi)
+    k1["launches_graphed"] = {k: v["launches"]["K1"]
+                              for k, v in graph_paths.items()}
+    k2["launches_graphed"] = {k: v["launches"]["K2"]
+                              for k, v in graph_paths.items()}
+    k3["launches_graphed"] = {k: v["launches"]["K3"]
+                              for k, v in graph_paths.items()}
 
     print(json.dumps({"main_path": main_metrics, "wake_ratio": ratio,
                       "boosted_path": boosted_metrics,
@@ -4953,6 +5306,7 @@ def main():
                                              launches=mc_launches),
                       "resident_mesh_f64": dict(mesh_f64,
                                                 launches=mesh64_launches),
+                      "graph_paths": graph_paths,
                       "seconds": time.perf_counter() - t_start},
                      default=float))
     print(smi)

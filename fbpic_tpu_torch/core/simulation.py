@@ -40,15 +40,12 @@ from ..particles.deposit import deposit_rho_linear, deposit_rho_J_linear
 from ..fields import psatd_push as psp
 from ..utils.device import catch_memory_error
 from ..utils.printing import ProgressBar, print_simulation_setup
+from .graph import MAX_CAPTURE, graph_blockers, signature
 from .state import SimState
 from .step import (
-    StepOptions, interp2spect_EB, make_step_fn, prepare, deposit_rho_spect,
-    deposit_J_spect,
+    StepOptions, interp2spect_EB, make_step, make_prepare, make_multi_step,
+    ensure_counters, deposit_rho_spect, deposit_J_spect,
 )
-
-#: Most cycles a capture diagnostic buffers on the device before it
-#: consumes them (fbpic_tpu's step chunk cap)
-MAX_CAPTURE = 250
 
 
 def adapt_to_grid(x, p_xmin, p_xmax, p_nx, ncells_empty=0):
@@ -353,7 +350,11 @@ class Simulation:
             ring_overwrite=torch.zeros((), dtype=torch.int64,
                                        device=device))
         #: Overflow counts summed over all step() calls of this object
+        #: (and "rollbacks": chunks run again eagerly, once there is one)
         self.overflow_totals = {"sort_overflow": 0, "ring_overwrite": 0}
+        #: The chunk runner of the last graph-path call, and what it was
+        #: built for
+        self._multi_step = self._multi_step_key = None
         #: (iteration, species index, new capacity) of every ring grown
         self.ring_growth = []
         self.species_configs = []
@@ -728,7 +729,17 @@ class Simulation:
         written if its period says so.  fbpic_tpu writes the latter at
         the end of step chunks that stop at their smallest period: the
         same iterations.  The laser antennas' currents are computed for
-        the same chunks, one upload each (``_antenna_block``)."""
+        the same chunks, one upload each (``_antenna_block``).
+
+        A run whose every species is resident, without the processes,
+        antennas, external fields, mirrors or a capturing diagnostic
+        (``core.graph.graph_blockers``), runs fbpic_tpu's chunk loop
+        instead: chunks of at most MAX_CAPTURE steps, each ending where
+        a writer's period ends, each run by the chunk runner
+        (``make_multi_step``: on CUDA, the non-exchange steps replayed
+        from captured CUDA graphs) with one host read at its end.  A
+        chunk that had to be run again eagerly (a banded re-sort's
+        overflow) counts in ``overflow_totals["rollbacks"]``."""
         if not self._banner_printed:
             self._banner_printed = True
             print_simulation_setup(self, self.verbose_level)
@@ -740,18 +751,77 @@ class Simulation:
 
     def _step_impl(self, N, show_progress=False, **option_kw):
         options = self.build_options(**option_kw)
-        step_fn = make_step_fn(self.config, self.species_configs, options)
         # Refresh spectral E/B from the interpolation grid (captures any
         # user-set fields), then the initial rho_prev deposit
         # (reference: main.py:408-415 and :435-449)
-        self.state = prepare(self.config, options, self.species_configs,
-                             self.state, self.aux)
+        self.state = make_prepare(self.config, self.species_configs,
+                                  options)(self.state, self.aux)
         for diag in self.diags:
             diag.write(self)
         writers = list(self.diags) + list(self.checkpoints)
         capture = [w for w in writers if hasattr(w, "capture")]
         plain = [w for w in writers if not hasattr(w, "capture")]
         progress = ProgressBar(N) if show_progress else None
+        counts = None
+        if graph_blockers(self, options):
+            self._run_eager(N, options, capture, plain, progress)
+        else:
+            counts = self._run_chunks(N, options, plain, progress)
+        for w in capture:
+            w.process_captures(self)
+        if progress is not None:
+            progress.print_summary()
+        self._consume_overflow_counters(counts)
+
+    def _run_chunks(self, N, options, plain, progress):
+        """fbpic_tpu's chunk loop (core/simulation.py:880-957) on the
+        chunk runner; returns the last chunk's counts."""
+        self.state = ensure_counters(self.state)
+        key = (options, tuple(self.species_configs), id(self.aux),
+               signature(self.state))
+        if key != self._multi_step_key:
+            # A new configuration: the previous graphs go
+            self._multi_step = None
+            self._multi_step = make_multi_step(
+                self.config, self.species_configs, options)
+            self._multi_step_key = key
+        done, counts = 0, None
+        while done < N:
+            chunk = self._chunk_length(N - done, plain)
+            if progress is not None:
+                # the bar's updates end chunks too: the same as the loop's
+                chunk = next(k for k in range(1, chunk + 1)
+                             if k == chunk or progress.due(done + k))
+            self.state, counts = self._multi_step(
+                self.state, self.aux, chunk, tuple(self._injector_auxes),
+                self.column_angles, self.generator, self.process_draws)
+            if counts["rolled_back"]:
+                self.overflow_totals["rollbacks"] = \
+                    self.overflow_totals.get("rollbacks", 0) + 1
+            done += chunk
+            for w in plain:
+                w.write(self)
+            if progress is not None and progress.due(done):
+                progress.time(done)
+                progress.print_progress()
+        return counts
+
+    def _chunk_length(self, n_left, plain):
+        """Steps of the next chunk: at most MAX_CAPTURE, ending where any
+        plain writer's period ends (a writer without one: every step),
+        so that they write at the iterations the eager loop writes at."""
+        it = self.state.iteration
+        chunk = min(n_left, MAX_CAPTURE)
+        for w in plain:
+            period = getattr(w, "period", None)
+            chunk = min(chunk, max(1, period - it % period) if period
+                        else 1)
+        return chunk
+
+    def _run_eager(self, N, options, capture, plain, progress):
+        """The eager loop: one step at a time, the capturing diagnostics
+        and the writers after each."""
+        step_fn = make_step(self.config, self.species_configs, options)
         series, block_end = (), 0
         for n in range(N):
             if self.laser_antennas and n == block_end:
@@ -772,11 +842,6 @@ class Simulation:
                     torch.cuda.synchronize(self.device)
                 progress.time(n + 1)
                 progress.print_progress()
-        for w in capture:
-            w.process_captures(self)
-        if progress is not None:
-            progress.print_summary()
-        self._consume_overflow_counters()
 
     def _antenna_block(self, N, n, plain):
         """The antennas' current series for the block of steps from
@@ -848,10 +913,11 @@ class Simulation:
         self.state = replace(self.state, species=species)
         return new_cap
 
-    def _consume_overflow_counters(self):
+    def _consume_overflow_counters(self, counts=None):
         """Read the overflow counters, and the live count of every ring
         that ionization or Compton scattering write into (one host read
-        per step() call).
+        per step() call; none after the chunk loop, whose last chunk
+        read them: ``counts``, when no species is a process target).
 
         sort_overflow > 0: some z column exceeded its sort_K slots and
         the excess particles were lost (resident) or their charge was
@@ -868,10 +934,13 @@ class Simulation:
         are fewer than half its slots."""
         targets = [i for i, sc in enumerate(self.species_configs)
                    if not sc.resident and self.is_process_target(i)]
-        counts = torch.stack(
-            [self.state.sort_overflow, self.state.ring_overwrite]
-            + [(self.state.species[i].w != 0).sum() for i in targets]
-        ).tolist()
+        if counts is not None and not targets:
+            counts = [counts["sort_overflow"], counts["ring_overwrite"]]
+        else:
+            counts = torch.stack(
+                [self.state.sort_overflow, self.state.ring_overwrite]
+                + [(self.state.species[i].w != 0).sum() for i in targets]
+            ).tolist()
         n_sort, n_ring = counts[:2]
         live = dict(zip(targets, counts[2:]))
         self.overflow_totals["sort_overflow"] += n_sort

@@ -59,9 +59,13 @@ padded form.  Every other species keeps a stable storage order (a ring,
 into which continuous injection writes at a cursor); with sort_K > 0 it
 is column-sorted afresh after its first half push for the sorted
 deposits.  The data-dependent branches of fbpic_tpu's jitted step run
-on the host: the exchange cadence and the injected column count depend
-on the iteration only, and the banded re-sort's fallback to the full
-sort reads the overflow count back (one device-to-host sync per step).
+on the host: the exchange cadence, the window's shift and the injected
+column count depend on the host's own scalars (``plan_step``), and the
+banded re-sort's fallback to the full sort reads the overflow count back
+(one device-to-host sync), unless the caller passes a ``redo_flag``:
+then the count is added into that device flag and the caller redoes the
+step (core/graph.py, whose CUDA graphs of the step also take the step's
+scalars from the device, ``StepScalars``).
 """
 from dataclasses import dataclass, replace
 
@@ -119,6 +123,78 @@ class StepOptions:
     external_fields: tuple = ()
     # Mirror objects (zero E/B in thin z-slabs each step)
     mirrors: tuple = ()
+
+
+@dataclass(frozen=True)
+class StepScalars:
+    """The scalars of one step as 0-d tensors of the working dtype on the
+    step's device (a row of core/graph.py's per-chunk table): the grid's
+    left edge at the gather and re-sort (``zmin``), at the J deposit
+    (``zmin_mid``) and at rho_next (``zmin_next``), the step's ``time``
+    and the moving window's reference ``mw_zref``.  Given to the step,
+    every torch op and kernel of the resident block reads them from
+    there, so that a captured step reads each replay's values.  Their
+    values are the host's (``plan_step``), rounded to the working dtype
+    as a torch op rounds the host number: the step is the same bit for
+    bit either way."""
+    zmin: torch.Tensor
+    zmin_mid: torch.Tensor
+    zmin_next: torch.Tensor
+    time: torch.Tensor
+    mw_zref: torch.Tensor
+
+
+@dataclass(frozen=True)
+class StepPlan:
+    """What the host decides for one step from its own scalars: whether
+    the exchange block runs (open z, every exchange period), whether the
+    banded species are fully re-sorted, the window's shift ``n_move``;
+    the grid edges of the step's deposits, and the step's end values of
+    zmin, mw_zref and time (numpy scalars of the working dtype: the
+    host's arithmetic, with fbpic_tpu's rounding)."""
+    exchange: bool
+    full_resort: bool
+    n_move: int
+    zmin_mid: object
+    zmin_next: object
+    zmin_end: object
+    mw_zref_end: object
+    time_end: object
+
+
+def plan_step(config, options, zmin, zmin_g, mw_zref, time, iteration):
+    """The host's plan of the step at ``iteration`` from the grid's left
+    edge (``zmin_g``: the global grid's, which a slab's differs from),
+    the window's reference and the time (fbpic_tpu core/step.py:942-956
+    and :1656-1700): in the Galilean frame the grid edge flows vg*dt a
+    step, deposits seeing it at their own time; the window then shifts
+    by the excess of its reference over the drifted edge."""
+    rdt = type(zmin)
+    # fbpic_tpu forces a fresh rho_prev every step under cross-deposition
+    # or without reuse_rho_prev
+    ep = (max(1, options.exchange_period)
+          if options.reuse_rho_prev and config.current_correction
+          != "cross-deposition" else 1)
+    do_exchange = iteration % ep == 0
+    open_z = config.boundaries_z == "open"
+    vg_dt = config.v_galilean * config.dt
+    zmin_end = zmin + vg_dt
+    n_move = 0
+    if options.moving_window_v is not None:
+        mw_zref = mw_zref + options.moving_window_v * config.dt
+        # 1e-3-cell guard: with v = c and dt = dz/c the argument lands on
+        # integers (see fbpic_tpu core/step.py)
+        n_move = int(np.floor((mw_zref - (zmin_g + vg_dt)) / config.dz
+                              + 1e-3))
+        zmin_end = zmin_end + rdt(n_move) * config.dz
+    return StepPlan(
+        exchange=open_z and do_exchange,
+        # open z: the exchange block rewrote the storage order; periodic:
+        # the re-anchor covers the initial order and host-side edits
+        full_resort=do_exchange if open_z else iteration % 64 == 0,
+        n_move=n_move, zmin_mid=zmin + 0.5 * vg_dt, zmin_next=zmin + vg_dt,
+        zmin_end=zmin_end, mw_zref_end=mw_zref,
+        time_end=time + config.dt)
 
 
 def _zfold(config):
@@ -364,7 +440,9 @@ def half_push_x(config, options, sp, zmin):
         x, y, z = pp.push_x(sp, 0.5 * config.dt)
     if config.boundaries_z == "periodic":
         Lz = config.Nz * config.dz
-        z = float(zmin) + torch.remainder(z - float(zmin), Lz)
+        # a 0-d tensor (StepScalars) as it is, a host number as a float
+        zmin = zmin if torch.is_tensor(zmin) else float(zmin)
+        z = zmin + torch.remainder(z - zmin, Lz)
     return sp.replace(x=x, y=y, z=z)
 
 
@@ -770,7 +848,14 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
     ``draws(name, iteration, species_index, shape, dtype)`` the uniform
     draws of ionization and Compton scattering (``GeneratorDraws``);
     ion_auxes / comp_auxes: each species' IonizerAux / ComptonAux (or
-    None)."""
+    None).
+
+    ``scalars``: the step's StepScalars, which the resident block (the
+    re-sort, K2, the pushes and the fused deposit) and the external
+    fields then read in place of the host's numbers (equal values).
+    ``redo_flag``: a 0-d int64 device tensor into which the banded
+    re-sort adds its overflow count, instead of reading it back and
+    redoing the sort: the caller redoes the step (core/graph.py)."""
     species_configs = tuple(species_configs)
     resident_idx = _resident_indices(config, species_configs, options)
     cross = _cross_correction(config, options)
@@ -779,47 +864,49 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
     # between the half pushes
     will_fuse = options.fused_deposit and options.move_positions \
         and not cross
-    # fbpic_tpu forces a fresh rho_prev every step under cross-deposition
-    # or without reuse_rho_prev
-    ep = (max(1, options.exchange_period)
-          if options.reuse_rho_prev and config.current_correction
-          != "cross-deposition" else 1)
     zfold = _zfold(config)
 
     def step(state: SimState, aux, inj_auxes=(), column_angles=None,
              generator=None, antenna_series=(), ion_auxes=(), comp_auxes=(),
-             draws=None) -> SimState:
+             draws=None, scalars=None, redo_flag=None) -> SimState:
         dt = config.dt
-        rdt = type(state.zmin)
         # The global grid's left edge (the local one but on a slab)
         zmin_g = halo.global_zmin(state.zmin) if halo is not None \
             else state.zmin
-        # The external fields see the step's time as a 0-d tensor of the
-        # working dtype (a fill: no host-to-device copy)
-        time_t = None
-        if options.external_fields:
-            time_t = torch.full((), float(state.time), dtype=aux.S_w.dtype,
-                                device=aux.S_w.device)
         spect, interp = state.spect, state.interp
         species = list(state.species)
         zmin = state.zmin
         it = state.iteration
         sort_overflow = state.sort_overflow
         ring_overwrite = state.ring_overwrite
-        do_exchange = it % ep == 0
+        plan = plan_step(config, options, zmin, zmin_g, state.mw_zref,
+                         state.time, it)
         # Galilean frame: the grid edge flows vg*dt per step; deposits
         # see it at their own time (fbpic_tpu core/step.py:942-956)
         vg = config.v_galilean
         vg_dt = vg * dt
-        zmin_mid = zmin + 0.5 * vg_dt
-        zmin_next = zmin + vg_dt
+        zmin_mid, zmin_next = plan.zmin_mid, plan.zmin_next
+        # ... as the resident block's ops and kernels take them
+        if scalars is not None:
+            zd, zd_mid, zd_next = (scalars.zmin, scalars.zmin_mid,
+                                   scalars.zmin_next)
+        else:
+            zd, zd_mid, zd_next = (float(zmin), float(zmin_mid),
+                                   float(zmin_next))
+        # The external fields see the step's time as a 0-d tensor of the
+        # working dtype (a fill: no host-to-device copy)
+        time_t = None
+        if options.external_fields:
+            time_t = scalars.time if scalars is not None else torch.full(
+                (), float(state.time), dtype=aux.S_w.dtype,
+                device=aux.S_w.device)
 
         # --- Open boundaries: every exchange_period steps, remove the
         # particles in the guard cells, inject the columns the moving
         # window uncovered, and re-deposit rho_prev (reference:
         # main.py:435-449).  In between, rho_prev is the window-shifted
         # previous rho_next.
-        if config.boundaries_z == "open" and do_exchange:
+        if plan.exchange:
             bounds = (halo.removal_bounds(zmin_g) if halo is not None
                       else None)
             species = [remove_outside_particles(config, sp, zmin, bounds)
@@ -891,29 +978,22 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                 payload.append(sp.ionization_level)
 
             def full_sort():
-                return build_column_sort(sp.z, sp.w, float(zmin),
-                                         1.0 / config.dz, config.Nz, K,
-                                         payload)
+                return build_column_sort(sp.z, sp.w, zd, 1.0 / config.dz,
+                                         config.Nz, K, payload)
 
-            if sc.resort != "banded":
+            if sc.resort != "banded" or plan.full_resort:
                 sort = full_sort()
             else:
-                if config.boundaries_z == "open":
-                    # the exchange block rewrote the storage order
-                    do_full = do_exchange
-                else:
-                    do_full = it % 64 == 0
-                if do_full:
+                sort = banded_column_resort(
+                    [a.reshape(config.Nz, K) for a in payload], zd,
+                    1.0 / config.dz, config.Nz, K, band, zfold=zfold)
+                # Column overflow in the banded re-sort: redo the exact
+                # full sort (a host read of the count), or leave the
+                # count in the caller's flag
+                if redo_flag is not None:
+                    redo_flag.add_(sort["n_over"])
+                elif int(sort["n_over"]) > 0:
                     sort = full_sort()
-                else:
-                    sort = banded_column_resort(
-                        [a.reshape(config.Nz, K) for a in payload],
-                        float(zmin), 1.0 / config.dz, config.Nz, K, band,
-                        zfold=zfold)
-                    # Column overflow in the banded re-sort: redo the
-                    # exact full sort (host read of the count)
-                    if int(sort["n_over"]) > 0:
-                        sort = full_sort()
             n_over = sort["n_over"]
             if halo is not None:
                 n_over = halo.psum(n_over)
@@ -930,7 +1010,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
 
             E_B = gather_fields_sorted(
                 psp.x, psp.y, psp.z, valid, interp, options.rmax_gather,
-                1.0 / config.dz, float(zmin), config.Nz,
+                1.0 / config.dz, zd, config.Nz,
                 1.0 / config.dr, 0.0, config.Nr, comp=_comp_of(psp),
                 zfold=zfold)
             # On the padded (Nz, K) layout: dead slots see the field
@@ -941,7 +1021,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                     psp, E_B[:3], E_B[3:], sc.q, sc.m, dt,
                     z_plane=ballistic_plane(sc, state.time, dt))
                 psp = psp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
-            psp = half_push_x(config, options, psp, zmin_mid)
+            psp = half_push_x(config, options, psp, zd_mid)
 
             # Elementary processes at t = (n+1/2) dt, between the push
             # and the deposit (the reference order, main.py:468-511), on
@@ -973,7 +1053,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             out = deposit_rho_J_sorted(
                 dict(valid=valid, padded=pad_dep), psp.x, psp.y, psp.z,
                 w_dep, sc.q, psp.ux, psp.uy, psp.uz, psp.inv_gamma,
-                0.5 * dt, config.Nm, 1.0 / config.dz, float(zmin_mid),
+                0.5 * dt, config.Nm, 1.0 / config.dz, zd_mid,
                 config.Nz, 1.0 / config.dr, 0.0, config.Nr,
                 aux.ruyten_linear, zfold=zfold, comp=_comp_of(psp),
                 with_drho=want_drho, with_rho=not want_drho,
@@ -982,7 +1062,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             fused_rho[i] = out[3]
             if want_drho:
                 fused_drho[i] = out[4]
-            psp = half_push_x(config, options, psp, zmin_next)
+            psp = half_push_x(config, options, psp, zd_next)
             # Flatten back: the sorted order becomes the storage order;
             # invalid slots (duplicates of neighbours) are dead
             flat = {n: getattr(psp, n).reshape(-1) for n in
@@ -1254,20 +1334,14 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # --- Galilean frame: the grid edge has flowed vg*dt this step
         # (no spectral shift: the comoving coefficients advance the
         # fields in the flowing frame).  Before the window comparison, so
-        # the window shifts only the excess over the drift.
-        zmin = zmin + vg_dt
-        zmin_g = zmin_g + vg_dt
-
+        # the window shifts only the excess over the drift (plan_step).
         # --- Moving window: shift the spectral fields and the grid edge;
         # roll the resident rows so row == column still holds
-        mw_zref = state.mw_zref
+        zmin = plan.zmin_end
         if options.moving_window_v is not None:
-            mw_zref = mw_zref + options.moving_window_v * dt
-            # 1e-3-cell guard: with v = c and dt = dz/c the argument
-            # lands on integers (see fbpic_tpu core/step.py)
-            n_move = int(np.floor((mw_zref - zmin_g) / config.dz + 1e-3))
-            spect = shift_spectral_fields(config, aux, spect, n_move, rdt)
-            zmin = zmin + rdt(n_move) * config.dz
+            n_move = plan.n_move
+            spect = shift_spectral_fields(config, aux, spect, n_move,
+                                          type(state.zmin))
             for ri in resident_idx:
                 if species_configs[ri].resort != "banded":
                     continue
@@ -1313,8 +1387,8 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
 
         return SimState(
             spect=spect, interp=interp, species=species,
-            time=state.time + dt, zmin=zmin, iteration=it + 1,
-            mw_zref=mw_zref, sort_overflow=sort_overflow,
+            time=plan.time_end, zmin=zmin, iteration=it + 1,
+            mw_zref=plan.mw_zref_end, sort_overflow=sort_overflow,
             ring_overwrite=ring_overwrite,
             migration_overflow=state.migration_overflow)
 
@@ -1398,3 +1472,45 @@ def prepare(config, options, species_configs, state, aux):
     if options.filter_currents:
         rho = ps.filter_scalar(rho, aux.filter_z, aux.filter_r)
     return replace(state, spect=replace(spect, rho_prev=rho))
+
+
+# ---------------------------------------------------------------------
+# fbpic_tpu's step builders (core/step.py:1754-1815)
+# ---------------------------------------------------------------------
+
+def ensure_counters(state):
+    """Materialize the overflow counters as 0-d int64 device tensors: a
+    chunk of steps carries a fixed set of tensors (fbpic_tpu's
+    fori_loop carry; here the CUDA graphs' static buffers)."""
+    dev = state.spect.Ep.device
+    updates = {n: torch.zeros((), dtype=torch.int64, device=dev)
+               for n in ("sort_overflow", "ring_overwrite")
+               if getattr(state, n) is None}
+    return replace(state, **updates) if updates else state
+
+
+def make_step(config, species_configs, options, halo=None):
+    """The single step (fbpic_tpu jit-compiles it and donates the state;
+    the port's runs eagerly and leaves its input state unchanged)."""
+    return make_step_fn(config, species_configs, options, halo)
+
+
+def make_prepare(config, species_configs, options):
+    """The preparation before a run of steps, ``prepare_fn(state, aux)``:
+    spectral E/B refreshed from the interpolation grid and rho_prev
+    deposited (reference: main.py:408-415, :435-449)."""
+    species_configs = tuple(species_configs)
+
+    def prepare_fn(state, aux):
+        return prepare(config, options, species_configs, state, aux)
+    return prepare_fn
+
+
+def make_multi_step(config, species_configs, options):
+    """The chunk runner: ``multi_step(state, aux, n_steps, ...)`` runs up
+    to MAX_CAPTURE steps with one host read at the end, the exchange
+    steps eagerly and the others from captured CUDA graphs (the body
+    called directly on CPU tensors); see core/graph.py.  fbpic_tpu's
+    counterpart runs them as one jitted lax.fori_loop."""
+    from .graph import MultiStep
+    return MultiStep(config, species_configs, options)

@@ -116,7 +116,11 @@ struct GatherArgs {
   const T* f[6];           // Er, Et, Ez, Br, Bt, Bz as (re, im) pairs
   T* out;                  // (6, Nz, K)
   long long sz, sr;        // field strides of z and r, complex elements
-  T invdz, zmin, invdr, rmin, rmax;
+  // The grid's left edge, read from device memory: a 0-d tensor that
+  // changes from step to step, so that a launch captured in a CUDA graph
+  // reads each replay's value
+  const T* zmin;
+  T invdz, invdr, rmin, rmax;
   int Nz, K, Nr, Nm, bz, rs;
   bool periodic;
 };
@@ -220,7 +224,8 @@ struct Slot {
 // The six outputs of a live slot in column col (the block's c-th).
 // STAGED: corners from the block's tile; else from the fields directly.
 template <typename T, bool STAGED>
-__device__ inline void gather_slot(const GatherArgs<T>& a, const T* tile,
+__device__ inline void gather_slot(const GatherArgs<T>& a, T zmin,
+                                   const T* tile,
                                    int c, int col, const Slot<T>& s,
                                    T* six) {
   using R = Rn<T>;
@@ -235,7 +240,7 @@ __device__ inline void gather_slot(const GatherArgs<T>& a, const T* tile,
     sn = R::mul(y, invr);
   }
   const T r_cell = R::sub(R::mul(a.invdr, R::sub(r, a.rmin)), T(0.5));
-  const T z_cell = R::sub(R::mul(a.invdz, R::sub(zp, a.zmin)), T(0.5));
+  const T z_cell = R::sub(R::mul(a.invdz, R::sub(zp, zmin)), T(0.5));
   const int ir = floor_int(r_cell), iz = floor_int(z_cell);
   T sru = R::sub(r_cell, T(ir)), szu = R::sub(z_cell, T(iz));
   if (a.cx != nullptr) {
@@ -330,6 +335,7 @@ gather_sorted_kernel(const __grid_constant__ GatherArgs<T> a) {
   const int stride = gridDim.y * blockDim.x;
   const int k_first = blockIdx.y * blockDim.x + threadIdx.x;
   const size_t n_slots = static_cast<size_t>(a.Nz) * a.K;
+  const T zmin = *a.zmin;
 
   if (STAGED) {
     // a block whose slots are all dead stages nothing
@@ -376,7 +382,8 @@ gather_sorted_kernel(const __grid_constant__ GatherArgs<T> a) {
         const int ku = k + u * stride;
         if (ku >= a.K) break;
         T six[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-        if (live[u]) gather_slot<T, STAGED>(a, tile, c, col, sl[u], six);
+        if (live[u])
+          gather_slot<T, STAGED>(a, zmin, tile, c, col, sl[u], six);
         const size_t i = row + ku;
 #pragma unroll
         for (int q = 0; q < 6; ++q) a.out[q * n_slots + i] = six[q];
@@ -408,13 +415,14 @@ int launch_kernel(const GatherArgs<T>& a, size_t smem, void* stream) {
 }
 
 // ptrs: [x, y, z, valid, cx, cy, cz (null without Kahan words),
-//        Er, Et, Ez, Br, Bt, Bz, out]
+//        Er, Et, Ez, Br, Bt, Bz, out, zmin (one T on the device)]
 template <typename T>
-int launch(const void* const* ptrs, double invdz, double zmin, double invdr,
+int launch(const void* const* ptrs, double invdz, double invdr,
            double rmin, double rmax, int Nz, int K, int Nr, int Nm,
            long long sz, long long sr, int periodic, int bz, void* stream) {
   if (Nz <= 0 || K <= 0 || Nr <= 0 || Nm <= 0 || bz < 0 || bz > BZ_MAX)
     return -1;
+  if (ptrs[14] == nullptr) return -1;
   if ((ptrs[4] == nullptr) != (ptrs[5] == nullptr) ||
       (ptrs[4] == nullptr) != (ptrs[6] == nullptr))
     return -1;
@@ -428,11 +436,11 @@ int launch(const void* const* ptrs, double invdz, double zmin, double invdr,
   a.cz = static_cast<const T*>(ptrs[6]);
   for (int q = 0; q < 6; ++q) a.f[q] = static_cast<const T*>(ptrs[7 + q]);
   a.out = static_cast<T*>(const_cast<void*>(ptrs[13]));
+  a.zmin = static_cast<const T*>(ptrs[14]);
   a.sz = sz;
   a.sr = sr;
   // the scalars as the plain version's float ops see them
   a.invdz = static_cast<T>(invdz);
-  a.zmin = static_cast<T>(zmin);
   a.invdr = static_cast<T>(invdr);
   a.rmin = static_cast<T>(rmin);
   a.rmax = static_cast<T>(rmax);
@@ -447,11 +455,11 @@ int launch(const void* const* ptrs, double invdz, double zmin, double invdr,
 }  // namespace
 
 #define GATHER_ARGS                                                        \
-  const void *const *ptrs, double invdz, double zmin, double invdr,       \
-      double rmin, double rmax, int Nz, int K, int Nr, int Nm,            \
-      long long sz, long long sr, int periodic, int bz, void *stream
+  const void *const *ptrs, double invdz, double invdr, double rmin,      \
+      double rmax, int Nz, int K, int Nr, int Nm, long long sz,           \
+      long long sr, int periodic, int bz, void *stream
 #define GATHER_CALL \
-  ptrs, invdz, zmin, invdr, rmin, rmax, Nz, K, Nr, Nm, sz, sr, periodic, bz, \
+  ptrs, invdz, invdr, rmin, rmax, Nz, K, Nr, Nm, sz, sr, periodic, bz, \
       stream
 
 extern "C" int gather_sorted_f32(GATHER_ARGS) {

@@ -22,6 +22,12 @@ wrapper copies, casts and permutes nothing and raises on an operand
 that is not of the kernel's type, shape and layout: a call is one
 launch.  See the source for what bounds it.
 
+``zmin``, the grid's left edge, changes every step: the kernel reads it
+from device memory (a 0-d tensor of the working dtype, last in the
+pointer table), so that a launch captured in a CUDA graph
+(core/graph.py) reads each replay's value.  The plain version takes the
+same 0-d tensor, or a host number.
+
 ``gather_sorted`` has the signature of ``gather.gather_fields_sorted``.
 On CPU tensors it runs the plain PyTorch version (``gather_sorted_plain``:
 ``gather.gather_operands`` builds the per-slot corner indices, weights
@@ -87,7 +93,8 @@ def gather_corners_plain(o_lo, l_r, sr_upper, sz_upper, ok, cos, sin, Fg,
 
 def gather_sorted_plain(xp, yp, zp, valid, interp, rmax_gather, invdz, zmin,
                         Nz, invdr, rmin, Nr, comp=None, zfold="periodic"):
-    """Plain PyTorch version of K2 (same signature and result)."""
+    """Plain PyTorch version of K2 (same signature and result; ``zmin``
+    a 0-d tensor or a host number)."""
     from .gather import gather_operands
     return gather_corners_plain(**gather_operands(
         xp, yp, zp, valid, interp, rmax_gather, invdz, zmin, Nz, invdr,
@@ -173,11 +180,23 @@ def check_gather_operands(what, xp, yp, zp, valid, interp, Nz, Nr,
     return (fields, Nm) + field_strides(what, fields, (Nm, Nz, Nr), cdt, dev)
 
 
+def device_scalar(what, name, value, dtype, device):
+    """``value`` as the 0-d tensor of ``dtype`` on ``device`` that a
+    kernel reads in place: a 0-d tensor is checked (raises on another
+    shape, dtype or device), a host number filled into a new one."""
+    if not torch.is_tensor(value):
+        return torch.full((), float(value), dtype=dtype, device=device)
+    kernels.check_operand(what, name, value, device, dtype, ())
+    return value
+
+
 def gather_sorted(xp, yp, zp, valid, interp, rmax_gather, invdz, zmin, Nz,
                   invdr, rmin, Nr, comp=None, zfold="periodic"):
     """K2.  xp, yp, zp (Nz, K) padded positions, valid (Nz, K) bool,
     interp the six complex (Nm, Nz, Nr) E/B fields, comp the Kahan words
-    (cx, cy, cz) or None.  Returns (Ex, Ey, Ez, Bx, By, Bz), (Nz, K)
+    (cx, cy, cz) or None, zmin a 0-d tensor of the positions' dtype on
+    their device (a host number is filled into one: one more launch, no
+    host-to-device copy).  Returns (Ex, Ey, Ez, Bx, By, Bz), (Nz, K)
     each, zero on invalid slots and at r >= rmax_gather."""
     if xp.device.type == "cpu":
         return gather_sorted_plain(xp, yp, zp, valid, interp, rmax_gather,
@@ -191,6 +210,7 @@ def gather_sorted(xp, yp, zp, valid, interp, rmax_gather, invdz, zmin, Nz,
         what, xp, yp, zp, valid, interp, Nz, Nr, comp=comp, zfold=zfold)
     dtype, slot = xp.dtype, tuple(xp.shape)
 
+    zmin = device_scalar(what, "zmin", zmin, dtype, dev)
     out = torch.empty((6, *slot), dtype=dtype, device=dev)
     if out.numel() == 0:
         return tuple(out.unbind(0))
@@ -199,9 +219,9 @@ def gather_sorted(xp, yp, zp, valid, interp, rmax_gather, invdz, zmin, Nz,
         else lib.gather_sorted_f64
     comps = list(comp) if comp is not None else [None] * 3
     table = kernels.pointer_table([xp, yp, zp, valid] + comps + fields
-                                  + [out])
+                                  + [out, zmin])
     bz = pick_bz(xp.element_size(), Nm, Nr)
-    code = fn(table, float(invdz), float(zmin), float(invdr), float(rmin),
+    code = fn(table, float(invdz), float(invdr), float(rmin),
               float(rmax_gather), Nz, slot[1], Nr, Nm, sz, sr,
               int(zfold == "periodic"), bz,
               torch.cuda.current_stream(dev).cuda_stream)

@@ -13,6 +13,11 @@ Positions drift by at most c*dt/2 between the sort and each deposit, so
 the true z cell differs from the sort column by a small bounded offset;
 the offsets are extra channel blocks in V and shifted adds on the grid.
 
+The grid edge ``zmin`` of the sorts, the geometry and the deposits is a
+host number or a 0-d tensor of the positions' dtype on their device
+(the step's ``StepScalars``, which a CUDA graph of the step reads at
+each replay); the arithmetic, and so every bit, is the same.
+
 The result equals the scatter path (deposit.py) in exact arithmetic --
 same shape factors, folding and edge masking.  Cubic shapes
 (``deposit_rho_J_sorted_cubic``) carry 4 radial corner blocks per z

@@ -37,9 +37,9 @@ _SIGNATURES = {
     "dense_contract_f32": [_P] + [_I] * 6 + [_P],
     "dense_contract_f64": [_P] + [_I] * 6 + [_P],
     "dense_contract_smem_bytes": [_I] * 4,
-    "gather_sorted_f32": [_P] + [_D] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 2
+    "gather_sorted_f32": [_P] + [_D] * 4 + [_I] * 4 + [_L] * 2 + [_I] * 2
                          + [_P],
-    "gather_sorted_f64": [_P] + [_D] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 2
+    "gather_sorted_f64": [_P] + [_D] * 4 + [_I] * 4 + [_L] * 2 + [_I] * 2
                          + [_P],
     "gather_smem_bytes": [_I] * 4,
     "gather_bz_max": [],
@@ -55,16 +55,39 @@ _count_lock = threading.Lock()
 current_slab = threading.local()
 
 
+#: Every kernel wrapper that has counted a launch
+_counted = set()
+
+
 def count_launch(fn):
     """Count one launch of kernel wrapper ``fn``: ``fn.launches`` and,
     in a slab thread of a decomposed run, ``fn.launches_by_slab[rank]``
     (safe across threads)."""
     rank = getattr(current_slab, "rank", None)
     with _count_lock:
+        _counted.add(fn)
         fn.launches += 1
         if rank is not None:
             by_slab = fn.__dict__.setdefault("launches_by_slab", {})
             by_slab[rank] = by_slab.get(rank, 0) + 1
+
+
+def launch_counts():
+    """{wrapper: launches} of every wrapper that has counted one."""
+    with _count_lock:
+        return {fn: fn.launches for fn in _counted}
+
+
+def add_launches(delta):
+    """Add {wrapper: n} to the wrappers' counts (n may be negative).  A
+    CUDA graph's capture runs the wrappers' Python, which counts, but
+    launches nothing; its replays launch what it recorded without
+    running any Python: core/graph.py takes each capture's counts back
+    out with this and adds them again at every replay."""
+    with _count_lock:
+        for fn, n in delta.items():
+            _counted.add(fn)
+            fn.launches += n
 
 
 def _nvcc():

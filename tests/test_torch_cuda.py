@@ -59,7 +59,14 @@ only PyTorch; there, skip the JAX-based conftest:
   LWFA on 2 slabs of the card against its single-card twin (5e-3) with
   one K1 and one K2 per slab per step; the mesh's slabs spread over
   the cards against the same slabs sharing one, where the machine has
-  two or more.
+  two or more;
+- the chunk runner (core/graph.py): K2 reading zmin from device memory
+  (a CUDA graph of one call replayed after the value changed); a
+  resident LWFA through Simulation.step (the step replayed from a
+  captured graph) against its eager twin, the same bits but rho_prev,
+  with one K1 and one K2 launch a step counted per replay; a planted
+  column overflow rolled back to the eager run; a host read inside the
+  captured step raising at capture.
 """
 import os
 
@@ -391,11 +398,15 @@ def test_k2_kernel_on_special_layouts(cuda, layout, dtype, zfold):
 @pytest.mark.cuda
 def test_gather_fields_sorted_is_one_kernel_launch(cuda):
     """On CUDA tensors the whole gather is K2: one device launch, no
-    operand build, no copy."""
+    operand build, no copy (zmin given as the 0-d device tensor K2 reads
+    in place, as the step's scalars give it; a host number costs one
+    fill)."""
     from torch.profiler import ProfilerActivity, profile
     from fbpic_tpu_torch.particles.gather import gather_fields_sorted
     sim, sort = _sorted_particles(cuda, torch.float32, seed=3)
     ops = _k2_ops(sim, sort, "periodic", comp=True, z_fast=True)
+    ops["zmin"] = torch.full((), ops["zmin"], dtype=torch.float32,
+                             device=cuda)
     gather_fields_sorted(**ops)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -488,7 +499,7 @@ class _SeededAngles:
             tuple(nkey.shape)))
 
 
-def _golden_config_sim(device, dtype):
+def _golden_config_sim(device, dtype, sort_K=256):
     """tests/test_golden_wake.py:68-90 (a0 = 1 laser, open z, moving
     window, continuous injection) with the resident layout forced."""
     from fbpic_tpu_torch import Simulation
@@ -504,7 +515,7 @@ def _golden_config_sim(device, dtype):
     sim.use_fused_deposit = True         # force the resident layout
     sim.add_new_species(q=-e, m=m_e, n=4.e24, p_zmin=24.e-6, p_zmax=500.e-6,
                         p_rmin=0., p_rmax=14.e-6, p_nz=1, p_nr=1, p_nt=4,
-                        sort_K=256)
+                        sort_K=sort_K)
     add_laser_pulse(sim, GaussianLaser(a0=1.0, waist=8.e-6, tau=10.e-15,
                                        z0=20.e-6))
     sim.set_moving_window(v=c)
@@ -1847,3 +1858,164 @@ def test_float32_lwfa_on_two_slabs_of_the_card(cuda):
     assert sum(int((s.species[0].w != 0).sum()) for s in run.states) == int(
         (single.state.species[0].w != 0).sum())
     assert run.overflow_totals["migration_overflow"] == 0
+
+
+# ---------------------------------------------------------------------
+# The chunk runner on the card (core/graph.py): CUDA graphs of the step
+# ---------------------------------------------------------------------
+
+def _eager_steps(sim, n):
+    """The eager twin of sim.step(n): prepare, the eager step function
+    n times in a loop, the overflow read."""
+    from fbpic_tpu_torch.core.step import make_prepare, make_step
+    options = sim.build_options()
+    step = make_step(sim.config, sim.species_configs, options)
+    sim.state = make_prepare(sim.config, sim.species_configs, options)(
+        sim.state, sim.aux)
+    for _ in range(n):
+        sim.state = step(sim.state, sim.aux, tuple(sim._injector_auxes),
+                         sim.column_angles, sim.generator)
+    sim._consume_overflow_counters()
+
+
+def _graph_twins(cuda, sort_K=256):
+    """The float32 golden-wake configuration twice, with the same
+    plasma and column angles: one for Simulation.step, one for the
+    eager loop."""
+    sims = []
+    for _ in range(2):
+        sim = _golden_config_sim(cuda, torch.float32, sort_K)
+        sim.column_angles = _SeededAngles()
+        sims.append(sim)
+    return sims
+
+
+def _assert_twins_equal(a, b):
+    """Every tensor of the two states equal bit for bit but rho_prev, an
+    atomic scatter deposit on the card (1e-6 of its scale), and the host
+    values equal."""
+    from fbpic_tpu_torch.core.graph import state_tensors
+    assert (a.state.iteration, float(a.state.zmin), float(a.state.time)) \
+        == (b.state.iteration, float(b.state.zmin), float(b.state.time))
+    rho = a.state.spect.rho_prev
+    for x, y in zip(state_tensors(a.state), state_tensors(b.state)):
+        if x is rho:
+            assert _rel(x, y) <= 1e-6
+        else:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_reads_zmin_from_device_memory(cuda, dtype):
+    """K2 with zmin as a 0-d device tensor against its plain version, bit
+    for bit against K2 with the host number, and a CUDA graph of one K2
+    call replayed after the tensor was refilled against a direct call
+    with the new value: the launch reads zmin where it lies."""
+    from fbpic_tpu_torch.particles import cuda_gather
+    sim, sort = _sorted_particles(cuda, dtype, seed=41)
+    ops = _k2_ops(sim, sort, "clamp", comp=True)
+    z_t = torch.full((), sim.zmin, dtype=dtype, device=cuda)
+    out = _k2_check(dict(ops, zmin=z_t), dtype)
+    host = torch.stack(cuda_gather.gather_sorted(**ops))
+    assert torch.equal(out, host)
+    with pytest.raises(TypeError):
+        cuda_gather.gather_sorted(**dict(ops, zmin=z_t.float() if
+                                         dtype == torch.float64 else
+                                         z_t.double()))
+    static = torch.stack(cuda_gather.gather_sorted(**dict(ops, zmin=z_t)))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = torch.stack(cuda_gather.gather_sorted(**dict(ops,
+                                                              zmin=z_t)))
+    shifted = sim.zmin + 0.3 * sim.config.dz
+    z_t.fill_(shifted)
+    graph.replay()
+    direct = torch.stack(cuda_gather.gather_sorted(**dict(ops,
+                                                          zmin=shifted)))
+    torch.cuda.synchronize()
+    assert torch.equal(static, direct) and not torch.equal(static, out)
+
+
+@pytest.mark.cuda
+def test_graphed_run_equals_its_eager_twin(cuda):
+    """40 steps (ten exchange steps) through Simulation.step, which
+    replays the captured step, and through the eager loop: the same bits
+    but rho_prev; one K1 and one K2 launch a step, counted per replay;
+    one graph variant (n_move = 1 every step)."""
+    from fbpic_tpu_torch.particles import cuda_fused, cuda_gather
+    graphed, twin = _graph_twins(cuda)
+    assert graphed.exchange_period > 1
+    n_k1 = cuda_fused.fused_onehot_contract.launches
+    n_k2 = cuda_gather.gather_sorted.launches
+    graphed.step(40)
+    assert cuda_fused.fused_onehot_contract.launches - n_k1 == 40
+    assert cuda_gather.gather_sorted.launches - n_k2 == 40
+    assert sorted(graphed._multi_step.graphs) == [(1, False)]
+    _eager_steps(twin, 40)
+    _assert_twins_equal(graphed, twin)
+    assert graphed.overflow_totals == {"sort_overflow": 0,
+                                       "ring_overwrite": 0}
+    # more calls replay the same graphs
+    graphs = dict(graphed._multi_step.graphs)
+    graphed.step(7)
+    _eager_steps(twin, 7)
+    _assert_twins_equal(graphed, twin)
+    assert graphed._multi_step.graphs == graphs
+
+
+@pytest.mark.cuda
+def test_graphed_rollback_equals_the_eager_run(cuda):
+    """A column overflow planted in both twins before a call that starts
+    on a non-exchange step: the graphed chunk rolls back (one rollback),
+    runs again eagerly and equals the twin; the sort_K bump then drops
+    the graphs and the next call captures anew."""
+    import warnings
+    # 68 particles a column: three columns hold more than sort_K 128
+    graphed, twin = _graph_twins(cuda, sort_K=128)
+    graphed.step(5)
+    _eager_steps(twin, 5)
+    assert graphed.state.iteration % graphed.exchange_period != 0
+    for sim in (graphed, twin):
+        sp, K = sim.state.species[0], sim.species_configs[0].sort_K
+        Nz, dz = sim.config.Nz, sim.config.dz
+        live = (sp.w != 0).reshape(Nz, K)
+        counts = live.sum(1)
+        row = int(torch.argmax(counts[:-2] + counts[1:-1] + counts[2:])) + 1
+        assert int(counts[row - 1:row + 2].sum()) > K
+        z = sp.z.clone().reshape(Nz, K)
+        z[row - 1] = torch.where(live[row - 1], z[row - 1] + dz, z[row - 1])
+        z[row + 1] = torch.where(live[row + 1], z[row + 1] - dz, z[row + 1])
+        sim.state.species[0] = sp.replace(z=z.reshape(-1))
+    runner = graphed._multi_step
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        graphed.step(6)
+        _eager_steps(twin, 6)
+    assert graphed.overflow_totals["rollbacks"] == 1
+    assert graphed.overflow_totals["sort_overflow"] \
+        == twin.overflow_totals["sort_overflow"] > 0
+    _assert_twins_equal(graphed, twin)
+    graphed.step(6)
+    _eager_steps(twin, 6)
+    assert graphed._multi_step is not runner and graphed._multi_step.graphs
+    _assert_twins_equal(graphed, twin)
+
+
+@pytest.mark.cuda
+def test_graph_capture_raises_on_a_host_sync(cuda, monkeypatch):
+    """A host read inside the captured step raises where it is made (the
+    capture runs under torch's sync debug mode "error"), with the
+    variant in the message: no fallback to the eager loop."""
+    from fbpic_tpu_torch.core import step as step_module
+    real = step_module.gather_fields_sorted
+
+    def reads_back(*args, **kwargs):
+        int(args[3].sum())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(step_module, "gather_fields_sorted", reads_back)
+    sim = _golden_config_sim(cuda, torch.float32)
+    with pytest.raises(RuntimeError, match="capturing the step"):
+        sim.step(3)
+    assert torch.cuda.get_sync_debug_mode() == 0
