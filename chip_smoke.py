@@ -147,7 +147,8 @@ Phases (any failure raises, and the script exits non-zero):
      um: 5 + 30 steps with exactly one K1 and one K2 a step, zero
      overflow, finite fields; the host syncs of one exchange period
      with the antenna the same as over the next without it (none in the
-     antenna's code); on until the pulse has left
+     antenna's code; one, the chunk's read, since the antenna takes the
+     chunk runner); on until the pulse has left
      the antenna, its peak ahead of the antenna beside a0's E0 times the
      emission attenuation (printed); then 30-step windows with a Mirror
      2 um inside the right edge (its cells zero) and with an
@@ -260,12 +261,22 @@ Phases (any failure raises, and the script exits non-zero):
      (cudaLaunchKernel, cudaGraphLaunch) and the host syncs of an
      exchange period; on the bench path a column overflow planted in
      both runs, whose graphed chunk rolls back (one rollback) and ends
-     equal to the twin.
+     equal to the twin.  Then, the same way, the boosted LWFA with
+     phase 9's BTD captured inside the chunk (210 steps; its captured
+     rows and lab snapshots bit for bit too), the antenna LWFA of phase
+     16 (200 steps, then 30 with its mirror and 30 with its external
+     field, each against the twin), the PWFA driver of phase 15 (200
+     steps; the bunch a ring) and the published boosted script (a ring)
+     with the BTD (210 steps), the last three under deterministic
+     index_add_ too (a ring's J is a scatter deposit); at most one host
+     sync an exchange period (the chunk's read; two with the BTD, whose
+     first write reads back; four on the PICMI path).
 
 Phases 1-25 run the paths through Simulation.step, so the
-configurations that take the chunk runner (every species resident, no
-processes, antennas, external fields, mirrors or capturing diagnostic)
-run replayed graphs there too.  Where a phase takes a running
+configurations that take the chunk runner (every one but the
+processes' and a ballistic species') run replayed graphs there too;
+phase 9 holds the BTD to two host syncs a step(n) call and phase 16 the
+antenna to one, the chunk's read.  Where a phase takes a running
 simulation's kernel operands (capture_calls), that one step runs through
 the eager twin's loop: a replay runs no Python.
 
@@ -411,9 +422,11 @@ def onehot_bmm(ir_buf, V, Nrb):
 
 
 def make_sim(z0=Z0, a0=A0, dtype=None, capacity=None, fused=True, nr=NR,
-             rmax=RMAX, r_boundary="reflective", z_antenna=None, **options):
+             rmax=RMAX, r_boundary="reflective", z_antenna=None, sort_K=None,
+             **options):
     """The bench LWFA.  capacity: of the plasma species (above Nz *
-    sort_K: a ring sorted afresh every step, not resident); fused:
+    sort_K: a ring sorted afresh every step, not resident); sort_K: the
+    plasma's (None: the automatic one); fused:
     use_fused_deposit (False with sort_K > 0: the legacy plan); nr, rmax,
     r_boundary: the radial grid and boundary; z_antenna: emit the laser
     from a lab-static antenna there (its peak crossing the antenna 3 tau
@@ -432,7 +445,7 @@ def make_sim(z0=Z0, a0=A0, dtype=None, capacity=None, fused=True, nr=NR,
     sim.use_fused_deposit = fused
     sim.add_new_species(q=-e, m=m_e, n=N_E, p_zmin=P_ZMIN, p_zmax=P_ZMAX,
                         p_rmin=0., p_rmax=P_RMAX, p_nz=P_NZ, p_nr=P_NR,
-                        p_nt=P_NT, capacity=capacity)
+                        p_nt=P_NT, capacity=capacity, sort_K=sort_K)
     if z_antenna is None:
         add_laser_pulse(sim, GaussianLaser(a0=a0, waist=W0, tau=TAU, z0=z0))
     else:
@@ -635,30 +648,25 @@ def phase_k1(sim):
 
 
 def eager_steps(sim, n_steps):
-    """The eager twin of sim.step(n_steps): the preparation, then the
-    eager step function called directly n_steps times in a loop, the
-    plain writers after each step, then the overflow read -- the loop
-    Simulation.step runs where the configuration keeps it
-    (core/graph.py's graph_blockers), without its antennas and capturing
-    diagnostics (raises if sim has either)."""
-    from fbpic_tpu_torch.core.step import make_prepare, make_step
-    if sim.laser_antennas or any(hasattr(d, "capture") for d in sim.diags):
-        raise ValueError("eager_steps: antennas or a capturing diagnostic")
+    """The eager twin of sim.step(n_steps): the preparation, the
+    diagnostics' first write, then Simulation's eager loop
+    (``_run_eager``: the eager step function n_steps times, the
+    antennas' series per fbpic_tpu chunk, the capturing diagnostics'
+    capture and the plain writers after each step), the captures
+    consumed, then the overflow read -- the loop Simulation.step runs
+    where the configuration keeps it (core/graph.py's graph_blockers)."""
+    from fbpic_tpu_torch.core.step import make_prepare
     options = sim.build_options()
-    step = make_step(sim.config, sim.species_configs, options)
     sim.state = make_prepare(sim.config, sim.species_configs, options)(
         sim.state, sim.aux)
-    writers = list(sim.diags) + list(sim.checkpoints)
     for diag in sim.diags:
         diag.write(sim)
-    for _ in range(n_steps):
-        sim.state = step(sim.state, sim.aux, tuple(sim._injector_auxes),
-                         sim.column_angles, sim.generator,
-                         ion_auxes=tuple(sim._ionizer_auxes),
-                         comp_auxes=tuple(sim._compton_auxes),
-                         draws=sim.process_draws)
-        for w in writers:
-            w.write(sim)
+    writers = list(sim.diags) + list(sim.checkpoints)
+    capture = [w for w in writers if hasattr(w, "capture")]
+    sim._run_eager(n_steps, options, capture,
+                   [w for w in writers if w not in capture], None)
+    for w in capture:
+        w.process_captures(sim)
     sim._consume_overflow_counters()
 
 
@@ -1531,26 +1539,16 @@ def cuda_wall_ms(fn, n=3):
 
 
 def count_syncs_n(sim, label, n_steps):
-    """Host synchronizations of one step(n_steps) call (torch's CUDA sync
-    debug mode): their number, and how many came from the
-    back-transformed field diagnostic's code."""
-    import os
-    import warnings
-    import torch
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            sim.step(n_steps)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
-             if SYNC_WARNING in str(w.message)]
-    n_btd = sum(1 for w in where if "boosted_diag.py" in w)
-    print(f"host syncs in one step({n_steps}) call, {label}: {len(where)}, "
-          f"{n_btd} of them in diagnostics/boosted_diag.py", flush=True)
-    return dict(count=len(where), btd=n_btd)
+    """Host synchronizations of one step(n_steps) call (count_syncs: by
+    the port's line that made each): their number, and how many came
+    from the back-transformed field diagnostic's code."""
+    syncs = count_syncs(sim, label, n_steps)
+    n_btd = sum(n for w, n in syncs["where"].items()
+                if "boosted_diag.py" in w)
+    print(f"host syncs in one step({n_steps}) call, {label}: "
+          f"{syncs['count']}, {n_btd} of them in "
+          f"diagnostics/boosted_diag.py", flush=True)
+    return dict(count=syncs["count"], btd=n_btd)
 
 
 def timed_steps(sim, label, n_timed=N_COST):
@@ -1966,8 +1964,10 @@ def phase_boosted_btd(counters, workdir):
     off = timed_steps(sim, "boosted cell, BTD off")
     sim.diags = [btd]
     on2 = timed_steps(sim, "boosted cell, BTD on again")
-    # The BTD's own syncs come per step() call (the capture at its start
-    # and the copy of the buffer at its end), not per step
+    # The BTD's own syncs come per step() call (the capture at its start,
+    # in boosted_diag.py), not per step; its captures inside the chunk
+    # come back with the chunk's one read (core/graph.py): a step(n)
+    # call of one chunk makes 2 syncs with the BTD, 1 without
     per_step = (syncs["on"][10]["btd"] - syncs["on"][1]["btd"]) / 9
     print(f"BTD cost (this call): on {on['ms_per_step']:.4f} / "
           f"{on2['ms_per_step']:.4f}, off {off['ms_per_step']:.4f} ms/step; "
@@ -1978,6 +1978,9 @@ def phase_boosted_btd(counters, workdir):
           f"{per_step}", flush=True)
     if per_step != 0:
         raise RuntimeError(f"the BTD capture adds {per_step} syncs a step")
+    want = {"on": dict(count=2, btd=1), "off": dict(count=1, btd=0)}
+    if any(syncs[k][n] != v for k, v in want.items() for n in (1, 10)):
+        raise RuntimeError(f"BTD host syncs {syncs}, not {want} a call")
     return launches, dict(steps=BTD_STEPS, wall_s=wall, filled=filled,
                           slices_max_rel_err=worst, planes=n_planes,
                           host_syncs=syncs, btd_on=on, btd_off=off,
@@ -2386,6 +2389,10 @@ PWFA_STEPS, PWFA_SC_TOL = 600, 0.1
 # 20 um lab-static (tests/test_antenna.py's placement: peak crossing
 # 3 tau after t = 0, about 300 steps); inside the window until ~600
 ANT_Z, ANT_EMIT_STEPS = 20.e-6, 360
+#: The antenna pair's sort_K (phase 26): what the a0 = 4 pulse bumps the
+#: automatic 1152 to in phase 16, so that no column overflows in the
+#: pair's ~350 steps
+ANT_SORT_K = 1792
 # The mirror 2 um inside the window's right edge (a laser dump ahead of
 # the pulse), the uniform external Ez of tests/test_external_fields.py
 ANT_MIRROR_INSET, ANT_EXT_EZ = 2.e-6, 1.e9
@@ -2468,27 +2475,14 @@ def pwfa_space_charge_check(sim):
     return out
 
 
-def phase_pwfa(counters):
-    """15. The PWFA drive bunch (BASELINE config 3): bench.py's grid and plasma,
-    no laser, a Gaussian electron bunch of 50 pC in 1,000,000
-    macroparticles with its space-charge field, a moving window at c,
-    float32.  The plasma is resident (K1 and K2 once a step), the bunch
-    a ring with sort_K = 0 (the linear gather, the scatter J and the
-    grid-difference d(rho) of two scatter charge deposits: PyTorch ops).
-    The space-charge fields after init against the analytic field; 5 +
-    30 steps with exactly one K1 and one K2 a step, zero overflow, finite
-    fields, the bunch's live count kept; peak memory, host syncs, a
-    profiled window read by the kernels the bunch's ops launch (timed on
-    one step's operands); K1 and K2 on this simulation's operands; then
-    on to PWFA_STEPS steps in all and the wake's period behind the
-    bunch within 15% of 2 pi c / omega_p."""
+def make_pwfa_sim():
+    """Phase 15's PWFA driver: bench.py's grid and plasma, no laser, the
+    Gaussian bunch with its space-charge field, a moving window at c,
+    float32.  Returns (sim, the bunch's set-up seconds)."""
     import torch
     from fbpic_tpu_torch import Simulation
-    from fbpic_tpu_torch.constants import c, e, m_e, epsilon_0
+    from fbpic_tpu_torch.constants import c, e, m_e
     from fbpic_tpu_torch.lpa_utils.bunch import add_particle_bunch_gaussian
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
     sim = Simulation(NZ, ZMAX, NR, RMAX, NM, (ZMAX - ZMIN) / NZ / c,
                      zmin=ZMIN, n_order=32,
                      boundaries={"z": "open", "r": "reflective"},
@@ -2504,6 +2498,29 @@ def phase_pwfa(counters):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     sim.set_moving_window(v=c)
+    return sim, t_init
+
+
+def phase_pwfa(counters):
+    """15. The PWFA drive bunch (BASELINE config 3): bench.py's grid and plasma,
+    no laser, a Gaussian electron bunch of 50 pC in 1,000,000
+    macroparticles with its space-charge field, a moving window at c,
+    float32.  The plasma is resident (K1 and K2 once a step), the bunch
+    a ring with sort_K = 0 (the linear gather, the scatter J and the
+    grid-difference d(rho) of two scatter charge deposits: PyTorch ops).
+    The space-charge fields after init against the analytic field; 5 +
+    30 steps with exactly one K1 and one K2 a step, zero overflow, finite
+    fields, the bunch's live count kept; peak memory, host syncs, a
+    profiled window read by the kernels the bunch's ops launch (timed on
+    one step's operands); K1 and K2 on this simulation's operands; then
+    on to PWFA_STEPS steps in all and the wake's period behind the
+    bunch within 15% of 2 pi c / omega_p."""
+    import torch
+    from fbpic_tpu_torch.constants import c, e, m_e, epsilon_0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sim, t_init = make_pwfa_sim()
     sc, bsp = sim.species_configs, sim.state.species[1]
     n_bunch = PWFA_BUNCH["n_macroparticles"]
     if not (sc[0].resident and sc[1].sort_K == 0 and not sc[1].resident
@@ -2599,9 +2616,10 @@ def phase_antenna_lwfa(counters, lwfa_syncs):
     """16. The bench LWFA with its a0 = 4 laser emitted by a lab-static
     antenna at 20 um (float32): 5 + 30 steps with exactly one K1 and one
     K2 a step, zero overflow, finite fields; the host syncs of a
-    step(14) call (one exchange period) with the antenna at the same
-    lines, as many times, as over the next 14 steps without it, none in
-    the antenna's code; a profiled window; on until
+    step(14) call (one exchange period, one chunk of the chunk runner)
+    with the antenna: one, the chunk's read, at the same line as over
+    the next 14 steps without it, none in the antenna's code; a
+    profiled window; on until
     the pulse peak has left the antenna, its peak envelope ahead of the
     antenna beside a0's E0 times tests/test_antenna.py's attenuation
     (printed, not gated: plasma, a0 = 4); then 30 steps with a Mirror 2
@@ -2620,15 +2638,13 @@ def phase_antenna_lwfa(counters, lwfa_syncs):
                                    label, {"K1": 1, "K2": 1, "K3": 0})
     # Host syncs over one exchange period with the antenna, then over the
     # next without it (its emission paused: the pulse's leading edge, at
-    # ~1e-3 of the peak), at the same places of the exchange cycle
+    # ~1e-3 of the peak), at the same places of the exchange cycle; both
+    # take the chunk runner: one chunk each
     ep = sim.exchange_period
     syncs = count_syncs(sim, label, ep)
     antennas = list(sim.laser_antennas)
     sim.laser_antennas.clear()
-    # Without the antenna the configuration takes the chunk runner: count
-    # the eager loop's syncs, which the antenna run's are held against
-    plain = count_syncs(sim, f"{label} without the antenna", ep,
-                        run=lambda n: eager_steps(sim, n))
+    plain = count_syncs(sim, f"{label} without the antenna", ep)
     sim.laser_antennas.extend(antennas)
     in_antenna = {k: v for k, v in syncs["where"].items()
                   if "antenna" in k}
@@ -2636,9 +2652,11 @@ def phase_antenna_lwfa(counters, lwfa_syncs):
           f"antenna, {plain['count']} without; in the antenna's code: "
           f"{in_antenna}; phase 3's step(1): {lwfa_syncs['count']}",
           flush=True)
-    if in_antenna or syncs["where"] != plain["where"]:
-        raise RuntimeError(f"{label}: the antenna adds host syncs: "
-                           f"{syncs} against {plain}")
+    if in_antenna or syncs["where"] != plain["where"] \
+            or syncs["count"] != 1:
+        raise RuntimeError(f"{label}: the antenna adds host syncs, or the "
+                           f"chunk made more than its one read: {syncs} "
+                           f"against {plain}")
     prof = profile_steps(sim, N_PROFILED)
     if prof is not None:
         prof["idle_share"] = 1 - (prof["device_ms_per_step"]
@@ -3121,12 +3139,16 @@ def run_up(sim, n_to, chunk, label):
 def process_syncs(sim, label, toggle):
     """Host syncs of one step(exchange period) call with the processes,
     then of the next without them (toggle(False) turns them off), at the
-    same places of the exchange cycle: they must be the same."""
+    same places of the exchange cycle: they must be the same.  The
+    processes keep the eager loop (core/graph.py's graph_blockers), so
+    the call without them runs that loop too (eager_steps), not the
+    chunk runner the configuration would otherwise take."""
     ep = sim.exchange_period
     on = count_syncs(sim, f"{label} with the processes", ep)
     toggle(False)
     try:
-        off = count_syncs(sim, f"{label} without the processes", ep)
+        off = count_syncs(sim, f"{label} without the processes", ep,
+                          run=lambda n: eager_steps(sim, n))
     finally:
         toggle(True)
     print(f"{label}: step({ep}) made {on['count']} host syncs with the "
@@ -4888,27 +4910,81 @@ def deterministic_scatter(on):
         det.fill_uninitialized_memory = fill
 
 
+def record_captures(sim):
+    """Every (valid, z_lab, slices) chunk the back-transformed field
+    diagnostics of sim consume from now on, as numpy copies: the chunk
+    runner's rows, or the eager loop's buffer."""
+    out = []
+    for diag in sim.diags:
+        if not hasattr(diag, "device_capture"):
+            continue
+        real = diag.process_chunk
+
+        def record(s, caps, real=real):
+            out.append([np.array(a) for a in caps])
+            return real(s, caps)
+        diag.process_chunk = record
+    return out
+
+
+def btd_gate(label, graphed, twin, rows_graphed, rows_twin):
+    """The BTD of the graphed run against its twin's: every captured row
+    (valid, z_lab, slices) and every lab snapshot (filled cells, data)
+    bit for bit.  Returns (rows, filled cells)."""
+    a = [np.concatenate(x) for x in zip(*rows_graphed)]
+    b = [np.concatenate(x) for x in zip(*rows_twin)]
+    same = len(a) == len(b) == 3 and all(
+        x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+    filled = 0
+    for d0, d1 in zip(graphed.diags, twin.diags):
+        for s0, s1 in zip(getattr(d0, "snapshots", []),
+                          getattr(d1, "snapshots", [])):
+            if not hasattr(s0, "filled"):
+                continue
+            filled += int(s0.filled.sum())
+            same = same and np.array_equal(s0.filled, s1.filled) and all(
+                np.array_equal(s0.data[n], s1.data[n]) for n in s0.names)
+    n_rows = a[0].shape[0] if a else 0
+    print(f"{label}: BTD of the graphed run against the twin's: {n_rows} "
+          f"captured rows ({int(a[0].sum()) if a else 0} valid planes), "
+          f"{filled} lab cells filled; bit for bit {same}", flush=True)
+    if not same or n_rows == 0:
+        raise RuntimeError(f"{label}: the BTD differs from the twin's")
+    return n_rows, filled
+
+
 def graph_pair(label, build, per_step, counters, variants_want, n_steps,
-               plant=False, deterministic=False):
+               plant=False, deterministic=False, syncs_max=1,
+               atomics=False, windows=None):
     """One path's graphed run (Simulation.step) beside its eager twin
     (eager_steps), both built by build() from the same seeds: n_steps
     steps each in one call, the graphed run's kernel counts (set to 0
     just before it) exactly per_step a step, its graph variants (n_move,
-    full re-sort) variants_want; every array bit for bit but rho_prev; no
-    loss; then each run's ms/step, peak memory, profiled
-    window (device busy, launches, host launch calls) and host syncs of
-    an exchange period, in the same calls on both, and the equality once
-    more; with plant, a column overflow planted in both at a
-    non-exchange step, and the graphed call that rolls back equal to the
-    twin's.  With deterministic, the n_steps steps of both runs run
-    under deterministic_scatter, and two eager runs without it show what
-    the atomics alone change: the path's correction reads rho_prev (the
-    Galilean / comoving scheme), so its bits reach E, B, J and the
-    particles; the timed windows follow without it, and the equality is
-    then not held again."""
+    full re-sort) variants_want; every array bit for bit but rho_prev; a
+    back-transformed field diagnostic's captured rows and snapshots bit
+    for bit; no loss; windows(graphed, twin, eager), if given (more steps
+    with a mirror, an external field); then each run's ms/step, peak
+    memory, profiled window (device busy, launches, host launch calls)
+    and host syncs of an exchange period (at most syncs_max for the
+    graphed run), in the same calls on both after one untimed exchange
+    period, and the equality once more; with plant, a column overflow
+    planted in both at a non-exchange step, and the graphed call that
+    rolls back equal to the twin's.  With deterministic, both builds,
+    the n_steps steps of both runs and the windows run under
+    deterministic_scatter (rho_prev, a ring's J or a bunch's initial
+    charge is a scatter deposit with float atomics otherwise; the
+    Galilean / comoving correction reads rho_prev, so its bits reach E,
+    B, J and the particles), and with atomics two eager runs without it
+    show what the atomics alone change; the timed windows follow without
+    it (the graphs captured again without it), and the equality is then
+    not held again."""
     import torch
     import warnings
-    graphed, twin = build(), build()
+    with deterministic_scatter(deterministic):
+        # (a bunch's space-charge field is deposited when it is built)
+        graphed, twin = build(), build()
+    caps = {"graphed": record_captures(graphed),
+            "eager": record_captures(twin)}
     eager = lambda n: eager_steps(twin, n)   # noqa: E731
     with deterministic_scatter(deterministic):
         for fn in counters.values():
@@ -4951,6 +5027,12 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
             ".spect.rho_prev", 0.0), deterministic_scatter=deterministic,
         rollbacks=graphed.overflow_totals.get("rollbacks", 0),
         first_call_peak_gb=dict(graphed=peak_graphed, eager=peak_eager))
+    if caps["graphed"] or caps["eager"]:
+        out["btd_rows"], out["btd_filled"] = btd_gate(
+            label, graphed, twin, caps["graphed"], caps["eager"])
+    if windows is not None:
+        with deterministic_scatter(deterministic):
+            out["windows"] = windows(graphed, twin, eager, counters)
     # The graph's copy of the step's results into the static buffers
     # (every state tensor once): its bytes and its time on the card
     from fbpic_tpu_torch.core.graph import state_tensors
@@ -4964,7 +5046,7 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
     out.update(state_bytes=state_bytes, copy_back_ms=copy_ms,
                copy_back_bound_ms=copy_bound)
     del pairs
-    if deterministic:
+    if atomics:
         pair = [build() for _ in range(2)]
         for sim in pair:
             eager_steps(sim, n_steps)
@@ -4974,6 +5056,15 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
         out["eager_vs_eager_atomics"] = atomics
         del pair
         torch.cuda.empty_cache()
+    if deterministic:
+        # The graphs hold the sorted index_add_ they were captured with:
+        # capture them again without it, as a user's run has them
+        graphed._multi_step = graphed._multi_step_key = None
+    # One exchange period in both before the timed windows, so that the
+    # captures of a new chunk runner (the windows' options, the reset)
+    # fall outside them
+    graphed.step(graphed.exchange_period)
+    eager(twin.exchange_period)
     for name, sim, run in (("graphed", graphed, graphed.step),
                            ("eager", twin, eager)):
         ms, peak = timed_run(run, N_TIMED)
@@ -4992,6 +5083,9 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
               f"{peak:.3f} GB above the run's start, "
               f"{syncs['count']} host syncs in step({sim.exchange_period})",
               flush=True)
+        if name == "graphed" and syncs["count"] > syncs_max:
+            raise RuntimeError(f"{label}: {syncs['count']} host syncs in "
+                               f"an exchange period, not <= {syncs_max}")
     if not deterministic:
         twin_gate(label, graphed, twin, "after the timed windows")
     if plant:
@@ -5022,13 +5116,82 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
     return out
 
 
+def with_btd(sim, workdir):
+    """sim with phase 9's back-transformed field diagnostic (20 snapshots
+    BTD_DT_LAB apart), its snapshots collected, not written."""
+    from fbpic_tpu_torch.constants import c
+    from fbpic_tpu_torch.diagnostics import BackTransformedFieldDiagnostic
+    btd = BackTransformedFieldDiagnostic(
+        B_ZMIN_LAB, B_ZMAX_LAB, c, dt_snapshots_lab=BTD_DT_LAB,
+        Ntot_snapshots_lab=BTD_NSNAP, gamma_boost=B_GAMMA,
+        period=BTD_PERIOD, fldobject=sim.fld, comm=sim.comm,
+        write_dir=workdir)
+    collect_only(btd, [])
+    sim.diags = [btd]
+    return sim
+
+
+def ant_ext_ez(F, x, y, z, t, amplitude, length_scale):
+    """Phase 16's external field: a uniform Ez of ``amplitude``."""
+    return F + amplitude
+
+
+def antenna_windows(graphed, twin, eager, counters):
+    """Phase 16's windows on the antenna pair: N_NEW_TIMED more steps of
+    both with its Mirror 2 um inside the window's right edge, then as
+    many with its ExternalField instead; in each, one K1 and one K2 a
+    step in both runs (counted per replay in the graphed one) and every
+    array bit for bit but rho_prev."""
+    from fbpic_tpu_torch.lpa_utils import ExternalField, Mirror
+    label = "antenna LWFA"
+    z_mirror = float(graphed.grid_z()[-1] + 0.5 * graphed.config.dz
+                     - ANT_MIRROR_INSET)
+    attach = {
+        "mirror": lambda sim: sim.mirrors.append(
+            Mirror(z_lab=z_mirror, n_cells=2)),
+        "external_field": lambda sim: sim.external_fields.append(
+            ExternalField(ant_ext_ez, "Ez", ANT_EXT_EZ, 0.))}
+    want = {"K1": N_NEW_TIMED, "K2": N_NEW_TIMED, "K3": 0}
+    out = {}
+    for key, add in attach.items():
+        launches = {}
+        for name, sim, run in (("graphed", graphed, graphed.step),
+                               ("eager", twin, eager)):
+            sim.mirrors.clear()
+            sim.external_fields.clear()
+            add(sim)
+            for fn in counters.values():
+                fn.launches = 0
+            run(N_NEW_TIMED)
+            launches[name] = {k: fn.launches for k, fn in counters.items()}
+        print(f"{label} + {key}: {N_NEW_TIMED} steps, launches {launches}, "
+              f"graph variants {sorted(graphed._multi_step.graphs)}",
+              flush=True)
+        if any(v != want for v in launches.values()):
+            raise RuntimeError(f"{label} + {key}: launches {launches}")
+        rel = twin_gate(f"{label} + {key}", graphed, twin,
+                        f"after {N_NEW_TIMED} steps")
+        out[key] = dict(launches=launches["graphed"],
+                        rho_prev_rel_diff=rel.get(".spect.rho_prev", 0.0))
+    for sim in (graphed, twin):
+        sim.mirrors.clear()
+        sim.external_fields.clear()
+    return out
+
+
 def phase_graph_paths(counters, smi):
     """26. The chunk runner (core/graph.py: the non-exchange steps
     replayed from captured CUDA graphs) on the bench LWFA, the boosted
-    LWFA (phase 6; n_move alternates: two variants) and the PICMI LWFA
-    (phase 21; its dens_func on the host at the exchange steps), each
-    beside its eager twin (graph_pair); the bench run also rolls back a
-    planted column overflow."""
+    LWFA (phase 6; n_move alternates: two variants), the PICMI LWFA
+    (phase 21; its dens_func on the host at the exchange steps), the
+    boosted LWFA with phase 9's BTD captured inside the chunk, the
+    antenna LWFA (phase 16; then its mirror and its external field), the
+    PWFA driver (phase 15: a resident plasma and a 1,000,000-particle
+    ring bunch) and the published boosted script (a ring) with the BTD,
+    each beside its eager twin (graph_pair); the bench run also rolls
+    back a planted column overflow.  At most one host sync an exchange
+    period (the chunk's read), two with the BTD (its first write at the
+    call's start), four for the PICMI LWFA (its dens_func's three)."""
     import torch
     workdir = tempfile.mkdtemp()
 
@@ -5038,18 +5201,35 @@ def phase_graph_paths(counters, smi):
             collect_only(diag, [])
         return sim
 
-    # (label, build, launches a step, graph variants, steps, plant an
-    # overflow, deterministic)
-    paths = (("bench LWFA", make_sim, {"K1": 1, "K2": 1, "K3": 0},
-              [(1, False)], GRAPH_STEPS, True, False),
-             ("boosted LWFA", make_boosted_sim, {"K1": 0, "K2": 1, "K3": 2},
-              [(1, False), (2, False)], GRAPH_STEPS_BOOSTED, False, True),
-             ("PICMI LWFA", picmi_sim, {"K1": 1, "K2": 1, "K3": 0},
-              [(1, False)], GRAPH_STEPS, False, False))
+    none = {"K1": 0, "K2": 0, "K3": 0}
+    resident = {"K1": 1, "K2": 1, "K3": 0}
+    boosted = {"K1": 0, "K2": 1, "K3": 2}
+    two = [(1, False), (2, False)]
+    # (label, build, launches a step, graph variants, steps, and
+    # graph_pair's options)
+    paths = (
+        ("bench LWFA", make_sim, resident, [(1, False)], GRAPH_STEPS,
+         dict(plant=True)),
+        ("boosted LWFA", make_boosted_sim, boosted, two, GRAPH_STEPS_BOOSTED,
+         dict(deterministic=True, atomics=True)),
+        ("PICMI LWFA", picmi_sim, resident, [(1, False)], GRAPH_STEPS,
+         dict(syncs_max=4)),
+        ("boosted LWFA + BTD",
+         lambda: with_btd(make_boosted_sim(), workdir), boosted, two,
+         GRAPH_STEPS_BOOSTED, dict(deterministic=True, syncs_max=2)),
+        ("antenna LWFA", lambda: make_sim(z_antenna=ANT_Z,
+                                          sort_K=ANT_SORT_K),
+         resident, [(1, False)], GRAPH_STEPS, dict(windows=antenna_windows)),
+        ("PWFA driver", lambda: make_pwfa_sim()[0], resident, [(1, False)],
+         GRAPH_STEPS, dict(deterministic=True)),
+        ("published boosted (ring) + BTD",
+         lambda: with_btd(make_boosted_sim(p_zmin_lab=B_P_ZMIN_PUBLISHED),
+                          workdir), none, two, GRAPH_STEPS_BOOSTED,
+         dict(deterministic=True, syncs_max=2)))
     out = {}
-    for label, build, per_step, variants, n_steps, plant, det in paths:
+    for label, build, per_step, variants, n_steps, kw in paths:
         out[label] = graph_pair(label, build, per_step, counters, variants,
-                                n_steps, plant, det)
+                                n_steps, **kw)
         torch.cuda.empty_cache()
     print(f"graph paths on {smi}", flush=True)
     return out

@@ -20,11 +20,19 @@ end.
   results are copied into the static buffers, outside the pool), and
   the replays run one after the other on one stream.
 - The step's scalars (``StepScalars``: zmin at the gather, the J
-  deposit and rho_next, the time, the window's reference) come from a
-  per-chunk table, uploaded once per chunk; the row is picked by a
-  device step index that every step of the chunk advances, so a replay
-  reads its own step's values.  The host keeps its own arithmetic for
-  them and for the variant keys, and never reads them back.
+  deposit, rho_next and the step's end, the time, the window's
+  reference, each mirror's zeroed interval, each laser antenna's slice,
+  cells and weights) come from per-chunk tables, uploaded once per
+  chunk; the row is picked by a device step index that every step of
+  the chunk advances, so a replay reads its own step's values.  The
+  host keeps its own arithmetic for them and for the variant keys, and
+  never reads them back.  The antennas' current series are copied into
+  static buffers once a chunk.
+- The capture functions (``make_multi_step_capture``: the
+  back-transformed fields' plane slices, fbpic_tpu's lax.scan outputs)
+  write the state after each step into static buffers at the step
+  index's row; their rows come back to the host with the chunk's one
+  read.
 - The banded re-sort's overflow, which fbpic_tpu redoes inside its
   program with a ``lax.cond`` (a full sort), is added into a device flag
   instead.  The chunk's one read (the flag, sort_overflow and
@@ -60,11 +68,18 @@ from dataclasses import fields, replace
 
 import torch
 
+from ..lpa_utils.laser.antenna_injection import antenna_cells
 from ..utils import kernels
-from .step import (StepScalars, ensure_counters, make_step_fn, plan_step)
+from .step import (StepScalars, ensure_counters, make_step_fn, mirror_planes,
+                   plan_step)
 
 #: Most steps in one chunk (fbpic_tpu's step chunk cap)
 MAX_CAPTURE = 250
+#: The real table's first columns: zmin, zmin_mid, zmin_next, time,
+#: mw_zref, zmin_end, time_end (then each mirror's two, each antenna's
+#: three)
+_N_BASE = 7
+_ZMIN_END, _TIME_END = 5, 6
 
 
 def state_tensors(state):
@@ -105,40 +120,70 @@ def signature(state):
 
 
 class MultiStep:
-    """The chunk runner of one configuration (``make_multi_step``).
+    """The chunk runner of one configuration (``make_multi_step``, and
+    ``make_multi_step_capture`` with ``capture_fns``).
 
     ``multi_step(state, aux, n_steps, inj_auxes, column_angles,
-    generator, draws)`` runs n_steps <= MAX_CAPTURE steps from ``state``
-    (which it leaves unchanged) and returns (the new state, counts):
-    counts holds the host ints of the chunk's one read, ``resort_redo``
-    (the banded re-sorts' overflow in the graphed steps),
-    ``sort_overflow`` and ``ring_overwrite`` (the state's running
-    counters after the chunk), and ``rolled_back`` (the chunk was run
-    again eagerly).  The static buffers are built for the state the
-    first call gets; a state of another structure raises.  Every graph
-    belongs to the configuration it was built for (species, capacities,
-    StepOptions): a change of any of them needs a new MultiStep."""
+    generator, draws, antenna_series)`` runs n_steps <= MAX_CAPTURE
+    steps from ``state`` (which it leaves unchanged) and returns (the
+    new state, counts): counts holds the host ints of the chunk's one
+    read, ``resort_redo`` (the banded re-sorts' overflow in the graphed
+    steps), ``sort_overflow`` and ``ring_overwrite`` (the state's
+    running counters after the chunk), ``rolled_back`` (the chunk was
+    run again eagerly) and ``captures``: for each capture function, the
+    tuple of its outputs stacked over the chunk's steps (numpy arrays of
+    n_steps rows).
 
-    def __init__(self, config, species_configs, options):
+    ``capture_fns``: functions ``cap(state, aux, time, zmin)`` of the
+    state after each step (time and zmin: its time and grid edge as 0-d
+    tensors of the working dtype) returning a tuple of tensors of fixed
+    shapes -- the back-transformed fields' plane slices
+    (``BackTransformedFieldDiagnostic.device_capture``).  Each step
+    writes them into a static (MAX_CAPTURE, ...) device buffer at the
+    row of the device step index (inside the graph of a replayed step),
+    and the chunk copies the first n_steps rows to pinned host memory
+    asynchronously before its one read, which waits for them: the
+    captures cost no host read of their own.
+
+    ``antenna_series``: the laser antennas' current blocks of the chunk
+    (``LaserAntenna.compute_series``, from the iteration ``it0`` <= the
+    chunk's first, at most MAX_CAPTURE rows): each is copied into a
+    static MAX_CAPTURE-row buffer once a chunk, which every step reads
+    (a graph reads the tensors it was captured with: a new tensor a
+    chunk would leave every replay reading the first chunk's current).
+
+    The static buffers are built for the state (and the number of
+    antennas) the first call gets; another structure raises.  Every
+    graph belongs to the configuration it was built for (species,
+    capacities, StepOptions, capture functions): a change of any of them
+    needs a new MultiStep."""
+
+    def __init__(self, config, species_configs, options, capture_fns=()):
         self.config, self.options = config, options
         self.step = make_step_fn(config, tuple(species_configs), options)
+        self.capture_fns = tuple(capture_fns)
         self._signature = None
-        self._static = self._table = self._index = self._flag = None
+        self._static = self._table = self._itable = None
+        self._index = self._flag = None
         self._static_storages = set()
+        self._series = ()
+        self._caps = self._caps_host = ()
         #: variant key (n_move, full_resort) -> (graph, launch counts)
         self.graphs = {}
         self._pool = self._side = None
 
     # -----------------------------------------------------------------
     def __call__(self, state, aux, n_steps, inj_auxes=(), column_angles=None,
-                 generator=None, draws=None):
+                 generator=None, draws=None, antenna_series=()):
         if not 0 < n_steps <= MAX_CAPTURE:
             raise ValueError(f"a chunk runs 1 to {MAX_CAPTURE} steps, not "
                              f"{n_steps}")
         state = ensure_counters(state)
-        self._ensure_static(state)
-        plans, rows = self._plan(state, n_steps)
-        self._upload(rows)
+        self._ensure_static(state, aux, antenna_series)
+        plans, rows, irows = self._plan(state, n_steps, antenna_series)
+        self._upload(rows, irows)
+        kw = dict(draws=draws, antenna_series=self._load_series(
+            antenna_series))
         gen_state = None if generator is None else generator.get_state()
         for s, t in zip(self._static, state_tensors(state)):
             s.copy_(t)
@@ -148,75 +193,171 @@ class MultiStep:
         args = (aux, inj_auxes, column_angles, generator)
         for plan in plans:
             if plan.exchange:
-                new = self.step(cur, *args, draws=draws)
+                new = self.step(cur, *args, **kw)
                 self._store(new)
                 cur = with_state_tensors(new, self._static)
+                self._capture(cur, aux, self._row()[0])
                 self._index.add_(1)
             else:
                 self._graphed((plan.n_move, plan.full_resort), cur, args,
-                              draws)
+                              kw)
                 cur = replace(cur, time=plan.time_end, zmin=plan.zmin_end,
                               mw_zref=plan.mw_zref_end,
                               iteration=cur.iteration + 1)
+        self._copy_captures(n_steps)
         redo, n_sort, n_ring = torch.stack(
             [self._flag, cur.sort_overflow, cur.ring_overwrite]).tolist()
         if redo > 0:
             # A banded re-sort overflowed: the chunk again from its
-            # start, through the eager step (which redoes the sort)
+            # start, through the eager step (which redoes the sort), and
+            # its captures with it
             if generator is not None:
                 generator.set_state(gen_state)
             out = state
+            self._index.zero_()
             for _ in range(n_steps):
-                out = self.step(out, *args, draws=draws)
+                out = self.step(out, *args, **kw)
+                self._capture(out, aux, self._row()[0])
+                self._index.add_(1)
+            self._copy_captures(n_steps)
             n_sort, n_ring = torch.stack(
                 [out.sort_overflow, out.ring_overwrite]).tolist()
         else:
             out = with_state_tensors(cur, [s.clone() for s in self._static])
+        captures = [tuple(h[:n_steps].numpy() for h in hosts)
+                    for hosts in self._caps_host]
         return out, dict(resort_redo=redo, sort_overflow=n_sort,
-                         ring_overwrite=n_ring, rolled_back=redo > 0)
+                         ring_overwrite=n_ring, rolled_back=redo > 0,
+                         captures=captures)
 
     # -----------------------------------------------------------------
-    def _ensure_static(self, state):
-        sig = signature(state)
-        if self._signature is None:
-            self._signature = sig
-            self._static = [torch.empty_like(t) for t in state_tensors(state)]
-            self._static_storages = {t.untyped_storage().data_ptr()
-                                     for t in self._static}
-            dev = state.spect.Ep.device
-            rdt = state.spect.Ep.real.dtype
-            self._table = torch.zeros((MAX_CAPTURE, 5), dtype=rdt,
-                                      device=dev)
-            self._index = torch.zeros((), dtype=torch.int64, device=dev)
-            self._flag = torch.zeros((), dtype=torch.int64, device=dev)
-        elif sig != self._signature:
-            raise ValueError("the state's tensors are not those the chunk "
-                             "runner was built for")
+    def _ensure_static(self, state, aux, antenna_series):
+        sig = signature(state) + tuple(
+            (tuple(a.J.shape[2:]), a.J.dtype) for a in antenna_series)
+        if self._signature is not None:
+            if sig != self._signature:
+                raise ValueError("the state's tensors or the antennas are "
+                                 "not those the chunk runner was built "
+                                 "for")
+            return
+        self._signature = sig
+        self._static = [torch.empty_like(t) for t in state_tensors(state)]
+        self._static_storages = {t.untyped_storage().data_ptr()
+                                 for t in self._static}
+        dev = state.spect.Ep.device
+        rdt = state.spect.Ep.real.dtype
+        n_m, n_a = len(self.options.mirrors), len(antenna_series)
+        self._table = torch.zeros((MAX_CAPTURE, _N_BASE + 2 * n_m + 3 * n_a),
+                                  dtype=rdt, device=dev)
+        self._itable = torch.zeros((MAX_CAPTURE, 3 * n_a),
+                                   dtype=torch.int64, device=dev)
+        self._index = torch.zeros((), dtype=torch.int64, device=dev)
+        self._flag = torch.zeros((), dtype=torch.int64, device=dev)
+        self._series = [torch.zeros((2, MAX_CAPTURE) + a.J.shape[2:],
+                                    dtype=a.J.dtype, device=dev)
+                        for a in antenna_series]
+        # The capture buffers, shaped by one capture of the input state
+        t, z = (torch.full((), float(v), dtype=rdt, device=dev)
+                for v in (state.time, state.zmin))
+        self._caps = [[torch.zeros((MAX_CAPTURE,) + o.shape, dtype=o.dtype,
+                                   device=dev) for o in fn(state, aux, t, z)]
+                      for fn in self.capture_fns]
+        pin = dev.type == "cuda"
+        self._caps_host = [[torch.zeros(b.shape, dtype=b.dtype,
+                                        pin_memory=pin) for b in bufs]
+                           for bufs in self._caps]
 
-    def _plan(self, state, n_steps):
-        """The host's plan of every step of the chunk, and the table rows
-        of their scalars (zmin, zmin_mid, zmin_next, time, mw_zref)."""
-        plans, rows = [], []
+    def _plan(self, state, n_steps, antenna_series):
+        """The host's plan of every step of the chunk, and the rows of
+        their scalars: the real table (zmin, zmin_mid, zmin_next, time,
+        mw_zref, zmin_end, time_end; each mirror's z_lo, z_hi; each
+        antenna's s0, s1, on) and the int64 one (each antenna's row,
+        iz0c, iz1c)."""
+        cfg = self.config
+        plans, rows, irows = [], [], []
         zmin, time, mw_zref = state.zmin, state.time, state.mw_zref
         for it in range(state.iteration, state.iteration + n_steps):
-            plan = plan_step(self.config, self.options, zmin, zmin,
-                             mw_zref, time, it)
+            plan = plan_step(cfg, self.options, zmin, zmin, mw_zref, time,
+                             it)
             plans.append(plan)
-            rows.append([float(zmin), float(plan.zmin_mid),
-                         float(plan.zmin_next), float(time),
-                         0.0 if mw_zref is None else float(mw_zref)])
+            row = [float(zmin), float(plan.zmin_mid), float(plan.zmin_next),
+                   float(time), 0.0 if mw_zref is None else float(mw_zref),
+                   float(plan.zmin_end), float(plan.time_end)]
+            for z_lo, z_hi in mirror_planes(cfg, self.options, time):
+                row += [z_lo, z_hi]
+            irow = []
+            for series in antenna_series:
+                i, iz0c, iz1c, s0, s1, on = antenna_cells(
+                    series, it, plan.zmin_mid, cfg.dz, cfg.Nz)
+                row += [float(s0), float(s1), float(on)]
+                irow += [i, iz0c, iz1c]
+            rows.append(row)
+            irows.append(irow)
             zmin, time, mw_zref = plan.zmin_end, plan.time_end, \
                 plan.mw_zref_end
-        return plans, rows
+        return plans, rows, irows
 
-    def _upload(self, rows):
-        """The chunk's scalar table in one copy (from pinned memory on
-        CUDA: asynchronous, no host sync); each value rounded to the
-        working dtype as a torch op rounds a host number."""
-        host = torch.tensor(rows, dtype=self._table.dtype)
-        if self._table.device.type == "cuda":
-            host = host.pin_memory()
-        self._table[:len(rows)].copy_(host, non_blocking=True)
+    def _upload(self, rows, irows):
+        """The chunk's scalar tables in one copy each (from pinned memory
+        on CUDA: asynchronous, no host sync); each value rounded to the
+        table's dtype as a torch op rounds a host number."""
+        for table, values in ((self._table, rows), (self._itable, irows)):
+            if table.shape[1] == 0:
+                continue
+            host = torch.tensor(values, dtype=table.dtype)
+            if table.device.type == "cuda":
+                host = host.pin_memory()
+            table[:len(values)].copy_(host, non_blocking=True)
+
+    def _load_series(self, antenna_series):
+        """The chunk's antenna series copied into the static buffers, as
+        AntennaSeries on them (the host z positions and it0 kept)."""
+        out = []
+        for buf, series in zip(self._series, antenna_series):
+            n = series.J.shape[1]
+            if n > MAX_CAPTURE:
+                raise ValueError(f"an antenna series of {n} rows: at most "
+                                 f"{MAX_CAPTURE}")
+            buf[:, :n].copy_(series.J)
+            out.append(replace(series, J=buf))
+        return tuple(out)
+
+    def _row(self):
+        """The tables' rows at the device step index (0-d tensors each,
+        unbound)."""
+        idx = self._index.view(1)
+        row = self._table.index_select(0, idx)[0].unbind(0)
+        irow = self._itable.index_select(0, idx)[0].unbind(0) \
+            if self._itable.shape[1] else ()
+        return row, irow
+
+    def _scalars(self, row, irow):
+        """StepScalars of a table row."""
+        n_m = len(self.options.mirrors)
+        m0 = _N_BASE + 2 * n_m
+        mirrors = tuple((row[_N_BASE + 2 * k], row[_N_BASE + 2 * k + 1])
+                        for k in range(n_m))
+        antennas = tuple(tuple(irow[3 * a:3 * a + 3])
+                         + tuple(row[m0 + 3 * a:m0 + 3 * a + 3])
+                         for a in range(len(irow) // 3))
+        return StepScalars(*row[:5], zmin_end=row[5], mirrors=mirrors,
+                           antennas=antennas)
+
+    def _capture(self, state, aux, row):
+        """Each capture function of the state after a step, written into
+        its buffers at the row of the device step index."""
+        idx = self._index.view(1)
+        for fn, bufs in zip(self.capture_fns, self._caps):
+            for buf, t in zip(bufs, fn(state, aux, row[_TIME_END],
+                                       row[_ZMIN_END])):
+                buf.index_copy_(0, idx, t.unsqueeze(0))
+
+    def _copy_captures(self, n_steps):
+        """The captures' first n_steps rows into pinned host memory,
+        asynchronously: the chunk's read that follows waits for them."""
+        for bufs, hosts in zip(self._caps, self._caps_host):
+            for buf, host in zip(bufs, hosts):
+                host[:n_steps].copy_(buf[:n_steps], non_blocking=True)
 
     def _store(self, new):
         """Copy a step's result into the static buffers (a result that
@@ -232,23 +373,24 @@ class MultiStep:
             if o is not s:
                 s.copy_(o)
 
-    def _body(self, cur, args, draws):
+    def _body(self, cur, args, kw):
         """One non-exchange step on the static buffers: its scalars from
-        the table's row at the step index, the banded re-sort's overflow
-        into the flag, the result copied back, the index advanced."""
-        row = self._table.index_select(0, self._index.view(1))[0]
-        new = self.step(cur, *args, draws=draws,
-                        scalars=StepScalars(*row.unbind(0)),
-                        redo_flag=self._flag)
+        the tables' row at the step index, the banded re-sort's overflow
+        into the flag, the result copied back, the captures written, the
+        index advanced."""
+        row, irow = self._row()
+        new = self.step(cur, *args, scalars=self._scalars(row, irow),
+                        redo_flag=self._flag, **kw)
         self._store(new)
+        self._capture(with_state_tensors(new, self._static), args[0], row)
         self._index.add_(1)
 
-    def _graphed(self, key, cur, args, draws):
+    def _graphed(self, key, cur, args, kw):
         """The non-exchange step of variant ``key``: the body itself on
         the CPU; on CUDA a replay, or, at the variant's first step, its
         warm-up (the step, eagerly, on a side stream) and its capture."""
         if self._table.device.type != "cuda":
-            self._body(cur, args, draws)
+            self._body(cur, args, kw)
             return
         if key in self.graphs:
             graph, counts = self.graphs[key]
@@ -262,11 +404,11 @@ class MultiStep:
         main = torch.cuda.current_stream(dev)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
-            self._body(cur, args, draws)
+            self._body(cur, args, kw)
         main.wait_stream(self._side)
-        self.graphs[key] = self._capture(key, cur, args, draws)
+        self.graphs[key] = self._capture_graph(key, cur, args, kw)
 
-    def _capture(self, key, cur, args, draws):
+    def _capture_graph(self, key, cur, args, kw):
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         mode = torch.cuda.get_sync_debug_mode()
@@ -274,7 +416,7 @@ class MultiStep:
             with torch.cuda.graph(graph, pool=self._pool):
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    self._body(cur, args, draws)
+                    self._body(cur, args, kw)
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
         except RuntimeError as err:
@@ -290,29 +432,20 @@ class MultiStep:
 
 def graph_blockers(sim, options):
     """Why ``sim``'s run with ``options`` does not take the chunk runner
-    (an empty list when it does).  It does when every species is
-    resident (linear shape, no cross-deposition, no tracer) without
-    ionization, Compton scattering or a ballistic plane, with no laser
-    antenna, external field, mirror or capturing diagnostic (the
-    back-transformed fields): those need host values a step, host
-    reads or per-step random state, and keep the eager loop."""
-    from .step import _resident_indices
+    (an empty list when it does).  It does for every species layout --
+    resident, or a ring of any shape, cross-deposition included (their
+    steps capture with no host read) -- with laser antennas, external
+    fields, mirrors and the back-transformed field diagnostic: their
+    per-step values come from the chunk's tables, the diagnostic's
+    slices go to the runner's buffers.  These keep the eager loop:
+    ionization and Compton scattering (their draws come from a generator
+    that a graph would replay unchanged, and their target rings grow
+    between calls) and a ballistic species (its injection plane is a
+    host number in the push)."""
     out = []
     scs = sim.species_configs
-    resident = _resident_indices(sim.config, scs, options)
-    if len(resident) != len(scs):
-        out.append("a species is not resident")
     if any(sc.ionizer is not None or sc.compton is not None for sc in scs):
         out.append("ionization or Compton scattering")
     if any(sc.ballistic_z0 is not None for sc in scs):
         out.append("a ballistic species")
-    if sim.laser_antennas:
-        out.append("a laser antenna")
-    if options.external_fields:
-        out.append("an external field")
-    if options.mirrors:
-        out.append("a mirror")
-    if any(hasattr(w, "capture") for w in sim.diags):
-        out.append("a capturing diagnostic")
     return out
-

@@ -44,7 +44,8 @@ from .graph import MAX_CAPTURE, graph_blockers, signature
 from .state import SimState
 from .step import (
     StepOptions, interp2spect_EB, make_step, make_prepare, make_multi_step,
-    ensure_counters, deposit_rho_spect, deposit_J_spect,
+    make_multi_step_capture, ensure_counters, deposit_rho_spect,
+    deposit_J_spect,
 )
 
 
@@ -723,23 +724,26 @@ class Simulation:
         Every diagnostic in ``diags`` is written once before the first
         cycle (it checks its own period), as in fbpic_tpu.  After each
         cycle, each diagnostic with a ``capture`` method (the
-        back-transformed fields) captures on the device, into a buffer
-        it consumes at most every ``MAX_CAPTURE`` cycles and at the end
-        of the call; every other diagnostic and every checkpoint is
-        written if its period says so.  fbpic_tpu writes the latter at
-        the end of step chunks that stop at their smallest period: the
-        same iterations.  The laser antennas' currents are computed for
-        the same chunks, one upload each (``_antenna_block``).
+        back-transformed fields) captures on the device; every other
+        diagnostic and every checkpoint is written if its period says
+        so.  fbpic_tpu writes the latter at the end of step chunks that
+        stop at their smallest period: the same iterations.  The laser
+        antennas' currents are computed for the same chunks, one upload
+        each (``_antenna_block``).
 
-        A run whose every species is resident, without the processes,
-        antennas, external fields, mirrors or a capturing diagnostic
-        (``core.graph.graph_blockers``), runs fbpic_tpu's chunk loop
-        instead: chunks of at most MAX_CAPTURE steps, each ending where
-        a writer's period ends, each run by the chunk runner
-        (``make_multi_step``: on CUDA, the non-exchange steps replayed
-        from captured CUDA graphs) with one host read at its end.  A
-        chunk that had to be run again eagerly (a banded re-sort's
-        overflow) counts in ``overflow_totals["rollbacks"]``."""
+        A run without the processes or a ballistic species
+        (``core.graph.graph_blockers``) runs fbpic_tpu's chunk loop:
+        chunks of at most MAX_CAPTURE steps, each ending where a plain
+        writer's period ends, each run by the chunk runner
+        (``make_multi_step``, or ``make_multi_step_capture`` with the
+        capturing diagnostics' ``device_capture``: on CUDA, the
+        non-exchange steps replayed from captured CUDA graphs) with one
+        host read at its end, which also brings the chunk's captures
+        back.  A chunk that had to be run again eagerly (a banded
+        re-sort's overflow) counts in ``overflow_totals["rollbacks"]``.
+        The other runs keep the eager loop, whose capturing diagnostics
+        consume their buffer at most every ``MAX_CAPTURE`` cycles and at
+        the end of the call."""
         if not self._banner_printed:
             self._banner_printed = True
             print_simulation_setup(self, self.verbose_level)
@@ -765,40 +769,57 @@ class Simulation:
         counts = None
         if graph_blockers(self, options):
             self._run_eager(N, options, capture, plain, progress)
+            for w in capture:
+                w.process_captures(self)
         else:
-            counts = self._run_chunks(N, options, plain, progress)
-        for w in capture:
-            w.process_captures(self)
+            counts = self._run_chunks(N, options, capture, plain, progress)
         if progress is not None:
             progress.print_summary()
         self._consume_overflow_counters(counts)
 
-    def _run_chunks(self, N, options, plain, progress):
+    def _run_chunks(self, N, options, capture, plain, progress):
         """fbpic_tpu's chunk loop (core/simulation.py:880-957) on the
-        chunk runner; returns the last chunk's counts."""
+        chunk runner, with the capturing diagnostics' functions inside
+        the chunk and the antennas' series of fbpic_tpu's chunks
+        (``_antenna_block``; a runner chunk never crosses a block's
+        end); returns the last chunk's counts."""
         self.state = ensure_counters(self.state)
         key = (options, tuple(self.species_configs), id(self.aux),
-               signature(self.state))
+               signature(self.state), tuple(capture),
+               tuple(self.laser_antennas))
         if key != self._multi_step_key:
             # A new configuration: the previous graphs go
             self._multi_step = None
-            self._multi_step = make_multi_step(
-                self.config, self.species_configs, options)
+            if capture:
+                self._multi_step = make_multi_step_capture(
+                    self.config, self.species_configs, options,
+                    tuple(w.device_capture() for w in capture))
+            else:
+                self._multi_step = make_multi_step(
+                    self.config, self.species_configs, options)
             self._multi_step_key = key
         done, counts = 0, None
+        series, block_end = (), 0
         while done < N:
+            if self.laser_antennas and done == block_end:
+                series, block_end = self._antenna_block(N, done, plain)
             chunk = self._chunk_length(N - done, plain)
+            if self.laser_antennas:
+                chunk = min(chunk, block_end - done)
             if progress is not None:
                 # the bar's updates end chunks too: the same as the loop's
                 chunk = next(k for k in range(1, chunk + 1)
                              if k == chunk or progress.due(done + k))
             self.state, counts = self._multi_step(
                 self.state, self.aux, chunk, tuple(self._injector_auxes),
-                self.column_angles, self.generator, self.process_draws)
+                self.column_angles, self.generator, self.process_draws,
+                antenna_series=series)
             if counts["rolled_back"]:
                 self.overflow_totals["rollbacks"] = \
                     self.overflow_totals.get("rollbacks", 0) + 1
             done += chunk
+            for w, caps in zip(capture, counts["captures"]):
+                w.process_chunk(self, caps)
             for w in plain:
                 w.write(self)
             if progress is not None and progress.due(done):

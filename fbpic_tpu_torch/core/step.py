@@ -91,7 +91,9 @@ from ..particles.sorted_deposit import (
     deposit_rho_sorted, deposit_J_sorted, deposit_rho_J_sorted_cubic,
 )
 from ..fields.solver import SPECT_PML_FIELDS, INTERP_PML_FIELDS
-from ..lpa_utils.laser.antenna_injection import add_antenna_current
+from ..lpa_utils.laser.antenna_injection import (
+    add_antenna_current, add_antenna_current_device,
+)
 from .state import SimState
 
 
@@ -128,20 +130,27 @@ class StepOptions:
 @dataclass(frozen=True)
 class StepScalars:
     """The scalars of one step as 0-d tensors of the working dtype on the
-    step's device (a row of core/graph.py's per-chunk table): the grid's
+    step's device (a row of core/graph.py's per-chunk tables): the grid's
     left edge at the gather and re-sort (``zmin``), at the J deposit
-    (``zmin_mid``) and at rho_next (``zmin_next``), the step's ``time``
-    and the moving window's reference ``mw_zref``.  Given to the step,
-    every torch op and kernel of the resident block reads them from
-    there, so that a captured step reads each replay's values.  Their
-    values are the host's (``plan_step``), rounded to the working dtype
-    as a torch op rounds the host number: the step is the same bit for
-    bit either way."""
+    (``zmin_mid``), at rho_next (``zmin_next``) and after the step
+    (``zmin_end``: the mirrors' cells), the step's ``time`` and the
+    moving window's reference ``mw_zref``; each mirror's zeroed interval
+    (``mirrors``: (z_lo, z_hi) a mirror, ``mirror_planes``) and each
+    laser antenna's slice (``antennas``: ``antenna_cells``' values, the
+    indices as int64 tensors).  Given to the step, every torch op and
+    kernel of the step reads them from there, so that a captured step
+    reads each replay's values.  Their values are the host's
+    (``plan_step``, ``mirror_planes``, ``antenna_cells``), rounded to the
+    working dtype as a torch op rounds the host number: the step is the
+    same bit for bit either way."""
     zmin: torch.Tensor
     zmin_mid: torch.Tensor
     zmin_next: torch.Tensor
     time: torch.Tensor
     mw_zref: torch.Tensor
+    zmin_end: torch.Tensor = None
+    mirrors: tuple = ()
+    antennas: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -208,8 +217,15 @@ def _comp_of(sp):
     return (sp.comp_x, sp.comp_y, sp.comp_z)
 
 
+def _scalar(v):
+    """A grid edge as the deposits and gathers take it: a 0-d tensor
+    (StepScalars) as it is, a host number as a float (the same bits in
+    a torch op of the working dtype)."""
+    return v if torch.is_tensor(v) else float(v)
+
+
 def _deposit_args(config, zmin):
-    return (config.Nm, 1.0 / config.dz, float(zmin), config.Nz,
+    return (config.Nm, 1.0 / config.dz, _scalar(zmin), config.Nz,
             1.0 / config.dr, 0.0, config.Nr)
 
 
@@ -254,7 +270,7 @@ def deposit_rho_spect(config, aux, species, species_configs, zmin,
 
 def deposit_J_spect(config, aux, species, species_configs, zmin,
                     antenna_series=(), iteration=None, sorts=None,
-                    fused=None, antenna_bounds=None):
+                    fused=None, antenna_bounds=None, antenna_cells=None):
     """Current of all species -> spectral (Jp, Jm, Jz), summed in
     species order (fused / sorts / scatter as in deposit_rho_spect).
 
@@ -262,7 +278,10 @@ def deposit_J_spect(config, aux, species, species_configs, zmin,
     (lpa_utils/laser/antenna_injection.py), whose slice of the host
     ``iteration`` is added onto the grid before the transform (and so
     before the filter), as fbpic_tpu does; ``antenna_bounds`` (a slab's
-    owned z interval) keeps an antenna plane outside it off this grid."""
+    owned z interval) keeps an antenna plane outside it off this grid.
+    ``antenna_cells``: each antenna's slice, cells and weights as device
+    tensors (StepScalars.antennas), read instead of the host's (zmin
+    is then a 0-d tensor)."""
     JrJtJz = None
     for i, (sp, sc) in enumerate(zip(species, species_configs)):
         if sc.is_tracer:
@@ -291,10 +310,14 @@ def deposit_J_spect(config, aux, species, species_configs, zmin,
                         dtype=aux.S_w.dtype, device=aux.S_w.device)
         JrJtJz = [torch.complex(z, z)] * 3
     Jr, Jt, Jz = [a * aux.invvol[:, None, :] for a in JrJtJz]
-    for series in antenna_series:
-        Jr, Jt = add_antenna_current(Jr, Jt, series, iteration, zmin,
-                                     config.dz, config.Nz,
-                                     own_bounds=antenna_bounds)
+    for k, series in enumerate(antenna_series):
+        if antenna_cells is not None:
+            Jr, Jt = add_antenna_current_device(Jr, Jt, series,
+                                                antenna_cells[k])
+        else:
+            Jr, Jt = add_antenna_current(Jr, Jt, series, iteration, zmin,
+                                         config.dz, config.Nz,
+                                         own_bounds=antenna_bounds)
     return tr.interp2spect_J_fields(aux.mats, Jr, Jt, Jz)
 
 
@@ -412,15 +435,16 @@ def gather_and_push(config, options, sp, sc, interp, zmin, dt, time=None,
     """Gather E,B at a non-resident species' particles (the linear or
     cubic gather by index), apply the external fields and Vay-push its
     momenta (unless move_momenta is off; behind a ballistic species'
-    plane the momenta stay).  time: the host time of the step;
-    time_t: the same as a 0-d tensor, for the external fields.
+    plane the momenta stay).  zmin: a host number or a 0-d tensor of
+    the working dtype; time: the host time of the step; time_t: the
+    same as a 0-d tensor, for the external fields.
     Returns (the species, the gathered (Ex, Ey, Ez, Bx, By, Bz)): an
     ionizable species ionizes in them."""
     gather = (gather_fields_cubic if sc.particle_shape == "cubic"
               else gather_fields_linear)
     E_B = gather(
         sp.x, sp.y, sp.z, interp, options.rmax_gather,
-        1.0 / config.dz, float(zmin), config.Nz, 1.0 / config.dr, 0.0,
+        1.0 / config.dz, _scalar(zmin), config.Nz, 1.0 / config.dr, 0.0,
         config.Nr, comp=_comp_of(sp))
     E_B = apply_external_fields(options, E_B, sp, time_t, species_index)
     if not options.move_momenta or sc.q == 0:
@@ -440,8 +464,7 @@ def half_push_x(config, options, sp, zmin):
         x, y, z = pp.push_x(sp, 0.5 * config.dt)
     if config.boundaries_z == "periodic":
         Lz = config.Nz * config.dz
-        # a 0-d tensor (StepScalars) as it is, a host number as a float
-        zmin = zmin if torch.is_tensor(zmin) else float(zmin)
+        zmin = _scalar(zmin)
         z = zmin + torch.remainder(z - zmin, Lz)
     return sp.replace(x=x, y=y, z=z)
 
@@ -476,13 +499,26 @@ def shift_spectral_fields(config, aux, spect, n_move, rdt):
     return replace(spect, **{n: getattr(spect, n) * shift for n in names})
 
 
-def _z_profile(config, options, aux, zmin, time, halo=None):
+def mirror_planes(config, options, time):
+    """Each mirror's zeroed z interval (z_lo, z_hi) at the host ``time``
+    of the working dtype: host values (fbpic_tpu core/step.py:492-523)."""
+    planes = []
+    for mirror in options.mirrors:
+        z0, v = mirror.z_boost_and_beta()
+        zm = float(z0) + float(v) * time
+        planes.append((float(zm), float(zm + mirror.n_cells * config.dz)))
+    return planes
+
+
+def _z_profile(config, options, aux, zmin, time, halo=None, planes=None):
     """The multiplicative z profile of the step's E/B: the open-z
     damping times the mirrors' slabs set to zero, a per-mode (Nm, Nz)
     mask when there are mirrors (a mirror zeroes its modes ``m`` only),
     else the (Nz,) damping, or None (fbpic_tpu core/step.py:492-523).
     zmin, time: host values of the working dtype, so the mask is built
-    on the device without a host read.  On a slab (``halo``) the
+    on the device without a host read; or (``planes``: the mirrors'
+    (z_lo, z_hi) as 0-d tensors, StepScalars.mirrors) zmin a 0-d tensor
+    and the planes read from the device.  On a slab (``halo``) the
     damping is the slab's cut of the global profile."""
     if halo is not None:
         profile = halo.damp_profile(aux.S_w)
@@ -492,14 +528,13 @@ def _z_profile(config, options, aux, zmin, time, halo=None):
     if not options.mirrors:
         return profile
     rdt, dev = aux.S_w.dtype, aux.S_w.device
-    z_cells = float(zmin) + (torch.arange(config.Nz, dtype=rdt, device=dev)
-                             + 0.5) * config.dz
+    z_cells = _scalar(zmin) + (torch.arange(config.Nz, dtype=rdt,
+                                            device=dev) + 0.5) * config.dz
     mask = torch.ones((config.Nm, config.Nz), dtype=rdt, device=dev)
-    for mirror in options.mirrors:
-        z0, v = mirror.z_boost_and_beta()
-        zm = float(z0) + float(v) * time
-        inside = (z_cells >= float(zm)) & (
-            z_cells < float(zm + mirror.n_cells * config.dz))
+    if planes is None:
+        planes = mirror_planes(config, options, time)
+    for mirror, (z_lo, z_hi) in zip(options.mirrors, planes):
+        inside = (z_cells >= z_lo) & (z_cells < z_hi)
         modes = (range(config.Nm) if mirror.m == "all"
                  else [mirror.m] if isinstance(mirror.m, int) else mirror.m)
         for m in modes:
@@ -850,9 +885,10 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
     ion_auxes / comp_auxes: each species' IonizerAux / ComptonAux (or
     None).
 
-    ``scalars``: the step's StepScalars, which the resident block (the
-    re-sort, K2, the pushes and the fused deposit) and the external
-    fields then read in place of the host's numbers (equal values).
+    ``scalars``: the step's StepScalars, which every non-exchange part
+    of the step (the re-sort, the gathers -- K2 and the ring's --, the
+    pushes, the deposits, the external fields, the antennas and the
+    mirrors) then reads in place of the host's numbers (equal values).
     ``redo_flag``: a 0-d int64 device tensor into which the banded
     re-sort adds its overflow count, instead of reading it back and
     redoing the sort: the caller redoes the step (core/graph.py)."""
@@ -884,9 +920,8 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # Galilean frame: the grid edge flows vg*dt per step; deposits
         # see it at their own time (fbpic_tpu core/step.py:942-956)
         vg = config.v_galilean
-        vg_dt = vg * dt
         zmin_mid, zmin_next = plan.zmin_mid, plan.zmin_next
-        # ... as the resident block's ops and kernels take them
+        # ... as the step's ops and kernels take them
         if scalars is not None:
             zd, zd_mid, zd_next = (scalars.zmin, scalars.zmin_mid,
                                    scalars.zmin_next)
@@ -1088,9 +1123,9 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         for i, sc in enumerate(species_configs):
             if i not in resident_idx:
                 sp, E_B = gather_and_push(
-                    config, options, species[i], sc, interp, zmin, dt,
+                    config, options, species[i], sc, interp, zd, dt,
                     time=state.time, species_index=i, time_t=time_t)
-                species[i] = half_push_x(config, options, sp, zmin_mid)
+                species[i] = half_push_x(config, options, sp, zd_mid)
                 if sc.ionizer is not None:
                     gathered[i] = E_B
 
@@ -1206,7 +1241,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                            sp.inv_gamma]
                 if sp.comp_x is not None:
                     payload += [sp.comp_x, sp.comp_y, sp.comp_z]
-            sorts[i] = build_column_sort(sp.z, w_eff, float(zmin_mid),
+            sorts[i] = build_column_sort(sp.z, w_eff, zd_mid,
                                          1.0 / config.dz, config.Nz,
                                          sc.sort_K, payload)
             n_over = sorts[i]["n_over"]
@@ -1227,7 +1262,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                 out = fused_fn(
                     sort, sp.x, sp.y, sp.z, sp.w_eff, sc.q, sp.ux, sp.uy,
                     sp.uz, sp.inv_gamma, 0.5 * dt, config.Nm,
-                    1.0 / config.dz, float(zmin_mid), config.Nz,
+                    1.0 / config.dz, zd_mid, config.Nz,
                     1.0 / config.dr, 0.0, config.Nr, aux.ruyten_cubic if cubic
                     else aux.ruyten_linear, zfold=zfold,
                     comp=_comp_of(sp), with_drho=want_drho,
@@ -1241,10 +1276,11 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # only where the slab owns its plane (its guard spill reaches
         # the neighbour through the exchange, as particles' does)
         Jp, Jm, Jz = deposit_J_spect(
-            config, aux, species, species_configs, zmin_mid,
+            config, aux, species, species_configs, zd_mid,
             antenna_series=antenna_series, iteration=it, sorts=sorts,
             fused=fused_J, antenna_bounds=None if halo is None
-            else halo.own_bounds(zmin_mid))
+            else halo.own_bounds(zmin_mid), antenna_cells=None
+            if scalars is None else scalars.antennas)
         if options.filter_currents:
             Jp, Jm, Jz = ps.filter_vector(Jp, Jm, Jz, aux.filter_z,
                                           aux.filter_r)
@@ -1253,7 +1289,8 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # --- Cross-deposition (between the two position half pushes)
         if cross:
             spect = _cross_deposit(config, options, aux, spect, species,
-                                   species_configs, zmin, vg_dt, halo)
+                                   species_configs, zd, halo=halo,
+                                   zmin_next=zd_next)
 
         # --- float32, species without the fused deposit: their charge at
         # the start-of-step positions, for the grid-difference d(rho)
@@ -1265,12 +1302,12 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                 x0, y0, z0 = pp.push_x(sp, -0.5 * dt)
                 dep, ruy = _scatter_rho(aux, sc)
                 scatter_rho1[i] = dep(
-                    x0, y0, z0, sp.w_eff, sc.q, *_deposit_args(config, zmin),
+                    x0, y0, z0, sp.w_eff, sc.q, *_deposit_args(config, zd),
                     ruy, zfold=zfold, comp=_comp_of(sp))
 
         # --- Second half position push of the non-resident species
         species = [sp if i in resident_idx
-                   else half_push_x(config, options, sp, zmin_next)
+                   else half_push_x(config, options, sp, zd_next)
                    for i, sp in enumerate(species)]
 
         # --- float32: the per-particle d(rho) of the fused deposits plus
@@ -1282,7 +1319,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                 sp, sc = species[i], species_configs[i]
                 dep, ruy = _scatter_rho(aux, sc)
                 rho2 = dep(sp.x, sp.y, sp.z, sp.w_eff, sc.q,
-                           *_deposit_args(config, zmin), ruy, zfold=zfold,
+                           *_deposit_args(config, zd), ruy, zfold=zfold,
                            comp=_comp_of(sp))
                 contribs.append(rho2 - rho1)
             if contribs:
@@ -1301,7 +1338,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             rho_next = spect.rho_prev + drho
         else:
             rho_next = deposit_rho_spect(config, aux, species,
-                                         species_configs, zmin_next,
+                                         species_configs, zd_next,
                                          sorts=sorts, fused=fused_rho)
             if options.filter_currents:
                 rho_next = ps.filter_scalar(rho_next, aux.filter_z,
@@ -1365,7 +1402,12 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # first, and the PML round trip follows without it.
         # On a slab the profile is its cut of the global one, and the E/B
         # guards are replaced in the same full round trip.
-        profile = _z_profile(config, options, aux, zmin, state.time, halo)
+        if scalars is not None and options.mirrors:
+            profile = _z_profile(config, options, aux, scalars.zmin_end,
+                                 state.time, halo, planes=scalars.mirrors)
+        else:
+            profile = _z_profile(config, options, aux, zmin, state.time,
+                                 halo)
         pml_active = aux.damp_r_pml is not None
         plain_damp = (halo is None and not options.mirrors
                       and profile is not None
@@ -1422,14 +1464,18 @@ def _scatter_rho(aux, sc):
 
 
 def _cross_deposit(config, options, aux, spect, species, species_configs,
-                   zmin, vg_dt=0.0, halo=None):
+                   zmin, vg_dt=0.0, halo=None, zmin_next=None):
     """Deposit rho_next_xy and rho_next_z (cross-deposition scheme).
 
     Particles enter at (z[n+1/2], x[n+1/2]); see reference
     main.py:672-716.  vg_dt: the Galilean grid drift per step --
     rho_next_xy (z at t=n) sees the grid at zmin, rho_next_z (z at
-    t=n+1) the grid at zmin + vg*dt (the reference shifts the boundaries
-    between the two deposits, main.py:692,:704)."""
+    t=n+1) the grid at zmin_next = zmin + vg*dt (the reference shifts
+    the boundaries between the two deposits, main.py:692,:704).  zmin
+    and zmin_next (given: the step's own, StepScalars or the host
+    plan's) may be 0-d tensors."""
+    if zmin_next is None:
+        zmin_next = zmin + vg_dt
     def push_species(species, dt, xp, yp, zp, zmin_wrap):
         if not options.move_positions:
             return species
@@ -1438,8 +1484,8 @@ def _cross_deposit(config, options, aux, spect, species, species_configs,
             x, y, z = pp.push_x(sp, dt, x_push=xp, y_push=yp, z_push=zp)
             if config.boundaries_z == "periodic":
                 Lz = config.Nz * config.dz
-                z = float(zmin_wrap) + torch.remainder(
-                    z - float(zmin_wrap), Lz)
+                zw = _scalar(zmin_wrap)
+                z = zw + torch.remainder(z - zw, Lz)
             out.append(sp.replace(x=x, y=y, z=z))
         return out
 
@@ -1447,7 +1493,6 @@ def _cross_deposit(config, options, aux, spect, species, species_configs,
     tmp = push_species(species, 0.5 * config.dt, 1.0, 1.0, -1.0, zmin)
     rho_next_xy = deposit_rho_spect(config, aux, tmp, species_configs, zmin)
     # z[n], x[n+1] -> z[n+1], x[n]
-    zmin_next = zmin + vg_dt
     tmp = push_species(tmp, config.dt, -1.0, -1.0, 1.0, zmin_next)
     rho_next_z = deposit_rho_spect(config, aux, tmp, species_configs,
                                    zmin_next)
@@ -1514,3 +1559,16 @@ def make_multi_step(config, species_configs, options):
     counterpart runs them as one jitted lax.fori_loop."""
     from .graph import MultiStep
     return MultiStep(config, species_configs, options)
+
+
+def make_multi_step_capture(config, species_configs, options, capture_fns):
+    """The chunk runner that also evaluates per-step capture functions
+    inside the chunk (fbpic_tpu core/step.py:1818-1843, a lax.scan):
+    each ``cap(state, aux, time, zmin)`` of the state after every step,
+    written into a device buffer at the step's row (inside the graph of
+    a replayed step) and brought back with the chunk's one host read,
+    stacked over the steps (``counts["captures"]``); see core/graph.py.
+    The back-transformed field diagnostic's ``device_capture`` gives
+    one."""
+    from .graph import MultiStep
+    return MultiStep(config, species_configs, options, capture_fns)

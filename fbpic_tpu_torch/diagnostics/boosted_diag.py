@@ -7,17 +7,22 @@ located in the box, the fields (or the particles that crossed it) are
 taken there, Lorentz-transformed to the lab frame and written into the
 snapshot's lab-frame grid.
 
-Fields: ``Simulation.step`` calls ``capture`` after every cycle.  It
-takes the (snapshots, Nm, Nr) slices of every field on the device --
-E and B interpolated between two z rows of the interpolation grid, rho
-and J from a single-column inverse transform of the spectral fields
-(the interpolated inverse-DFT rows, then the radial transform) -- into
-a device buffer, with no host synchronization.  ``process_captures``
-copies the buffer to the host once (at the end of ``step``, or when it
-holds ``core/simulation.py``'s ``MAX_CAPTURE`` cycles) and fills the snapshots, as
-fbpic_tpu's ``device_capture`` + ``process_chunk`` do.  A filled
-snapshot is written as one openPMD file (``collect_snapshot`` gives its
-records, ``write_records`` writes them with h5py).
+Fields: the (snapshots, Nm, Nr) slices of every field are taken on the
+device after every cycle -- E and B interpolated between two z rows of
+the interpolation grid, rho and J from a single-column inverse
+transform of the spectral fields (the interpolated inverse-DFT rows,
+then the radial transform) -- with no host synchronization.  Where
+``Simulation.step`` runs the chunk runner, the function of
+``device_capture`` takes them inside each step (a replayed CUDA graph
+included) into the runner's buffer, whose rows the runner copies to the
+host with the chunk's one read, and ``process_chunk`` fills the
+snapshots from them, as fbpic_tpu's ``device_capture`` +
+``process_chunk`` do.  In the eager loop ``capture`` appends them to a
+buffer of this diagnostic's after every cycle, which
+``process_captures`` copies to the host once (at the end of ``step``,
+or when it holds ``core/simulation.py``'s ``MAX_CAPTURE`` cycles).  A
+filled snapshot is written as one openPMD file (``collect_snapshot``
+gives its records, ``write_records`` writes them with h5py).
 
 Particles: the crossing mask is computed on the device; only the
 particles that crossed one of the planes are copied to the host.
@@ -111,6 +116,21 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
         ``strict``: a plane at the last row's centre is not valid."""
         return self._slices(sim.config, sim.state, sim.aux.mats, strict)
 
+    def device_capture(self):
+        """The capture function of the chunk runner
+        (core/graph.py, ``make_multi_step_capture``; fbpic_tpu's
+        ``device_capture()``, boosted_diag.py:144-262, on one device):
+        ``cap(state, aux, time, zmin)`` returns ``capture_slices``' three
+        tensors of a state whose time and grid edge are the 0-d tensors
+        ``time`` and ``zmin`` (the runner's table row: a replayed step
+        reads its own), with no host read.  ``process_chunk`` consumes
+        the rows the runner stacks."""
+        cfg = self.sim.config
+
+        def cap(state, aux, time, zmin):
+            return self._slices(cfg, state, aux.mats, time=time, zmin=zmin)
+        return cap
+
     def capture_decomposed(self, state, config_local, mats, comm,
                            capacity=1):
         """The capture of one slab of a z-decomposed run (fbpic_tpu's
@@ -133,12 +153,16 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
         if comm.rank == 0:
             self._append((n_claims > 0, z_lab, slices), capacity)
 
-    def _slices(self, cfg, st, mats, strict=False, own=None):
+    def _slices(self, cfg, st, mats, strict=False, own=None, time=None,
+                zmin=None):
         """capture_slices of a state on grid ``cfg`` with radial
         matrices ``mats``; ``own`` = (g, Nz_int, rank, size) on a slab:
         a plane is valid where this slab owns it (the edge slabs' claims
         opened to -+inf, as fbpic_tpu widens them) inside the global
-        box."""
+        box.  ``time``, ``zmin``: the state's as 0-d tensors of the
+        working dtype (made from its host values when not given, by a
+        fill: no host-to-device copy); every plane's arithmetic reads
+        them, as fbpic_tpu's traced scalars."""
         dev = st.interp.Er.device
         rdt = st.interp.Er.real.dtype
         t_lab = self._t_lab.get((dev, rdt))
@@ -151,10 +175,13 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
                 * self.dt_snapshots_lab).to(rdt)
         gamma, beta = self.gamma_boost, self.beta_boost
         Nz, S = cfg.Nz, len(self.snapshots)
-        t_b = float(st.time)
+        t_b = torch.full((), float(st.time), dtype=rdt, device=dev) \
+            if time is None else time
+        zmin = torch.full((), float(st.zmin), dtype=rdt, device=dev) \
+            if zmin is None else zmin
         z_b = (t_lab / gamma - t_b) * c / beta
         z_lab = gamma * (z_b + beta * c * t_b)
-        iz_f = (z_b - float(st.zmin)) / cfg.dz - 0.5
+        iz_f = (z_b - zmin) / cfg.dz - 0.5
         iz0 = torch.clamp(torch.floor(iz_f).long(), 0, Nz - 2)
         s1 = torch.clamp(iz_f - iz0.to(rdt), 0.0, 1.0)
         if own is None:
@@ -235,21 +262,25 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
         self._n += 1
 
     def process_captures(self, sim):
-        """Copy the buffered captures to the host (one synchronization)
-        and fill the snapshots."""
+        """Copy the buffered captures to the host (one synchronization:
+        the three copies queued, then one wait for the stream) and fill
+        the snapshots."""
         if self._buf is None:
             return
-        valid, z_lab, slices = (b[:self._n].cpu().numpy() for b in self._buf)
+        caps = [b[:self._n].to("cpu", non_blocking=True) for b in self._buf]
+        if self._buf[0].is_cuda:
+            torch.cuda.current_stream(self._buf[0].device).synchronize()
+        caps = tuple(t.numpy() for t in caps)
         self._buf, self._n = None, 0
-        self.process_chunk(sim, dict(
-            valid=valid, z_lab=z_lab,
-            slices={name: slices[:, f] for f, name in enumerate(self.names)}))
+        self.process_chunk(sim, caps)
 
     def process_chunk(self, sim, caps):
-        """Fill the snapshots from T captured cycles: ``valid``,
-        ``z_lab`` (T, S) and ``slices`` {name: (T, Nm, S, Nr)} (numpy);
-        write the snapshots that are full."""
-        valid, z_lab, slices = caps["valid"], caps["z_lab"], caps["slices"]
+        """Fill the snapshots from T captured cycles: ``caps`` = (valid,
+        z_lab, slices), numpy (T, S), (T, S) and (T, F, Nm, S, Nr) (the
+        capture function's outputs stacked over the cycles); write the
+        snapshots that are full."""
+        valid, z_lab, stacked = caps
+        slices = {name: stacked[:, f] for f, name in enumerate(self.names)}
         for t in range(valid.shape[0]):
             for si, snap in enumerate(self.snapshots):
                 if snap.written or not valid[t, si]:

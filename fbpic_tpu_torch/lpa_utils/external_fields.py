@@ -17,7 +17,12 @@ class ExternalField(object):
         F, x, y, z are torch tensors of one shape (the species' slots;
         on the resident layout the padded (Nz, K) columns, whose dead
         slots see the field harmlessly), t a 0-d tensor of the same
-        dtype and device: write it with torch operations.
+        dtype and device: write it with torch operations.  A step
+        replayed from a CUDA graph runs it once, at the capture, and t
+        is then read from the chunk's table: the function must queue
+        device work only (no ``float(t)``, ``.item()`` or boolean
+        indexing), as fbpic_tpu's must be jittable; a host read raises
+        at the capture, and nothing falls back.
     fieldtype: string
         One of 'Ex','Ey','Ez','Bx','By','Bz'.
     amplitude, length_scale: floats passed through to field_func

@@ -12,8 +12,11 @@ profile is an analytic function of space and time) and uploaded to the
 device in one copy as an (n_steps, Nm, Nr) series; each step adds its
 slice onto the two z cells next to the antenna with linear weights.
 The antenna's z positions stay on the host (in the working dtype), so
-the cell index and the weights are host numbers: a step reads nothing
-back from the device.
+the cell index and the weights are host numbers (``antenna_cells``): a
+step reads nothing back from the device.  The eager step adds the
+slice at those host numbers (``add_antenna_current``); a step replayed
+from a CUDA graph reads them from the device, where the chunk runner
+put them (``add_antenna_current_device``): the same bits.
 """
 from dataclasses import dataclass
 
@@ -68,12 +71,12 @@ class LaserAntenna(object):
             self.z0 = z0_antenna / boost.gamma0
             self.v = -boost.beta0 * c
 
-    def compute_series(self, t0, n_steps, dz, *, device="cpu",
+    def compute_series(self, t0, n_steps, dz, *, device,
                        dtype=torch.float64, it0=0):
         """Host-side (numpy float64) evaluation of the emitted current
         for n_steps steps from time t0, cast to ``dtype`` and uploaded to
-        ``device`` in one copy (asynchronous, from pinned memory, on a
-        CUDA device).
+        ``device`` (required: the simulation's) in one copy
+        (asynchronous, from pinned memory, on a CUDA device).
 
         The current is sampled at the half-steps t0 + (i + 1/2) dt, the
         time at which J is deposited in the PIC cycle.
@@ -125,15 +128,15 @@ class LaserAntenna(object):
         return AntennaSeries(J=J, z_pos=z_pos.astype(np_dtype), it0=it0)
 
 
-def add_antenna_current(Jr_grid, Jt_grid, series: AntennaSeries,
-                        iteration, zmin, dz, Nz, own_bounds=None):
-    """Add the antenna's current slice of host ``iteration`` onto the
-    grid currents (complex (Nm, Nz, Nr)): linear weights on the two z
-    cells next to the antenna, nothing when those leave the box.  The
-    index and weights are host numbers of the working dtype (zmin: a
-    numpy scalar of it), computed as fbpic_tpu computes them on its
-    device.  ``own_bounds``: on a slab of a decomposed run, the (z_lo,
-    z_hi) interval it owns -- the antenna deposits only there."""
+def antenna_cells(series: AntennaSeries, iteration, zmin, dz, Nz,
+                  own_bounds=None):
+    """Where the antenna's slice of host ``iteration`` goes, as host
+    numbers: (its row in the series, the two clamped z cells, their
+    weights s0 and s1 (numpy scalars of the working dtype), and whether
+    the slice is added at all: the two cells inside the box, and on a
+    slab of a decomposed run the plane inside the (z_lo, z_hi) interval
+    ``own_bounds`` it owns).  zmin: a host number of the working dtype;
+    the arithmetic is fbpic_tpu's (antenna_injection.py:137-151)."""
     n_steps = series.z_pos.shape[0]
     i = min(max(iteration - series.it0, 0), n_steps - 1)
     z_ant = series.z_pos[i]
@@ -144,10 +147,22 @@ def add_antenna_current(Jr_grid, Jt_grid, series: AntennaSeries,
     s0 = rdt(1.0) - s1
     iz0c = min(max(iz0, 0), Nz - 1)
     iz1c = min(max(iz0 + 1, 0), Nz - 1)
-    if not 0 <= iz0 < Nz - 1:
-        return Jr_grid, Jt_grid
-    if own_bounds is not None and not (
-            own_bounds[0] <= z_ant < own_bounds[1]):
+    on = 0 <= iz0 < Nz - 1 and (own_bounds is None or
+                                own_bounds[0] <= z_ant < own_bounds[1])
+    return i, iz0c, iz1c, s0, s1, on
+
+
+def add_antenna_current(Jr_grid, Jt_grid, series: AntennaSeries,
+                        iteration, zmin, dz, Nz, own_bounds=None):
+    """Add the antenna's current slice of host ``iteration`` onto the
+    grid currents (complex (Nm, Nz, Nr)): linear weights on the two z
+    cells next to the antenna, nothing when those leave the box
+    (``antenna_cells``; zmin: a numpy scalar of the working dtype).
+    ``own_bounds``: on a slab of a decomposed run, the (z_lo, z_hi)
+    interval it owns -- the antenna deposits only there."""
+    i, iz0c, iz1c, s0, s1, on = antenna_cells(series, iteration, zmin, dz,
+                                              Nz, own_bounds)
+    if not on:
         return Jr_grid, Jt_grid
 
     def add(G, S):
@@ -157,3 +172,23 @@ def add_antenna_current(Jr_grid, Jt_grid, series: AntennaSeries,
         return G
 
     return add(Jr_grid, series.Jr[i]), add(Jt_grid, series.Jt[i])
+
+
+def add_antenna_current_device(Jr_grid, Jt_grid, series: AntennaSeries,
+                               cells):
+    """``add_antenna_current`` with the values of ``antenna_cells`` read
+    from the device: ``cells`` = (row, iz0c, iz1c) 0-d int64 tensors and
+    (s0, s1, on) 0-d tensors of the working dtype (on: 1 or 0).  The
+    slice is added to the two cells by one ``index_add`` each, with its
+    weights times ``on``: 0 when the host form adds nothing.  No host
+    read, so a CUDA graph can capture it; the same bits as the host form
+    (each cell's sum is the host form's single add)."""
+    row, iz0c, iz1c, s0, s1, on = cells
+    idx = torch.stack([iz0c, iz1c])
+    w = (torch.stack([s0, s1]) * on)[None, :, None]
+
+    def add(G, S):
+        S = S.index_select(0, row.view(1))[0]            # (Nm, Nr)
+        return G.index_add(1, idx, S[:, None, :] * w)
+
+    return add(Jr_grid, series.Jr), add(Jt_grid, series.Jt)

@@ -3,7 +3,9 @@
 Behavioral reference: FBPIC's fbpic/lpa_utils/mirrors.py.  The zeroing
 is diagonal in z, so the step applies it together with the open-z
 damping, as one multiplicative z profile in partial-interpolation space
-(core/step.py::damp_EB_z).
+(core/step.py::damp_EB_z).  The slab's interval at each step's time is
+a host value (core/step.py::mirror_planes), which the chunk runner
+puts in its per-chunk table for a replayed step to read.
 """
 import numpy as np
 

@@ -41,10 +41,12 @@ VECTORS = (("x", "y", "z"), ("ux", "uy", "uz"), ("inv_gamma",), ("w",),
            ("Bp", "Bm", "Bz"), ("Jp", "Jm", "Jz"), ("rho_prev", "rho_next"))
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_torch_threads():
     """The suite runs several test processes side by side: cap torch's
-    CPU threads so they do not oversubscribe the cores."""
+    CPU threads so they do not oversubscribe the cores (for the whole
+    module: pytest sets the shared runs up before any function-scoped
+    fixture)."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
     yield
@@ -249,7 +251,21 @@ def boosted_smoke_sims(scheme, n_steps=20):
     return s0, s1
 
 
-def test_carried_galilean_state_steps_like_jax():
+@pytest.fixture(scope="module")
+def galilean_smoke():
+    """The Galilean smoke pair of the carried-state test and the 20-step
+    run, built once: fbpic_tpu advanced one exchange period (its state
+    then kept as a copy, for the carried-state test: the next step()
+    call donates it), then on to 20 steps in a second step() call."""
+    s0, s1 = boosted_smoke_sims("galilean", n_steps=None)
+    ep = s0.exchange_period
+    state_ep = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True),
+                                      s0.state)
+    s0.step(20 - ep, show_progress=False)
+    return s0, s1, state_ep, ep
+
+
+def test_carried_galilean_state_steps_like_jax(galilean_smoke):
     """An fbpic_tpu Galilean state carried into the port
     (``utils.carry``: the grid config field by field, comoving fields
     included, and the state's arrays), the port's coefficients rebuilt
@@ -262,7 +278,7 @@ def test_carried_galilean_state_steps_like_jax():
     from fbpic_tpu_torch.fields import build_field_aux
     from fbpic_tpu_torch.utils.carry import config_from, state_from_numpy
     from test_torch_step import jax_column_angles, jax_state_to_numpy
-    s0, s1 = boosted_smoke_sims("galilean", n_steps=None)
+    s0, s1, state0, _ = galilean_smoke
     config = config_from(s0.config)
     assert config == s1.config and config.use_comoving
     aux = build_field_aux(config, s1.smoother, device="cpu",
@@ -271,7 +287,6 @@ def test_carried_galilean_state_steps_like_jax():
                        s0.build_options()))
     step1 = m1(config, s1.species_configs, s1.build_options())
     angles = jax_column_angles(int(s0.state.seed), torch.float64)
-    state0 = s0.state
     for _ in range(2):          # exchange step, then a banded re-sort step
         state1 = state_from_numpy(**jax_state_to_numpy(state0),
                                   device="cpu")
@@ -300,9 +315,16 @@ def test_carried_galilean_state_steps_like_jax():
 
 
 @pytest.mark.parametrize("scheme", ["galilean", "comoving"])
-def test_boosted_smoke_steps_match_jax(scheme):
-    s0, s1 = boosted_smoke_sims(scheme)
-    s1.step(20)
+def test_boosted_smoke_steps_match_jax(scheme, request):
+    """20 steps in both packages; the Galilean pair (shared with the
+    carried-state test) in two step() calls, 12 + 8, in both."""
+    if scheme == "galilean":
+        s0, s1, _, ep = request.getfixturevalue("galilean_smoke")
+        s1.step(ep)
+        s1.step(20 - ep)
+    else:
+        s0, s1 = boosted_smoke_sims(scheme)
+        s1.step(20)
     ref = jax_state_arrays(s0.state)
     assert s1.overflow_totals == {"sort_overflow": 0, "ring_overwrite": 0}
     assert int(s0.state.sort_overflow) == 0

@@ -6,17 +6,18 @@ Nz = 256, Nr = 12, Nm = 2, n_order = 16, 1x1x4 particles per cell,
 gamma_boost = 10, Galilean, 3 snapshots 50 fs apart; random_seed = 0
 and fbpic_tpu's injection angles in the port):
 
-- the captured slices: fbpic_tpu's state after 20, 40 and 70 steps
-  carried into the port (``utils.carry``), and the port's
-  ``capture_slices`` held against fbpic_tpu's ``device_capture`` on it:
+- the captured slices: fbpic_tpu's state after 20, 40 and 60 steps
+  (of the run below, with the diagnostic on) carried into the port
+  (``utils.carry``), and the port's ``capture_slices`` held against
+  fbpic_tpu's ``device_capture`` on it:
   ``valid`` exactly, ``z_lab`` to 1e-15, each slice to 1e-12 of its
   field's largest value over the whole grid (E and B are interpolated
   between two rows; rho and J come from interpolated inverse-DFT rows,
   a sum over all 552 z modes, whose roundoff scales with the whole
   field, not with the slice: a slice in a quiet region is 1e-5 of the
   field's peak);
-- the lab snapshots: both packages step 80 steps in three ``step``
-  calls with the diagnostic on (a lab cell fills every ~200 steps, so
+- the lab snapshots: both packages step 80 steps in four ``step``
+  calls of 20 with the diagnostic on (a lab cell fills every ~200 steps, so
   one per snapshot is reached); which cells are filled must agree
   exactly, their data to 1e-8 of each field's largest value (the runs'
   fields agree to 1e-8, tests/test_torch_boosted.py); then every
@@ -44,8 +45,11 @@ NZ, NR, NM, N_ORDER, PPC, NSNAP = 256, 12, 2, 16, (1, 1, 4), 3
 ZMIN_LAB, ZMAX_LAB = -40.e-6, 0.e-6
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_torch_threads():
+    """Cap torch's CPU threads (the suite runs several test processes
+    side by side) for the whole module: pytest sets the shared runs up
+    before any function-scoped fixture."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
     yield
@@ -105,40 +109,61 @@ def _scaled_close(ref, out, tol, what, scale=None):
     assert err <= tol * max(scale, 1e-300), (what, err, scale)
 
 
-def test_captured_slices_match_fbpic_tpu(tmp_path):
+@pytest.fixture(scope="module")
+def smoke_runs(tmp_path_factory):
+    """Both packages' smoke run with the field BTD on, built once and
+    stepped in four step() calls of 20 (the same in both; the capture
+    reads the state and changes nothing in it; fbpic_tpu compiles its
+    capturing chunk once for each chunk length).  After 20, 40 and 60
+    steps fbpic_tpu's state is carried into a third simulation,
+    a port one, whose ``capture_slices`` is held against fbpic_tpu's
+    ``device_capture`` of the same state (the captured-slices test);
+    the lab snapshots are held after 80 (the lab-snapshot test)."""
     from fbpic_tpu_torch.utils.carry import state_from_numpy
     from test_torch_step import jax_state_to_numpy
-    s0, s1, d0, d1 = _sims(tmp_path)
+    tmp = tmp_path_factory.mktemp("btd")
+    s0, s1, d0, d1 = _sims(tmp)
+    carrier = _boosted("fbpic_tpu_torch", device="cpu", dtype=torch.float64)
     cap0 = jax.jit(d0.device_capture())
-    done, n_valid = 0, 0
-    for n in (20, 40, 70):
-        s0.step(n - done, show_progress=False)
-        done = n
-        s1.state = state_from_numpy(**jax_state_to_numpy(s0.state),
-                                    device="cpu")
+    s0.diags, s1.diags = [d0], [d1]
+    carried = []
+    for _ in range(4):
+        s0.step(20, show_progress=False)
+        s1.step(20)
+        if s0.iteration == 80:
+            break
+        carrier.state = state_from_numpy(**jax_state_to_numpy(s0.state),
+                                         device="cpu")
         ref = cap0(s0.state, s0.aux)
-        valid, z_lab, slices = d1.capture_slices(s1)
-        np.testing.assert_array_equal(np.asarray(ref["valid"]),
-                                      valid.numpy())
+        ref = dict(valid=np.asarray(ref["valid"]),
+                   z_lab=np.asarray(ref["z_lab"]),
+                   slices={n: np.asarray(F.re) + 1j * np.asarray(F.im)
+                           for n, F in ref["slices"].items()})
+        out = [t.numpy() for t in d1.capture_slices(carrier)]
+        scales = {n: np.abs(carrier.get_interp_field(n)).max()
+                  for n in d1.names}
+        carried.append((ref, out, scales))
+    return d0, d1, carried, tmp
+
+
+def test_captured_slices_match_fbpic_tpu(smoke_runs):
+    _, d1, carried, _ = smoke_runs
+    assert len(carried) == 3
+    n_valid = 0
+    for ref, (valid, z_lab, slices), scales in carried:
+        np.testing.assert_array_equal(ref["valid"], valid)
         n_valid += int(valid.sum())
-        _scaled_close(np.asarray(ref["z_lab"]), z_lab.numpy(), 1e-15,
-                      "z_lab")
+        _scaled_close(ref["z_lab"], z_lab, 1e-15, "z_lab")
         assert slices.shape == (len(d1.names), NM, NSNAP, NR)
         for f, name in enumerate(d1.names):
-            F = ref["slices"][name]
-            _scaled_close(np.asarray(F.re) + 1j * np.asarray(F.im),
-                          slices[f].numpy(), 1e-12, name,
-                          scale=np.abs(s1.get_interp_field(name)).max())
+            _scaled_close(ref["slices"][name], slices[f], 1e-12, name,
+                          scale=scales[name])
     assert n_valid > 0
 
 
-def test_lab_snapshots_match_fbpic_tpu(tmp_path):
+def test_lab_snapshots_match_fbpic_tpu(smoke_runs):
     from test_torch_diagnostics import compare_h5
-    s0, s1, d0, d1 = _sims(tmp_path)
-    s0.diags, s1.diags = [d0], [d1]
-    for n in (30, 30, 20):
-        s0.step(n, show_progress=False)
-        s1.step(n)
+    d0, d1, _, tmp = smoke_runs
     n_filled = 0
     for a, b in zip(d0.snapshots, d1.snapshots):
         np.testing.assert_array_equal(a.filled, b.filled)
@@ -150,7 +175,7 @@ def test_lab_snapshots_match_fbpic_tpu(tmp_path):
         for i, snap in enumerate(d.snapshots):
             d.flush_snapshot(i, snap)
     for i in range(NSNAP):
-        compare_h5(*(os.path.join(str(tmp_path / tag), "hdf5",
+        compare_h5(*(os.path.join(str(tmp / tag), "hdf5",
                                   "data%08d.h5" % i)
                      for tag in ("jax", "torch")),
                    tolerance=lambda name: 1e-8)

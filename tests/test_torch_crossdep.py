@@ -30,8 +30,11 @@ from fbpic_tpu.constants import c, e, m_e  # noqa: E402
 NM = 2
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_torch_threads():
+    """Cap torch's CPU threads (the suite runs several test processes
+    side by side) for the whole module: pytest sets the shared runs up
+    before any function-scoped fixture."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
     yield
@@ -109,7 +112,21 @@ def _drift_sims(**extra):
     return s0, s1
 
 
-def test_cross_deposit_matches():
+@pytest.fixture(scope="module")
+def galilean_drift():
+    """The Galilean drifting pair of the deposit test and the 8-step run,
+    built once: fbpic_tpu advanced 3 steps (its state then kept as a
+    copy, for the deposit test: the next step() call donates it), then
+    on to 8 in a second step() call."""
+    s0, s1 = _drift_sims(v_comoving=0.04 * c, use_galilean=True)
+    s0.step(3, show_progress=False)
+    state3 = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True),
+                                    s0.state)
+    s0.step(5, show_progress=False)
+    return s0, s1, state3
+
+
+def test_cross_deposit_matches(galilean_drift):
     """_cross_deposit on a drifting plasma, the Galilean drift vg*dt
     between its two deposits."""
     from fbpic_tpu.core.step import _cross_deposit as x0, \
@@ -117,9 +134,7 @@ def test_cross_deposit_matches():
     from fbpic_tpu_torch.core.step import _cross_deposit as x1
     from fbpic_tpu_torch.utils.carry import state_from_numpy
     from test_torch_pml import jax_fields
-    s0, s1 = _drift_sims(v_comoving=0.04 * c, use_galilean=True)
-    s0.step(3, show_progress=False)
-    st0 = s0.state
+    s0, s1, st0 = galilean_drift
     vg_dt = 0.04 * c * s0.dt
     spect0 = x0(s0.config, O0(), s0.aux, st0.spect, list(st0.species),
                 tuple(s0.species_configs), st0.zmin, vg_dt=vg_dt)
@@ -173,8 +188,10 @@ def test_cross_standard_window_run_matches():
     _gate(s0, s1)
 
 
-def test_cross_galilean_run_matches():
-    s0, s1 = _drift_sims(v_comoving=0.04 * c, use_galilean=True)
-    s0.step(8, show_progress=False)
-    s1.step(8)
+def test_cross_galilean_run_matches(galilean_drift):
+    """8 steps in two step() calls, 3 + 5, in both packages (the pair
+    shared with the deposit test)."""
+    s0, s1, _ = galilean_drift
+    s1.step(3)
+    s1.step(5)
     _gate(s0, s1)

@@ -66,7 +66,12 @@ only PyTorch; there, skip the JAX-based conftest:
   captured graph) against its eager twin, the same bits but rho_prev,
   with one K1 and one K2 launch a step counted per replay; a planted
   column overflow rolled back to the eager run; a host read inside the
-  captured step raising at capture.
+  captured step raising at capture; the paths that take the chunk
+  runner since (an antenna with a mirror, a resident plasma with a
+  mirror and an external field, float32 rings, the BTD capture, a
+  cubic ring with the radial PML, periodic cross-deposition): 9 steps
+  each against the eager loop, bit for bit under deterministic
+  index_add_; the antenna's series made for the card.
 """
 import os
 
@@ -2019,3 +2024,167 @@ def test_graph_capture_raises_on_a_host_sync(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the step"):
         sim.step(3)
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# ---------------------------------------------------------------------
+# The chunk runner's new paths on the card: antennas, mirrors, external
+# fields, rings, cubic shapes, cross-deposition, the BTD capture
+# ---------------------------------------------------------------------
+
+class _deterministic:
+    """torch's deterministic algorithms while the block runs (index_add_
+    a sorted segment sum, not float atomics; other ops warn only; new
+    memory not filled): the scatter deposits give the same bits in every
+    run, so a graphed run and its eager twin can be held bit for bit."""
+
+    def __enter__(self):
+        import torch.utils.deterministic as det
+        self.prev = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled(),
+                     det.fill_uninitialized_memory)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        det.fill_uninitialized_memory = False
+
+    def __exit__(self, *exc):
+        import torch.utils.deterministic as det
+        torch.use_deterministic_algorithms(self.prev[0],
+                                           warn_only=self.prev[1])
+        det.fill_uninitialized_memory = self.prev[2]
+
+
+def _eager_loop(sim, n):
+    """Simulation.step(n) through the eager loop (``_run_eager``), the
+    antennas and the capturing diagnostics included."""
+    from fbpic_tpu_torch.core.step import prepare
+    options = sim.build_options()
+    sim.state = prepare(sim.config, options, sim.species_configs, sim.state,
+                        sim.aux)
+    for diag in sim.diags:
+        diag.write(sim)
+    writers = list(sim.diags) + list(sim.checkpoints)
+    capture = [w for w in writers if hasattr(w, "capture")]
+    sim._run_eager(n, options, capture,
+                   [w for w in writers if w not in capture], None)
+    for w in capture:
+        w.process_captures(sim)
+    sim._consume_overflow_counters()
+
+
+def _cross_periodic_sim(device):
+    """Cross-deposition in a periodic box (no exchange step: every step
+    is replayed), float32, a uniform plasma and an a0 = 0.5 laser."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, \
+        GaussianLaser
+    sim = Simulation(64, 8.e-6, 16, 10.e-6, 2, 8.e-6 / 64 / c, zmin=0.,
+                     n_order=16, current_correction="cross-deposition",
+                     boundaries={"z": "periodic", "r": "reflective"},
+                     random_seed=0, verbose_level=0, device=device,
+                     dtype=torch.float32)
+    sim.add_new_species(q=-e, m=m_e, n=5.e24, p_zmin=0., p_zmax=8.e-6,
+                        p_rmin=0., p_rmax=9.e-6, p_nz=1, p_nr=2, p_nt=4)
+    add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6, tau=8.e-15,
+                                       z0=4.e-6))
+    return sim
+
+
+def _graph_path_sim(device, case):
+    """The configuration of one new graphed path: "antenna_mirror" (an
+    antenna in vacuum and a mirror), "mirror_ext" (a resident plasma, a
+    mirror and an external Ez), "ring" (float32 scatter rings), "btd"
+    (the smoke boosted box, float64, with 20 BTD snapshots),
+    "cubic_pml" (a cubic ring with the radial PML) or "cross_periodic"."""
+    from fbpic_tpu_torch.lpa_utils import Mirror
+    if case == "antenna_mirror":
+        sim = _lpa_window_sim(device, torch.float32, "antenna")
+        sim.mirrors.append(Mirror(z_lab=11.e-6, n_cells=2))
+    elif case == "mirror_ext":
+        sim = _lpa_window_sim(device, torch.float32, "mirror_ext")
+    elif case == "ring":
+        sim = _ring_window_sim(device, "scatter", torch.float32)
+    elif case == "btd":
+        from fbpic_tpu_torch.constants import c
+        from fbpic_tpu_torch.diagnostics import \
+            BackTransformedFieldDiagnostic
+        sim = _boosted_smoke_sim(device)
+        import tempfile
+        btd = BackTransformedFieldDiagnostic(-40.e-6, 0., c, 50.e-15, 20,
+                                             10., sim=sim,
+                                             write_dir=tempfile.mkdtemp())
+        btd.write_records = lambda records: None
+        sim.diags.append(btd)
+    elif case == "cubic_pml":
+        sim = _window_variant_sim(device, torch.float32, "cubic_pml")
+    else:
+        sim = _cross_periodic_sim(device)
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["antenna_mirror", "mirror_ext", "ring",
+                                  "btd", "cubic_pml", "cross_periodic"])
+def test_new_graph_paths_equal_their_eager_twin(cuda, case):
+    """9 steps through Simulation.step (exchange steps eager, the others
+    captured under sync debug mode "error" and replayed) against the
+    eager loop, under deterministic index_add_: every tensor equal bit
+    for bit, rho_prev too; with the BTD every captured row the runner
+    brought back equal to the eager loop's buffer, and the snapshots."""
+    from fbpic_tpu_torch.core.graph import graph_blockers, state_tensors
+    with _deterministic():
+        graphed, twin = (_graph_path_sim(cuda, case) for _ in range(2))
+        assert graph_blockers(graphed, graphed.build_options()) == []
+        caps = {}
+        for key, sim in (("graphed", graphed), ("eager", twin)):
+            for diag in sim.diags:
+                real = diag.process_chunk
+                caps[key] = []
+
+                def record(s, c_, real=real, out=caps[key]):
+                    out.append([np.array(a) for a in c_])
+                    return real(s, c_)
+                diag.process_chunk = record
+        graphed.step(9)
+        _eager_loop(twin, 9)
+        torch.cuda.synchronize()
+    assert graphed._multi_step.graphs
+    assert (graphed.state.iteration, float(graphed.state.zmin),
+            float(graphed.state.time)) == (twin.state.iteration,
+                                           float(twin.state.zmin),
+                                           float(twin.state.time))
+    for i, (x, y) in enumerate(zip(state_tensors(graphed.state),
+                                   state_tensors(twin.state))):
+        assert torch.equal(x, y), i
+    if case == "btd":
+        rows = [np.concatenate(a) for a in zip(*caps["graphed"])]
+        want = [np.concatenate(a) for a in zip(*caps["eager"])]
+        assert rows[0].shape[0] == 10           # the write's and 9 steps
+        for a, b in zip(rows, want):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(graphed.diags[0].snapshots, twin.diags[0].snapshots):
+            np.testing.assert_array_equal(a.filled, b.filled)
+            for name in a.names:
+                np.testing.assert_array_equal(a.data[name], b.data[name])
+
+
+@pytest.mark.cuda
+def test_antenna_series_are_computed_for_the_card(cuda, monkeypatch):
+    """The antenna's series of a card run are made for the card (the
+    required ``device`` keyword) and copied into the chunk runner's
+    static buffer there."""
+    from fbpic_tpu_torch.lpa_utils.laser import antenna_injection as ai
+    devices = []
+    series = ai.LaserAntenna.compute_series
+
+    def record(self, t0, n_steps, dz, **kw):
+        devices.append(torch.device(kw["device"]).type)
+        out = series(self, t0, n_steps, dz, **kw)
+        assert out.J.device.type == "cuda"
+        return out
+    monkeypatch.setattr(ai.LaserAntenna, "compute_series", record)
+    sim = _lpa_window_sim(cuda, torch.float32, "antenna")
+    sim.step(6)
+    assert devices and set(devices) == {"cuda"}
+    assert sim._multi_step._series[0].device.type == "cuda"
+    with pytest.raises(TypeError):
+        series(sim.laser_antennas[0], 0., 2, sim.config.dz)

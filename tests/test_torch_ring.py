@@ -498,17 +498,23 @@ def test_carried_ring_state_steps_like_fbpic_tpu():
     (utils.carry.state_from_numpy: any capacity, the ring cursor, the
     injection front), then one exchange step and one step between
     exchanges in both packages from that state."""
-    from fbpic_tpu.core.step import make_step_fn as m0
+    from fbpic_tpu.core.step import make_step_fn as m0, make_prepare as p0
     from fbpic_tpu_torch.core.step import make_step_fn as m1
     from fbpic_tpu_torch.utils.carry import state_from_numpy
     from test_torch_step import jax_state_to_numpy
     s0, s1 = window_sims(extra=(dict(q=-e, m=m_e),
                                 dict(q=-e, m=m_e, capacity=0)))
-    s0.step(8, show_progress=False)  # the next step is an exchange
-    step0 = jax.jit(m0(s0.config, tuple(s0.species_configs),
-                       s0.build_options()))
+    options0 = s0.build_options()
+    step0 = jax.jit(m0(s0.config, tuple(s0.species_configs), options0))
     step1 = m1(s1.config, s1.species_configs, s1.build_options())
-    state0 = s0.state
+    # fbpic_tpu's run-up to iteration 8 (the next step is an exchange),
+    # through the same jitted step the checked steps use
+    inj0 = tuple(s0._injector_auxes)
+    state0 = p0(s0.config, tuple(s0.species_configs), options0)(
+        s0.state, s0.aux, inj0, (), (), ())
+    for _ in range(8):
+        state0 = step0(state0, s0.aux, inj0, (), (), ())
+    assert int(state0.iteration) == 8
     for _ in range(2):
         carried = jax_state_to_numpy(state0)
         assert carried["species"][0]["next_free"] > 0

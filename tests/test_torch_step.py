@@ -123,16 +123,22 @@ def _sims():
 
 
 def test_one_resident_step_matches_jax():
-    from fbpic_tpu.core.step import make_step_fn as m0
+    from fbpic_tpu.core.step import make_step_fn as m0, make_prepare as p0
     from fbpic_tpu_torch.core.step import make_step_fn as m1
     from fbpic_tpu_torch.utils.carry import state_from_numpy
     s0, s1 = _sims()
-    step0 = jax.jit(m0(s0.config, tuple(s0.species_configs),
-                       s0.build_options()))
+    options0 = s0.build_options()
+    step0 = jax.jit(m0(s0.config, tuple(s0.species_configs), options0))
     step1 = m1(s1.config, s1.species_configs, s1.build_options())
     angles = jax_column_angles(int(s0.state.seed), torch.float64)
-    s0.step(8)                  # iteration 8: the next step is an exchange
-    state0 = s0.state
+    # fbpic_tpu's run-up to iteration 8 (the next step is an exchange),
+    # through the same jitted step the checked steps use
+    inj0 = tuple(s0._injector_auxes)
+    state0 = p0(s0.config, tuple(s0.species_configs), options0)(
+        s0.state, s0.aux, inj0, (), (), ())
+    for _ in range(8):
+        state0 = step0(state0, s0.aux, inj0, (), (), ())
+    assert int(state0.iteration) == 8
     for _ in range(2):          # exchange step, then a banded re-sort step
         carried = jax_state_to_numpy(state0)
         state1 = state_from_numpy(**carried, device="cpu")
