@@ -170,7 +170,8 @@ Phases (any failure raises, and the script exits non-zero):
      step (the electrons and the ions resident), zero overflow, finite
      fields; the creation balance of one step (the ions' sum of w
      dlevel against the electrons appended); the host syncs of an
-     exchange period with the ionizer the same as without it; profiled
+     exchange period with the ionizer the same as without it, the
+     chunk's one read (the chunk runner replays the steps); profiled
      windows with and without the ionizer (what it adds a step); K1 on
      both deposits of a step (the ions' weighted by w * level, against
      the plain version in float64 too) and K2 on both gathers; unique
@@ -183,8 +184,9 @@ Phases (any failure raises, and the script exits non-zero):
      so that the photons expected a step there are under a quarter of
      the 8192-slot buffer; the photons a ring (q = 0, m = 0): 5 + 30
      steps around the overlap with one K1 and one K2 a step, zero
-     overflow, the host syncs with and without Compton the same,
-     profiled windows with and without it, K1 on the plasma's operands;
+     overflow, the host syncs with and without Compton the same (the
+     chunk's one read), profiled windows with and without it, K1 on the
+     plasma's operands;
      on to 220 steps and
      the photons' upper edge within 10% of 4 gamma^2 E_L / (1 + 4 gamma
      E_L / m_e c^2);
@@ -249,8 +251,9 @@ Phases (any failure raises, and the script exits non-zero):
      of phase 6 and the PICMI LWFA of phase 21, each run 200 steps (the
      boosted one 210: its window shifts 1 cell instead of 2 at step 200,
      its second graph variant) through Simulation.step (the exchange
-     steps eager, every other step replayed from a captured CUDA graph)
-     beside an eager twin built from the same seeds (eager_steps: the
+     steps' exchange block eager, every step's rest replayed from a
+     captured CUDA graph) beside an eager twin built from the same seeds
+     (eager_steps: the
      eager step function called in a loop): exactly one K1 and one K2 a
      step (two K3 and one K2 on the boosted path), counted per replay,
      and the expected graph variants; every array equal bit for bit but
@@ -268,13 +271,24 @@ Phases (any failure raises, and the script exits non-zero):
      field, each against the twin), the PWFA driver of phase 15 (200
      steps; the bunch a ring) and the published boosted script (a ring)
      with the BTD (210 steps), the last three under deterministic
-     index_add_ too (a ring's J is a scatter deposit); at most one host
-     sync an exchange period (the chunk's read; two with the BTD, whose
-     first write reads back; four on the PICMI path).
+     index_add_ too (a ring's J is a scatter deposit); then the
+     ionization LWFA of phase 18 (its created electrons' ring built at
+     262,144; both runs stepped to 150 first, so that the laser ionizes
+     the dopant in the pair's 200 steps; two K1 and two K2 a step; the
+     electrons created in each half printed; a planted rollback from a
+     twin re-seeded with the graphed run's state after the timed
+     windows), the Compton PWFA of phase 19 (its photon ring built at
+     524,288, 200 steps across the overlap, photons created in each
+     half) and the ballistic PWFA (phase 15's bunch behind an injection
+     plane 5 sig_z ahead of it: all of it behind the plane at step 0,
+     some at 210, none at 420), all under deterministic index_add_, the
+     generators' states equal too; at most one host sync an exchange
+     period (the chunk's read; two with the BTD, whose first write
+     reads back; four on the PICMI path).
 
 Phases 1-25 run the paths through Simulation.step, so the
-configurations that take the chunk runner (every one but the
-processes' and a ballistic species') run replayed graphs there too;
+configurations that take the chunk runner (every single-card one) run
+replayed graphs there too;
 phase 9 holds the BTD to two host syncs a step(n) call and phase 16 the
 antenna to one, the chunk's read.  Where a phase takes a running
 simulation's kernel operands (capture_calls), that one step runs through
@@ -2475,9 +2489,10 @@ def pwfa_space_charge_check(sim):
     return out
 
 
-def make_pwfa_sim():
+def make_pwfa_sim(z_injection_plane=None):
     """Phase 15's PWFA driver: bench.py's grid and plasma, no laser, the
-    Gaussian bunch with its space-charge field, a moving window at c,
+    Gaussian bunch with its space-charge field (ballistic behind
+    z_injection_plane, where one is given), a moving window at c,
     float32.  Returns (sim, the bunch's set-up seconds)."""
     import torch
     from fbpic_tpu_torch import Simulation
@@ -2494,7 +2509,9 @@ def make_pwfa_sim():
     t0 = time.perf_counter()
     add_particle_bunch_gaussian(sim, q=-e, m=m_e,
                                 n_physical_particles=PWFA_Q / e,
-                                initialize_self_field=True, **PWFA_BUNCH)
+                                initialize_self_field=True,
+                                z_injection_plane=z_injection_plane,
+                                **PWFA_BUNCH)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     sim.set_moving_window(v=c)
@@ -3056,12 +3073,14 @@ CMP_T_PEAK, CMP_STEPS, CMP_PHOTON_SHARE, CMP_CHUNK = 100, 220, 0.225, 5
 CMP_EDGE_TOL = 0.10
 
 
-def make_ionization_sim(pml=False):
+def make_ionization_sim(pml=False, target_capacity=None):
     """examples/ionization_script.py:33-55 as written (full width: Nz =
     800, Nr = 50, Nm = 2, n_order = 32, 2x2x4 particles per cell, a0 = 4,
     moving window, continuous injection), float32, random_seed = 0 (the
     script leaves it unset).  pml: the radial PML (BASELINE config 4),
-    Nr widened by its 32 cells as phase 12 does."""
+    Nr widened by its 32 cells as phase 12 does; target_capacity: the
+    created electrons' ring built with that many slots (default: one
+    creation buffer, 8192)."""
     import torch
     from fbpic_tpu_torch import Simulation
     from fbpic_tpu_torch.constants import c, e, m_e, m_p
@@ -3077,7 +3096,7 @@ def make_ionization_sim(pml=False):
                   p_nr=P_NR, p_nt=P_NT)
     elec = sim.add_new_species(q=-e, m=m_e, n=N_E, **plasma)
     ion = sim.add_new_species(q=5 * e, m=14. * m_p, n=ION_N_DOPANT, **plasma)
-    elec_from_N = sim.add_new_species(q=-e, m=m_e)
+    elec_from_N = sim.add_new_species(q=-e, m=m_e, capacity=target_capacity)
     ion.make_ionizable("N", target_species=elec_from_N, level_start=5)
     elec_from_N.track(sim.comm)
     add_laser_pulse(sim, GaussianLaser(a0=A0, waist=W0, tau=TAU, z0=Z0))
@@ -3085,7 +3104,8 @@ def make_ionization_sim(pml=False):
     sc = sim.species_configs
     tgt = sim.state.species[2]
     if not (sc[0].resident and sc[1].resident and sc[2].sort_K == 0
-            and not sc[2].resident and tgt.capacity == 8192
+            and not sc[2].resident
+            and tgt.capacity == (target_capacity or 8192)
             and sc[1].ionizer.targets == (2,)
             and type(tgt.next_free).__name__ == "Tensor"):
         raise RuntimeError(f"ionization LWFA: unexpected layout {sc}")
@@ -3100,16 +3120,35 @@ def run_up(sim, n_to, chunk, label):
     (sim.ring_growth), or this raises.  Returns the per-call record
     (iteration, live created particles, capacity), the overflow totals
     of the run-up, which are then reset (the timed windows must add
-    none), and the calls that dropped (iteration, dropped, the targets
-    grown then)."""
+    none), the calls that dropped (iteration, dropped, the targets
+    grown then) and the memory: ``recaptures``, the calls that captured
+    a new chunk runner (a target ring grew before them), with their
+    iteration, the targets' capacities, the memory allocated after the
+    call and its peak during it (GB), and ``peak_bytes``, the peak of
+    all calls (each call resets torch's peak counter).  Each runner that
+    a new one replaced must have been released (its graphs and static
+    buffers dropped), or this raises."""
+    import gc
+    import weakref
     import torch
     tgt = [i for i in range(len(sim.species_configs))
            if sim.is_process_target(i)]
-    log, drops = [], []
+    log, drops, recaptures, runners, peak = [], [], [], [], 0
     t0 = time.perf_counter()
     while sim.iteration < n_to:
         before = sim.overflow_totals["ring_overwrite"]
+        torch.cuda.reset_peak_memory_stats()
         sim.step(min(chunk, n_to - sim.iteration))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        runner = sim._multi_step
+        if runner is not None and (not runners
+                                   or runners[-1]() is not runner):
+            runners.append(weakref.ref(runner))
+            recaptures.append(dict(
+                iteration=sim.iteration,
+                capacity=[sim.state.species[i].capacity for i in tgt],
+                allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
         log.append((sim.iteration,
                     [int((sim.state.species[i].w != 0).sum()) for i in tgt],
                     [sim.state.species[i].capacity for i in tgt]))
@@ -3126,34 +3165,48 @@ def run_up(sim, n_to, chunk, label):
                                    f"of {tgt} grew then")
     torch.cuda.synchronize()
     totals = dict(sim.overflow_totals)
+    gc.collect()
+    kept = [r() for r in runners[:-1]
+            if r() is not None and (r().graphs or r()._static is not None)]
     print(f"{label}: run-up to {sim.iteration} steps in "
           f"{time.perf_counter() - t0:.1f} s; created (live) and capacity "
           f"of the targets every {chunk * 10} steps: "
           f"{log[9::10]}; rings grown {sim.ring_growth}; overflow "
           f"{totals}; calls that dropped, each followed by its target's "
-          f"growth: {drops}", flush=True)
+          f"growth: {drops}; calls that captured a new runner (memory "
+          f"allocated after each and its peak, GB): {recaptures}; "
+          f"replaced runners not released: {len(kept)}", flush=True)
+    if kept:
+        raise RuntimeError(f"{label}: {len(kept)} replaced chunk runners "
+                           f"still hold their graphs or buffers")
     sim.overflow_totals = {k: 0 for k in sim.overflow_totals}
-    return log, totals, drops
+    return log, totals, drops, dict(recaptures=recaptures, peak_bytes=peak)
 
 
 def process_syncs(sim, label, toggle):
     """Host syncs of one step(exchange period) call with the processes,
     then of the next without them (toggle(False) turns them off), at the
-    same places of the exchange cycle: they must be the same.  The
-    processes keep the eager loop (core/graph.py's graph_blockers), so
-    the call without them runs that loop too (eager_steps), not the
-    chunk runner the configuration would otherwise take."""
+    same places of the exchange cycle, both through Simulation.step (the
+    chunk runner; the configuration without the processes is captured in
+    an untimed exchange period first) and with the diagnostics detached
+    (their writes read the data): at most the chunk's one read (the
+    process targets' live counts folded into it), at the same place."""
     ep = sim.exchange_period
-    on = count_syncs(sim, f"{label} with the processes", ep)
-    toggle(False)
+    diags, sim.diags = sim.diags, []
     try:
-        off = count_syncs(sim, f"{label} without the processes", ep,
-                          run=lambda n: eager_steps(sim, n))
+        on = count_syncs(sim, f"{label} with the processes", ep)
+        toggle(False)
+        try:
+            sim.step(ep)
+            off = count_syncs(sim, f"{label} without the processes", ep)
+        finally:
+            toggle(True)
+        sim.step(ep)
     finally:
-        toggle(True)
+        sim.diags = diags
     print(f"{label}: step({ep}) made {on['count']} host syncs with the "
           f"processes, {off['count']} without", flush=True)
-    if on["where"] != off["where"]:
+    if on["count"] > 1 or on["where"] != off["where"]:
         raise RuntimeError(f"{label}: the processes add host syncs: {on} "
                            f"against {off}")
     return dict(with_processes=on, without=off)
@@ -3162,13 +3215,16 @@ def process_syncs(sim, label, toggle):
 def process_cost(sim, toggle, label):
     """Profiled windows with the processes (toggle(True)) and without
     them (toggle(False)), on the same state: what the process adds to
-    the device busy time and the launches of a step."""
+    the device busy time and the launches of a step.  Each configuration
+    is captured in an untimed exchange period before its window."""
     on = profile_steps(sim, N_PROFILED)
     toggle(False)
     try:
+        sim.step(sim.exchange_period)
         off = profile_steps(sim, N_PROFILED)
     finally:
         toggle(True)
+    sim.step(sim.exchange_period)
     if on is None or off is None:
         return on, None
     added = dict(device_ms_per_step=on["device_ms_per_step"]
@@ -3270,14 +3326,17 @@ def phase_ionization_lwfa(counters):
     He electrons and the a0 = 4 laser, an N5+ dopant ionizable from level
     5 into a tracked species; float32) with its field and particle
     diagnostics every ION_DIAG steps (collected: no h5py on the card):
-    the run-up to ION_RUN_UP steps in ION_CHUNK-step calls; 5 + 30 timed
-    steps with exactly two K1 and two K2 launches a step (the electrons
-    and the ions resident; the created electrons a ring: PyTorch ops),
-    zero overflow, finite fields; the creation balance of one step;
-    peak memory; the host syncs of an exchange period with and without
-    the ionizer; profiled windows with and without it; K1 on both of a
-    step's deposits (the ions' weighted by w * level) and K2; then the
-    radial PML window (BASELINE config 4)."""
+    the run-up to ION_RUN_UP steps in ION_CHUNK-step calls (the chunk
+    runner: the non-exchange steps replayed from CUDA graphs, captured
+    again after each growth of the created electrons' ring); 5 + 30
+    timed steps with exactly two K1 and two K2 launches a step (the
+    electrons and the ions resident; the created electrons a ring:
+    PyTorch ops), zero overflow, finite fields; the creation balance of
+    one step; peak memory; the host syncs of an exchange period with and
+    without the ionizer (the chunk's one read); profiled windows with
+    and without it; K1 on both of a step's deposits (the ions' weighted
+    by w * level) and K2; then the radial PML window (BASELINE config
+    4)."""
     import torch
     from fbpic_tpu_torch.diagnostics import (FieldDiagnostic,
                                              ParticleDiagnostic)
@@ -3295,15 +3354,17 @@ def phase_ionization_lwfa(counters):
         for d in sim.diags:
             collect_only(d, sink)
     label = "ionization LWFA"
-    log, run_up_totals, _ = run_up(sim, ION_RUN_UP, ION_CHUNK, label)
+    log, run_up_totals, _, mem = run_up(sim, ION_RUN_UP, ION_CHUNK, label)
     n_created = int((sim.state.species[2].w != 0).sum())
     if n_created == 0:
         raise RuntimeError(f"{label}: no electron created in "
                            f"{sim.iteration} steps")
     launches, metrics = drive_path(sim, counters, N_WARMUP, N_NEW_TIMED,
                                    label, {"K1": 2, "K2": 2, "K3": 0})
-    metrics["peak_memory_gb"] = (torch.cuda.max_memory_allocated()
+    metrics["peak_memory_gb"] = (max(mem["peak_bytes"],
+                                     torch.cuda.max_memory_allocated())
                                  - base) / 1e9
+    metrics["recaptures"] = mem["recaptures"]
     balance = creation_balance(sim, 1, 2)
     syncs = process_syncs(sim, label, toggler(sim, 1, "ionizer"))
     prof, metrics["without_ionizer"] = process_cost(
@@ -3346,7 +3407,7 @@ def phase_ionization_lwfa(counters):
 
     sim, elec, ion, tgt = make_ionization_sim(pml=True)
     label = "ionization LWFA + radial PML"
-    _, pml_totals, _ = run_up(sim, ION_PML_RUN_UP, ION_CHUNK, label)
+    _, pml_totals, _, _ = run_up(sim, ION_PML_RUN_UP, ION_CHUNK, label)
     pml_launches, pml = drive_path(sim, counters, 1, N_NEW_TIMED, label,
                                    {"K1": 2, "K2": 2, "K3": 0})
     check_pml_fields(sim, label)
@@ -3399,26 +3460,17 @@ def compton_laser_energy(sim, bunch, z0, t_peak):
     return CMP_PHOTON_SHARE * 8192 / per_joule, per_joule
 
 
-def phase_compton_pwfa(counters):
-    """19. Phase 15's PWFA (the bench's grid and plasma, the 50 pC drive
-    bunch of 1,000,000 macroparticles at gamma 2000 with its space-charge
-    field; float32) with the bunch Compton-active against a
-    counter-propagating rigid laser (CMP_LASER) that meets its centre at
-    step CMP_T_PEAK, the photons a ring (q = 0, m = 0): the laser energy
-    from scattering_probability (CMP_PHOTON_SHARE of the buffer a step
-    at the overlap); the run-up in CMP_CHUNK-step calls, 5 + 30 timed
-    steps around the overlap with exactly one K1 and one K2 a step (the
-    plasma), zero overflow, finite fields; the host syncs of an exchange
-    period with and without Compton; profiled windows with and without
-    it; K1 on the plasma's operands; on to CMP_STEPS, then the photons' upper edge
-    against 4 gamma^2 E_L / (1 + 4 gamma E_L / m_e c^2)."""
+def make_compton_sim(photon_capacity=None):
+    """Phase 19's configuration: phase 15's PWFA (its grid, plasma and
+    drive bunch with its space-charge field), the bunch Compton-active
+    against CMP_LASER, its photons a ring (q = 0, m = 0) of
+    photon_capacity slots (default: one creation buffer, 8192).
+    Returns (sim, the laser energy, the photons a step per joule at the
+    overlap, the laser's z0)."""
     import torch
     from fbpic_tpu_torch import Simulation
-    from fbpic_tpu_torch.constants import c, e, m_e, hbar
+    from fbpic_tpu_torch.constants import c, e, m_e
     from fbpic_tpu_torch.lpa_utils.bunch import add_particle_bunch_gaussian
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
     sim = Simulation(NZ, ZMAX, NR, RMAX, NM, (ZMAX - ZMIN) / NZ / c,
                      zmin=ZMIN, n_order=32,
                      boundaries={"z": "open", "r": "reflective"},
@@ -3430,7 +3482,7 @@ def phase_compton_pwfa(counters):
     bunch = add_particle_bunch_gaussian(
         sim, q=-e, m=m_e, n_physical_particles=PWFA_Q / e,
         initialize_self_field=True, **PWFA_BUNCH)
-    photons = sim.add_new_species(q=0., m=0.)
+    photons = sim.add_new_species(q=0., m=0., capacity=photon_capacity)
     sim.set_moving_window(v=c)
     t_peak = CMP_T_PEAK * sim.dt
     z0 = PWFA_BUNCH["zf"] + 2 * c * t_peak
@@ -3440,20 +3492,46 @@ def phase_compton_pwfa(counters):
     sc = sim.species_configs
     if not (sc[0].resident and sc[1].sort_K == 0 and sc[2].sort_K == 0
             and sc[1].compton.target_index == 2
-            and sim.state.species[2].capacity == 8192):
+            and sim.state.species[2].capacity == (photon_capacity or 8192)):
         raise RuntimeError(f"Compton PWFA: unexpected layout {sc}")
     print(f"Compton PWFA: laser z0 = {z0 * 1e6:.3f} um, energy "
           f"{energy:.6e} J ({per_joule:.6e} photons a step per J at the "
           f"overlap of step {CMP_T_PEAK}: {energy * per_joule:.1f} "
           f"expected a step)", flush=True)
+    return sim, energy, per_joule, z0
+
+
+def phase_compton_pwfa(counters):
+    """19. Phase 15's PWFA (the bench's grid and plasma, the 50 pC drive
+    bunch of 1,000,000 macroparticles at gamma 2000 with its space-charge
+    field; float32) with the bunch Compton-active against a
+    counter-propagating rigid laser (CMP_LASER) that meets its centre at
+    step CMP_T_PEAK, the photons a ring (q = 0, m = 0): the laser energy
+    from scattering_probability (CMP_PHOTON_SHARE of the buffer a step
+    at the overlap); the run-up in CMP_CHUNK-step calls (the chunk
+    runner, captured again after each growth of the photon ring), 5 + 30
+    timed steps around the overlap with exactly one K1 and one K2 a step
+    (the plasma), zero overflow, finite fields; the host syncs of an
+    exchange period with and without Compton (the chunk's one read);
+    profiled windows with and without it; K1 on the plasma's operands;
+    on to CMP_STEPS, then the drop gate and the photons' upper edge
+    against 4 gamma^2 E_L / (1 + 4 gamma E_L / m_e c^2)."""
+    import torch
+    from fbpic_tpu_torch.constants import c, m_e, hbar
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sim, energy, per_joule, z0 = make_compton_sim()
     label = "Compton-active PWFA"
     n_before = CMP_T_PEAK - N_WARMUP - N_NEW_TIMED // 2
-    _, run_up_totals, run_up_drops = run_up(sim, n_before, CMP_CHUNK,
-                                            label)
+    _, run_up_totals, run_up_drops, mem = run_up(sim, n_before, CMP_CHUNK,
+                                                 label)
     launches, metrics = drive_path(sim, counters, N_WARMUP, N_NEW_TIMED,
                                    label, {"K1": 1, "K2": 1, "K3": 0})
-    metrics["peak_memory_gb"] = (torch.cuda.max_memory_allocated()
+    metrics["peak_memory_gb"] = (max(mem["peak_bytes"],
+                                     torch.cuda.max_memory_allocated())
                                  - base) / 1e9
+    metrics["recaptures"] = mem["recaptures"]
     syncs = process_syncs(sim, label, toggler(sim, 1, "compton"))
     prof, metrics["without_compton"] = process_cost(
         sim, toggler(sim, 1, "compton"), label)
@@ -3462,8 +3540,8 @@ def phase_compton_pwfa(counters):
                                   / metrics["ms_per_step"])
     metrics["profile"] = prof
     k1 = phase_k1_resident(sim, "resident plasma of the Compton PWFA")
-    _, rest_totals, rest_drops = run_up(sim, CMP_STEPS, CMP_CHUNK * 2,
-                                        label)
+    _, rest_totals, rest_drops, rest_mem = run_up(sim, CMP_STEPS,
+                                                  CMP_CHUNK * 2, label)
     check_fields(sim, label)
     sp = sim.state.species[2]
     live = sp.w != 0
@@ -3501,6 +3579,7 @@ def phase_compton_pwfa(counters):
                    ring_growth=list(sim.ring_growth),
                    run_up_overflow=run_up_totals,
                    rest_overflow=rest_totals, photon_drops=drops,
+                   rest_recaptures=rest_mem["recaptures"],
                    photon_edge=edge,
                    edge_formula=e_max, edge_ratio=edge / e_max,
                    photon_quantiles=q, bunch_mean_gamma=gamma,
@@ -4834,6 +4913,20 @@ GRAPH_STEPS = 200
 GRAPH_STEPS_BOOSTED = 210
 #: Steps of the call after the planted column overflow
 GRAPH_PLANT_STEPS = 10
+#: The ionization LWFA pair (phase 18's configuration): the created
+#: electrons' ring built with the capacity phase 18's run ends at (one
+#: 200-step call holds what it creates), and both runs stepped
+#: GRAPH_ION_RUN_UP steps first, so that the pair's steps fall where the
+#: laser ionizes the dopant (its peak enters the plasma near step 160)
+GRAPH_ION_CAPACITY, GRAPH_ION_RUN_UP = 262144, 150
+#: The Compton PWFA pair's photon ring (phase 19's grows to it)
+GRAPH_CMP_CAPACITY = 524288
+#: The ballistic PWFA pair: phase 15's drive bunch with its injection
+#: plane 5 sig_z ahead of its centre.  The bunch spans +-5 sig_z (20 um)
+#: and moves 0.05 um a step, so it crosses the plane whole in ~400
+#: steps: the pair runs GRAPH_STEPS_BALLISTIC steps, not GRAPH_STEPS
+BALLISTIC_PLANE = PWFA_BUNCH["zf"] + 5 * PWFA_BUNCH["sig_z"]
+GRAPH_STEPS_BALLISTIC = 420
 
 
 def plant_column_overflow(sim):
@@ -4861,15 +4954,22 @@ def plant_column_overflow(sim):
 def twin_gate(label, graphed, twin, when):
     """Every array of the graphed run equal to its eager twin's bit for
     bit, but rho_prev (TOL_ATOMIC_RHO of its scale: an atomic scatter
-    deposit); the host values equal.  Returns the differing arrays."""
+    deposit); the host values and the generators' states (the injection
+    angles' and the processes' draws: their Philox offsets) equal.
+    Returns the differing arrays."""
+    import torch
     rel, same_host = twin_difference(graphed, twin)
+    same_gen = torch.equal(graphed.generator.get_state(),
+                           twin.generator.get_state())
     print(f"{label}, {when}: graphed against the eager twin: host values "
-          f"equal {same_host}, differing arrays {rel}", flush=True)
+          f"equal {same_host}, generators' states equal {same_gen}, "
+          f"differing arrays {rel}", flush=True)
     off = {k: v for k, v in rel.items()
            if k != ".spect.rho_prev" or v > TOL_ATOMIC_RHO}
-    if not same_host or off:
+    if not same_host or not same_gen or off:
         raise RuntimeError(f"{label}: graphed and eager differ {when}: "
-                           f"{rel}, host equal {same_host}")
+                           f"{rel}, host equal {same_host}, generators "
+                           f"equal {same_gen}")
     return rel
 
 
@@ -4955,9 +5055,10 @@ def btd_gate(label, graphed, twin, rows_graphed, rows_twin):
 
 def graph_pair(label, build, per_step, counters, variants_want, n_steps,
                plant=False, deterministic=False, syncs_max=1,
-               atomics=False, windows=None):
+               atomics=False, windows=None, run_up=0, probe=None):
     """One path's graphed run (Simulation.step) beside its eager twin
-    (eager_steps), both built by build() from the same seeds: n_steps
+    (eager_steps), both built by build() from the same seeds (and, with
+    run_up, both stepped run_up steps by Simulation.step first): n_steps
     steps each in one call, the graphed run's kernel counts (set to 0
     just before it) exactly per_step a step, its graph variants (n_move,
     full re-sort) variants_want; every array bit for bit but rho_prev; a
@@ -4970,37 +5071,58 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
     period, and the equality once more; with plant, a column overflow
     planted in both at a non-exchange step, and the graphed call that
     rolls back equal to the twin's.  With deterministic, both builds,
-    the n_steps steps of both runs and the windows run under
-    deterministic_scatter (rho_prev, a ring's J or a bunch's initial
-    charge is a scatter deposit with float atomics otherwise; the
-    Galilean / comoving correction reads rho_prev, so its bits reach E,
-    B, J and the particles), and with atomics two eager runs without it
-    show what the atomics alone change; the timed windows follow without
-    it (the graphs captured again without it), and the equality is then
-    not held again."""
+    the run-up, the n_steps steps of both runs, the windows and the
+    planted rollback run under deterministic_scatter (rho_prev, a ring's
+    J, a bunch's initial charge or the newborns' birth-step J and rho is
+    a scatter deposit with float atomics otherwise; the Galilean /
+    comoving correction reads rho_prev, so its bits reach E, B, J and
+    the particles), and with atomics two eager runs without it show
+    what the atomics alone change; the timed windows follow without it
+    (the graphs captured again without it), and the equality is then
+    not held again.  probe = (fn, check): the n_steps go in two calls of
+    half each, fn(sim) of both runs is read before, between and after,
+    equal in both, and check(values of the graphed run) raises where
+    they are wrong (particles created, a plane crossed)."""
     import torch
-    import warnings
     with deterministic_scatter(deterministic):
         # (a bunch's space-charge field is deposited when it is built)
         graphed, twin = build(), build()
+        if run_up:
+            graphed.step(run_up)
+            twin.step(run_up)
+            # Both runners dropped: the counted call captures anew, so
+            # that its peak holds the runner's buffers and graph pool
+            # (the twin steps eagerly from here)
+            recapture(graphed)
+            recapture(twin)
+            torch.cuda.empty_cache()
     caps = {"graphed": record_captures(graphed),
             "eager": record_captures(twin)}
     eager = lambda n: eager_steps(twin, n)   # noqa: E731
+    calls = (n_steps // 2, n_steps - n_steps // 2) if probe else (n_steps,)
+    probed = {"graphed": [], "eager": []}
     with deterministic_scatter(deterministic):
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        # from the first call: the static buffers, the chunk's input kept
-        # aside and the graph pool count in the graphed run's peak
-        _, peak_graphed = timed_run(graphed.step, n_steps)
-        t_graphed = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        _, peak_eager = timed_run(eager, n_steps)
-        t_eager = time.perf_counter() - t0
-    twin_launches = {k: fn.launches for k, fn in counters.items()}
+        peaks, seconds, counted = {}, {}, {}
+        for name, sim, run in (("graphed", graphed, graphed.step),
+                               ("eager", twin, eager)):
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            peaks[name] = 0.
+            for n in calls:
+                if probe:
+                    probed[name].append(probe[0](sim))
+                # from the first call: the static buffers, the chunk's
+                # input kept aside and the graph pool count in the
+                # graphed run's peak
+                peaks[name] = max(peaks[name], timed_run(run, n)[1])
+            if probe:
+                probed[name].append(probe[0](sim))
+            seconds[name] = time.perf_counter() - t0
+            counted[name] = {k: fn.launches for k, fn in counters.items()}
+    launches, twin_launches = counted["graphed"], counted["eager"]
+    peak_graphed, peak_eager = peaks["graphed"], peaks["eager"]
+    t_graphed, t_eager = seconds["graphed"], seconds["eager"]
     runner = graphed._multi_step
     variants = sorted(runner.graphs) if runner is not None else None
     print(f"{label}: {n_steps} steps graphed in {t_graphed:.2f} s "
@@ -5030,13 +5152,22 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
     if caps["graphed"] or caps["eager"]:
         out["btd_rows"], out["btd_filled"] = btd_gate(
             label, graphed, twin, caps["graphed"], caps["eager"])
+    if probe:
+        print(f"{label}: probed before, between and after the two calls: "
+              f"graphed {probed['graphed']}, eager {probed['eager']}",
+              flush=True)
+        if probed["graphed"] != probed["eager"]:
+            raise RuntimeError(f"{label}: probes differ {probed}")
+        probe[1](probed["graphed"])
+        out["probe"] = probed["graphed"]
     if windows is not None:
         with deterministic_scatter(deterministic):
             out["windows"] = windows(graphed, twin, eager, counters)
     # The graph's copy of the step's results into the static buffers
     # (every state tensor once): its bytes and its time on the card
     from fbpic_tpu_torch.core.graph import state_tensors
-    pairs = list(zip(runner._static, state_tensors(graphed.state)))
+    pairs = list(zip(graphed._multi_step._static,
+                     state_tensors(graphed.state)))
     state_bytes = sum(t.numel() * t.element_size() for _, t in pairs)
     copy_ms = cuda_ms(lambda: [s.copy_(t) for s, t in pairs])
     copy_bound, _ = bound(2 * state_bytes, 0)      # read and write once
@@ -5059,7 +5190,7 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
     if deterministic:
         # The graphs hold the sorted index_add_ they were captured with:
         # capture them again without it, as a user's run has them
-        graphed._multi_step = graphed._multi_step_key = None
+        recapture(graphed)
     # One exchange period in both before the timed windows, so that the
     # captures of a new chunk runner (the windows' options, the reset)
     # fall outside them
@@ -5067,7 +5198,16 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
     eager(twin.exchange_period)
     for name, sim, run in (("graphed", graphed, graphed.step),
                            ("eager", twin, eager)):
+        runner = sim._multi_step
+        graphs = None if runner is None else dict(runner.graphs)
         ms, peak = timed_run(run, N_TIMED)
+        if name == "graphed" and (sim._multi_step is not runner
+                                  or sim._multi_step.graphs != graphs):
+            # its time and idle share would include a capture
+            raise RuntimeError(
+                f"{label}: the timed window captured graphs of its own "
+                f"(variants {sorted(sim._multi_step.graphs)}, overflow "
+                f"{sim.overflow_totals})")
         prof = profile_steps(sim, N_PROFILED, run=run)
         syncs = count_syncs(sim, f"{label} {name}", sim.exchange_period,
                             run=run)
@@ -5088,32 +5228,71 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
                                f"an exchange period, not <= {syncs_max}")
     if not deterministic:
         twin_gate(label, graphed, twin, "after the timed windows")
-    if plant:
-        if graphed.iteration % graphed.exchange_period == 0:
-            graphed.step(1)
-            eager(1)
-        rows = [plant_column_overflow(sim) for sim in (graphed, twin)]
-        before = graphed.overflow_totals.get("rollbacks", 0)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", RuntimeWarning)
-            graphed.step(GRAPH_PLANT_STEPS)
-            eager(GRAPH_PLANT_STEPS)
-        rolled = graphed.overflow_totals.get("rollbacks", 0) - before
-        print(f"{label}: column overflow planted at row {rows[0]} at "
-              f"iteration {graphed.iteration - GRAPH_PLANT_STEPS}: "
-              f"{rolled} rollback(s); sort_overflow graphed "
-              f"{graphed.overflow_totals['sort_overflow']}, twin "
-              f"{twin.overflow_totals['sort_overflow']}; sort_K now "
-              f"{graphed.species_configs[0].sort_K}", flush=True)
-        if rolled != 1 or graphed.overflow_totals["sort_overflow"] == 0:
-            raise RuntimeError(f"{label}: the planted overflow made "
-                               f"{rolled} rollbacks")
-        twin_gate(label, graphed, twin, "after the planted rollback")
+    if plant and deterministic:
+        # The timed windows ran on float atomics: the twin takes the
+        # graphed run's state, and both roll back under
+        # deterministic_scatter, the graphs captured again under it
+        reseed_twin(twin, graphed)
+        recapture(graphed)
+        with deterministic_scatter(True):
+            out["planted_rollbacks"] = planted_rollback(label, graphed,
+                                                        twin, eager)
+    elif plant:
+        out["planted_rollbacks"] = planted_rollback(label, graphed, twin,
+                                                    eager)
+    return out
+
+
+def recapture(sim):
+    """Drop sim's chunk runner (its graphs released): the next step()
+    call builds and captures a new one."""
+    if sim._multi_step is not None:
+        sim._multi_step.release()
+    sim._multi_step = sim._multi_step_key = None
+
+
+def reseed_twin(twin, sim):
+    """The twin given a copy of sim's state, sort_K, counters and
+    generator state (its checkpoint, every tensor cloned)."""
+    from fbpic_tpu_torch.diagnostics.checkpoint_restart import (
+        checkpoint_dict, load_checkpoint_dict)
+    ckpt = checkpoint_dict(sim)
+    ckpt["tensors"] = {k: v.clone() for k, v in ckpt["tensors"].items()}
+    load_checkpoint_dict(twin, ckpt)
+    twin_gate("reseeded twin", sim, twin, "after the copy")
+
+
+def planted_rollback(label, graphed, twin, eager):
+    """A column overflow planted in both runs at a non-exchange step: the
+    graphed call rolls back once (the generators' states restored with
+    its input), and both runs are equal after it (twin_gate; the
+    generators' states too) and after the next call, which captures
+    anew.  Returns the rollbacks."""
+    import warnings
+    if graphed.iteration % graphed.exchange_period == 0:
+        graphed.step(1)
+        eager(1)
+    rows = [plant_column_overflow(sim) for sim in (graphed, twin)]
+    before = graphed.overflow_totals.get("rollbacks", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
         graphed.step(GRAPH_PLANT_STEPS)
         eager(GRAPH_PLANT_STEPS)
-        twin_gate(label, graphed, twin, "after the re-captured call")
-        out["planted_rollbacks"] = rolled
-    return out
+    rolled = graphed.overflow_totals.get("rollbacks", 0) - before
+    print(f"{label}: column overflow planted at row {rows[0]} at "
+          f"iteration {graphed.iteration - GRAPH_PLANT_STEPS}: "
+          f"{rolled} rollback(s); sort_overflow graphed "
+          f"{graphed.overflow_totals['sort_overflow']}, twin "
+          f"{twin.overflow_totals['sort_overflow']}; sort_K now "
+          f"{graphed.species_configs[0].sort_K}", flush=True)
+    if rolled != 1 or graphed.overflow_totals["sort_overflow"] == 0:
+        raise RuntimeError(f"{label}: the planted overflow made "
+                           f"{rolled} rollbacks")
+    twin_gate(label, graphed, twin, "after the planted rollback")
+    graphed.step(GRAPH_PLANT_STEPS)
+    eager(GRAPH_PLANT_STEPS)
+    twin_gate(label, graphed, twin, "after the re-captured call")
+    return rolled
 
 
 def with_btd(sim, workdir):
@@ -5179,6 +5358,40 @@ def antenna_windows(graphed, twin, eager, counters):
     return out
 
 
+def live_of(index):
+    """probe: the live particles of species ``index``."""
+    return lambda sim: int((sim.state.species[index].w != 0).sum())
+
+
+def created_in_the_pair(label):
+    """check of live_of: particles were created in each half of the
+    pair's steps (of which all but the exchange steps are replayed)."""
+    def check(live):
+        print(f"{label}: created in the pair's steps {live[-1] - live[0]} "
+              f"({live[1] - live[0]} and {live[2] - live[1]} in its two "
+              f"calls)", flush=True)
+        if not live[0] < live[1] < live[2]:
+            raise RuntimeError(f"{label}: nothing created: {live}")
+    return check
+
+
+def behind_the_plane(sim):
+    """probe: (the bunch's live particles behind its injection plane,
+    its live particles)."""
+    sp = sim.state.species[1]
+    live = sp.w != 0
+    return (int(((sp.z <= BALLISTIC_PLANE) & live).sum()),
+            int(live.sum()))
+
+
+def crossed_the_plane(values):
+    """check of behind_the_plane: all the bunch behind the plane at the
+    start, some of it halfway, none at the end."""
+    (b0, n0), (b1, n1), (b2, n2) = values
+    if not (b0 == n0 > 0 and 0 < b1 < n1 and b2 == 0):
+        raise RuntimeError(f"ballistic PWFA: behind the plane {values}")
+
+
 def phase_graph_paths(counters, smi):
     """26. The chunk runner (core/graph.py: the non-exchange steps
     replayed from captured CUDA graphs) on the bench LWFA, the boosted
@@ -5187,11 +5400,16 @@ def phase_graph_paths(counters, smi):
     boosted LWFA with phase 9's BTD captured inside the chunk, the
     antenna LWFA (phase 16; then its mirror and its external field), the
     PWFA driver (phase 15: a resident plasma and a 1,000,000-particle
-    ring bunch) and the published boosted script (a ring) with the BTD,
-    each beside its eager twin (graph_pair); the bench run also rolls
-    back a planted column overflow.  At most one host sync an exchange
-    period (the chunk's read), two with the BTD (its first write at the
-    call's start), four for the PICMI LWFA (its dens_func's three)."""
+    ring bunch), the published boosted script (a ring) with the BTD, the
+    ionization LWFA (phase 18: its resident N5+ ions ionized into a
+    262,144-slot ring, from step GRAPH_ION_RUN_UP), the Compton PWFA
+    (phase 19: photons into a 524,288-slot ring across the overlap) and
+    the ballistic PWFA (phase 15's bunch crossing an injection plane),
+    each beside its eager twin (graph_pair); the bench run and the
+    ionization LWFA also roll back a planted column overflow.  At most
+    one host sync an exchange period (the chunk's read), two with the
+    BTD (its first write at the call's start), four for the PICMI LWFA
+    (its dens_func's three)."""
     import torch
     workdir = tempfile.mkdtemp()
 
@@ -5204,28 +5422,45 @@ def phase_graph_paths(counters, smi):
     none = {"K1": 0, "K2": 0, "K3": 0}
     resident = {"K1": 1, "K2": 1, "K3": 0}
     boosted = {"K1": 0, "K2": 1, "K3": 2}
-    two = [(1, False), (2, False)]
+    # the variants (n_move, full re-sort): the exchange steps' rest is
+    # replayed too, fully re-sorted
+    one = [(1, False), (1, True)]
+    two = [(1, False), (1, True), (2, False), (2, True)]
     # (label, build, launches a step, graph variants, steps, and
     # graph_pair's options)
     paths = (
-        ("bench LWFA", make_sim, resident, [(1, False)], GRAPH_STEPS,
+        ("bench LWFA", make_sim, resident, one, GRAPH_STEPS,
          dict(plant=True)),
         ("boosted LWFA", make_boosted_sim, boosted, two, GRAPH_STEPS_BOOSTED,
          dict(deterministic=True, atomics=True)),
-        ("PICMI LWFA", picmi_sim, resident, [(1, False)], GRAPH_STEPS,
+        ("PICMI LWFA", picmi_sim, resident, one, GRAPH_STEPS,
          dict(syncs_max=4)),
         ("boosted LWFA + BTD",
          lambda: with_btd(make_boosted_sim(), workdir), boosted, two,
          GRAPH_STEPS_BOOSTED, dict(deterministic=True, syncs_max=2)),
         ("antenna LWFA", lambda: make_sim(z_antenna=ANT_Z,
                                           sort_K=ANT_SORT_K),
-         resident, [(1, False)], GRAPH_STEPS, dict(windows=antenna_windows)),
-        ("PWFA driver", lambda: make_pwfa_sim()[0], resident, [(1, False)],
+         resident, one, GRAPH_STEPS, dict(windows=antenna_windows)),
+        ("PWFA driver", lambda: make_pwfa_sim()[0], resident, one,
          GRAPH_STEPS, dict(deterministic=True)),
         ("published boosted (ring) + BTD",
          lambda: with_btd(make_boosted_sim(p_zmin_lab=B_P_ZMIN_PUBLISHED),
                           workdir), none, two, GRAPH_STEPS_BOOSTED,
-         dict(deterministic=True, syncs_max=2)))
+         dict(deterministic=True, syncs_max=2)),
+        ("ionization LWFA",
+         lambda: make_ionization_sim(target_capacity=GRAPH_ION_CAPACITY)[0],
+         {"K1": 2, "K2": 2, "K3": 0}, one, GRAPH_STEPS,
+         dict(deterministic=True, plant=True, run_up=GRAPH_ION_RUN_UP,
+              probe=(live_of(2), created_in_the_pair("ionization LWFA")))),
+        ("Compton PWFA", lambda: make_compton_sim(GRAPH_CMP_CAPACITY)[0],
+         resident, one, GRAPH_STEPS,
+         dict(deterministic=True,
+              probe=(live_of(2), created_in_the_pair("Compton PWFA")))),
+        ("ballistic PWFA",
+         lambda: make_pwfa_sim(z_injection_plane=BALLISTIC_PLANE)[0],
+         resident, one, GRAPH_STEPS_BALLISTIC,
+         dict(deterministic=True,
+              probe=(behind_the_plane, crossed_the_plane))))
     out = {}
     for label, build, per_step, variants, n_steps, kw in paths:
         out[label] = graph_pair(label, build, per_step, counters, variants,

@@ -8,26 +8,36 @@ counters once per call.  ``MultiStep`` is the port's counterpart: it
 runs a chunk of up to ``MAX_CAPTURE`` steps with one host read at its
 end.
 
-- The exchange steps (removal, injection and a fresh rho_prev, every
-  ``exchange_period`` steps of an open-z run) run eagerly, outside any
-  graph: their injection draws angles from a ``torch.Generator`` and a
-  user's ``dens_func`` reads positions on the host.
-- Every other step replays a captured ``torch.cuda.CUDAGraph`` of the
-  step.  There is one graph per variant, keyed by what the host decides
-  for a step (``plan_step``): the window's shift ``n_move`` and the full
-  re-sort of a periodic run every 64 steps.  All of them share one
+- The exchange block of an exchange step (removal, injection and a
+  fresh rho_prev, every ``exchange_period`` steps of an open-z run,
+  ``step.exchange``) runs eagerly, outside any graph: its injection
+  draws angles from a ``torch.Generator`` and a user's ``dens_func``
+  reads positions on the host.
+- The rest of every step replays a captured ``torch.cuda.CUDAGraph`` of
+  the step.  There is one graph per variant, keyed by what the host
+  decides for a step (``plan_step``): the window's shift ``n_move`` and
+  the full re-sort (of an exchange step, or of a periodic run every 64
+  steps).  All of them share one
   memory pool: a graph's temporaries are dead when its replay ends (its
   results are copied into the static buffers, outside the pool), and
   the replays run one after the other on one stream.
 - The step's scalars (``StepScalars``: zmin at the gather, the J
   deposit, rho_next and the step's end, the time, the window's
-  reference, each mirror's zeroed interval, each laser antenna's slice,
-  cells and weights) come from per-chunk tables, uploaded once per
-  chunk; the row is picked by a device step index that every step of
-  the chunk advances, so a replay reads its own step's values.  The
+  reference, the processes' time t + dt/2, each ballistic species'
+  injection plane, each mirror's zeroed interval, each laser antenna's
+  slice, cells and weights) come from per-chunk tables, uploaded once
+  per chunk; the row is picked by a device step index that every step
+  of the chunk advances, so a replay reads its own step's values.  The
   host keeps its own arithmetic for them and for the variant keys, and
   never reads them back.  The antennas' current series are copied into
   static buffers once a chunk.
+- Ionization and Compton scattering run inside the graphed steps (their
+  created counts, cursors and ids are device tensors of the state).
+  Their draws come from the simulation's ``torch.Generator``
+  (``GeneratorDraws``), which is registered with every graph: each
+  replay draws from the generator's Philox offset at its launch and
+  advances it as the eager step would, so a graphed run draws the eager
+  run's numbers.
 - The capture functions (``make_multi_step_capture``: the
   back-transformed fields' plane slices, fbpic_tpu's lax.scan outputs)
   write the state after each step into static buffers at the step
@@ -41,7 +51,10 @@ end.
   sort as it always does.  The result equals the eager run's in every
   case.  The chunk's input state is kept aside for that, untouched: the
   chunk runs on its copy in the static buffers, and the generator's
-  state is saved with it.
+  state (the injection's and the draws') is saved with it.
+- The live counts of the species the caller names (the process targets'
+  rings, which grow between calls) are stacked into the chunk's one
+  read.
 
 The graphs read and write static buffers: one tensor for each tensor of
 the state (fields, particle arrays, counters).  A graph ends with its
@@ -64,22 +77,24 @@ On CPU tensors the same runner calls the graph's body instead of
 replaying it: the table, the step index, the flag and the rollback are
 the same; only the capture is CUDA-only.
 """
+import gc
 from dataclasses import fields, replace
 
 import torch
 
 from ..lpa_utils.laser.antenna_injection import antenna_cells
+from ..particles.draws import GeneratorDraws
 from ..utils import kernels
-from .step import (StepScalars, ensure_counters, make_step_fn, mirror_planes,
-                   plan_step)
+from .step import (StepScalars, ballistic_plane, ensure_counters,
+                   make_step_fn, mirror_planes, plan_step, process_time)
 
 #: Most steps in one chunk (fbpic_tpu's step chunk cap)
 MAX_CAPTURE = 250
 #: The real table's first columns: zmin, zmin_mid, zmin_next, time,
-#: mw_zref, zmin_end, time_end (then each mirror's two, each antenna's
-#: three)
-_N_BASE = 7
-_ZMIN_END, _TIME_END = 5, 6
+#: mw_zref, zmin_end, time_end, time_mid (then each ballistic species'
+#: plane, each mirror's two, each antenna's three)
+_N_BASE = 8
+_ZMIN_END, _TIME_END, _TIME_MID = 5, 6, 7
 
 
 def state_tensors(state):
@@ -124,15 +139,23 @@ class MultiStep:
     ``make_multi_step_capture`` with ``capture_fns``).
 
     ``multi_step(state, aux, n_steps, inj_auxes, column_angles,
-    generator, draws, antenna_series)`` runs n_steps <= MAX_CAPTURE
-    steps from ``state`` (which it leaves unchanged) and returns (the
-    new state, counts): counts holds the host ints of the chunk's one
-    read, ``resort_redo`` (the banded re-sorts' overflow in the graphed
-    steps), ``sort_overflow`` and ``ring_overwrite`` (the state's
-    running counters after the chunk), ``rolled_back`` (the chunk was
-    run again eagerly) and ``captures``: for each capture function, the
-    tuple of its outputs stacked over the chunk's steps (numpy arrays of
-    n_steps rows).
+    generator, draws, antenna_series, ion_auxes, comp_auxes,
+    live_counts)`` runs n_steps <= MAX_CAPTURE steps from ``state``
+    (which it leaves unchanged) and returns (the new state, counts):
+    counts holds the host ints of the chunk's one read, ``resort_redo``
+    (the banded re-sorts' overflow in the graphed steps),
+    ``sort_overflow`` and ``ring_overwrite`` (the state's running
+    counters after the chunk), ``live`` ({species index: its live
+    particles after the chunk} for each index in ``live_counts``),
+    ``rolled_back`` (the chunk was run again eagerly) and ``captures``:
+    for each capture function, the tuple of its outputs stacked over the
+    chunk's steps (numpy arrays of n_steps rows).
+
+    ``ion_auxes`` / ``comp_auxes``: each species' IonizerAux /
+    ComptonAux (or None), handed to every step, as fbpic_tpu's
+    ``multi_step`` hands them.  On CUDA the draws' source must be a
+    ``GeneratorDraws`` of ``generator`` (particles/draws.py), which is
+    registered with every graph of a configuration with a process.
 
     ``capture_fns``: functions ``cap(state, aux, time, zmin)`` of the
     state after each step (time and zmin: its time and grid edge as 0-d
@@ -160,8 +183,15 @@ class MultiStep:
 
     def __init__(self, config, species_configs, options, capture_fns=()):
         self.config, self.options = config, options
-        self.step = make_step_fn(config, tuple(species_configs), options)
+        self.species_configs = tuple(species_configs)
+        self.step = make_step_fn(config, self.species_configs, options)
         self.capture_fns = tuple(capture_fns)
+        self._processes = any(sc.ionizer is not None or sc.compton is not None
+                              for sc in self.species_configs)
+        #: the species with a ballistic injection plane (a column each)
+        self._ballistic = [i for i, sc in enumerate(self.species_configs)
+                           if sc.ballistic_z0 is not None]
+        self._generator = None
         self._signature = None
         self._static = self._table = self._itable = None
         self._index = self._flag = None
@@ -174,7 +204,8 @@ class MultiStep:
 
     # -----------------------------------------------------------------
     def __call__(self, state, aux, n_steps, inj_auxes=(), column_angles=None,
-                 generator=None, draws=None, antenna_series=()):
+                 generator=None, draws=None, antenna_series=(), ion_auxes=(),
+                 comp_auxes=(), live_counts=()):
         if not 0 < n_steps <= MAX_CAPTURE:
             raise ValueError(f"a chunk runs 1 to {MAX_CAPTURE} steps, not "
                              f"{n_steps}")
@@ -183,7 +214,8 @@ class MultiStep:
         plans, rows, irows = self._plan(state, n_steps, antenna_series)
         self._upload(rows, irows)
         kw = dict(draws=draws, antenna_series=self._load_series(
-            antenna_series))
+            antenna_series), ion_auxes=ion_auxes, comp_auxes=comp_auxes)
+        self._generator = generator
         gen_state = None if generator is None else generator.get_state()
         for s, t in zip(self._static, state_tensors(state)):
             s.copy_(t)
@@ -193,20 +225,17 @@ class MultiStep:
         args = (aux, inj_auxes, column_angles, generator)
         for plan in plans:
             if plan.exchange:
-                new = self.step(cur, *args, **kw)
+                new = self.step.exchange(cur, *args)
                 self._store(new)
                 cur = with_state_tensors(new, self._static)
-                self._capture(cur, aux, self._row()[0])
-                self._index.add_(1)
-            else:
-                self._graphed((plan.n_move, plan.full_resort), cur, args,
-                              kw)
-                cur = replace(cur, time=plan.time_end, zmin=plan.zmin_end,
-                              mw_zref=plan.mw_zref_end,
-                              iteration=cur.iteration + 1)
+            self._graphed((plan.n_move, plan.full_resort), cur, args, kw)
+            cur = replace(cur, time=plan.time_end, zmin=plan.zmin_end,
+                          mw_zref=plan.mw_zref_end,
+                          iteration=cur.iteration + 1)
         self._copy_captures(n_steps)
-        redo, n_sort, n_ring = torch.stack(
-            [self._flag, cur.sort_overflow, cur.ring_overwrite]).tolist()
+        redo, n_sort, n_ring, *live = torch.stack(
+            [self._flag, cur.sort_overflow, cur.ring_overwrite]
+            + [(cur.species[i].w != 0).sum() for i in live_counts]).tolist()
         if redo > 0:
             # A banded re-sort overflowed: the chunk again from its
             # start, through the eager step (which redoes the sort), and
@@ -220,15 +249,31 @@ class MultiStep:
                 self._capture(out, aux, self._row()[0])
                 self._index.add_(1)
             self._copy_captures(n_steps)
-            n_sort, n_ring = torch.stack(
-                [out.sort_overflow, out.ring_overwrite]).tolist()
+            n_sort, n_ring, *live = torch.stack(
+                [out.sort_overflow, out.ring_overwrite]
+                + [(out.species[i].w != 0).sum() for i in live_counts]
+            ).tolist()
         else:
             out = with_state_tensors(cur, [s.clone() for s in self._static])
         captures = [tuple(h[:n_steps].numpy() for h in hosts)
                     for hosts in self._caps_host]
         return out, dict(resort_redo=redo, sort_overflow=n_sort,
-                         ring_overwrite=n_ring, rolled_back=redo > 0,
-                         captures=captures)
+                         ring_overwrite=n_ring,
+                         live=dict(zip(live_counts, live)),
+                         rolled_back=redo > 0, captures=captures)
+
+    def release(self):
+        """Drop the graphs (their memory pool goes with the last) and the
+        static buffers, before another runner captures its own."""
+        for graph, _ in self.graphs.values():
+            graph.reset()
+        self.graphs = {}
+        self._pool = self._side = None
+        self._signature = self._static = self._table = self._itable = None
+        self._index = self._flag = None
+        self._static_storages = set()
+        self._series = ()
+        self._caps = self._caps_host = ()
 
     # -----------------------------------------------------------------
     def _ensure_static(self, state, aux, antenna_series):
@@ -246,9 +291,11 @@ class MultiStep:
                                  for t in self._static}
         dev = state.spect.Ep.device
         rdt = state.spect.Ep.real.dtype
-        n_m, n_a = len(self.options.mirrors), len(antenna_series)
-        self._table = torch.zeros((MAX_CAPTURE, _N_BASE + 2 * n_m + 3 * n_a),
-                                  dtype=rdt, device=dev)
+        n_b, n_m = len(self._ballistic), len(self.options.mirrors)
+        n_a = len(antenna_series)
+        self._table = torch.zeros(
+            (MAX_CAPTURE, _N_BASE + n_b + 2 * n_m + 3 * n_a), dtype=rdt,
+            device=dev)
         self._itable = torch.zeros((MAX_CAPTURE, 3 * n_a),
                                    dtype=torch.int64, device=dev)
         self._index = torch.zeros((), dtype=torch.int64, device=dev)
@@ -270,9 +317,9 @@ class MultiStep:
     def _plan(self, state, n_steps, antenna_series):
         """The host's plan of every step of the chunk, and the rows of
         their scalars: the real table (zmin, zmin_mid, zmin_next, time,
-        mw_zref, zmin_end, time_end; each mirror's z_lo, z_hi; each
-        antenna's s0, s1, on) and the int64 one (each antenna's row,
-        iz0c, iz1c)."""
+        mw_zref, zmin_end, time_end, time_mid; each ballistic species'
+        plane; each mirror's z_lo, z_hi; each antenna's s0, s1, on) and
+        the int64 one (each antenna's row, iz0c, iz1c)."""
         cfg = self.config
         plans, rows, irows = [], [], []
         zmin, time, mw_zref = state.zmin, state.time, state.mw_zref
@@ -282,7 +329,11 @@ class MultiStep:
             plans.append(plan)
             row = [float(zmin), float(plan.zmin_mid), float(plan.zmin_next),
                    float(time), 0.0 if mw_zref is None else float(mw_zref),
-                   float(plan.zmin_end), float(plan.time_end)]
+                   float(plan.zmin_end), float(plan.time_end),
+                   float(process_time(time, cfg.dt))]
+            row += [float(ballistic_plane(self.species_configs[i], time,
+                                          cfg.dt))
+                    for i in self._ballistic]
             for z_lo, z_hi in mirror_planes(cfg, self.options, time):
                 row += [z_lo, z_hi]
             irow = []
@@ -333,15 +384,20 @@ class MultiStep:
 
     def _scalars(self, row, irow):
         """StepScalars of a table row."""
+        planes = [None] * len(self.species_configs)
+        for k, i in enumerate(self._ballistic):
+            planes[i] = row[_N_BASE + k]
         n_m = len(self.options.mirrors)
-        m0 = _N_BASE + 2 * n_m
-        mirrors = tuple((row[_N_BASE + 2 * k], row[_N_BASE + 2 * k + 1])
+        m0 = _N_BASE + len(self._ballistic)
+        a0 = m0 + 2 * n_m
+        mirrors = tuple((row[m0 + 2 * k], row[m0 + 2 * k + 1])
                         for k in range(n_m))
         antennas = tuple(tuple(irow[3 * a:3 * a + 3])
-                         + tuple(row[m0 + 3 * a:m0 + 3 * a + 3])
+                         + tuple(row[a0 + 3 * a:a0 + 3 * a + 3])
                          for a in range(len(irow) // 3))
-        return StepScalars(*row[:5], zmin_end=row[5], mirrors=mirrors,
-                           antennas=antennas)
+        return StepScalars(*row[:5], zmin_end=row[_ZMIN_END],
+                           mirrors=mirrors, antennas=antennas,
+                           time_mid=row[_TIME_MID], planes=tuple(planes))
 
     def _capture(self, state, aux, row):
         """Each capture function of the state after a step, written into
@@ -374,21 +430,22 @@ class MultiStep:
                 s.copy_(o)
 
     def _body(self, cur, args, kw):
-        """One non-exchange step on the static buffers: its scalars from
-        the tables' row at the step index, the banded re-sort's overflow
-        into the flag, the result copied back, the captures written, the
-        index advanced."""
+        """One step on the static buffers (an exchange step's exchange
+        block already run): its scalars from the tables' row at the step
+        index, the banded re-sort's overflow into the flag, the result
+        copied back, the captures written, the index advanced."""
         row, irow = self._row()
         new = self.step(cur, *args, scalars=self._scalars(row, irow),
-                        redo_flag=self._flag, **kw)
+                        redo_flag=self._flag, exchanged=True, **kw)
         self._store(new)
         self._capture(with_state_tensors(new, self._static), args[0], row)
         self._index.add_(1)
 
     def _graphed(self, key, cur, args, kw):
-        """The non-exchange step of variant ``key``: the body itself on
-        the CPU; on CUDA a replay, or, at the variant's first step, its
-        warm-up (the step, eagerly, on a side stream) and its capture."""
+        """The step (after its exchange block) of variant ``key``: the
+        body itself on the CPU; on CUDA a replay, or, at the variant's
+        first step, its warm-up (the step, eagerly, on a side stream) and
+        its capture."""
         if self._table.device.type != "cuda":
             self._body(cur, args, kw)
             return
@@ -411,7 +468,16 @@ class MultiStep:
     def _capture_graph(self, key, cur, args, kw):
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        if self._processes:
+            # each replay then draws from the generator's offset at its
+            # launch, and advances it as the eager step would
+            graph.register_generator_state(self._generator)
         mode = torch.cuda.get_sync_debug_mode()
+        # No garbage collection while capturing: a graph it frees (an old
+        # runner's, held in a reference cycle) would reset during this
+        # capture, which invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 torch.cuda.set_sync_debug_mode("error")
@@ -423,6 +489,9 @@ class MultiStep:
             raise RuntimeError(
                 f"capturing the step (n_move={key[0]}, full re-sort="
                 f"{key[1]}) in a CUDA graph failed: {err}") from err
+        finally:
+            if collecting:
+                gc.enable()
         counts = {fn: n - before.get(fn, 0)
                   for fn, n in kernels.launch_counts().items()
                   if n != before.get(fn, 0)}
@@ -432,20 +501,27 @@ class MultiStep:
 
 def graph_blockers(sim, options):
     """Why ``sim``'s run with ``options`` does not take the chunk runner
-    (an empty list when it does).  It does for every species layout --
-    resident, or a ring of any shape, cross-deposition included (their
-    steps capture with no host read) -- with laser antennas, external
-    fields, mirrors and the back-transformed field diagnostic: their
-    per-step values come from the chunk's tables, the diagnostic's
-    slices go to the runner's buffers.  These keep the eager loop:
-    ionization and Compton scattering (their draws come from a generator
-    that a graph would replay unchanged, and their target rings grow
-    between calls) and a ballistic species (its injection plane is a
-    host number in the push)."""
+    (an empty list when it does).  Every single-device configuration
+    does: every species layout -- resident, or a ring of any shape,
+    cross-deposition included (their steps capture with no host read)
+    --, laser antennas, external fields, mirrors, the back-transformed
+    field diagnostic, ballistic species, ionization and Compton
+    scattering: their per-step values come from the chunk's tables, the
+    diagnostic's slices go to the runner's buffers, the processes' draws
+    from the simulation's generator, registered with the graphs.  One
+    thing keeps the eager loop, on CUDA only: a process draw source
+    other than a ``GeneratorDraws`` of ``sim.generator``
+    (particles/draws.py), which might read the host iteration that a
+    replay does not pass, or draw from a generator the graphs do not
+    advance.  On the CPU the runner calls the step itself, so any source
+    works there."""
     out = []
-    scs = sim.species_configs
-    if any(sc.ionizer is not None or sc.compton is not None for sc in scs):
-        out.append("ionization or Compton scattering")
-    if any(sc.ballistic_z0 is not None for sc in scs):
-        out.append("a ballistic species")
+    processes = any(sc.ionizer is not None or sc.compton is not None
+                    for sc in sim.species_configs)
+    draws = sim.process_draws
+    if (processes and sim.device.type == "cuda"
+            and not (isinstance(draws, GeneratorDraws)
+                     and draws.generator is sim.generator)):
+        out.append("a process draw source other than the simulation's "
+                   "GeneratorDraws")
     return out

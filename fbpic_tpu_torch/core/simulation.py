@@ -731,19 +731,22 @@ class Simulation:
         antennas' currents are computed for the same chunks, one upload
         each (``_antenna_block``).
 
-        A run without the processes or a ballistic species
-        (``core.graph.graph_blockers``) runs fbpic_tpu's chunk loop:
-        chunks of at most MAX_CAPTURE steps, each ending where a plain
-        writer's period ends, each run by the chunk runner
-        (``make_multi_step``, or ``make_multi_step_capture`` with the
-        capturing diagnostics' ``device_capture``: on CUDA, the
-        non-exchange steps replayed from captured CUDA graphs) with one
-        host read at its end, which also brings the chunk's captures
-        back.  A chunk that had to be run again eagerly (a banded
-        re-sort's overflow) counts in ``overflow_totals["rollbacks"]``.
-        The other runs keep the eager loop, whose capturing diagnostics
-        consume their buffer at most every ``MAX_CAPTURE`` cycles and at
-        the end of the call."""
+        Every run (``core.graph.graph_blockers``: on CUDA, all but one
+        whose processes draw from a source other than a
+        ``GeneratorDraws`` of ``self.generator``) runs
+        fbpic_tpu's chunk loop: chunks of at most MAX_CAPTURE steps,
+        each ending where a plain writer's period ends, each run by the
+        chunk runner (``make_multi_step``, or ``make_multi_step_capture``
+        with the capturing diagnostics' ``device_capture``: on CUDA,
+        every step replayed from captured CUDA graphs after an exchange
+        step's exchange block, which runs eagerly; the processes and
+        ballistic species included) with one host read at
+        its end, which also brings the chunk's captures and the process
+        targets' live counts back.  A chunk that had to be run again
+        eagerly (a banded re-sort's overflow) counts in
+        ``overflow_totals["rollbacks"]``.  The other runs keep the eager
+        loop, whose capturing diagnostics consume their buffer at most
+        every ``MAX_CAPTURE`` cycles and at the end of the call."""
         if not self._banner_printed:
             self._banner_printed = True
             print_simulation_setup(self, self.verbose_level)
@@ -780,15 +783,25 @@ class Simulation:
     def _run_chunks(self, N, options, capture, plain, progress):
         """fbpic_tpu's chunk loop (core/simulation.py:880-957) on the
         chunk runner, with the capturing diagnostics' functions inside
-        the chunk and the antennas' series of fbpic_tpu's chunks
-        (``_antenna_block``; a runner chunk never crosses a block's
-        end); returns the last chunk's counts."""
+        the chunk, the processes' auxiliaries handed to every step, the
+        antennas' series of fbpic_tpu's chunks (``_antenna_block``; a
+        runner chunk never crosses a block's end) and the live counts of
+        the process targets' rings in each chunk's read; returns the
+        last chunk's counts.  A process target's ring that grew since
+        the last call changes the state's signature, and a new generator
+        or draw source changes what the graphs would replay (they
+        register the one and call the other at their capture): the
+        runner is then built and captured again, the old one's graphs
+        released first."""
         self.state = ensure_counters(self.state)
         key = (options, tuple(self.species_configs), id(self.aux),
                signature(self.state), tuple(capture),
-               tuple(self.laser_antennas))
+               tuple(self.laser_antennas), self.generator,
+               self.process_draws)
         if key != self._multi_step_key:
-            # A new configuration: the previous graphs go
+            # A new configuration: the previous graphs go first
+            if self._multi_step is not None:
+                self._multi_step.release()
             self._multi_step = None
             if capture:
                 self._multi_step = make_multi_step_capture(
@@ -813,7 +826,10 @@ class Simulation:
             self.state, counts = self._multi_step(
                 self.state, self.aux, chunk, tuple(self._injector_auxes),
                 self.column_angles, self.generator, self.process_draws,
-                antenna_series=series)
+                antenna_series=series,
+                ion_auxes=tuple(self._ionizer_auxes),
+                comp_auxes=tuple(self._compton_auxes),
+                live_counts=self._ring_targets())
             if counts["rolled_back"]:
                 self.overflow_totals["rollbacks"] = \
                     self.overflow_totals.get("rollbacks", 0) + 1
@@ -910,6 +926,13 @@ class Simulation:
             next_free=self._device_counter(sp.next_free),
             next_id=self._device_counter(sp.next_id))
 
+    def _ring_targets(self):
+        """The non-resident species that ionization or Compton
+        scattering write into: their live counts decide their growth
+        after each step() call."""
+        return tuple(i for i, sc in enumerate(self.species_configs)
+                     if not sc.resident and self.is_process_target(i))
+
     def _device_counter(self, value):
         """A cursor or counter as a 0-d int64 tensor on the device."""
         if torch.is_tensor(value):
@@ -938,7 +961,7 @@ class Simulation:
         """Read the overflow counters, and the live count of every ring
         that ionization or Compton scattering write into (one host read
         per step() call; none after the chunk loop, whose last chunk
-        read them: ``counts``, when no species is a process target).
+        read them all: ``counts``).
 
         sort_overflow > 0: some z column exceeded its sort_K slots and
         the excess particles were lost (resident) or their charge was
@@ -953,10 +976,10 @@ class Simulation:
         in any case (fbpic_tpu grows it only after an overflow): the
         particles created during the next call then fit as long as they
         are fewer than half its slots."""
-        targets = [i for i, sc in enumerate(self.species_configs)
-                   if not sc.resident and self.is_process_target(i)]
-        if counts is not None and not targets:
-            counts = [counts["sort_overflow"], counts["ring_overwrite"]]
+        targets = self._ring_targets()
+        if counts is not None:
+            counts = [counts["sort_overflow"], counts["ring_overwrite"]] \
+                + [counts["live"][i] for i in targets]
         else:
             counts = torch.stack(
                 [self.state.sort_overflow, self.state.ring_overwrite]

@@ -137,12 +137,16 @@ class StepScalars:
     moving window's reference ``mw_zref``; each mirror's zeroed interval
     (``mirrors``: (z_lo, z_hi) a mirror, ``mirror_planes``) and each
     laser antenna's slice (``antennas``: ``antenna_cells``' values, the
-    indices as int64 tensors).  Given to the step, every torch op and
-    kernel of the step reads them from there, so that a captured step
-    reads each replay's values.  Their values are the host's
-    (``plan_step``, ``mirror_planes``, ``antenna_cells``), rounded to the
-    working dtype as a torch op rounds the host number: the step is the
-    same bit for bit either way."""
+    indices as int64 tensors); the elementary processes' time t + dt/2
+    (``time_mid``, ``process_time``) and each species' ballistic
+    injection plane (``planes``: a 0-d tensor per species, None where it
+    has none, ``ballistic_plane``; empty: the host's planes).  Given to
+    the step, every torch op and kernel of the step reads them from
+    there, so that a captured step reads each replay's values.  Their
+    values are the host's (``plan_step``, ``mirror_planes``,
+    ``antenna_cells``, ``process_time``, ``ballistic_plane``), rounded
+    to the working dtype as a torch op rounds the host number: the step
+    is the same bit for bit either way."""
     zmin: torch.Tensor
     zmin_mid: torch.Tensor
     zmin_next: torch.Tensor
@@ -151,6 +155,8 @@ class StepScalars:
     zmin_end: torch.Tensor = None
     mirrors: tuple = ()
     antennas: tuple = ()
+    time_mid: torch.Tensor = None
+    planes: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -422,22 +428,30 @@ def apply_external_fields(options, E_B, sp, time, species_index):
     return tuple(fields[n] for n in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
 
 
+def process_time(time, dt):
+    """The time t + dt/2 at which the elementary processes act in the
+    step that starts at the host ``time`` (a host value of the working
+    dtype)."""
+    return time + 0.5 * dt
+
+
 def ballistic_plane(sc, time, dt):
-    """z of a ballistic species' injection plane at t + dt/2 (host
-    value of the working dtype), or None."""
+    """z of a ballistic species' injection plane at t + dt/2 from the
+    host ``time`` of the working dtype (fbpic_tpu's arithmetic, z0 + v
+    (t + dt/2): a host value of that dtype), or None."""
     if sc.ballistic_z0 is None:
         return None
-    return sc.ballistic_z0 + sc.ballistic_v * (time + 0.5 * dt)
+    return sc.ballistic_z0 + sc.ballistic_v * process_time(time, dt)
 
 
-def gather_and_push(config, options, sp, sc, interp, zmin, dt, time=None,
+def gather_and_push(config, options, sp, sc, interp, zmin, dt, z_plane=None,
                     species_index=None, time_t=None):
     """Gather E,B at a non-resident species' particles (the linear or
     cubic gather by index), apply the external fields and Vay-push its
     momenta (unless move_momenta is off; behind a ballistic species'
-    plane the momenta stay).  zmin: a host number or a 0-d tensor of
-    the working dtype; time: the host time of the step; time_t: the
-    same as a 0-d tensor, for the external fields.
+    plane ``z_plane`` the momenta stay).  zmin and z_plane: host numbers
+    or 0-d tensors of the working dtype; time_t: the step's time as a
+    0-d tensor, for the external fields.
     Returns (the species, the gathered (Ex, Ey, Ez, Bx, By, Bz)): an
     ionizable species ionizes in them."""
     gather = (gather_fields_cubic if sc.particle_shape == "cubic"
@@ -450,7 +464,7 @@ def gather_and_push(config, options, sp, sc, interp, zmin, dt, time=None,
     if not options.move_momenta or sc.q == 0:
         return sp, E_B
     ux, uy, uz, inv_gamma = pp.push_p(sp, E_B[:3], E_B[3:], sc.q, sc.m, dt,
-                                      z_plane=ballistic_plane(sc, time, dt))
+                                      z_plane=z_plane)
     return sp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma), E_B
 
 
@@ -793,7 +807,8 @@ def append_into_padded(esp, new, Nz, K, zmin, invdz, zfold, halo=None):
     (Nz, K) layout, each newborn in a dead slot of its own z row, so the
     next banded re-sort keeps it (fbpic_tpu's ``_append_into_padded``,
     core/step.py:641-708).  ``new`` holds the end-of-step positions;
-    ``zmin`` is the grid edge of the next re-sort.  Returns (species,
+    ``zmin`` is the grid edge of the next re-sort (a host number or a
+    0-d tensor of the working dtype).  Returns (species,
     dropped): the newborns whose row had no dead slot (a device count,
     for sort_overflow).  On a slab of a decomposed run (``halo``) the ids
     follow the rank prescan of append_new_particles and the count is
@@ -803,7 +818,7 @@ def append_into_padded(esp, new, Nz, K, zmin, invdz, zfold, halo=None):
     nb = mask.shape[0]
     off, total = _rank_prescan(mask.sum(), halo)
     values = _newborn_values(esp, new, off)
-    col = torch.floor(invdz * (values["z"] - float(zmin))).long()
+    col = torch.floor(invdz * (values["z"] - _scalar(zmin))).long()
     col = (torch.remainder(col, Nz) if zfold == "periodic"
            else torch.clamp(col, 0, Nz - 1))
     # Stable column sort of the buffer -> the rank within each column;
@@ -881,14 +896,24 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
     ``column_angles(iteration, species_index, nkey)`` gives the rotation
     of each injected column (see particles/injection.py);
     ``draws(name, iteration, species_index, shape, dtype)`` the uniform
-    draws of ionization and Compton scattering (``GeneratorDraws``);
+    draws of ionization and Compton scattering (``GeneratorDraws``; a
+    replayed step passes the iteration of its capture, which
+    ``GeneratorDraws`` ignores, particles/draws.py);
     ion_auxes / comp_auxes: each species' IonizerAux / ComptonAux (or
     None).
 
-    ``scalars``: the step's StepScalars, which every non-exchange part
-    of the step (the re-sort, the gathers -- K2 and the ring's --, the
-    pushes, the deposits, the external fields, the antennas and the
-    mirrors) then reads in place of the host's numbers (equal values).
+    ``exchanged``: the caller ran the exchange block of an exchange step
+    already (``step.exchange(state, aux, inj_auxes, column_angles,
+    generator)``, the returned function's attribute), so the step runs
+    the rest on its result: the chunk runner runs the block eagerly (its
+    injection draws angles and reads host values) and replays the rest.
+
+    ``scalars``: the step's StepScalars, which every part of the step
+    but the exchange block (the re-sort, the gathers -- K2 and the
+    ring's --, the pushes and the ballistic planes, Compton scattering,
+    the newborns' deposits and appends, the deposits, the external
+    fields, the antennas and the mirrors) then reads in place of the
+    host's numbers (equal values).
     ``redo_flag``: a 0-d int64 device tensor into which the banded
     re-sort adds its overflow count, instead of reading it back and
     redoing the sort: the caller redoes the step (core/graph.py)."""
@@ -902,21 +927,67 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         and not cross
     zfold = _zfold(config)
 
+    def exchange(state: SimState, aux, inj_auxes=(), column_angles=None,
+                 generator=None) -> SimState:
+        """The exchange block of an exchange step (plan_step's
+        ``exchange``: open z, every exchange_period steps): remove the
+        particles in the guard cells, inject the columns the moving window
+        uncovered, and re-deposit rho_prev (reference: main.py:435-449).
+        In between, rho_prev is the window-shifted previous rho_next.
+        Returns the state with it applied; the step then runs on it with
+        ``exchanged`` (core/graph.py replays that part)."""
+        zmin, it = state.zmin, state.iteration
+        zmin_g = halo.global_zmin(zmin) if halo is not None else zmin
+        ring_overwrite = state.ring_overwrite
+        bounds = (halo.removal_bounds(zmin_g) if halo is not None
+                  else None)
+        species = [remove_outside_particles(config, sp, zmin, bounds)
+                   for sp in state.species]
+        if options.moving_window_v is not None:
+            for i, inj_cfg in enumerate(options.injectors):
+                if inj_cfg is None:
+                    continue
+                ion = species_configs[i].ionizer
+                species[i], count = continuous_injection(
+                    config, options, species[i], inj_cfg, inj_auxes[i],
+                    zmin, lambda nkey, i=i: column_angles(it, i, nkey),
+                    generator, resident=i in resident_idx,
+                    level=0 if ion is None else ion.level_start,
+                    grid_globals=None if halo is None
+                    else halo.grid_globals(zmin_g),
+                    inject_bounds=None if halo is None
+                    else halo.ownership_bounds(zmin))
+                if halo is not None:
+                    count = halo.psum(count)
+                ring_overwrite = ring_overwrite + count
+        rho_prev = deposit_rho_spect(config, aux, species, species_configs,
+                                     zmin)
+        if options.filter_currents:
+            rho_prev = ps.filter_scalar(rho_prev, aux.filter_z,
+                                        aux.filter_r)
+        return replace(state, species=species,
+                       spect=replace(state.spect, rho_prev=rho_prev),
+                       ring_overwrite=ring_overwrite)
+
     def step(state: SimState, aux, inj_auxes=(), column_angles=None,
              generator=None, antenna_series=(), ion_auxes=(), comp_auxes=(),
-             draws=None, scalars=None, redo_flag=None) -> SimState:
+             draws=None, scalars=None, redo_flag=None,
+             exchanged=False) -> SimState:
         dt = config.dt
         # The global grid's left edge (the local one but on a slab)
         zmin_g = halo.global_zmin(state.zmin) if halo is not None \
             else state.zmin
-        spect, interp = state.spect, state.interp
-        species = list(state.species)
         zmin = state.zmin
         it = state.iteration
-        sort_overflow = state.sort_overflow
-        ring_overwrite = state.ring_overwrite
         plan = plan_step(config, options, zmin, zmin_g, state.mw_zref,
                          state.time, it)
+        if plan.exchange and not exchanged:
+            state = exchange(state, aux, inj_auxes, column_angles,
+                             generator)
+        spect, interp = state.spect, state.interp
+        species = list(state.species)
+        sort_overflow = state.sort_overflow
+        ring_overwrite = state.ring_overwrite
         # Galilean frame: the grid edge flows vg*dt per step; deposits
         # see it at their own time (fbpic_tpu core/step.py:942-956)
         vg = config.v_galilean
@@ -935,40 +1006,19 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             time_t = scalars.time if scalars is not None else torch.full(
                 (), float(state.time), dtype=aux.S_w.dtype,
                 device=aux.S_w.device)
-
-        # --- Open boundaries: every exchange_period steps, remove the
-        # particles in the guard cells, inject the columns the moving
-        # window uncovered, and re-deposit rho_prev (reference:
-        # main.py:435-449).  In between, rho_prev is the window-shifted
-        # previous rho_next.
-        if plan.exchange:
-            bounds = (halo.removal_bounds(zmin_g) if halo is not None
-                      else None)
-            species = [remove_outside_particles(config, sp, zmin, bounds)
-                       for sp in species]
-            if options.moving_window_v is not None:
-                for i, inj_cfg in enumerate(options.injectors):
-                    if inj_cfg is None:
-                        continue
-                    ion = species_configs[i].ionizer
-                    species[i], count = continuous_injection(
-                        config, options, species[i], inj_cfg, inj_auxes[i],
-                        zmin, lambda nkey, i=i: column_angles(it, i, nkey),
-                        generator, resident=i in resident_idx,
-                        level=0 if ion is None else ion.level_start,
-                        grid_globals=None if halo is None
-                        else halo.grid_globals(zmin_g),
-                        inject_bounds=None if halo is None
-                        else halo.ownership_bounds(zmin))
-                    if halo is not None:
-                        count = halo.psum(count)
-                    ring_overwrite = ring_overwrite + count
-            rho_prev = deposit_rho_spect(config, aux, species,
-                                         species_configs, zmin)
-            if options.filter_currents:
-                rho_prev = ps.filter_scalar(rho_prev, aux.filter_z,
-                                            aux.filter_r)
-            spect = replace(spect, rho_prev=rho_prev)
+        # ... Compton scattering its time t + dt/2 (the same), and each
+        # ballistic push its plane (a host number or a 0-d tensor: the
+        # push compares in the working dtype either way)
+        time_mid = planes = None
+        if scalars is not None:
+            time_mid, planes = scalars.time_mid, scalars.planes or None
+        elif any(sc.compton is not None for sc in species_configs):
+            time_mid = torch.full(
+                (), float(process_time(state.time, dt)),
+                dtype=aux.S_w.dtype, device=aux.S_w.device)
+        if planes is None:
+            planes = tuple(ballistic_plane(sc, state.time, dt)
+                           for sc in species_configs)
 
         # float32, standard scheme: the correction needs the
         # per-particle d(rho)
@@ -1054,7 +1104,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             if sc.q != 0:
                 ux, uy, uz, inv_gamma = pp.push_p(
                     psp, E_B[:3], E_B[3:], sc.q, sc.m, dt,
-                    z_plane=ballistic_plane(sc, state.time, dt))
+                    z_plane=planes[i])
                 psp = psp.replace(ux=ux, uy=uy, uz=uz, inv_gamma=inv_gamma)
             psp = half_push_x(config, options, psp, zd_mid)
 
@@ -1065,8 +1115,8 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             # after the resident block
             if sc.compton is not None:
                 u, resident_new[("compton", i)] = handle_compton(
-                    _flat(psp), sc.compton, comp_auxes[i], dt,
-                    state.time + 0.5 * dt, _draw_of(i))
+                    _flat(psp), sc.compton, comp_auxes[i], dt, time_mid,
+                    _draw_of(i))
                 psp = psp.replace(**{n: a.reshape(psp.x.shape) for n, a in
                                      zip(("ux", "uy", "uz", "inv_gamma"), u)})
             if sc.ionizer is not None:
@@ -1124,7 +1174,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             if i not in resident_idx:
                 sp, E_B = gather_and_push(
                     config, options, species[i], sc, interp, zd, dt,
-                    time=state.time, species_index=i, time_t=time_t)
+                    z_plane=planes[i], species_index=i, time_t=time_t)
                 species[i] = half_push_x(config, options, sp, zd_mid)
                 if sc.ionizer is not None:
                     gathered[i] = E_B
@@ -1152,7 +1202,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             uxb, uyb, uzb, igb = (new["ux"], new["uy"], new["uz"],
                                   new["inv_gamma"])
             Jb = deposit_J_linear(xb, yb, zb, wb, q_t, uxb, uyb, uzb, igb,
-                                  *_deposit_args(config, zmin_mid),
+                                  *_deposit_args(config, zd_mid),
                                   aux.ruyten_linear, zfold=zfold)
             fused_J[tgt] = tuple(a + b for a, b in zip(fused_J[tgt], Jb))
             chdt = c * 0.5 * dt
@@ -1167,19 +1217,19 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                 y0 = yb - chdt * igb * uyb
                 z0 = zb - chdt * igb * uzb
                 r2 = deposit_rho_linear(x2, y2, z2, wb, q_t,
-                                        *_deposit_args(config, zmin),
+                                        *_deposit_args(config, zd),
                                         aux.ruyten_linear, zfold=zfold)
                 r0 = deposit_rho_linear(x0, y0, z0, wb, q_t,
-                                        *_deposit_args(config, zmin),
+                                        *_deposit_args(config, zd),
                                         aux.ruyten_linear, zfold=zfold)
                 fused_drho[tgt] = fused_drho[tgt] + (r2 - r0)
             elif fused_rho.get(tgt) is not None:
                 fused_rho[tgt] = fused_rho[tgt] + deposit_rho_linear(
-                    x2, y2, z2, wb, q_t, *_deposit_args(config, zmin_next),
+                    x2, y2, z2, wb, q_t, *_deposit_args(config, zd_next),
                     aux.ruyten_linear, zfold=zfold)
             species[tgt], dropped = append_into_padded(
                 species[tgt], dict(new, x=x2, y=y2, z=z2), config.Nz,
-                species_configs[tgt].sort_K, zmin, 1.0 / config.dz, zfold,
+                species_configs[tgt].sort_K, zd, 1.0 / config.dz, zfold,
                 halo)
             sort_overflow = sort_overflow + dropped
 
@@ -1191,7 +1241,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             else:
                 sp = species[i]
                 u, new = handle_compton(sp, sc.compton, comp_auxes[i], dt,
-                                        state.time + 0.5 * dt, _draw_of(i))
+                                        time_mid, _draw_of(i))
                 species[i] = sp.replace(**dict(zip(
                     ("ux", "uy", "uz", "inv_gamma"), u)))
             route_newborns(sc.compton.target_index, new)
@@ -1434,6 +1484,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             ring_overwrite=ring_overwrite,
             migration_overflow=state.migration_overflow)
 
+    step.exchange = exchange
     return step
 
 

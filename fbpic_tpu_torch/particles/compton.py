@@ -94,7 +94,10 @@ def _lorentz_transform(p, px, py, pz, gamma, beta, nx, ny, nz):
 
 def scattering_probability(sp, aux: ComptonAux, dt, time):
     """Each electron's probability of scattering during dt (reference:
-    inline_functions.py:44-86).  time: the host time (a number)."""
+    inline_functions.py:44-86).  time: a host number, or a 0-d tensor
+    of the working dtype (the step's, which the chunk runner takes from
+    its tables, core/graph.py): c * time then rounds as fbpic_tpu's
+    traced scalar does."""
     ct = c * time
     # Photon density at each electron (lab-frame Gaussian, rigid motion)
     zlab = aux.gamma_boost * (sp.z + aux.beta_boost * ct)
@@ -143,7 +146,8 @@ def handle_compton(sp, cfg: ComptonConfig, aux: ComptonAux, dt, time, draw):
     """One Compton step of one species: decide the scatterings, emit the
     photons, apply the recoil.
 
-    time: the host time of the scattering (t + dt/2); draw(name, shape):
+    time: the time of the scattering (t + dt/2), a host number or a 0-d
+    tensor of the working dtype (scattering_probability); draw(name, shape):
     the uniform draws in [0, 1) (``compton_phi`` in [0, 2 pi)), one per
     fbpic_tpu ``jax.random`` call: ``compton_u`` (N,), ``compton_r1`` and
     ``compton_r2`` (B, N_REJECT), ``compton_phi`` (B,), ``compton_recoil``

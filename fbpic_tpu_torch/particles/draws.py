@@ -21,6 +21,19 @@ fbpic_tpu's draws.  On a slab of a z-decomposed run (parallel/) the
 source is also called with ``rank=`` the slab's rank, which fbpic_tpu
 folds into its key so that the slabs draw independently; the default
 source ignores it (each slab draws from a generator of its own).
+
+On CUDA the chunk runner (core/graph.py) replays captured steps, which
+call the source only at their capture: the source's ``iteration`` is
+then the capture's, and whatever the source does on the host is not
+done again.  It takes the default source into its graphs: a
+``GeneratorDraws`` (or a subclass) of the simulation's ``generator``,
+which ignores ``iteration`` and draws on the device from that
+generator; the runner registers the generator with every graph it
+captures, so that each replay draws fresh numbers from its Philox
+offset, which advances as the eager step's would.  A run with another
+source keeps the eager loop on CUDA (core/graph.py's
+``graph_blockers``); on the CPU the runner calls the step itself, so
+any source works there.
 """
 import numpy as np
 import torch
@@ -28,7 +41,8 @@ import torch
 
 class GeneratorDraws:
     """Default source: ``torch.rand`` from a ``torch.Generator`` on the
-    simulation's device (no host round trip)."""
+    simulation's device (no host round trip); the iteration is not
+    read, so the chunk runner's graphs replay it."""
 
     def __init__(self, generator):
         self.generator = generator

@@ -41,8 +41,10 @@ def push_p(ptcl, E, B, q, m, dt, z_plane=None):
     """Momentum push for a whole species; returns (ux, uy, uz, inv_gamma).
 
     E, B: tuples (Ex, Ey, Ez) / (Bx, By, Bz) of per-particle fields.
-    z_plane: optional host float -- particles with z <= z_plane keep
-    their momenta (ballistic-before-plane injection).  An ionizable
+    z_plane: optional host number or 0-d tensor of the working dtype
+    (the chunk runner's, core/graph.py) -- particles with z <= z_plane
+    keep their momenta (ballistic-before-plane injection); the
+    comparison runs in the working dtype either way.  An ionizable
     species' charge is ionization_level * q."""
     econst = q * dt / (m * c)
     bconst = 0.5 * q * dt / m
@@ -55,7 +57,8 @@ def push_p(ptcl, E, B, q, m, dt, z_plane=None):
                                        ptcl.inv_gamma, *E, *B, econst,
                                        bconst)
     if z_plane is not None:
-        keep = ptcl.z > float(z_plane)
+        keep = ptcl.z > (z_plane if torch.is_tensor(z_plane)
+                         else float(z_plane))
         ux = torch.where(keep, ux, ptcl.ux)
         uy = torch.where(keep, uy, ptcl.uy)
         uz = torch.where(keep, uz, ptcl.uz)

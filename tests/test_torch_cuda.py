@@ -71,7 +71,12 @@ only PyTorch; there, skip the JAX-based conftest:
   mirror and an external field, float32 rings, the BTD capture, a
   cubic ring with the radial PML, periodic cross-deposition): 9 steps
   each against the eager loop, bit for bit under deterministic
-  index_add_; the antenna's series made for the card.
+  index_add_; the antenna's series made for the card; ionization (a
+  resident ionizer into a ring and a resident target), Compton
+  scattering and a ballistic bunch: 14 steps each against the eager
+  loop, bit for bit, the generator's state too; each replay's draws the
+  eager run's and new at every replay (the generator registered with
+  the graphs); an ionizing chunk's rollback against the eager run.
 """
 import os
 
@@ -79,6 +84,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from fbpic_tpu_torch.particles.draws import GeneratorDraws  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden_wake.npz")
 
@@ -1250,14 +1257,15 @@ def test_new_paths_on_card_match_cpu(cuda, variant, dtype):
 def test_k3_on_the_cross_deposition_plan(cuda):
     """One cross-deposition step on the card: its two K3 calls (J and
     rho_next on the legacy plan) against their plain version, float32
-    (1e-5) and float64 (1e-12)."""
+    (1e-5) and float64 (1e-12).  The step is taken by the eager loop:
+    Simulation.step replays it from a CUDA graph, which runs no Python."""
     from fbpic_tpu_torch.particles import cuda_dense, sorted_deposit
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         sim = _window_variant_sim(cuda, dtype, "cross")
         sim.step(2)
         calls = _captured_contractions(sorted_deposit,
                                        "dense_onehot_contract",
-                                       lambda: sim.step(1))
+                                       lambda: _eager_loop(sim, 1))
         assert len(calls) == 2
         for args, kwargs in calls:
             out = cuda_dense.dense_onehot_contract(*args, **kwargs)
@@ -1947,7 +1955,8 @@ def test_graphed_run_equals_its_eager_twin(cuda):
     """40 steps (ten exchange steps) through Simulation.step, which
     replays the captured step, and through the eager loop: the same bits
     but rho_prev; one K1 and one K2 launch a step, counted per replay;
-    one graph variant (n_move = 1 every step)."""
+    two graph variants (n_move = 1 every step; the exchange steps' rest,
+    after their eager exchange block, fully re-sorted)."""
     from fbpic_tpu_torch.particles import cuda_fused, cuda_gather
     graphed, twin = _graph_twins(cuda)
     assert graphed.exchange_period > 1
@@ -1956,7 +1965,7 @@ def test_graphed_run_equals_its_eager_twin(cuda):
     graphed.step(40)
     assert cuda_fused.fused_onehot_contract.launches - n_k1 == 40
     assert cuda_gather.gather_sorted.launches - n_k2 == 40
-    assert sorted(graphed._multi_step.graphs) == [(1, False)]
+    assert sorted(graphed._multi_step.graphs) == [(1, False), (1, True)]
     _eager_steps(twin, 40)
     _assert_twins_equal(graphed, twin)
     assert graphed.overflow_totals == {"sort_overflow": 0,
@@ -2024,6 +2033,33 @@ def test_graph_capture_raises_on_a_host_sync(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the step"):
         sim.step(3)
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_no_garbage_collection_during_a_capture(cuda, monkeypatch):
+    """The collector is off while a step is captured (a graph it freed
+    then -- an old runner's, whose Simulation sits in a reference cycle
+    -- would reset mid-capture and invalidate the capture), and on again
+    after."""
+    import gc
+    from fbpic_tpu_torch.core import step as step_module
+    real = step_module.gather_fields_sorted
+    seen = []
+
+    def record(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(step_module, "gather_fields_sorted", record)
+    old = _golden_config_sim(cuda, torch.float32)
+    old.step(3)
+    del old                         # garbage in a cycle, with its graphs
+    sim = _golden_config_sim(cuda, torch.float32)
+    assert gc.isenabled()
+    sim.step(3)
+    assert seen and not any(seen)
+    assert gc.isenabled()
 
 
 # ---------------------------------------------------------------------
@@ -2188,3 +2224,204 @@ def test_antenna_series_are_computed_for_the_card(cuda, monkeypatch):
     assert sim._multi_step._series[0].device.type == "cuda"
     with pytest.raises(TypeError):
         series(sim.laser_antennas[0], 0., 2, sim.config.dz)
+
+
+# ---------------------------------------------------------------------
+# The chunk runner with ionization, Compton scattering and a ballistic
+# species (their draws from a generator registered with the graphs)
+# ---------------------------------------------------------------------
+
+#: tests/test_torch_multistep_processes.py's box: internal Nz 64, open
+#: z, a window at c, exchange period 4
+_PROC_KW = dict(zmin=-4.e-6, n_order=16, n_guard=8,
+                n_damp={"z": 8, "r": 32},
+                boundaries={"z": "open", "r": "reflective"},
+                exchange_period=4, random_seed=0, verbose_level=0)
+_PROC_PLASMA = dict(p_zmin=-3.e-6, p_zmax=100.e-6, p_rmin=0., p_rmax=9.e-6,
+                    continuous_injection=True, sort_K=256)
+
+
+def _process_graph_sim(device, case, draws=None):
+    """tests/test_torch_multistep_processes.py's run on the card, float32:
+    a resident plasma and an a0 = 0.5 laser, with (case "ionization")
+    resident helium ions whose level-0 electrons go to a tracked ring
+    and level-1 electrons to a tracked resident species, ("compton") a
+    thermal gamma ~ 300 beam (a ring; at the CPU test's gamma ~ 3 the
+    float32 cross-section cancels to zero) scattering into a photon ring
+    in a uniform photon bath, or ("ballistic") a gamma = 100 bunch (a ring)
+    whose injection plane z = 0 it crosses after 4-8 steps.  draws: a
+    replacement for the default draw source, built on the generator."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c, e, m_e, m_p
+    from fbpic_tpu_torch.lpa_utils.bunch import add_particle_bunch
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, \
+        GaussianLaser
+    sim = Simulation(24, 2.e-6, 16, 10.e-6, 2, 6.e-6 / 24 / c,
+                     device=device, dtype=torch.float32, **_PROC_KW)
+    sim.add_new_species(q=-e, m=m_e, n=5.e24, p_nz=1, p_nr=2, p_nt=4,
+                        **_PROC_PLASMA)
+    if case == "ionization":
+        ions = sim.add_new_species(q=e, m=4 * m_p, n=1.e24, p_nz=1,
+                                   p_nr=1, p_nt=4, **_PROC_PLASMA)
+        ring = sim.add_new_species(q=-e, m=m_e)
+        resident = sim.add_new_species(q=-e, m=m_e, sort_K=256)
+        ions.make_ionizable("He", {0: ring, 1: resident}, level_start=0)
+        ring.track()
+        resident.track()
+    elif case == "compton":
+        source = sim.add_new_species(
+            q=-e, m=m_e, n=1.e24, p_nz=1, p_nr=1, p_nt=4, p_zmin=-3.e-6,
+            p_zmax=0., p_rmin=0., p_rmax=3.e-6, uz_m=300., ux_th=0.05,
+            uy_th=0.05, uz_th=0.05, continuous_injection=False)
+        photons = sim.add_new_species(q=0., m=0.)
+        source.activate_compton(photons, laser_energy=4.e6,
+                                laser_wavelength=0.8e-6, laser_waist=1.e-3,
+                                laser_ctau=1.e-2, laser_initial_z0=0.)
+    else:
+        add_particle_bunch(sim, -e, m_e, 100., 1.e24, -2.e-6, -1.e-6, 0.,
+                           2.e-6, initialize_self_field=False,
+                           z_injection_plane=0.)
+    add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6, tau=8.e-15,
+                                       z0=-1.e-6))
+    sim.set_moving_window(v=c)
+    sim.column_angles = _SeededAngles()
+    if draws is not None:
+        sim.process_draws = draws(sim.generator)
+    return sim
+
+
+def _process_twins_equal(graphed, twin):
+    """Every tensor of the two states bit for bit, the host values and
+    the generators' states (their Philox offsets) equal."""
+    from fbpic_tpu_torch.core.graph import state_tensors
+    a, b = graphed.state, twin.state
+    assert (a.iteration, float(a.zmin), float(a.time)) == \
+        (b.iteration, float(b.zmin), float(b.time))
+    for i, (x, y) in enumerate(zip(state_tensors(a), state_tensors(b))):
+        assert torch.equal(x, y), i
+    assert torch.equal(graphed.generator.get_state(),
+                       twin.generator.get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ionization", "compton", "ballistic"])
+def test_process_graph_paths_equal_their_eager_twin(cuda, case):
+    """14 steps through Simulation.step (the exchange steps eager, the
+    others replayed, the processes' draws from the registered
+    generator) against the eager loop, under deterministic index_add_:
+    every tensor bit for bit, the created particles, levels, ids and
+    cursors among them, and the generator's offset; the kernels counted
+    per replay as the eager loop launches them; particles created
+    (ionization, Compton) or the plane crossed (ballistic)."""
+    from fbpic_tpu_torch.core.graph import graph_blockers
+    from fbpic_tpu_torch.particles import cuda_fused, cuda_gather
+    counters = (cuda_fused.fused_onehot_contract, cuda_gather.gather_sorted)
+    with _deterministic():
+        graphed, twin = (_process_graph_sim(cuda, case) for _ in range(2))
+        assert graph_blockers(graphed, graphed.build_options()) == []
+        before = int(((graphed.state.species[1].z <= 0.)
+                      & (graphed.state.species[1].w != 0)).sum())
+        launches = []
+        for run in (graphed.step, lambda n: _eager_loop(twin, n)):
+            n0 = [fn.launches for fn in counters]
+            run(14)
+            launches.append([fn.launches - n for fn, n in zip(counters,
+                                                              n0)])
+        torch.cuda.synchronize()
+    assert graphed._multi_step.graphs
+    assert launches[0] == launches[1] and launches[0][0] >= 14
+    _process_twins_equal(graphed, twin)
+    sp = graphed.state.species
+    if case == "ionization":
+        assert int((sp[2].w != 0).sum()) > 0 and int((sp[3].w != 0).sum()) > 0
+    elif case == "compton":
+        assert int((sp[2].w != 0).sum()) > 0
+    else:
+        assert before == int((sp[1].w != 0).sum()) > 0
+        assert int(((sp[1].z <= 0.) & (sp[1].w != 0)).sum()) == 0
+
+
+class _RecordedDraws(GeneratorDraws):
+    """The default draw source (a subclass of it, so the chunk runner
+    replays it), keeping a copy of its last ionization draw of each
+    species in a buffer made at the first (eager) call: a replay writes
+    its own draw there."""
+
+    def __init__(self, generator):
+        super().__init__(generator)
+        self.last = {}
+
+    def __call__(self, name, iteration, species_index, shape, dtype,
+                 rank=None):
+        u = super().__call__(name, iteration, species_index, shape, dtype)
+        if name == "ionize":
+            if species_index not in self.last:
+                self.last[species_index] = torch.empty_like(u)
+            self.last[species_index].copy_(u)
+        return u
+
+
+@pytest.mark.cuda
+def test_replays_draw_the_eager_runs_numbers(cuda):
+    """One step a call through Simulation.step and the eager loop: each
+    replay draws new numbers (the generator registered with the graph),
+    the eager twin's at the same iteration, and the generator's state
+    after each call equals the twin's."""
+    graphed, twin = (_process_graph_sim(cuda, "ionization",
+                                        draws=_RecordedDraws)
+                     for _ in range(2))
+    draws = []
+    for _ in range(7):
+        graphed.step(1)
+        _eager_loop(twin, 1)
+        torch.cuda.synchronize()
+        a, b = graphed.process_draws.last[1], twin.process_draws.last[1]
+        assert torch.equal(a, b), graphed.iteration
+        assert torch.equal(graphed.generator.get_state(),
+                           twin.generator.get_state())
+        draws.append(a.clone())
+    assert sorted(graphed._multi_step.graphs) == [(1, False), (1, True)]
+    # iteration 0 (an exchange step: its block eager, the rest fully
+    # re-sorted) and 1 are their variants' warm-ups (the captures execute
+    # nothing), 2-6 replays (4 the exchange step's rest)
+    replayed = draws[2:]
+    for x, y in zip(replayed, replayed[1:]):
+        assert not torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_ionizing_rollback_equals_the_eager_run(cuda):
+    """A column overflow planted in the plasma of both ionizing twins
+    before a call that starts on a non-exchange step: the chunk rolls
+    back (the generator's state restored), runs again eagerly and equals
+    the twin bit for bit, the created electrons and the draws included."""
+    import warnings
+    with _deterministic():
+        graphed, twin = (_process_graph_sim(cuda, "ionization")
+                         for _ in range(2))
+        graphed.step(5)
+        _eager_loop(twin, 5)
+        for sim in (graphed, twin):
+            sp, K = sim.state.species[0], sim.species_configs[0].sort_K
+            Nz, dz = sim.config.Nz, sim.config.dz
+            live = (sp.w != 0).reshape(Nz, K)
+            counts = live.sum(1)
+            row = int(torch.argmax(counts[:-2] + counts[1:-1]
+                                   + counts[2:])) + 1
+            assert int(counts[row - 1:row + 2].sum()) > K
+            z = sp.z.clone().reshape(Nz, K)
+            z[row - 1] = torch.where(live[row - 1], z[row - 1] + dz,
+                                     z[row - 1])
+            z[row + 1] = torch.where(live[row + 1], z[row + 1] - dz,
+                                     z[row + 1])
+            sim.state.species[0] = sp.replace(z=z.reshape(-1))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            graphed.step(6)
+            _eager_loop(twin, 6)
+        torch.cuda.synchronize()
+    assert graphed.overflow_totals["rollbacks"] == 1
+    assert graphed.overflow_totals["sort_overflow"] \
+        == twin.overflow_totals["sort_overflow"] > 0
+    _process_twins_equal(graphed, twin)
+    assert int((graphed.state.species[2].w != 0).sum()) > 0
