@@ -222,24 +222,33 @@ Phases (any failure raises, and the script exits non-zero):
      and 450-step profiles of tests/data/golden_wake.npz at 2e-3.
  24. examples/multichip_lwfa_script.py as written (fbpic_tpu changed to
      fbpic_tpu_torch, float32; Simulation bound to random_seed=0, which
-     the script leaves out, so that its twin loads the same plasma):
+     the script leaves out, so that its twins load the same plasma):
      Nz=800, Nr=50, Nm=2, 2x2x4 per cell, a0=4, n_order=32, open z,
      moving window, its FieldDiagnostic every 100 steps collected,
      through distribute_simulation on 2 slabs (both on cuda:0 on a
      one-card machine, one per card on two or more; the phase prints
-     which) beside its single-card twin (the same script, sim.step on
-     the same schedule): exactly one K1 and one K2 launch per slab per
-     step and no K3, zero migration loss and sort overflow, the
-     gathered live count and total weight (1e-6) equal to the twin's at
-     every diagnostic, Ez (m = 0, 1) within 5e-3 of the twin's scale at
-     50 steps (printed at 200), the E, B and J records at 0 and 100
-     within 5e-3, rho too on the rows more than 2 n_guard from the slab
-     seam (rho_prev is each slab's own deposit; the seam rows printed),
-     K1 and K2 on each slab's own operands (one more step, captured)
-     against their plain versions; ms/step, device busy, idle share,
-     launches a step and the host syncs of step(14) for both, and the
-     halo exchanges' and the migration's device time a step on the
-     run's tensors;
+     which, and the run's graph_blockers): the slabs' chunk runner (on
+     one card every step's rest replayed from one CUDA graph a variant
+     that holds both slabs' steps) beside its eager slab twin (the same
+     script, run.eager: every step from the slab threads) and its
+     single-card twin (the same script, sim.step on the same schedule):
+     the graphed slabs and the eager slabs every array bit for bit under
+     deterministic index_add_ (the generators and the records too),
+     exactly one K1 and one K2 launch per slab per step and no K3 in
+     each (the graphed run's counted on the replays), zero migration
+     loss and sort overflow, the gathered live count and total weight
+     (1e-6) equal to the single card's at every diagnostic, Ez (m = 0,
+     1) within 5e-3 of its scale at 50 steps (printed at 200), the E, B,
+     J and rho records at 0 and 100 within 5e-3 on every row (the rho
+     record sums each slab's rho_prev over the halo); a column overflow
+     planted on a slab at a replayed step: the graphed chunk rolls back
+     on every slab and equals the eager slabs; K1 and K2 on each slab's
+     own operands (one more step, captured) against their plain
+     versions; ms/step, device busy, idle share, launches a step, the
+     device time by kernel group and the host syncs of step(14) for the
+     graphed slabs, the eager slabs and the single card, and the halo
+     exchanges' and the migration's device time a step on the run's
+     tensors;
  25. tests/test_resident.py's resident mesh (4 slabs, n_guard 24,
      exchange period 4, 40 steps) in float64 on the card and on the
      card machine's CPU with the same injection angles: two K3 and one
@@ -1227,11 +1236,42 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cuLaunchKernel", "cudaGraphLaunch")
 
 
-def profile_steps(sim, n_steps, run=None):
+#: Kernel groups of a step's device time (``kernel_groups``): the first
+#: group whose pattern a kernel's name matches takes its time
+KERNEL_GROUPS = (
+    ("K1", r"fused_contract_kernel"), ("K2", r"gather_sorted_kernel"),
+    ("K3", r"dense_contract_kernel"),
+    ("sort / scan", r"[Ss]ort|[Ss]can|cub::|Onesweep|Histogram"),
+    ("FFT (cuFFT)", r"fft|FFT"),
+    ("GEMM / batched matmul (cuBLAS)", r"gemm|gemv|cutlass|xmma|"
+     r"Kernel2|nvjet|splitK"),
+    ("index / scatter / gather", r"index|[Ss]catter|[Gg]ather|take|put_"),
+    ("copy / cat / fill", r"[Cc]opy|[Cc]at[A-Z]|CatArray|fill|[Mm]emcpy|"
+     r"[Mm]emset"),
+    ("reduction", r"reduce|[Rr]eduction|sum_|norm"),
+    ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"))
+
+
+def kernel_groups(kernel_rows, n_steps):
+    """{group: (ms a step, launches a step)} of the profiler's kernel
+    rows, by KERNEL_GROUPS (the rest under "other")."""
+    import re
+    out = {}
+    for ev in kernel_rows:
+        group = next((g for g, pat in KERNEL_GROUPS
+                      if re.search(pat, ev.key)), "other")
+        ms, n = out.get(group, (0.0, 0.0))
+        out[group] = (ms + ev.self_device_time_total / n_steps / 1e3,
+                      n + ev.count / n_steps)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def profile_steps(sim, n_steps, run=None, breakdown=False):
     """Device time per step and the kernels that take it, from
     torch.profiler over n_steps steps (sim.step, or run(n)) (None when
     the profiler shows no device time); also the host's launch calls a
-    step (HOST_LAUNCH_CALLS, each counted)."""
+    step (HOST_LAUNCH_CALLS, each counted), and with ``breakdown`` the
+    device time by kernel group (``kernel_groups``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run = run or sim.step
@@ -1271,7 +1311,14 @@ def profile_steps(sim, n_steps, run=None):
     for ev in top:
         print(f"  {ev.self_device_time_total / n_steps / 1e3:9.4f} ms/step "
               f"{ev.count / n_steps:7.1f}/step  {ev.key[:90]}")
+    groups = None
+    if breakdown:
+        groups = kernel_groups(kernels, n_steps)
+        print("  by kernel group (ms/step, launches/step): " + "; ".join(
+            f"{g} {ms:.4f} ({n:.1f})" for g, (ms, n) in groups.items()),
+              flush=True)
     return dict(device_ms_per_step=busy_us / n_steps / 1e3,
+                kernel_groups=groups,
                 profiled_wall_ms_per_step=wall / n_steps * 1e3,
                 launches_per_step=n_launch,
                 host_launch_calls_per_step=host_calls,
@@ -4584,11 +4631,14 @@ def capture_slab_calls(run, targets):
             by_rank[rank] = (args, kwargs)
             return reals[name](*args, **kwargs)
         return record
+    # A replay runs no Python: the step goes through the eager slab loop
+    eager, run.eager = run.eager, True
     for module, name in targets:
         setattr(module, name, recorder(name))
     try:
         run.step(1)
     finally:
+        run.eager = eager
         for module, name in targets:
             setattr(module, name, reals[name])
     for name, by_rank in calls.items():
@@ -4633,31 +4683,150 @@ def phase_multichip_kernels(run, label):
     return k1, k2
 
 
+def slabs_difference(a, b):
+    """The arrays of two decomposed runs (every tensor of every slab)
+    that differ, {"slab r, tensor i": largest difference relative to the
+    largest value}, and whether their host values and generators'
+    states are equal."""
+    import torch
+    from fbpic_tpu_torch.core.graph import state_tensors
+    rel, same_host = {}, len(a.states) == len(b.states)
+    for r, (sa, sb) in enumerate(zip(a.states, b.states)):
+        for i, (x, y) in enumerate(zip(state_tensors(sa), state_tensors(sb))):
+            if x.shape != y.shape or not torch.equal(x, y):
+                d = (x.double() - y.double()).abs().max() if \
+                    x.shape == y.shape else float("inf")
+                rel[f"slab {r}, tensor {i}"] = float(d) / max(
+                    float(x.double().abs().max()), 1e-300)
+        same_host = same_host and all(
+            getattr(sa, n) == getattr(sb, n)
+            for n in ("time", "zmin", "mw_zref", "iteration"))
+    same_gen = all(torch.equal(ga.get_state(), gb.get_state())
+                   for ga, gb in zip(a._generators, b._generators))
+    return rel, same_host and a.iteration == b.iteration, same_gen
+
+
+def slabs_gate(label, graphed, eager, when):
+    """The graphed slabs equal to the eager slabs, every array bit for
+    bit, the host values and the generators' states too."""
+    rel, same_host, same_gen = slabs_difference(graphed, eager)
+    print(f"{label}, {when}: graphed slabs against the eager slabs: host "
+          f"values equal {same_host}, generators equal {same_gen}, "
+          f"differing arrays {rel}", flush=True)
+    if rel or not same_host or not same_gen:
+        raise RuntimeError(f"{label}: graphed and eager slabs differ "
+                           f"{when}: {rel}, host {same_host}, generators "
+                           f"{same_gen}")
+
+
+def plant_slab_overflow(run):
+    """plant_column_overflow on the slab of run whose fullest three-row
+    run holds the most particles (its local (Nz, K) layout).  Returns
+    (slab, row)."""
+    import dataclasses
+    import torch
+    cfg, K = run.config_local, run.sim.species_configs[0].sort_K
+    best = None
+    for r, st in enumerate(run.states):
+        live = (st.species[0].w != 0).reshape(cfg.Nz, K)
+        counts = live.sum(1)
+        three = counts[:-2] + counts[1:-1] + counts[2:]
+        row = int(torch.argmax(three)) + 1
+        if best is None or int(three[row - 1]) > best[2]:
+            best = (r, row, int(three[row - 1]))
+    r, row, n = best
+    if n <= K:
+        raise RuntimeError("plant_slab_overflow: no three rows hold more "
+                           "than sort_K particles")
+    st = run.states[r]
+    sp = st.species[0]
+    live = (sp.w != 0).reshape(cfg.Nz, K)
+    z = sp.z.clone().reshape(cfg.Nz, K)
+    z[row - 1] = torch.where(live[row - 1], z[row - 1] + cfg.dz, z[row - 1])
+    z[row + 1] = torch.where(live[row + 1], z[row + 1] - cfg.dz, z[row + 1])
+    run.states[r] = dataclasses.replace(
+        st, species=[sp.replace(z=z.reshape(-1))] + list(st.species[1:]))
+    return r, row
+
+
+def slabs_planted_rollback(label, graphed, eager):
+    """A column overflow planted in both decomposed runs at a replayed
+    (non-exchange) step, under deterministic index_add_: the graphed
+    chunk rolls back once, on every slab, and both runs are equal after
+    it and after one more chunk.  Both runs then warn of a sort overflow
+    (the planted particles past sort_K are dropped) instead of raising.
+    Returns (slab, row, rollbacks)."""
+    import warnings
+    with deterministic_scatter(True):
+        if graphed.iteration % graphed.exchange_period == 0:
+            graphed.step(1)
+            eager.step(1)
+        where = [plant_slab_overflow(run) for run in (graphed, eager)]
+        before = graphed.overflow_totals.get("rollbacks", 0)
+        # the particles beyond sort_K are dropped, in both runs; the
+        # crowded column may overflow again in the next steps
+        for run in (graphed, eager):
+            run.on_migration_overflow = "warn"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            graphed.step(GRAPH_PLANT_STEPS)
+            eager.step(GRAPH_PLANT_STEPS)
+        rolled = graphed.overflow_totals.get("rollbacks", 0) - before
+        print(f"{label}: column overflow planted on slab {where[0][0]} at "
+              f"row {where[0][1]}, iteration "
+              f"{graphed.iteration - GRAPH_PLANT_STEPS}: {rolled} "
+              f"rollback(s); sort_overflow graphed "
+              f"{graphed.overflow_totals['sort_overflow']}, eager "
+              f"{eager.overflow_totals['sort_overflow']}", flush=True)
+        if rolled != 1 or graphed.overflow_totals["sort_overflow"] != \
+                eager.overflow_totals["sort_overflow"] or \
+                graphed.overflow_totals["sort_overflow"] == 0:
+            raise RuntimeError(f"{label}: the planted overflow made "
+                               f"{rolled} rollbacks")
+        slabs_gate(label, graphed, eager, "after the planted rollback")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            graphed.step(GRAPH_PLANT_STEPS)
+            eager.step(GRAPH_PLANT_STEPS)
+        slabs_gate(label, graphed, eager, "after the next chunk")
+    return where[0][0], where[0][1], rolled
+
+
 def phase_multichip_lwfa(counters):
     """24. examples/multichip_lwfa_script.py at full width (Nz = 800,
     Nr = 50, Nm = 2, 2x2x4 per cell, n_e = 4e24, a0 = 4, n_order = 32,
     open z, moving window, its FieldDiagnostic every 100 steps collected),
     float32, through distribute_simulation on MC_SLABS slabs -- both on
-    cuda:0 on a one-card machine, one per card on two or more -- and
-    its single-card twin (the same script, sim.step on the same
+    cuda:0 on a one-card machine, one per card on two or more: the
+    slabs' chunk runner (graphed on one card; its graph_blockers
+    printed) --, its eager slab twin (the same script, ``run.eager``)
+    and its single-card twin (the same script, sim.step on the same
     schedule):
-    - exactly one K1 and one K2 launch per slab per step, no K3;
+    - the graphed and the eager slabs under deterministic index_add_,
+      every array bit for bit at 50, 100 and 200 steps (the generators'
+      states and the collected records too);
+    - exactly one K1 and one K2 launch per slab per step in each, no
+      K3 (the graphed run's counted on its replays);
     - zero migration loss and zero sort overflow;
-    - the gathered live count equal to the twin's, and the total weight
-      within 1e-6, at every diagnostic;
-    - Ez (m = 0, 1) within TOL_MULTICHIP of the twin's scale at 50 steps
-      (fbpic_tpu's gate of the per-slab current correction's locality);
-      at 100 and 200 printed;
-    - the E, B and J records collected at 0 and 100 within TOL_MULTICHIP
-      of the twin's, and the rho record too on the rows more than
-      2 n_guard from a slab seam (rho_prev is each slab's own deposit,
-      so the seam rows differ; their deviation is printed);
+    - the gathered live count equal to the single card's, and the total
+      weight within 1e-6, at every diagnostic;
+    - Ez (m = 0, 1) within TOL_MULTICHIP of the single card's scale at
+      50 steps (fbpic_tpu's gate of the per-slab current correction's
+      locality); at 100 and 200 printed;
+    - the E, B, J and rho records collected at 0 and 100 within
+      TOL_MULTICHIP of the single card's on every row (the rho record
+      is each slab's rho_prev summed over the halo);
+    - a column overflow planted on a slab at a replayed step: the
+      graphed chunk rolls back on every slab, equal to the eager slabs;
     - K1 and K2 on each slab's own operands, captured in one more step,
       against their plain versions at TOL_K1 / TOL_K2;
-    then, for both, ms/step, device busy, idle share, launches a step,
-    the host syncs of step(14), and the halo's device time a step.
-    Returns the launches of the decomposed run (the sums over its
-    slabs; the twin's are not counted)."""
+    then, for the graphed slabs (their graphs captured again without
+    deterministic index_add_), the eager slabs and the single card,
+    ms/step, device busy, idle share, launches a step, the device time
+    by kernel group, the host syncs of step(14), and the halo's device
+    time a step.  Returns the launches of the graphed decomposed run
+    (the sums over its slabs)."""
+    import warnings
     import torch
     from fbpic_tpu_torch.parallel import api
     n_cards = torch.cuda.device_count()
@@ -4665,11 +4834,18 @@ def phase_multichip_lwfa(counters):
                else ["cuda:0"] * MC_SLABS)
     label = f"multichip LWFA, {MC_SLABS} slabs on {devices}"
     print(f"{label}: {n_cards} card(s) on this machine", flush=True)
-    sink_run, sink_twin = [], []
+    sink_run, sink_eager, sink_twin = [], [], []
     real_dist = api.distribute_simulation
-    ns = multichip_script(lambda sim, **kw: Deferred(real_dist(
-        sim, devices=devices, **kw)), sink_run)
+    # (distributing deposits rho_prev: a scatter deposit, made alike in
+    # both under deterministic index_add_)
+    with deterministic_scatter(True):
+        ns = multichip_script(lambda sim, **kw: Deferred(real_dist(
+            sim, devices=devices, **kw)), sink_run)
+        ne = multichip_script(lambda sim, **kw: Deferred(real_dist(
+            sim, devices=devices, **kw)), sink_eager)
     run, asked = ns["run"].run, ns["run"].asked
+    run_e = ne["run"].run
+    run_e.eager = True
     tw = multichip_script(lambda sim, **kw: Deferred(Twin(sim)), sink_twin)
     twin = tw["run"].run
     sim = ns["sim"]
@@ -4679,20 +4855,39 @@ def phase_multichip_lwfa(counters):
           f"{sim.exchange_period}), migration buffer {run.migration_buffer}"
           f", sort_K {sim.species_configs[0].sort_K}, slab capacity "
           f"{run.states[0].species[0].capacity}; the script asked for "
-          f"{asked} steps", flush=True)
+          f"{asked} steps; graph_blockers {run.graph_blockers}",
+          flush=True)
     if not all(s.species[0].capacity == cfgl.Nz
                * sim.species_configs[0].sort_K for s in run.states):
         raise RuntimeError(f"{label}: a slab is not resident")
-    for fn in counters.values():
-        fn.launches = 0
-        fn.launches_by_slab = {}
     out, checks = {}, {}
+    launches = {k: 0 for k in counters}
+    by_slab = {"graphed": {k: {} for k in counters},
+               "eager": {k: {} for k in counters}}
+
+    def counted(obj, key, n_steps):
+        """obj.step(n_steps) with the kernel counts set to 0 just before
+        and read just after (added to the phase's)."""
+        for fn in counters.values():
+            fn.launches = 0
+            fn.launches_by_slab = {}
+        obj.step(n_steps)
+        torch.cuda.synchronize()
+        for k, fn in counters.items():
+            if key == "graphed":
+                launches[k] += fn.launches
+            for r, n in fn.launches_by_slab.items():
+                by_slab[key][k][r] = by_slab[key][k].get(r, 0) + n
+
     t0 = time.perf_counter()
     done = 0
     for n_to in MC_STEPS:
-        run.step(n_to - done)
+        with deterministic_scatter(True):
+            counted(run, "graphed", n_to - done)
+            counted(run_e, "eager", n_to - done)
         twin.step(n_to - done)
         done = n_to
+        slabs_gate(label, run, run_e, f"after {n_to} steps")
         dev = {}
         for m in (0, 1):
             a = twin.get_interp_field("Ez", m)
@@ -4700,42 +4895,48 @@ def phase_multichip_lwfa(counters):
             dev[m] = float(np.abs(a - b).max() / np.abs(a).max())
         checks[n_to] = dict(Ez_deviation=dev, live=run_live(run),
                             live_twin=twin.live())
-        print(f"{label}: step {n_to}: Ez deviation from the twin (m = 0, "
-              f"1): {dev}; live, weight: {checks[n_to]['live']} (twin "
-              f"{checks[n_to]['live_twin']})", flush=True)
+        print(f"{label}: step {n_to}: Ez deviation from the single card "
+              f"(m = 0, 1): {dev}; live, weight: {checks[n_to]['live']} "
+              f"(single card {checks[n_to]['live_twin']})", flush=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = MC_STEPS[-1]
-    launches = {k: fn.launches for k, fn in counters.items()}
-    by_slab = {k: dict(fn.launches_by_slab) for k, fn in counters.items()}
-    # the twin's launches count in the totals too, none per slab
     want_slab = {"K1": {r: n for r in range(MC_SLABS)},
                  "K2": {r: n for r in range(MC_SLABS)}, "K3": {}}
-    print(f"{label}: {n} steps of the run and its twin in {wall:.2f} s; "
-          f"launches {launches}, per slab {by_slab}; overflow "
-          f"{run.overflow_totals} (twin {sim_totals(twin.sim)})",
-          flush=True)
-    if by_slab != want_slab or launches != {"K1": (MC_SLABS + 1) * n,
-                                            "K2": (MC_SLABS + 1) * n,
-                                            "K3": 0}:
+    runner = run.runner
+    variants = sorted(runner.graphs)
+    print(f"{label}: {n} steps of the graphed slabs, the eager slabs and "
+          f"the single card in {wall:.2f} s; graphed launches {launches}, "
+          f"per slab {by_slab['graphed']} (eager slabs "
+          f"{by_slab['eager']}); graph variants {variants}; overflow "
+          f"{run.overflow_totals} (eager {run_e.overflow_totals}, single "
+          f"card {sim_totals(twin.sim)})", flush=True)
+    if by_slab["graphed"] != want_slab or by_slab["eager"] != want_slab \
+            or launches != {"K1": MC_SLABS * n, "K2": MC_SLABS * n,
+                            "K3": 0}:
         raise RuntimeError(f"{label}: launches {launches} / {by_slab}")
-    if lost(run.overflow_totals) or lost(twin.sim.overflow_totals):
+    if not run.graph_blockers and not variants:
+        raise RuntimeError(f"{label}: the graphed slabs captured no graph")
+    if lost(run.overflow_totals) or lost(run_e.overflow_totals) or \
+            lost(twin.sim.overflow_totals):
         raise RuntimeError(f"{label}: overflow {run.overflow_totals} / "
+                           f"{run_e.overflow_totals} / "
                            f"{twin.sim.overflow_totals}")
     if checks[MC_STEPS[0]]["Ez_deviation"][0] >= TOL_MULTICHIP or \
             checks[MC_STEPS[0]]["Ez_deviation"][1] >= TOL_MULTICHIP:
-        raise RuntimeError(f"{label}: Ez off the twin: {checks}")
+        raise RuntimeError(f"{label}: Ez off the single card: {checks}")
     # (the twin's sim.step writes its diagnostics at the start of every
     # call as well: a call that starts on a period writes that iteration
     # a second time; its first record is compared)
     recs, recs_twin = records_by_file(sink_run), records_by_file(sink_twin)
+    recs_eager = records_by_file(sink_eager)
     period = sim.diags[0].period
     diag_its = sorted(int(k[4:12]) for k in recs)
-    if sorted(recs) != sorted(recs_twin) or diag_its != list(
-            range(0, n + 1, period)) or any(len(v) != 1
-                                            for v in recs.values()):
+    if sorted(recs) != sorted(recs_twin) or sorted(recs) != sorted(
+            recs_eager) or diag_its != list(range(0, n + 1, period)) or any(
+                len(v) != 1 for v in recs.values()):
         raise RuntimeError(f"{label}: diagnostics at {sorted(recs)} / "
-                           f"{sorted(recs_twin)}")
+                           f"{sorted(recs_eager)} / {sorted(recs_twin)}")
     rec_dev = {}
     # the record's z rows (the physical grid) within 2 n_guard of a seam
     rows = np.arange(sim.Nz_phys) + sim.nd_edge
@@ -4743,48 +4944,65 @@ def phase_multichip_lwfa(counters):
         1, MC_SLABS)).min(axis=1) < 2 * run.g
     for it in (0, period):
         name = "data%08d.h5" % it
+        same = record_differences(recs_eager[name], recs[name])
+        if same:
+            raise RuntimeError(f"{label}: records at {it}: graphed and "
+                               f"eager slabs differ {same}")
         diff = record_differences(recs_twin[name][:1], recs[name])
         path = "/data/%d/fields/rho" % it
         a, b = recs_twin[name][0][path][0], recs[name][0][path][0]
         by_row = np.abs(a - b).max(axis=(0, 1)) / np.abs(a).max()
-        diff["rho away from the seams"] = float(by_row[~near_seam].max())
         diff["rho at the seams"] = float(by_row[near_seam].max())
         rec_dev[it] = diff
-        off = {p: v for p, v in diff.items()
-               if p not in (path, "rho at the seams")
-               and v >= TOL_MULTICHIP}
-        print(f"{label}: records at {it}, deviation from the twin's "
-              f"relative to each dataset's largest value (rho also by "
-              f"rows: {int(near_seam.sum())} of {len(rows)} within "
-              f"{2 * run.g} rows of a seam): {diff}", flush=True)
+        off = {p: v for p, v in diff.items() if v >= TOL_MULTICHIP}
+        print(f"{label}: records at {it}, deviation from the single "
+              f"card's relative to each dataset's largest value (rho also "
+              f"on the {int(near_seam.sum())} of {len(rows)} rows within "
+              f"{2 * run.g} rows of a seam): {diff}; the eager slabs' "
+              f"equal bit for bit", flush=True)
         if off:
-            raise RuntimeError(f"{label}: records at {it} off the twin: "
-                               f"{off}")
+            raise RuntimeError(f"{label}: records at {it} off the single "
+                               f"card: {off}")
     for it in MC_STEPS:
         (n_run, w_run) = checks[it]["live"]
         (n_twin, w_twin) = checks[it]["live_twin"]
         if n_run != n_twin or abs(w_run - w_twin) > 1e-6 * w_twin:
             raise RuntimeError(f"{label}: live {n_run}, {w_run} against "
-                               f"the twin's {n_twin}, {w_twin} at {it}")
+                               f"the single card's {n_twin}, {w_twin} at "
+                               f"{it}")
     for s in run.states:
         for name in ("Er", "Et", "Ez", "Br", "Bt", "Bz"):
             if not bool(getattr(s.interp, name).isfinite().all()):
                 raise RuntimeError(f"{label}: non-finite {name}")
     out["gates"] = dict(checks={str(k): v for k, v in checks.items()},
                         records={str(k): v for k, v in rec_dev.items()},
-                        launches_with_twin=launches,
-                        launches_by_slab=by_slab)
+                        launches=launches, launches_by_slab=by_slab,
+                        graph_variants=[list(v) for v in variants],
+                        graph_blockers=run.graph_blockers)
+    slab, row, rolled = slabs_planted_rollback(label, run, run_e)
+    out["planted_rollback"] = dict(slab=slab, row=row, rollbacks=rolled)
     out["k1_slabs"], out["k2_slabs"] = phase_multichip_kernels(run, label)
-    # Cost: the decomposed run and its twin, in the same call
+    # The graphs hold the sorted index_add_ they were captured with:
+    # captured again without it, as a user's run has them
+    run.runner.release()
+    # Cost: the graphed slabs, the eager slabs and the single card, in
+    # the same call; one untimed exchange period first (the graphed
+    # run's captures fall outside the timed window)
+    warnings.filterwarnings("ignore", "particle-step", RuntimeWarning)
     for key, obj, live in (("slabs", run, run_live(run)[0]),
+                           ("eager slabs", run_e, run_live(run_e)[0]),
                            ("twin", twin, twin.live()[0])):
-        obj.step(2)
+        obj.step(run.exchange_period + 1)
+        graphs = dict(run.runner.graphs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         obj.step(N_COST)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / N_COST * 1e3
-        prof = profile_steps(obj, N_PROFILED)
+        if key == "slabs" and run.runner.graphs != graphs:
+            raise RuntimeError(f"{label}: the timed window captured "
+                               f"graphs of its own")
+        prof = profile_steps(obj, N_PROFILED, breakdown=True)
         syncs = count_syncs(obj, f"{label} ({key})", 14)
         m = dict(ms_per_step=ms, live=live,
                  ns_per_particle_step=ms * 1e6 / live, host_syncs_step14=syncs)
@@ -4792,17 +5010,26 @@ def phase_multichip_lwfa(counters):
             m.update(device_ms_per_step=prof["device_ms_per_step"],
                      idle_share=1 - prof["device_ms_per_step"] / ms,
                      launches_per_step=prof["launches_per_step"],
-                     kernel_ms_per_step=prof["kernel_ms_per_step"])
+                     host_launch_calls_per_step=prof[
+                         "host_launch_calls_per_step"],
+                     kernel_ms_per_step=prof["kernel_ms_per_step"],
+                     kernel_groups=prof["kernel_groups"])
         print(f"{label} ({key}): {ms:.4f} ms/step over {N_COST} steps, "
               f"{m.get('device_ms_per_step')} ms/step device busy, idle "
               f"share {m.get('idle_share')}, {m.get('launches_per_step')} "
               f"launches a step, {syncs['count']} host syncs in step(14)",
               flush=True)
         out[key] = m
+    warnings.filters.pop(0)
+    out["slabs"]["graph_variants"] = [list(v) for v in
+                                      sorted(run.runner.graphs)]
+    out["overflow_after_the_plant"] = dict(slabs=dict(run.overflow_totals),
+                                           eager=dict(run_e.overflow_totals))
     out["slabs"]["halo_device_ms_per_step"] = exchange_device_ms(run)
-    del run, twin, ns, tw, sim
+    run.runner.release()
+    del run, run_e, twin, ns, ne, tw, sim, runner
     torch.cuda.empty_cache()
-    return {k: sum(v.values()) for k, v in by_slab.items()}, out
+    return {k: sum(v.values()) for k, v in by_slab["graphed"].items()}, out
 
 
 def sim_totals(sim):
@@ -5472,9 +5699,11 @@ def phase_graph_paths(counters, smi):
 
 def phase_resident_mesh_f64(counters):
     """25. tests/test_resident.py's resident mesh in float64 (4 slabs,
-    n_guard 24, exchange period 4, 40 steps) on the card and on the card
-    machine's CPU, the same injection angles: two K3 and one K2 launch
-    per slab per step; the same live slots; every field and the live
+    n_guard 24, exchange period 4, 40 steps) on the card (the slabs'
+    chunk runner: one CUDA graph a variant for the four slabs) and on
+    the card machine's CPU (its body in the slab threads), the same
+    injection angles: two K3 and one K2 launch per slab per step (on
+    the card counted on the replays); the same live slots; every field and the live
     particles within TOL_MESH_F64 of their vector's scale (a component
     that is roundoff here, as Bz, is held to its vector's scale; a stale
     guard cell, from a missing stream dependency in an exchange, would
@@ -5491,6 +5720,11 @@ def phase_resident_mesh_f64(counters):
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     by_slab = {k: dict(fn.launches_by_slab) for k, fn in counters.items()}
+    variants = sorted(card.runner.graphs)
+    print(f"{label}: the slabs' chunk runner on the card: graph variants "
+          f"{variants}, graph_blockers {card.graph_blockers}", flush=True)
+    if not variants:
+        raise RuntimeError(f"{label}: the card's slabs captured no graph")
     n_threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
@@ -5531,12 +5765,14 @@ def phase_resident_mesh_f64(counters):
                            f"(control {control})")
     if lost(card.overflow_totals):
         raise RuntimeError(f"{label}: overflow {card.overflow_totals}")
+    card.runner.release()
     del card, cpu, one_card, one_cpu
     torch.cuda.empty_cache()
     return {k: sum(v.values()) for k, v in by_slab.items()}, dict(
         deviations=mesh, control=control, components=mesh_own,
         control_components=control_own, card_s=t_card, cpu_s=t_cpu,
-        launches_by_slab=by_slab)
+        launches_by_slab=by_slab, graph_variants=[list(v)
+                                                  for v in variants])
 
 def main():
     import torch

@@ -76,6 +76,9 @@ at every replay (``utils.kernels.add_launches``).
 On CPU tensors the same runner calls the graph's body instead of
 replaying it: the table, the step index, the flag and the rollback are
 the same; only the capture is CUDA-only.
+
+The slabs' runner (parallel/domain.py ``SlabMultiStep``) keeps one
+``ChunkBuffers`` per slab and captures through ``capture_graph`` too.
 """
 import gc
 from dataclasses import fields, replace
@@ -134,149 +137,42 @@ def signature(state):
                  for t in state_tensors(state))
 
 
-class MultiStep:
-    """The chunk runner of one configuration (``make_multi_step``, and
-    ``make_multi_step_capture`` with ``capture_fns``).
+def has_processes(species_configs):
+    """Whether a species ionizes or scatters photons (its draws then come
+    from a generator that every graph registers)."""
+    return any(sc.ionizer is not None or sc.compton is not None
+               for sc in species_configs)
 
-    ``multi_step(state, aux, n_steps, inj_auxes, column_angles,
-    generator, draws, antenna_series, ion_auxes, comp_auxes,
-    live_counts)`` runs n_steps <= MAX_CAPTURE steps from ``state``
-    (which it leaves unchanged) and returns (the new state, counts):
-    counts holds the host ints of the chunk's one read, ``resort_redo``
-    (the banded re-sorts' overflow in the graphed steps),
-    ``sort_overflow`` and ``ring_overwrite`` (the state's running
-    counters after the chunk), ``live`` ({species index: its live
-    particles after the chunk} for each index in ``live_counts``),
-    ``rolled_back`` (the chunk was run again eagerly) and ``captures``:
-    for each capture function, the tuple of its outputs stacked over the
-    chunk's steps (numpy arrays of n_steps rows).
 
-    ``ion_auxes`` / ``comp_auxes``: each species' IonizerAux /
-    ComptonAux (or None), handed to every step, as fbpic_tpu's
-    ``multi_step`` hands them.  On CUDA the draws' source must be a
-    ``GeneratorDraws`` of ``generator`` (particles/draws.py), which is
-    registered with every graph of a configuration with a process.
+class ChunkBuffers:
+    """What a chunk runner keeps for one state (one device's, or one
+    slab's): the static buffers the steps run on, the per-chunk scalar
+    tables and the device step index that picks their row, the redo
+    flag, the antennas' static series buffers and the capture buffers
+    (with their pinned host copies).  ``halo``: the slab's hooks in a
+    z-decomposed run (parallel/domain.py); its table rows are then the
+    slab's own (its local grid edges; an antenna plane it owns or not)."""
 
-    ``capture_fns``: functions ``cap(state, aux, time, zmin)`` of the
-    state after each step (time and zmin: its time and grid edge as 0-d
-    tensors of the working dtype) returning a tuple of tensors of fixed
-    shapes -- the back-transformed fields' plane slices
-    (``BackTransformedFieldDiagnostic.device_capture``).  Each step
-    writes them into a static (MAX_CAPTURE, ...) device buffer at the
-    row of the device step index (inside the graph of a replayed step),
-    and the chunk copies the first n_steps rows to pinned host memory
-    asynchronously before its one read, which waits for them: the
-    captures cost no host read of their own.
-
-    ``antenna_series``: the laser antennas' current blocks of the chunk
-    (``LaserAntenna.compute_series``, from the iteration ``it0`` <= the
-    chunk's first, at most MAX_CAPTURE rows): each is copied into a
-    static MAX_CAPTURE-row buffer once a chunk, which every step reads
-    (a graph reads the tensors it was captured with: a new tensor a
-    chunk would leave every replay reading the first chunk's current).
-
-    The static buffers are built for the state (and the number of
-    antennas) the first call gets; another structure raises.  Every
-    graph belongs to the configuration it was built for (species,
-    capacities, StepOptions, capture functions): a change of any of them
-    needs a new MultiStep."""
-
-    def __init__(self, config, species_configs, options, capture_fns=()):
+    def __init__(self, config, species_configs, options, halo=None):
         self.config, self.options = config, options
         self.species_configs = tuple(species_configs)
-        self.step = make_step_fn(config, self.species_configs, options)
-        self.capture_fns = tuple(capture_fns)
-        self._processes = any(sc.ionizer is not None or sc.compton is not None
-                              for sc in self.species_configs)
+        self.halo = halo
         #: the species with a ballistic injection plane (a column each)
         self._ballistic = [i for i, sc in enumerate(self.species_configs)
                            if sc.ballistic_z0 is not None]
-        self._generator = None
-        self._signature = None
-        self._static = self._table = self._itable = None
-        self._index = self._flag = None
-        self._static_storages = set()
-        self._series = ()
-        self._caps = self._caps_host = ()
-        #: variant key (n_move, full_resort) -> (graph, launch counts)
-        self.graphs = {}
-        self._pool = self._side = None
+        self._drop_buffers()
 
-    # -----------------------------------------------------------------
-    def __call__(self, state, aux, n_steps, inj_auxes=(), column_angles=None,
-                 generator=None, draws=None, antenna_series=(), ion_auxes=(),
-                 comp_auxes=(), live_counts=()):
-        if not 0 < n_steps <= MAX_CAPTURE:
-            raise ValueError(f"a chunk runs 1 to {MAX_CAPTURE} steps, not "
-                             f"{n_steps}")
-        state = ensure_counters(state)
-        self._ensure_static(state, aux, antenna_series)
-        plans, rows, irows = self._plan(state, n_steps, antenna_series)
-        self._upload(rows, irows)
-        kw = dict(draws=draws, antenna_series=self._load_series(
-            antenna_series), ion_auxes=ion_auxes, comp_auxes=comp_auxes)
-        self._generator = generator
-        gen_state = None if generator is None else generator.get_state()
-        for s, t in zip(self._static, state_tensors(state)):
-            s.copy_(t)
-        self._flag.zero_()
-        self._index.zero_()
-        cur = with_state_tensors(state, self._static)
-        args = (aux, inj_auxes, column_angles, generator)
-        for plan in plans:
-            if plan.exchange:
-                new = self.step.exchange(cur, *args)
-                self._store(new)
-                cur = with_state_tensors(new, self._static)
-            self._graphed((plan.n_move, plan.full_resort), cur, args, kw)
-            cur = replace(cur, time=plan.time_end, zmin=plan.zmin_end,
-                          mw_zref=plan.mw_zref_end,
-                          iteration=cur.iteration + 1)
-        self._copy_captures(n_steps)
-        redo, n_sort, n_ring, *live = torch.stack(
-            [self._flag, cur.sort_overflow, cur.ring_overwrite]
-            + [(cur.species[i].w != 0).sum() for i in live_counts]).tolist()
-        if redo > 0:
-            # A banded re-sort overflowed: the chunk again from its
-            # start, through the eager step (which redoes the sort), and
-            # its captures with it
-            if generator is not None:
-                generator.set_state(gen_state)
-            out = state
-            self._index.zero_()
-            for _ in range(n_steps):
-                out = self.step(out, *args, **kw)
-                self._capture(out, aux, self._row()[0])
-                self._index.add_(1)
-            self._copy_captures(n_steps)
-            n_sort, n_ring, *live = torch.stack(
-                [out.sort_overflow, out.ring_overwrite]
-                + [(out.species[i].w != 0).sum() for i in live_counts]
-            ).tolist()
-        else:
-            out = with_state_tensors(cur, [s.clone() for s in self._static])
-        captures = [tuple(h[:n_steps].numpy() for h in hosts)
-                    for hosts in self._caps_host]
-        return out, dict(resort_redo=redo, sort_overflow=n_sort,
-                         ring_overwrite=n_ring,
-                         live=dict(zip(live_counts, live)),
-                         rolled_back=redo > 0, captures=captures)
-
-    def release(self):
-        """Drop the graphs (their memory pool goes with the last) and the
-        static buffers, before another runner captures its own."""
-        for graph, _ in self.graphs.values():
-            graph.reset()
-        self.graphs = {}
-        self._pool = self._side = None
+    def _drop_buffers(self):
         self._signature = self._static = self._table = self._itable = None
         self._index = self._flag = None
         self._static_storages = set()
         self._series = ()
         self._caps = self._caps_host = ()
 
-    # -----------------------------------------------------------------
-    def _ensure_static(self, state, aux, antenna_series):
+    def _ensure_static(self, state, antenna_series, samples):
+        """The buffers, built for ``state``, the antennas and the capture
+        functions' outputs ``samples`` (one tuple of tensors each, their
+        shapes) the first time; another structure raises."""
         sig = signature(state) + tuple(
             (tuple(a.J.shape[2:]), a.J.dtype) for a in antenna_series)
         if self._signature is not None:
@@ -303,12 +199,9 @@ class MultiStep:
         self._series = [torch.zeros((2, MAX_CAPTURE) + a.J.shape[2:],
                                     dtype=a.J.dtype, device=dev)
                         for a in antenna_series]
-        # The capture buffers, shaped by one capture of the input state
-        t, z = (torch.full((), float(v), dtype=rdt, device=dev)
-                for v in (state.time, state.zmin))
         self._caps = [[torch.zeros((MAX_CAPTURE,) + o.shape, dtype=o.dtype,
-                                   device=dev) for o in fn(state, aux, t, z)]
-                      for fn in self.capture_fns]
+                                   device=dev) for o in outs]
+                      for outs in samples]
         pin = dev.type == "cuda"
         self._caps_host = [[torch.zeros(b.shape, dtype=b.dtype,
                                         pin_memory=pin) for b in bufs]
@@ -319,12 +212,21 @@ class MultiStep:
         their scalars: the real table (zmin, zmin_mid, zmin_next, time,
         mw_zref, zmin_end, time_end, time_mid; each ballistic species'
         plane; each mirror's z_lo, z_hi; each antenna's s0, s1, on) and
-        the int64 one (each antenna's row, iz0c, iz1c)."""
-        cfg = self.config
+        the int64 one (each antenna's row, iz0c, iz1c).  On a slab the
+        state's ``zmin`` is the global grid edge, and each step's local
+        one is derived from it as the eager slab loop derives it
+        (parallel/domain.py ``local_step``: the same host arithmetic);
+        ``_edges`` keeps, for each step, its local edge and the global
+        edge after it."""
+        cfg, halo = self.config, self.halo
         plans, rows, irows = [], [], []
-        zmin, time, mw_zref = state.zmin, state.time, state.mw_zref
+        self._edges = []
+        zmin_g, time, mw_zref = state.zmin, state.time, state.mw_zref
         for it in range(state.iteration, state.iteration + n_steps):
-            plan = plan_step(cfg, self.options, zmin, zmin, mw_zref, time,
+            zmin = zmin_g if halo is None else \
+                zmin_g + halo.offset(type(zmin_g))
+            plan = plan_step(cfg, self.options, zmin, zmin if halo is None
+                             else halo.global_zmin(zmin), mw_zref, time,
                              it)
             plans.append(plan)
             row = [float(zmin), float(plan.zmin_mid), float(plan.zmin_next),
@@ -337,15 +239,18 @@ class MultiStep:
             for z_lo, z_hi in mirror_planes(cfg, self.options, time):
                 row += [z_lo, z_hi]
             irow = []
+            own = None if halo is None else halo.own_bounds(plan.zmin_mid)
             for series in antenna_series:
                 i, iz0c, iz1c, s0, s1, on = antenna_cells(
-                    series, it, plan.zmin_mid, cfg.dz, cfg.Nz)
+                    series, it, plan.zmin_mid, cfg.dz, cfg.Nz, own)
                 row += [float(s0), float(s1), float(on)]
                 irow += [i, iz0c, iz1c]
             rows.append(row)
             irows.append(irow)
-            zmin, time, mw_zref = plan.zmin_end, plan.time_end, \
-                plan.mw_zref_end
+            zmin_g = plan.zmin_end if halo is None else \
+                zmin_g + (plan.zmin_end - zmin)
+            self._edges.append((zmin, zmin_g))
+            time, mw_zref = plan.time_end, plan.mw_zref_end
         return plans, rows, irows
 
     def _upload(self, rows, irows):
@@ -399,13 +304,18 @@ class MultiStep:
                            mirrors=mirrors, antennas=antennas,
                            time_mid=row[_TIME_MID], planes=tuple(planes))
 
-    def _capture(self, state, aux, row):
-        """Each capture function of the state after a step, written into
-        its buffers at the row of the device step index."""
+    @staticmethod
+    def _end_values(row):
+        """The time and grid edge after the step of a table row (0-d
+        tensors): what the capture functions see."""
+        return row[_TIME_END], row[_ZMIN_END]
+
+    def _write_captures(self, outs):
+        """Each capture function's outputs written into its buffers at
+        the row of the device step index."""
         idx = self._index.view(1)
-        for fn, bufs in zip(self.capture_fns, self._caps):
-            for buf, t in zip(bufs, fn(state, aux, row[_TIME_END],
-                                       row[_ZMIN_END])):
+        for bufs, out in zip(self._caps, outs):
+            for buf, t in zip(bufs, out):
                 buf.index_copy_(0, idx, t.unsqueeze(0))
 
     def _copy_captures(self, n_steps):
@@ -414,6 +324,12 @@ class MultiStep:
         for bufs, hosts in zip(self._caps, self._caps_host):
             for buf, host in zip(bufs, hosts):
                 host[:n_steps].copy_(buf[:n_steps], non_blocking=True)
+
+    def _captures(self, n_steps):
+        """The captures of the chunk's n_steps steps (after its read):
+        for each capture function, its outputs as numpy arrays."""
+        return [tuple(h[:n_steps].numpy() for h in hosts)
+                for hosts in self._caps_host]
 
     def _store(self, new):
         """Copy a step's result into the static buffers (a result that
@@ -428,6 +344,148 @@ class MultiStep:
         for o, s in zip(outs, self._static):
             if o is not s:
                 s.copy_(o)
+
+
+class MultiStep(ChunkBuffers):
+    """The chunk runner of one configuration (``make_multi_step``, and
+    ``make_multi_step_capture`` with ``capture_fns``).
+
+    ``multi_step(state, aux, n_steps, inj_auxes, column_angles,
+    generator, draws, antenna_series, ion_auxes, comp_auxes,
+    live_counts)`` runs n_steps <= MAX_CAPTURE steps from ``state``
+    (which it leaves unchanged) and returns (the new state, counts):
+    counts holds the host ints of the chunk's one read, ``resort_redo``
+    (the banded re-sorts' overflow in the graphed steps),
+    ``sort_overflow`` and ``ring_overwrite`` (the state's running
+    counters after the chunk), ``live`` ({species index: its live
+    particles after the chunk} for each index in ``live_counts``),
+    ``rolled_back`` (the chunk was run again eagerly) and ``captures``:
+    for each capture function, the tuple of its outputs stacked over the
+    chunk's steps (numpy arrays of n_steps rows).
+
+    ``ion_auxes`` / ``comp_auxes``: each species' IonizerAux /
+    ComptonAux (or None), handed to every step, as fbpic_tpu's
+    ``multi_step`` hands them.  On CUDA the draws' source must be a
+    ``GeneratorDraws`` of ``generator`` (particles/draws.py), which is
+    registered with every graph of a configuration with a process.
+
+    ``capture_fns``: functions ``cap(state, aux, time, zmin)`` of the
+    state after each step (time and zmin: its time and grid edge as 0-d
+    tensors of the working dtype) returning a tuple of tensors of fixed
+    shapes -- the back-transformed fields' plane slices
+    (``BackTransformedFieldDiagnostic.device_capture``).  Each step
+    writes them into a static (MAX_CAPTURE, ...) device buffer at the
+    row of the device step index (inside the graph of a replayed step),
+    and the chunk copies the first n_steps rows to pinned host memory
+    asynchronously before its one read, which waits for them: the
+    captures cost no host read of their own.
+
+    ``antenna_series``: the laser antennas' current blocks of the chunk
+    (``LaserAntenna.compute_series``, from the iteration ``it0`` <= the
+    chunk's first, at most MAX_CAPTURE rows): each is copied into a
+    static MAX_CAPTURE-row buffer once a chunk, which every step reads
+    (a graph reads the tensors it was captured with: a new tensor a
+    chunk would leave every replay reading the first chunk's current).
+
+    The static buffers are built for the state (and the number of
+    antennas) the first call gets; another structure raises.  Every
+    graph belongs to the configuration it was built for (species,
+    capacities, StepOptions, capture functions): a change of any of them
+    needs a new MultiStep."""
+
+    def __init__(self, config, species_configs, options, capture_fns=()):
+        super().__init__(config, species_configs, options)
+        self.step = make_step_fn(config, self.species_configs, options)
+        self.capture_fns = tuple(capture_fns)
+        self._processes = has_processes(self.species_configs)
+        self._generator = None
+        #: variant key (n_move, full_resort) -> (graph, launch counts)
+        self.graphs = {}
+        self._pool = self._side = None
+
+    # -----------------------------------------------------------------
+    def __call__(self, state, aux, n_steps, inj_auxes=(), column_angles=None,
+                 generator=None, draws=None, antenna_series=(), ion_auxes=(),
+                 comp_auxes=(), live_counts=()):
+        check_chunk(n_steps)
+        state = ensure_counters(state)
+        self._ensure_static(state, aux, antenna_series)
+        plans, rows, irows = self._plan(state, n_steps, antenna_series)
+        self._upload(rows, irows)
+        kw = dict(draws=draws, antenna_series=self._load_series(
+            antenna_series), ion_auxes=ion_auxes, comp_auxes=comp_auxes)
+        self._generator = generator
+        gen_state = None if generator is None else generator.get_state()
+        for s, t in zip(self._static, state_tensors(state)):
+            s.copy_(t)
+        self._flag.zero_()
+        self._index.zero_()
+        cur = with_state_tensors(state, self._static)
+        args = (aux, inj_auxes, column_angles, generator)
+        for plan in plans:
+            if plan.exchange:
+                new = self.step.exchange(cur, *args)
+                self._store(new)
+                cur = with_state_tensors(new, self._static)
+            self._graphed((plan.n_move, plan.full_resort), cur, args, kw)
+            cur = replace(cur, time=plan.time_end, zmin=plan.zmin_end,
+                          mw_zref=plan.mw_zref_end,
+                          iteration=cur.iteration + 1)
+        self._copy_captures(n_steps)
+        redo, n_sort, n_ring, *live = torch.stack(
+            [self._flag, cur.sort_overflow, cur.ring_overwrite]
+            + [(cur.species[i].w != 0).sum() for i in live_counts]).tolist()
+        if redo > 0:
+            # A banded re-sort overflowed: the chunk again from its
+            # start, through the eager step (which redoes the sort), and
+            # its captures with it
+            if generator is not None:
+                generator.set_state(gen_state)
+            out = state
+            self._index.zero_()
+            for _ in range(n_steps):
+                out = self.step(out, *args, **kw)
+                self._capture(out, aux, self._row()[0])
+                self._index.add_(1)
+            self._copy_captures(n_steps)
+            n_sort, n_ring, *live = torch.stack(
+                [out.sort_overflow, out.ring_overwrite]
+                + [(out.species[i].w != 0).sum() for i in live_counts]
+            ).tolist()
+        else:
+            out = with_state_tensors(cur, [s.clone() for s in self._static])
+        return out, dict(resort_redo=redo, sort_overflow=n_sort,
+                         ring_overwrite=n_ring,
+                         live=dict(zip(live_counts, live)),
+                         rolled_back=redo > 0,
+                         captures=self._captures(n_steps))
+
+    def release(self):
+        """Drop the graphs (their memory pool goes with the last) and the
+        static buffers, before another runner captures its own."""
+        for graph, _ in self.graphs.values():
+            graph.reset()
+        self.graphs = {}
+        self._pool = self._side = None
+        self._drop_buffers()
+
+    # -----------------------------------------------------------------
+    def _ensure_static(self, state, aux, antenna_series):
+        # The capture buffers, shaped by one capture of the input state
+        samples = ()
+        if self._signature is None and self.capture_fns:
+            dev = state.spect.Ep.device
+            rdt = state.spect.Ep.real.dtype
+            t, z = (torch.full((), float(v), dtype=rdt, device=dev)
+                    for v in (state.time, state.zmin))
+            samples = [fn(state, aux, t, z) for fn in self.capture_fns]
+        super()._ensure_static(state, antenna_series, samples)
+
+    def _capture(self, state, aux, row):
+        """Each capture function of the state after a step, written into
+        its buffers at the row of the device step index."""
+        self._write_captures([fn(state, aux, *self._end_values(row))
+                              for fn in self.capture_fns])
 
     def _body(self, cur, args, kw):
         """One step on the static buffers (an exchange step's exchange
@@ -452,7 +510,7 @@ class MultiStep:
         if key in self.graphs:
             graph, counts = self.graphs[key]
             graph.replay()
-            kernels.add_launches(counts)
+            kernels.add_launches(*counts)
             return
         dev = self._table.device
         if self._side is None:
@@ -463,40 +521,71 @@ class MultiStep:
         with torch.cuda.stream(self._side):
             self._body(cur, args, kw)
         main.wait_stream(self._side)
-        self.graphs[key] = self._capture_graph(key, cur, args, kw)
+        self.graphs[key] = capture_graph(
+            lambda stream: self._body(cur, args, kw), self._pool,
+            [self._generator] if self._processes else [],
+            f"the step (n_move={key[0]}, full re-sort={key[1]})")
 
-    def _capture_graph(self, key, cur, args, kw):
-        before = kernels.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        if self._processes:
-            # each replay then draws from the generator's offset at its
-            # launch, and advances it as the eager step would
-            graph.register_generator_state(self._generator)
-        mode = torch.cuda.get_sync_debug_mode()
-        # No garbage collection while capturing: a graph it frees (an old
-        # runner's, held in a reference cycle) would reset during this
-        # capture, which invalidates it
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    self._body(cur, args, kw)
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-        except RuntimeError as err:
-            raise RuntimeError(
-                f"capturing the step (n_move={key[0]}, full re-sort="
-                f"{key[1]}) in a CUDA graph failed: {err}") from err
-        finally:
-            if collecting:
-                gc.enable()
-        counts = {fn: n - before.get(fn, 0)
-                  for fn, n in kernels.launch_counts().items()
-                  if n != before.get(fn, 0)}
-        kernels.add_launches({fn: -n for fn, n in counts.items()})
-        return graph, counts
+
+def check_chunk(n_steps):
+    if not 0 < n_steps <= MAX_CAPTURE:
+        raise ValueError(f"a chunk runs 1 to {MAX_CAPTURE} steps, not "
+                         f"{n_steps}")
+
+
+def capture_graph(body, pool, generators, what):
+    """Capture ``body(stream)`` (``stream``: the capture stream) into a
+    new CUDA graph of memory pool ``pool``; returns (graph, counts), the
+    launches the capture counted, taken back out of the kernel counters
+    (``kernels.add_launches(*counts)`` adds them again at a replay):
+    ({wrapper: n}, {wrapper: {slab rank: n}}).  ``generators`` are
+    registered with the graph: each replay then draws from their
+    offsets at its launch and advances them as the eager step would.
+    The capture runs under torch's sync debug mode "error" (a host
+    synchronization in the body raises where it is made) and without
+    garbage collection (a graph it frees -- an old runner's, held in a
+    reference cycle -- would reset during this capture, which
+    invalidates it).  Only the capturing thread is barred from the
+    calls that are unsafe during a capture (``capture_error_mode``
+    "thread_local"): the slabs' threads issue into the capture stream
+    (parallel/domain.py).  A capture that fails raises."""
+    before = kernels.launch_counts()
+    before_slab = kernels.slab_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    mode = torch.cuda.get_sync_debug_mode()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        ctx = torch.cuda.graph(graph, pool=pool,
+                               capture_error_mode="thread_local")
+        with ctx:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                body(ctx.capture_stream)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+    except RuntimeError as err:
+        raise RuntimeError(f"capturing {what} in a CUDA graph failed: "
+                           f"{err}") from err
+    finally:
+        if collecting:
+            gc.enable()
+    counts = {fn: n - before.get(fn, 0)
+              for fn, n in kernels.launch_counts().items()
+              if n != before.get(fn, 0)}
+    by_slab = {}
+    for fn, ranks in kernels.slab_launch_counts().items():
+        old = before_slab.get(fn, {})
+        diff = {r: n - old.get(r, 0) for r, n in ranks.items()
+                if n != old.get(r, 0)}
+        if diff:
+            by_slab[fn] = diff
+    kernels.add_launches({fn: -n for fn, n in counts.items()},
+                         {fn: {r: -n for r, n in ranks.items()}
+                          for fn, ranks in by_slab.items()})
+    return graph, (counts, by_slab)
 
 
 def graph_blockers(sim, options):
@@ -516,10 +605,8 @@ def graph_blockers(sim, options):
     advance.  On the CPU the runner calls the step itself, so any source
     works there."""
     out = []
-    processes = any(sc.ionizer is not None or sc.compton is not None
-                    for sc in sim.species_configs)
     draws = sim.process_draws
-    if (processes and sim.device.type == "cuda"
+    if (has_processes(sim.species_configs) and sim.device.type == "cuda"
             and not (isinstance(draws, GeneratorDraws)
                      and draws.generator is sim.generator)):
         out.append("a process draw source other than the simulation's "

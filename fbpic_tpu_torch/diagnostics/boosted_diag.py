@@ -17,7 +17,8 @@ then the radial transform) -- with no host synchronization.  Where
 included) into the runner's buffer, whose rows the runner copies to the
 host with the chunk's one read, and ``process_chunk`` fills the
 snapshots from them, as fbpic_tpu's ``device_capture`` +
-``process_chunk`` do.  In the eager loop ``capture`` appends them to a
+``process_chunk`` do; on a z-decomposed run ``decomposed_capture``
+gives the slab runner's function.  In the eager loop ``capture`` appends them to a
 buffer of this diagnostic's after every cycle, which
 ``process_captures`` copies to the host once (at the end of ``step``,
 or when it holds ``core/simulation.py``'s ``MAX_CAPTURE`` cycles).  A
@@ -131,27 +132,32 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
             return self._slices(cfg, state, aux.mats, time=time, zmin=zmin)
         return cap
 
-    def capture_decomposed(self, state, config_local, mats, comm,
-                           capacity=1):
-        """The capture of one slab of a z-decomposed run (fbpic_tpu's
-        ``device_capture(config, mats, own, axis_name)``,
-        boosted_diag.py:145-260): each slab slices the interior it owns
-        (state.zmin its local edge), the slices of the planes it does
-        not claim zeroed -- the interiors tile the global box, so at
-        most one slab claims a plane -- and the slices are summed over
-        the slabs in rank order.  Slab 0 appends the sum to the device
-        buffer (made for ``capacity`` cycles); ``process_captures``
-        consumes it.  No host synchronization."""
+    def decomposed_capture(self, config_local):
+        """The capture function of one slab of a z-decomposed run
+        (fbpic_tpu's ``device_capture(config, mats, own, axis_name)``,
+        boosted_diag.py:145-260), ``cap(state, aux, comm)``: each slab
+        slices the interior it owns (state.zmin its local edge; its time
+        and edge may be 0-d tensors, a chunk table's row), the slices of
+        the planes it does not claim zeroed -- the interiors tile the
+        global box, so at most one slab claims a plane -- and the slices
+        are summed over the slabs in rank order.  Returns ``(claimed,
+        z_lab, slices)`` as ``device_capture``'s function does, with no
+        host synchronization; the slab runner (parallel/domain.py
+        ``SlabMultiStep``) writes slab 0's into its buffers at the device
+        step index and ``process_chunk`` consumes the rows."""
         if not self.snapshots:
-            return
+            return lambda state, aux, comm: None
         g = config_local.n_guard
-        own = (g, config_local.Nz - 2 * g, comm.rank, comm.size)
-        valid, z_lab, slices = self._slices(config_local, state, mats,
-                                            own=own)
-        mask = valid.to(slices.real.dtype)[None, None, :, None]
-        slices, n_claims = comm.psum([slices * mask, valid.to(torch.int32)])
-        if comm.rank == 0:
-            self._append((n_claims > 0, z_lab, slices), capacity)
+
+        def cap(state, aux, comm):
+            own = (g, config_local.Nz - 2 * g, comm.rank, comm.size)
+            valid, z_lab, slices = self._slices(config_local, state,
+                                                aux.mats, own=own)
+            mask = valid.to(slices.real.dtype)[None, None, :, None]
+            slices, n_claims = comm.psum([slices * mask,
+                                          valid.to(torch.int32)])
+            return n_claims > 0, z_lab, slices
+        return cap
 
     def _slices(self, cfg, st, mats, strict=False, own=None, time=None,
                 zmin=None):
@@ -160,9 +166,9 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
         a plane is valid where this slab owns it (the edge slabs' claims
         opened to -+inf, as fbpic_tpu widens them) inside the global
         box.  ``time``, ``zmin``: the state's as 0-d tensors of the
-        working dtype (made from its host values when not given, by a
-        fill: no host-to-device copy); every plane's arithmetic reads
-        them, as fbpic_tpu's traced scalars."""
+        working dtype (the state's own where they are tensors, else made
+        from its host values, by a fill: no host-to-device copy); every
+        plane's arithmetic reads them, as fbpic_tpu's traced scalars."""
         dev = st.interp.Er.device
         rdt = st.interp.Er.real.dtype
         t_lab = self._t_lab.get((dev, rdt))
@@ -175,10 +181,13 @@ class BackTransformedFieldDiagnostic(OpenPMDDiagnostic):
                 * self.dt_snapshots_lab).to(rdt)
         gamma, beta = self.gamma_boost, self.beta_boost
         Nz, S = cfg.Nz, len(self.snapshots)
-        t_b = torch.full((), float(st.time), dtype=rdt, device=dev) \
-            if time is None else time
-        zmin = torch.full((), float(st.zmin), dtype=rdt, device=dev) \
-            if zmin is None else zmin
+        if time is None:
+            time = st.time if torch.is_tensor(st.time) else torch.full(
+                (), float(st.time), dtype=rdt, device=dev)
+        if zmin is None:
+            zmin = st.zmin if torch.is_tensor(st.zmin) else torch.full(
+                (), float(st.zmin), dtype=rdt, device=dev)
+        t_b = time
         z_b = (t_lab / gamma - t_b) * c / beta
         z_lab = gamma * (z_b + beta * c * t_b)
         iz_f = (z_b - zmin) / cfg.dz - 0.5

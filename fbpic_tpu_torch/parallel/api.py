@@ -12,7 +12,8 @@ card (``devices=["cuda:0", "cuda:0"]``) and a CPU mesh is
 
 The :class:`DistributedRun` owns the per-slab states (fields
 (Nm, Nz_local, Nr) and particle blocks on each slab's device) and the
-decomposed step of :mod:`fbpic_tpu_torch.parallel.domain`.
+decomposed step of :mod:`fbpic_tpu_torch.parallel.domain`, which it
+runs in chunks through the slabs' chunk runner (``SlabMultiStep``).
 """
 import dataclasses
 import warnings
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core import step as step_mod
-from ..core.simulation import MAX_CAPTURE
+from ..core.graph import MAX_CAPTURE, graph_blockers
 from ..core.state import SimState
 from ..fields import transform as tr
 from ..fields.solver import build_field_aux
@@ -68,7 +69,8 @@ class DistributedRun:
 
     ``states``: the per-slab SimStates (each slab's ``zmin`` the global
     grid edge); ``overflow_totals``: the migration losses and the sort /
-    ring overflows summed over the run."""
+    ring overflows summed over the run (and ``rollbacks``, the chunks
+    run again through the eager slab loop, once there is one)."""
 
     def __init__(self, sim, n_devices=None, devices=None, axis_name="z",
                  migration_buffer=None, n_guard=None,
@@ -102,13 +104,21 @@ class DistributedRun:
         # card's capture, fbpic_tpu's device_capture on the mesh
         self._capture_writers = [w for w in list(sim.diags)
                                  + list(sim.checkpoints)
-                                 if hasattr(w, "capture")]
-        self._capacity = 1
-        cap_fns = tuple(self._capture_fn(w) for w in self._capture_writers)
+                                 if hasattr(w, "capture") and w.snapshots]
+        cap_fns = tuple(w.decomposed_capture(self.config_local)
+                        for w in self._capture_writers)
+        self.options = options
+        #: the eager slab loop (``parallel.domain.make_multichip_step``);
+        #: the chunk runner is built on it
         self.multi_step, _ = dom.make_multichip_step(
             config, tuple(sim.species_configs), options, mesh,
             axis_name=axis_name, migration_buffer=migration_buffer,
             n_guard=self.g, capture_fns=cap_fns, group=self.group)
+        self._runner = None
+        #: True: every chunk through the eager slab loop (a twin to hold
+        #: the chunk runner against); runs that ``graph_blockers`` names
+        #: take it anyway
+        self.eager = False
         self.exchange_period = self.multi_step.exchange_period
         self.migration_buffer = self.multi_step.migration_buffer
         # Species that run the resident layout on the slabs: capacity
@@ -128,8 +138,13 @@ class DistributedRun:
         self.states = self._shard_state(step_mod.prepare(
             config, options, sim.species_configs, sim.state, sim.aux))
         self.iteration = int(sim.iteration)
+        # rho_prev is the single card's deposit cut into slabs until an
+        # exchange block deposits each slab's own (``_rho_record``)
+        self._rho_local = False
         self.overflow_totals = {"migration_overflow": 0, "sort_overflow": 0,
                                 "ring_overwrite": 0}
+        #: each slab's live particles of each species after the last chunk
+        self.live_counts = {}
         self._slab_kwargs = self._make_slab_kwargs()
 
     # -- per-slab arguments ----------------------------------------------
@@ -172,14 +187,6 @@ class DistributedRun:
                 kw["draws"] = sim.process_draws
             out.append(kw)
         return out
-
-    def _capture_fn(self, writer):
-        cfg = self.config_local
-
-        def cap(state, aux, comm):
-            writer.capture_decomposed(state, cfg, aux.mats, comm,
-                                      capacity=self._capacity)
-        return cap
 
     # -- state conversion -------------------------------------------------
 
@@ -322,18 +329,54 @@ class DistributedRun:
 
     # -- running ----------------------------------------------------------
 
+    @property
+    def graph_blockers(self):
+        """Why this run's chunks do not replay CUDA graphs (an empty list
+        when they do, and on the CPU, where the slab threads call the
+        chunk runner's body): slabs on several cards (one graph holds one
+        card's stream: those runs keep the eager slab loop), and the
+        single card's ``core.graph.graph_blockers`` (a process draw
+        source other than the simulation's GeneratorDraws)."""
+        out = []
+        cuda = [d for d in self.devices if d.type == "cuda"]
+        if len(set(cuda)) > 1:
+            out.append(f"slabs on several cards ({len(set(cuda))}): one "
+                       f"CUDA graph holds the work of one card")
+        if cuda:
+            out += graph_blockers(self.sim, self.options)
+        return out
+
+    @property
+    def runner(self):
+        """The chunk runner (``parallel.domain.SlabMultiStep``) on the
+        current eager slab loop ``multi_step``."""
+        if self._runner is None or self._runner.eager_loop is not \
+                self.multi_step:
+            if self._runner is not None:
+                self._runner.release()
+            self._runner = dom.SlabMultiStep(self.multi_step,
+                                             self.sim.species_configs)
+        return self._runner
+
     def step(self, N=1):
         """Advance the decomposed simulation N steps.
 
         Honours the diagnostics and checkpoints registered on the
         Simulation (``sim.diags`` / ``sim.checkpoints``): the run goes in
-        chunks that end at their periods; at iteration 0 and at the end
-        of a chunk on a period the global state is gathered into the
-        Simulation and written through the same diagnostic classes as a
-        single-card run (fbpic_tpu parallel/api.py:344-410).  The
-        back-transformed field diagnostics capture every step on the
-        slabs and consume their buffer after each chunk.  After each
-        chunk one host read checks the counters (``_check_migration``)."""
+        chunks of at most MAX_CAPTURE steps that end at their periods; at
+        iteration 0 and at the end of a chunk on a period the global
+        state is gathered into the Simulation and written through the
+        same diagnostic classes as a single-card run (fbpic_tpu
+        parallel/api.py:344-410).  Each chunk is one call of the chunk
+        runner (``runner``: every step's exchange block eagerly in the
+        slab threads, the rest replayed from CUDA graphs that hold every
+        slab's step; on the CPU the slab threads run the same body; the
+        eager slab loop where ``graph_blockers`` names a reason or
+        ``eager`` is set), with one host read at its end: the slabs'
+        redo flags, the counters (``_check_migration``), the live
+        counts and the back-transformed field diagnostics' captures,
+        which they consume then.  A chunk run again eagerly (a banded
+        re-sort's overflow) counts in ``overflow_totals["rollbacks"]``."""
         sim = self.sim
         if any(d.type == "cuda" for d in self.devices):
             kernels.build_all()          # before any slab thread runs
@@ -343,23 +386,29 @@ class DistributedRun:
             self.sync_to_sim()
             for diag in sim.diags:
                 diag.write(sim)
+        eager = self.eager or bool(self.graph_blockers)
+        species = tuple(range(len(sim.species_configs)))
         done = 0
         while done < N:
-            chunk = N - done
+            chunk = min(N - done, MAX_CAPTURE)
             if writers:
                 period = min(getattr(d, "period", N) for d in writers)
                 chunk = min(chunk, max(1, period - self.iteration % period))
-            if self._capture_writers:
-                chunk = min(chunk, MAX_CAPTURE)
-            self._capacity = chunk
             kwargs = self._antenna_series(chunk)
-            self.states = self.multi_step(self.states, self.auxes, chunk,
-                                          kwargs)
+            self.states, counts = self.runner(
+                self.states, self.auxes, chunk, kwargs, live_counts=species,
+                eager=eager)
+            if counts["exchanged"]:
+                self._rho_local = True
             done += chunk
             self.iteration += chunk
-            for w in self._capture_writers:
-                w.process_captures(sim)
-            self._check_migration()
+            if counts["rolled_back"]:
+                self.overflow_totals["rollbacks"] = \
+                    self.overflow_totals.get("rollbacks", 0) + 1
+            self.live_counts = counts["live"]
+            for w, caps in zip(self._capture_writers, counts["captures"]):
+                w.process_chunk(sim, caps)
+            self._check_migration(counts)
             if writers and any(self.iteration % getattr(d, "period", N) == 0
                                for d in writers):
                 self.sync_to_sim()
@@ -385,16 +434,15 @@ class DistributedRun:
         return [dict(kw, antenna_series=series[d])
                 for kw, d in zip(self._slab_kwargs, self.devices)]
 
-    def _check_migration(self):
-        """One host read of slab 0's counters (psum'd: every slab holds
-        the totals).  Lost migrants, or a sort overflow (the single-card
-        sort_K bump cannot re-shard mid-run), raise or warn as
-        ``on_migration_overflow`` says; the sort and ring counts are
+    def _check_migration(self, counts):
+        """slab 0's counters from the chunk's read (psum'd: every slab
+        holds the totals).  Lost migrants, or a sort overflow (the
+        single-card sort_K bump cannot re-shard mid-run), raise or warn
+        as ``on_migration_overflow`` says; the sort and ring counts are
         added to ``overflow_totals`` and reset."""
-        st = self.states[0]
-        lost, n_sort, n_ring = torch.stack(
-            [st.migration_overflow, st.sort_overflow,
-             st.ring_overwrite]).tolist()
+        lost, n_sort, n_ring = (counts["migration_overflow"],
+                                counts["sort_overflow"],
+                                counts["ring_overwrite"])
         self.overflow_totals["migration_overflow"] = lost
         self.overflow_totals["sort_overflow"] += n_sort
         self.overflow_totals["ring_overwrite"] += n_ring
@@ -429,10 +477,27 @@ class DistributedRun:
     def _unslice_spect(self, name):
         """The per-slab spectral fields ``name`` -> the global one: the
         slabs' inverse z-DFT, their interiors joined, the global forward
-        z-DFT."""
-        parts = [self._interior(tr.ifft_z(getattr(s.spect, name)), i)
-                 for i, s in enumerate(self.states)]
-        return tr.fft_z(torch.cat(parts, dim=1))
+        z-DFT; rho_prev is the record (``_rho_record``)."""
+        parts = (self._rho_record() if name == "rho_prev" else
+                 [tr.ifft_z(getattr(s.spect, name)) for s in self.states])
+        return tr.fft_z(torch.cat([self._interior(F, i)
+                                   for i, F in enumerate(parts)], dim=1))
+
+    def _rho_record(self):
+        """The charge density the records show, each slab's rho_prev in
+        partial (z-real) space: summed over the halo (``sum_guards``)
+        where it is each slab's own deposit -- from the first exchange
+        block on, unless use_true_rho / correct_divE already sum it in
+        the step --, so that the rows next to a slab seam hold the
+        neighbour's charge too; the cut of the single card's deposit as
+        it was distributed before that.  The slabs' rho_prev itself stays
+        local: the next step's current correction reads local sources."""
+        parts = [tr.ifft_z(s.spect.rho_prev) for s in self.states]
+        if self._rho_local and not (self.options.use_true_rho
+                                    or self.options.correct_divE):
+            parts = dom.sum_guards(parts, self.g,
+                                   self.sim.config.boundaries_z == "periodic")
+        return parts
 
     def _unslice_interp(self, name):
         return torch.cat([self._interior(getattr(s.interp, name), i)
@@ -510,13 +575,18 @@ class DistributedRun:
     def get_interp_field(self, name, m=0):
         """Mode ``m`` of a field on the global internal grid (complex
         numpy (Nz_global, Nr)), reassembled from the slab interiors:
-        Ez, Bz, rho (rho_prev), rho_prev, rho_next from the spectral
-        fields, any interpolation-grid field as stored."""
-        spect_names = {"Ez": "Ez", "Bz": "Bz", "rho": "rho_prev",
-                       "rho_prev": "rho_prev", "rho_next": "rho_next"}
+        Ez, Bz, rho_prev, rho_next from the spectral fields as each slab
+        holds them, rho the record's charge density (``_rho_record``:
+        rho_prev summed over the halo), any interpolation-grid field as
+        stored."""
+        spect_names = {"Ez": "Ez", "Bz": "Bz", "rho_prev": "rho_prev",
+                       "rho_next": "rho_next"}
+        rho = self._rho_record() if name == "rho" else None
         out = []
         for i, (s, aux) in enumerate(zip(self.states, self.auxes)):
-            if name in spect_names:
+            if rho is not None:
+                F = tr.dht(aux.mats.invM0, rho[i])
+            elif name in spect_names:
                 F = tr.spect2interp_scal(aux.mats,
                                          getattr(s.spect, spect_names[name]))
             else:

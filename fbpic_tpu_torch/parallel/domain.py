@@ -18,6 +18,11 @@ Layout (reference boundary_communicator.py:556-620):
     local grid = [ng | nc | interior | nc | ng], ng = nc = n_guard
     consecutive local grids overlap by 2*n_guard cells.
 
+``make_multichip_step`` builds the eager slab loop; ``SlabMultiStep``
+runs the same steps in chunks, every step's rest replayed from one CUDA
+graph that holds every slab's step (fbpic_tpu's fori_loop inside
+shard_map).
+
 A decomposed state is a list of per-slab ``SimState``: fields
 (Nm, Nz_local, Nr) and particle arrays (cap_local,) on the slab's
 device, each slab's ``zmin`` the GLOBAL grid edge (as fbpic_tpu keeps it
@@ -33,7 +38,12 @@ from ..fields.solver import build_field_aux, SpectralFields, InterpFields
 from ..particles.compaction import topk_compact
 from ..particles.state import ParticleState
 from ..core import step as step_mod
+from ..core.graph import (ChunkBuffers, capture_graph, check_chunk,
+                          has_processes, state_tensors, with_state_tensors)
 from ..core.state import SimState
+from ..core.step import ensure_counters
+from ..particles.draws import GeneratorDraws
+from ..utils import kernels
 from .group import SlabGroup
 
 
@@ -88,6 +98,27 @@ def exchange_guards_add(fields, g, comm):
         F = F.clone()
         F[:, :2 * g] += a
         F[:, n - 2 * g:] += b
+        out.append(F)
+    return out
+
+
+def sum_guards(fields, g, periodic):
+    """Every slab's z-real-space field (complex (Nm, Nzl, Nr), one per
+    slab, in rank order) with its neighbours' 2g-wide edge strips added
+    into its own (``exchange_guards_add``'s sum, taken outside the slab
+    threads): each slab's local deposit becomes the global one on its
+    interior.  ``periodic``: the end slabs are neighbours too (a
+    periodic box); an open box adds nothing across its ends.  Returns
+    new tensors."""
+    n = len(fields)
+    out = []
+    for i, F in enumerate(fields):
+        Nzl = F.shape[1]
+        F = F.clone()
+        if i > 0 or periodic:
+            F[:, :2 * g] += fields[(i - 1) % n][:, Nzl - 2 * g:].to(F.device)
+        if i < n - 1 or periodic:
+            F[:, Nzl - 2 * g:] += fields[(i + 1) % n][:, :2 * g].to(F.device)
         out.append(F)
     return out
 
@@ -295,7 +326,9 @@ class Halo:
 def make_multichip_step(config_global, species_configs, options, mesh,
                         axis_name="z", migration_buffer=None, n_guard=None,
                         capture_fns=(), group=None):
-    """Build the decomposed N-step function over ``mesh``.
+    """Build the decomposed N-step function over ``mesh``: the eager slab
+    loop, every step run from Python on each slab's thread.
+    ``SlabMultiStep`` replays the same steps from CUDA graphs.
 
     config_global: the full-box grid config (for open z its Nz already
     includes the edge guard / damp / injection cells, as in the
@@ -308,22 +341,25 @@ def make_multichip_step(config_global, species_configs, options, mesh,
     capture_fns: callables ``cap(state_local, aux, comm)`` evaluated by
     every slab after every step, the state's ``zmin`` the slab's LOCAL
     edge (the back-transformed diagnostics' captures; each reduces over
-    the slabs itself).
+    the slabs itself); a capture function returns the tuple of tensors
+    to keep (or None).
 
     Returns (multi_step, config_local) with
-    ``multi_step(states, auxes, n_steps, slab_kwargs=None)``: states and
-    auxes one per slab (a slab's aux on its device; slabs sharing a
-    device may share one), slab_kwargs one dict per slab of the step
-    function's keyword arguments (inj_auxes, column_angles, generator,
-    antenna_series, ion_auxes, comp_auxes, draws).  Returns the new
-    per-slab states.  ``multi_step.group``, ``.halos``,
+    ``multi_step(states, auxes, n_steps, slab_kwargs=None,
+    capture=None)``: states and auxes one per slab (a slab's aux on its
+    device; slabs sharing a device may share one), slab_kwargs one dict
+    per slab of the step function's keyword arguments (inj_auxes,
+    column_angles, generator, antenna_series, ion_auxes, comp_auxes,
+    draws).  Returns the new per-slab states.  ``capture(rank, state,
+    aux)``, if given, is called after each step in place of the capture
+    functions.  ``multi_step.group``, ``.halos``, ``.step_fns``,
+    ``.migrate``, ``.capture_fns``, ``.config_local``, ``.options``,
     ``.exchange_period`` and ``.migration_buffer`` are exposed."""
     n = mesh.size
     if n_guard is None:
         n_guard = default_n_guard(config_global)
     g = int(n_guard)
     config_local = local_grid_config(config_global, n, g)
-    Nz_int = config_local.Nz - 2 * g
     global_open = config_global.boundaries_z == "open"
     exchange_period = clamped_exchange_period(config_global, g,
                                               options.exchange_period)
@@ -338,14 +374,14 @@ def make_multichip_step(config_global, species_configs, options, mesh,
     step_fns = [step_mod.make_step_fn(config_local, species_configs, options,
                                       halo=h) for h in halos]
 
-    def local_step(rank, state, aux, kw):
+    def migrate(rank, state):
+        """The state (``zmin`` the global edge) with its ``zmin`` the
+        slab's local edge, its particles migrated every exchange period
+        (the cadence of removal, injection and the fresh rho_prev in the
+        base step; the guard clamp keeps strays inside the halo in
+        between) and the psum'd losses added to migration_overflow."""
         halo = halos[rank]
-        rdt = type(state.zmin)
-        zmin_global = state.zmin
-        zmin_local = zmin_global + halo.offset(rdt)
-        # 1. Migration every exchange period (the cadence of removal,
-        #    injection and the fresh rho_prev in the base step); the
-        #    guard clamp keeps strays inside the halo in between
+        zmin_local = state.zmin + halo.offset(type(state.zmin))
         species = list(state.species)
         overflow = state.migration_overflow
         if state.iteration % exchange_period == 0:
@@ -357,28 +393,30 @@ def make_multichip_step(config_global, species_configs, options, mesh,
                     migration_buffer, global_open=global_open)
                 n_lost = n_lost + lost
             overflow = overflow + halo.psum(n_lost)
-        state = dataclasses.replace(state, species=species, zmin=zmin_local,
-                                    migration_overflow=overflow)
-        # 2. The local PIC cycle (the halo exchanges happen inside)
+        return dataclasses.replace(state, species=species, zmin=zmin_local,
+                                   migration_overflow=overflow)
+
+    def local_step(rank, state, aux, kw):
+        zmin_global = state.zmin
+        state = migrate(rank, state)
+        zmin_local = state.zmin
+        # The local PIC cycle (the halo exchanges happen inside)
         state = step_fns[rank](state, aux, **kw)
-        state = dataclasses.replace(state, migration_overflow=overflow)
         return state, zmin_global + (state.zmin - zmin_local)
 
-    def multi_step(states, auxes, n_steps, slab_kwargs=None):
+    def multi_step(states, auxes, n_steps, slab_kwargs=None, capture=None):
         kwargs = slab_kwargs or [{}] * n
 
         def slab(rank):
-            state = states[rank]
-            if state.migration_overflow is None:
-                state = dataclasses.replace(
-                    state, migration_overflow=torch.zeros(
-                        (), dtype=torch.int64,
-                        device=state.spect.Ez.device))
+            state = with_migration_counter(states[rank])
             for _ in range(n_steps):
                 state, zmin_g = local_step(rank, state, auxes[rank],
                                            kwargs[rank])
-                for cap in capture_fns:
-                    cap(state, auxes[rank], halos[rank].comm)
+                if capture is not None:
+                    capture(rank, state, auxes[rank])
+                else:
+                    for cap in capture_fns:
+                        cap(state, auxes[rank], halos[rank].comm)
                 state = dataclasses.replace(state, zmin=zmin_g)
             return state
 
@@ -386,9 +424,290 @@ def make_multichip_step(config_global, species_configs, options, mesh,
 
     multi_step.group = group
     multi_step.halos = halos
+    multi_step.step_fns = step_fns
+    multi_step.migrate = migrate
+    multi_step.capture_fns = tuple(capture_fns)
+    multi_step.config_local = config_local
+    multi_step.options = options
     multi_step.exchange_period = exchange_period
     multi_step.migration_buffer = migration_buffer
     return multi_step, config_local
+
+
+def with_migration_counter(state):
+    """``state`` with its migration_overflow a 0-d int64 device tensor."""
+    if state.migration_overflow is not None:
+        return state
+    return dataclasses.replace(state, migration_overflow=torch.zeros(
+        (), dtype=torch.int64, device=state.spect.Ez.device))
+
+
+class SlabMultiStep:
+    """The chunk runner of the slabs: fbpic_tpu's ``shard_map``'d step
+    chunk (its parallel/domain.py ``make_multichip_step``, a fori_loop
+    inside shard_map), the decomposed counterpart of core/graph.py's
+    ``MultiStep``, built on the eager slab loop ``multi_step`` of
+    ``make_multichip_step``.
+
+    ``runner(states, auxes, n_steps, slab_kwargs, live_counts=(),
+    eager=False)`` runs n_steps <= MAX_CAPTURE steps from the per-slab
+    ``states`` (each slab's ``zmin`` the global edge; left unchanged)
+    and returns (the new states, counts), counts the host values of the
+    chunk's one read: ``resort_redo`` (the slabs' redo flags),
+    ``migration_overflow``, ``sort_overflow`` and ``ring_overwrite``
+    (slab 0's psum'd totals after the chunk), ``live`` ({species index:
+    [its live particles on each slab]} for each index in
+    ``live_counts``), ``rolled_back`` and ``captures`` (each capture
+    function's outputs stacked over the chunk's steps, from slab 0).
+
+    - The exchange block of a step runs eagerly, in the slab threads:
+      the migration every exchange period and, where the step's plan
+      says so (``plan_step``: every exchange period on a slab, whose
+      local box is open), the base step's exchange block (removal,
+      injection with its generator draws, a fresh rho_prev).
+    - The rest of every step is the step with ``exchanged``, its
+      StepScalars taken from each slab's own tables (``ChunkBuffers``
+      with the slab's halo: its local grid edges), the banded re-sort's
+      overflow added into each slab's redo flag, on each slab's static
+      buffers.  On CUDA, with every slab on one card, one graph per
+      variant holds every slab's step: the main thread opens the
+      capture and each slab thread issues its step into the capture
+      stream (``SlabGroup.run(fn, stream)``); the collectives resolve
+      during the capture as they do eagerly (tensors by reference, the
+      exchanges and sums device ops in stream order; the barrier orders
+      the threads' issue, so a sender's writes come before a receiver's
+      reads in the one stream).  A replay is one graph launch a step for
+      every slab, with no thread and no barrier.  On the CPU the slab
+      threads call the same body.  A variant's key is every slab's
+      (n_move, full re-sort).
+    - The capture functions (``cap(state, aux, comm)``) see the state
+      after each step with its time and local grid edge as 0-d tensors
+      of the table row; slab 0 writes their outputs into its static
+      buffers at the device step index, copied to pinned host memory
+      before the chunk's one read.
+    - The chunk's one read stacks every slab's redo flag, slab 0's
+      counters and the live counts; a flag above 0 runs the chunk again
+      from its input states through the eager slab loop (every slab,
+      the generators' states restored), its captures with it.
+      ``eager``: the chunk through the eager slab loop from the start
+      (with the same read, captures and buffers).
+
+    The kernel counters of a capture are taken back out, per slab too,
+    and added again at every replay.  A capture that fails, a host
+    synchronization in any slab's step during the capture, or a slab
+    that raises, raises."""
+
+    def __init__(self, multi_step, species_configs):
+        self.eager_loop = multi_step
+        self.group = multi_step.group
+        self.halos = multi_step.halos
+        self.step_fns = multi_step.step_fns
+        self.capture_fns = multi_step.capture_fns
+        self.exchange_period = multi_step.exchange_period
+        self.species_configs = tuple(species_configs)
+        self._processes = has_processes(self.species_configs)
+        self.bufs = [ChunkBuffers(multi_step.config_local,
+                                  self.species_configs, multi_step.options,
+                                  halo=h) for h in self.halos]
+        #: variant key (every slab's (n_move, full re-sort)) -> (graph,
+        #: launch counts)
+        self.graphs = {}
+        self._pool = self._side = None
+        self._generators = []
+
+    @property
+    def size(self):
+        return len(self.halos)
+
+    # -----------------------------------------------------------------
+    def __call__(self, states, auxes, n_steps, slab_kwargs, live_counts=(),
+                 eager=False):
+        check_chunk(n_steps)
+        states = [ensure_counters(with_migration_counter(s)) for s in states]
+        series = [kw.get("antenna_series", ()) for kw in slab_kwargs]
+        self._ensure_static(states, auxes, series)
+        plans, edges = [], []
+        for b, st, ser in zip(self.bufs, states, series):
+            p, rows, irows = b._plan(st, n_steps, ser)
+            b._upload(rows, irows)
+            plans.append(p)
+            edges.append(b._edges)
+        kws = [dict(kw, antenna_series=b._load_series(ser))
+               for kw, b, ser in zip(slab_kwargs, self.bufs, series)]
+        gens = [g for kw in slab_kwargs
+                for g in (kw.get("generator"),
+                          getattr(kw.get("draws"), "generator", None))
+                if g is not None]
+        self._generators = [kw["draws"].generator for kw in slab_kwargs
+                            if self._processes
+                            and isinstance(kw.get("draws"), GeneratorDraws)]
+        gen_states = [g.get_state() for g in gens]
+        redo = [0] * self.size
+        if not eager:
+            curs = self._run_graphed(states, auxes, kws, plans, edges)
+            vals = self._read(curs, live_counts, flags=True)
+            redo, vals = vals[:self.size], vals[self.size:]
+        if eager or any(r > 0 for r in redo):
+            # The chunk again from its input states through the eager
+            # slab loop (which redoes any sort) and its captures with it
+            for g, st in zip(gens, gen_states):
+                g.set_state(st)
+            for b in self.bufs:
+                b._index.zero_()
+            out = self.eager_loop(states, auxes, n_steps, kws,
+                                  capture=self._eager_capture)
+            self.bufs[0]._copy_captures(n_steps)
+            vals = self._read(out, live_counts)
+        else:
+            out = [with_state_tensors(c, [s.clone() for s in b._static])
+                   for c, b in zip(curs, self.bufs)]
+        lost, n_sort, n_ring, *live = vals
+        live = {i: live[k * self.size:(k + 1) * self.size]
+                for k, i in enumerate(live_counts)}
+        return out, dict(resort_redo=redo, migration_overflow=lost,
+                         sort_overflow=n_sort, ring_overwrite=n_ring,
+                         live=live, rolled_back=not eager and any(
+                             r > 0 for r in redo),
+                         exchanged=any(p.exchange for p in plans[0]),
+                         captures=self.bufs[0]._captures(n_steps))
+
+    def release(self):
+        """Drop the graphs (their memory pool goes with the last) and the
+        static buffers."""
+        for graph, _ in self.graphs.values():
+            graph.reset()
+        self.graphs = {}
+        self._pool = self._side = None
+        for b in self.bufs:
+            b._drop_buffers()
+
+    # -----------------------------------------------------------------
+    def _ensure_static(self, states, auxes, series):
+        """Every slab's buffers; slab 0's capture buffers shaped by one
+        capture of the input states (its collectives need every slab)."""
+        samples = [()] * self.size
+        if self.bufs[0]._signature is None and self.capture_fns:
+            def sample(r):
+                st = states[r]
+                st = dataclasses.replace(st, zmin=st.zmin + self.halos[
+                    r].offset(type(st.zmin)))
+                outs = [cap(st, auxes[r], self.halos[r].comm)
+                        for cap in self.capture_fns]
+                return [o for o in outs if o is not None]
+            samples[0] = self.group.run(sample)[0]
+        for b, st, ser, smp in zip(self.bufs, states, series, samples):
+            b._ensure_static(st, ser, smp)
+
+    def _run_graphed(self, states, auxes, kws, plans, edges):
+        """The chunk on the static buffers: the exchange blocks eagerly
+        in the slab threads, every step's rest replayed (or, on the
+        CPU, run by the slab threads).  Returns the slabs' states on
+        their static buffers (``zmin`` the global edge)."""
+        for b, st in zip(self.bufs, states):
+            for s, t in zip(b._static, state_tensors(st)):
+                s.copy_(t)
+            b._flag.zero_()
+            b._index.zero_()
+        curs = [with_state_tensors(st, b._static)
+                for st, b in zip(states, self.bufs)]
+        for k, step_plans in enumerate(zip(*plans)):
+            plan = step_plans[0]
+            local = [e[k][0] for e in edges]
+            if curs[0].iteration % self.exchange_period == 0 or plan.exchange:
+                def block(r, plan=plan):
+                    st = self.eager_loop.migrate(r, curs[r])
+                    if plan.exchange:
+                        kw = kws[r]
+                        st = self.step_fns[r].exchange(
+                            st, auxes[r], kw.get("inj_auxes", ()),
+                            kw.get("column_angles"), kw.get("generator"))
+                    self.bufs[r]._store(st)
+                    return with_state_tensors(st, self.bufs[r]._static)
+                curs = self.group.run(block)
+            else:
+                curs = [dataclasses.replace(c, zmin=z)
+                        for c, z in zip(curs, local)]
+            key = tuple((p.n_move, p.full_resort) for p in step_plans)
+            self._graphed(key, curs, auxes, kws)
+            curs = [dataclasses.replace(
+                c, time=p.time_end, zmin=e[k][1], mw_zref=p.mw_zref_end,
+                iteration=c.iteration + 1)
+                for c, p, e in zip(curs, step_plans, edges)]
+        self.bufs[0]._copy_captures(len(plans[0]))
+        return curs
+
+    def _body(self, r, cur, aux, kw):
+        """Slab r's step on its static buffers (an exchange step's
+        exchange block already run): its scalars from its tables' row,
+        the banded re-sort's overflow into its flag, the result copied
+        back, the captures, its index advanced."""
+        b = self.bufs[r]
+        row, irow = b._row()
+        new = self.step_fns[r](cur, aux, scalars=b._scalars(row, irow),
+                               redo_flag=b._flag, exchanged=True, **kw)
+        b._store(new)
+        self._capture(r, with_state_tensors(new, b._static), aux, row)
+        b._index.add_(1)
+
+    def _capture(self, r, state, aux, row):
+        """The capture functions of slab r's state after a step, its time
+        and local grid edge those of the table row; slab 0 keeps their
+        outputs."""
+        if not self.capture_fns:
+            return
+        time, zmin = ChunkBuffers._end_values(row)
+        state = dataclasses.replace(state, time=time, zmin=zmin)
+        outs = [cap(state, aux, self.halos[r].comm)
+                for cap in self.capture_fns]
+        if r == 0:
+            self.bufs[0]._write_captures([o for o in outs if o is not None])
+
+    def _eager_capture(self, r, state, aux):
+        b = self.bufs[r]
+        self._capture(r, state, aux, b._row()[0])
+        b._index.add_(1)
+
+    def _graphed(self, key, curs, auxes, kws):
+        """Every slab's step (after its exchange block) of variant
+        ``key``: the body in the slab threads on the CPU; on CUDA a
+        replay, or, at the variant's first step, its warm-up (the
+        slabs' steps, eagerly, on a side stream) and its capture."""
+        def body(r):
+            self._body(r, curs[r], auxes[r], kws[r])
+        dev = self.bufs[0]._table.device
+        if dev.type != "cuda":
+            self.group.run(body)
+            return
+        if key in self.graphs:
+            graph, counts = self.graphs[key]
+            graph.replay()
+            kernels.add_launches(*counts)
+            return
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=dev)
+            self._pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(dev)
+        self._side.wait_stream(main)
+        self.group.run(body, stream=self._side)
+        main.wait_stream(self._side)
+        self.graphs[key] = capture_graph(
+            lambda stream: self.group.run(body, stream=stream), self._pool,
+            self._generators, f"the slabs' step (n_move, full re-sort: "
+            f"{key})")
+
+    def _read(self, states, live_counts, flags=False):
+        """The chunk's one host read: every slab's redo flag (with
+        ``flags``), slab 0's migration, sort and ring counters (psum'd:
+        every slab holds the totals), each slab's live count of each
+        species in ``live_counts``, stacked on slab 0's device."""
+        dev = states[0].sort_overflow.device
+        vals = [b._flag for b in self.bufs] if flags else []
+        st0 = states[0]
+        vals += [st0.migration_overflow, st0.sort_overflow,
+                 st0.ring_overwrite]
+        vals += [(st.species[i].w != 0).sum() for i in live_counts
+                 for st in states]
+        return torch.stack([v.to(dev) for v in vals]).tolist()
 
 
 def local_aux(config_local, **kwargs):

@@ -13,10 +13,16 @@ a mailbox and a ``threading.Barrier``:
   ``BrokenBarrierError`` at their next collective, and the run fails
   with the first slab's own exception;
 - ``psum`` adds the slabs' values in rank order on every slab: each
-  slab gets the same, deterministic result.
+  slab gets the same, deterministic result;
+- slabs on CUDA devices take turns: one thread issues at a time and
+  hands the turn on at a collective (their ops only queue launches;
+  two threads issuing at once hand the interpreter lock back and forth
+  at every launch); CPU slabs run side by side.
 
 Tensors travel between slabs by reference.  Slabs on one card issue on
-its (default) stream, so issue order orders a sender's writes before a
+one stream -- its current stream, or the stream ``run`` is given (a
+CUDA graph's capture stream: the capture then records every slab's work
+in issue order) --, so issue order orders a sender's writes before a
 receiver's reads.  Slabs on different cards copy with
 ``Tensor.to(device, non_blocking=True)``: torch's cross-device copy
 already makes the copy wait for both cards' current streams and makes
@@ -50,17 +56,28 @@ class SlabGroup:
         self._barrier = threading.Barrier(self.size, timeout=timeout)
         self._box = [[None] * self.size, [None] * self.size]
         self._calls = [0] * self.size
+        #: CUDA slabs only queue launches: one thread at a time issues,
+        #: and the turn passes at a collective, so the threads do not
+        #: hand the interpreter lock to each other at every launch.  CPU
+        #: slabs compute in their ops, side by side.
+        self._turn = (threading.Lock() if all(d.type == "cuda"
+                                              for d in self.devices)
+                      else None)
 
     def comm(self, rank):
         """The handle slab ``rank`` calls the collectives through."""
         return SlabComm(self, rank)
 
-    def run(self, fn):
+    def run(self, fn, stream=None):
         """Run ``fn(rank)`` for every slab, each in a thread of its own
         (set to its slab's CUDA device; the kernel launch counters count
-        per slab), and return the results in rank order.  A slab that
-        raises aborts the barrier; the first slab exception that is not
-        the others' ``BrokenBarrierError`` is raised here once every
+        per slab), and return the results in rank order.  ``stream``: a
+        CUDA stream every thread enters as its current stream (torch's
+        current stream is per thread) -- a graph's capture stream, whose
+        capture then records every slab's work in issue order; by
+        default each thread issues on its card's current stream.  A slab
+        that raises aborts the barrier; the first slab exception that is
+        not the others' ``BrokenBarrierError`` is raised here once every
         thread has ended."""
         if self._barrier.broken:
             self._barrier.reset()
@@ -70,14 +87,23 @@ class SlabGroup:
 
         def body(rank):
             kernels.current_slab.rank = rank
+            if self._turn is not None:
+                self._turn.acquire()
             try:
                 dev = self.devices[rank]
                 if dev.type == "cuda":
                     torch.cuda.set_device(dev)
-                results[rank] = fn(rank)
+                if stream is None:
+                    results[rank] = fn(rank)
+                else:
+                    with torch.cuda.stream(stream):
+                        results[rank] = fn(rank)
             except BaseException as exc:   # noqa: BLE001 -- re-raised below
                 errors[rank] = exc
                 self._barrier.abort()
+            finally:
+                if self._turn is not None:
+                    self._turn.release()
 
         threads = [threading.Thread(target=body, args=(r,),
                                     name=f"slab-{r}", daemon=True)
@@ -114,7 +140,14 @@ class SlabComm:
         slot = g._box[g._calls[self.rank] % 2]
         g._calls[self.rank] += 1
         slot[self.rank] = value
-        g._barrier.wait()
+        if g._turn is None:
+            g._barrier.wait()
+            return list(slot)
+        g._turn.release()
+        try:
+            g._barrier.wait()
+        finally:
+            g._turn.acquire()
         return list(slot)
 
     def _here(self, t):

@@ -29,8 +29,9 @@ done again.  It takes the default source into its graphs: a
 ``GeneratorDraws`` (or a subclass) of the simulation's ``generator``,
 which ignores ``iteration`` and draws on the device from that
 generator; the runner registers the generator with every graph it
-captures, so that each replay draws fresh numbers from its Philox
-offset, which advances as the eager step's would.  A run with another
+captures (the slabs' runner, parallel/domain.py, each slab's own), so
+that each replay draws fresh numbers from its Philox offset, which
+advances as the eager step's would.  A run with another
 source keeps the eager loop on CUDA (core/graph.py's
 ``graph_blockers``); on the CPU the runner calls the step itself, so
 any source works there.

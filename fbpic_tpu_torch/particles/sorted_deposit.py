@@ -106,9 +106,16 @@ def banded_column_resort(padded, zmin, invdz, Nz, K, band,
 
     Escapees one row past the band (a float32 cell-edge coordinate
     rounding across an integer) are clamped into the nearest in-band
-    row.  ``n_over`` counts kept candidates beyond K per row plus live
-    particles left unplaced.  Ported from fbpic_tpu's code; its
-    periodic-seam behaviour for Nz <= 4*band + 2 is the reference's.
+    row.  ``n_over`` counts kept candidates beyond K per row, live
+    particles left unplaced and particles kept more than once (a count
+    >= 0, so that one never hides another); on a periodic grid also the
+    particles more than band + 1 rows from their stored row.  Ported
+    from fbpic_tpu's code, with one deviation: on a small periodic grid
+    (Nz <= 4*band + 2) such a particle wraps into the candidates of two
+    rows and fbpic_tpu keeps it twice, its duplicate subtracting from
+    its ``n_over``; here it counts, and the caller takes the full sort
+    (core/step.py).  In clamp z the count is fbpic_tpu's: a particle is
+    kept at most once there.
     """
     z, w = padded[2], padded[3]
     dev = z.device
@@ -141,9 +148,20 @@ def banded_column_resort(padded, zmin, invdz, Nz, K, band,
                               torch.zeros((), dtype=a.dtype, device=dev))
                   for a in padded]
     n_col_over = torch.clamp(kept.sum(dim=1) - K, min=0).sum()
-    n_unplaced = live.sum() - kept.sum()
-    return dict(padded=new_padded, valid=valid,
-                n_over=n_col_over + n_unplaced)
+    # How often each stored slot is kept: 0 (unplaced) and > 1 (kept in
+    # two rows) both count
+    src = (torch.remainder(dest + off[None, :], Nz) * K
+           + torch.arange(M, device=dev)[None, :] % K)
+    times = torch.zeros(Nz * K, dtype=torch.int64, device=dev).scatter_add_(
+        0, src.reshape(-1), kept.reshape(-1).long())
+    n_unplaced = (live.reshape(-1) & (times == 0)).sum()
+    n_twice = torch.clamp(times - 1, min=0).sum()
+    n_over = n_col_over + n_unplaced + n_twice
+    if zfold == "periodic":
+        stored = torch.arange(Nz, device=dev)[:, None]
+        far = torch.remainder(col - stored + Nz // 2, Nz) - Nz // 2
+        n_over = n_over + (live & (far.abs() > band + 1)).sum()
+    return dict(padded=new_padded, valid=valid, n_over=n_over)
 
 
 def _padded_arrays(sort, arrays):

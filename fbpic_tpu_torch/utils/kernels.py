@@ -78,9 +78,18 @@ def launch_counts():
         return {fn: fn.launches for fn in _counted}
 
 
-def add_launches(delta):
-    """Add {wrapper: n} to the wrappers' counts (n may be negative).  A
-    CUDA graph's capture runs the wrappers' Python, which counts, but
+def slab_launch_counts():
+    """{wrapper: {slab rank: launches}} of every wrapper that has counted
+    one in a slab thread."""
+    with _count_lock:
+        return {fn: dict(fn.__dict__.get("launches_by_slab", {}))
+                for fn in _counted}
+
+
+def add_launches(delta, by_slab=None):
+    """Add {wrapper: n} to the wrappers' counts, and {wrapper: {slab
+    rank: n}} to their per-slab counts (n may be negative).  A CUDA
+    graph's capture runs the wrappers' Python, which counts, but
     launches nothing; its replays launch what it recorded without
     running any Python: core/graph.py takes each capture's counts back
     out with this and adds them again at every replay."""
@@ -88,6 +97,11 @@ def add_launches(delta):
         for fn, n in delta.items():
             _counted.add(fn)
             fn.launches += n
+        for fn, ranks in (by_slab or {}).items():
+            _counted.add(fn)
+            counts = fn.__dict__.setdefault("launches_by_slab", {})
+            for rank, n in ranks.items():
+                counts[rank] = counts.get(rank, 0) + n
 
 
 def _nvcc():

@@ -59,7 +59,11 @@ only PyTorch; there, skip the JAX-based conftest:
   LWFA on 2 slabs of the card against its single-card twin (5e-3) with
   one K1 and one K2 per slab per step; the mesh's slabs spread over
   the cards against the same slabs sharing one, where the machine has
-  two or more;
+  two or more; the slabs' chunk runner (one CUDA graph a variant holding
+  both slabs' steps) bit for bit with the eager slab loop under
+  deterministic index_add_, one K1 and one K2 per slab per step counted
+  on the replays, a planted overflow rolled back on every slab, a host
+  read in one slab's captured step raising;
 - the chunk runner (core/graph.py): K2 reading zmin from device memory
   (a CUDA graph of one call replayed after the value changed); a
   resident LWFA through Simulation.step (the step replayed from a
@@ -1831,31 +1835,36 @@ def test_slabs_on_several_cards_match_slabs_sharing_one(cuda):
     _states_close(one.states, many.states, 1e-10)
 
 
+def _slab_lwfa(exchange_period=1):
+    """tests/test_multichip.py's LWFA in float32 on the card (the
+    resident layout: K1 and K2)."""
+    from fbpic_tpu_torch import Simulation
+    from fbpic_tpu_torch.constants import c
+    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
+    nz, zmax, zmin = 130, 12.e-6, -4.e-6
+    sim = Simulation(nz, zmax, 20, 10.e-6, 2, (zmax - zmin) / nz / c,
+                     p_zmin=2.e-6, p_zmax=200.e-6, p_rmin=0.,
+                     p_rmax=9.e-6, p_nz=1, p_nr=2, p_nt=4, n_e=5.e24,
+                     zmin=zmin, n_order=16,
+                     boundaries={"z": "open", "r": "reflective"},
+                     exchange_period=exchange_period, random_seed=0,
+                     verbose_level=0)
+    add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6,
+                                       tau=8.e-15, z0=6.e-6))
+    sim.set_moving_window(v=c)
+    return sim
+
+
 @pytest.mark.cuda
 def test_float32_lwfa_on_two_slabs_of_the_card(cuda):
     """tests/test_multichip.py's LWFA in float32 (the card's resident
     layout: K1 and K2) on 2 slabs sharing the card against the single
     card, 30 steps: Ez within 5e-3, the live count equal, one K1 and one
     K2 per slab per step."""
-    from fbpic_tpu_torch import Simulation
-    from fbpic_tpu_torch.constants import c
-    from fbpic_tpu_torch.lpa_utils.laser import add_laser_pulse, GaussianLaser
     from fbpic_tpu_torch.parallel import distribute_simulation
     from fbpic_tpu_torch.fields import transform as tr
     n_steps = 30
-
-    def build():
-        nz, zmax, zmin = 130, 12.e-6, -4.e-6
-        sim = Simulation(nz, zmax, 20, 10.e-6, 2, (zmax - zmin) / nz / c,
-                         p_zmin=2.e-6, p_zmax=200.e-6, p_rmin=0.,
-                         p_rmax=9.e-6, p_nz=1, p_nr=2, p_nt=4, n_e=5.e24,
-                         zmin=zmin, n_order=16,
-                         boundaries={"z": "open", "r": "reflective"},
-                         exchange_period=1, random_seed=0, verbose_level=0)
-        add_laser_pulse(sim, GaussianLaser(a0=0.5, waist=4.e-6,
-                                           tau=8.e-15, z0=6.e-6))
-        sim.set_moving_window(v=c)
-        return sim
+    build = _slab_lwfa
     single = build()
     assert single.species_configs[0].resident
     single.step(n_steps)
@@ -1871,6 +1880,113 @@ def test_float32_lwfa_on_two_slabs_of_the_card(cuda):
     assert sum(int((s.species[0].w != 0).sum()) for s in run.states) == int(
         (single.state.species[0].w != 0).sum())
     assert run.overflow_totals["migration_overflow"] == 0
+
+
+def _slab_twins(n_steps, **dist_kw):
+    """The LWFA of _slab_lwfa (exchange period 4) on 2 slabs of cuda:0
+    twice from the same seeds: the chunk runner's run (its steps
+    replayed from CUDA graphs) and the eager slab loop, n_steps each
+    under deterministic index_add_; the graphed run's kernel counts
+    per slab (set to 0 just before it)."""
+    from fbpic_tpu_torch.parallel import distribute_simulation
+    runs, counts = [], None
+    with _deterministic():
+        for eager in (False, True):
+            run = distribute_simulation(_slab_lwfa(exchange_period=4),
+                                        devices=["cuda:0"] * 2, n_guard=24,
+                                        **dist_kw)
+            run.eager = eager
+            _reset_slab_counts()
+            run.step(n_steps)
+            torch.cuda.synchronize()
+            if not eager:
+                counts = _slab_counts()
+            runs.append(run)
+    return runs, counts
+
+
+def _assert_slabs_equal(a, b):
+    from fbpic_tpu_torch.core.graph import state_tensors
+    for r, (sa, sb) in enumerate(zip(a.states, b.states)):
+        for i, (x, y) in enumerate(zip(state_tensors(sa),
+                                       state_tensors(sb))):
+            assert torch.equal(x, y), (r, i)
+        for name in ("time", "zmin", "mw_zref", "iteration"):
+            assert getattr(sa, name) == getattr(sb, name), (r, name)
+    for ga, gb in zip(a._generators, b._generators):
+        assert torch.equal(ga.get_state(), gb.get_state())
+
+
+@pytest.mark.cuda
+def test_graphed_slabs_match_the_eager_slab_loop(cuda):
+    """The slabs' chunk runner on 2 slabs of the card: one CUDA graph a
+    variant holds both slabs' steps (captured from the slab threads into
+    one capture stream), every other step replayed; 22 steps bit for bit
+    with the eager slab loop under deterministic index_add_, one K1 and
+    one K2 per slab per step counted on the replays."""
+    n_steps = 22
+    (graphed, eager), counts = _slab_twins(n_steps)
+    assert graphed.graph_blockers == [] and graphed.exchange_period == 4
+    assert graphed.runner.graphs and not eager.runner.graphs
+    assert counts == {"K1": {0: n_steps, 1: n_steps},
+                      "K2": {0: n_steps, 1: n_steps}, "K3": {}}
+    _assert_slabs_equal(graphed, eager)
+    assert graphed.overflow_totals == eager.overflow_totals == {
+        "migration_overflow": 0, "sort_overflow": 0, "ring_overwrite": 0}
+
+
+@pytest.mark.cuda
+def test_graphed_slabs_roll_back_a_planted_overflow(cuda):
+    """A column overflow planted on slab 1 at a replayed step: the
+    chunk's one read sees its redo flag, every slab runs the chunk again
+    through the eager slab loop, and the result equals the eager run."""
+    import dataclasses
+    import warnings
+    (graphed, eager), _ = _slab_twins(5, on_migration_overflow="warn")
+    for run in (graphed, eager):
+        cfg, K = run.config_local, run.sim.species_configs[0].sort_K
+        st = run.states[1]
+        sp = st.species[0]
+        live = (sp.w != 0).reshape(cfg.Nz, K)
+        counts = live.sum(1)
+        row = int(torch.argmax(counts[:-2] + counts[1:-1] + counts[2:])) + 1
+        assert int(counts[row - 1:row + 2].sum()) > K
+        z = sp.z.clone().reshape(cfg.Nz, K)
+        for r in (row - 1, row + 1):
+            z[r] = torch.where(live[r], z[r] + (row - r) * cfg.dz, z[r])
+        run.states[1] = dataclasses.replace(
+            st, species=[sp.replace(z=z.reshape(-1))])
+    with _deterministic(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for run in (graphed, eager):
+            run.step(3)
+    assert graphed.overflow_totals.get("rollbacks") == 1
+    assert graphed.overflow_totals["sort_overflow"] == \
+        eager.overflow_totals["sort_overflow"] > 0
+    _assert_slabs_equal(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_graphed_slabs_capture_raises_on_a_host_sync(cuda, monkeypatch):
+    """A host read in one slab's step during the capture raises, with
+    the slabs' variant in the message (no fallback to the eager slab
+    loop), and the sync debug mode is restored."""
+    from fbpic_tpu_torch.core import step as step_module
+    from fbpic_tpu_torch.parallel import distribute_simulation
+    from fbpic_tpu_torch.utils import kernels
+    real = step_module.gather_fields_sorted
+
+    def reads_back(*args, **kwargs):
+        if kernels.current_slab.rank == 1:
+            int(args[3].sum())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(step_module, "gather_fields_sorted", reads_back)
+    run = distribute_simulation(_slab_lwfa(exchange_period=4),
+                                devices=["cuda:0"] * 2, n_guard=24)
+    with pytest.raises(RuntimeError, match="capturing the slabs' step"):
+        run.step(3)
+    assert torch.cuda.get_sync_debug_mode() == 0
 
 
 # ---------------------------------------------------------------------
