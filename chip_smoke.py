@@ -677,7 +677,8 @@ def eager_steps(sim, n_steps):
     antennas' series per fbpic_tpu chunk, the capturing diagnostics'
     capture and the plain writers after each step), the captures
     consumed, then the overflow read -- the loop Simulation.step runs
-    where the configuration keeps it (core/graph.py's graph_blockers)."""
+    where the configuration keeps it (a ``loop`` reason of
+    core/graph.py's graph_blockers)."""
     from fbpic_tpu_torch.core.step import make_prepare
     options = sim.build_options()
     sim.state = make_prepare(sim.config, sim.species_configs, options)(
@@ -716,7 +717,7 @@ def capture_calls(sim, module, name):
 
     setattr(module, name, recorder)
     try:
-        if graph_blockers(sim, sim.build_options()):
+        if graph_blockers(sim, sim.build_options()).loop:
             sim.step(1)
         else:
             eager_steps(sim, 1)
@@ -1694,7 +1695,7 @@ def phase_lwfa_script(counters, untracked_ms, workdir):
     ckpt_dir = os.path.join(workdir, "checkpoints")
     sim, elec = make_lwfa_script_sim()
     sp0 = sim.state.species[0]
-    n_tracked = sp0.next_id - 1
+    n_tracked = int(sp0.next_id) - 1
     z_end0 = float(sp0.inj_z_end)
     col_size = sim._injector_auxes[0].r.shape[0]
     dz_p = sim._injector_configs[0].dz_particles
@@ -1758,14 +1759,15 @@ def phase_lwfa_script(counters, untracked_ms, workdir):
     n_unique = int(torch.unique(ids).numel())
     candidates = int(round((float(sp.inj_z_end) - z_end0) / dz_p)) \
         * col_size
+    next_id = int(sp.next_id)
     print(f"tracking: {ids.numel()} live ids, {n_unique} unique, "
-          f"{int((ids == 0).sum())} zero; next_id {sp.next_id} = 1 + "
+          f"{int((ids == 0).sum())} zero; next_id {next_id} = 1 + "
           f"{n_tracked} numbered + {candidates} injected candidates",
           flush=True)
     if n_unique != ids.numel() or int((ids == 0).sum()):
         raise RuntimeError("tracking ids not unique among live slots")
-    if sp.next_id != 1 + n_tracked + candidates:
-        raise RuntimeError(f"next_id {sp.next_id} != 1 + {n_tracked} + "
+    if next_id != 1 + n_tracked + candidates:
+        raise RuntimeError(f"next_id {next_id} != 1 + {n_tracked} + "
                            f"{candidates}")
     # Checkpoints: the round trip, write / read times
     uninterrupted = checkpoint_dict(sim)
@@ -2215,10 +2217,10 @@ def phase_cross_deposition(counters):
     launches, metrics = drive_path(sim, counters, N_WARMUP, N_NEW_TIMED,
                                    label, {"K1": 0, "K2": 0, "K3": 2})
     metrics["live_particles"] = check_live_count(sim, label)
-    cursors = [sim.state.species[0].next_free]
+    cursors = [int(sim.state.species[0].next_free)]
     for _ in range(2):
         sim.step(1)
-        cursors.append(sim.state.species[0].next_free)
+        cursors.append(int(sim.state.species[0].next_free))
     if len(set(cursors)) != 3:
         raise RuntimeError(f"{label}: the exchange block did not run every "
                            f"step (ring cursor {cursors})")
@@ -3755,8 +3757,8 @@ def chen2013_gate(dtype):
     ok = 0.30 < frac < 0.34 and sim.overflow_totals["ring_overwrite"] == 0
     for lvl, view in targets.items():
         tw = float(sim.state.species[view._index].w.double().sum())
-        gone = float(sum(removed[view._index]).item()) \
-            if removed[view._index] else 0.0
+        gone = float(removed[view._index]) \
+            if removed[view._index] is not None else 0.0
         through = float(w[lev > lvl].sum())
         routed[lvl] = dict(species=tw, removed=gone, ions_through=through,
                            rel_gap=(tw + gone - through) / through)
@@ -3771,19 +3773,25 @@ def chen2013_gate(dtype):
 @contextlib.contextmanager
 def counted_removal(n_species):
     """Wrap core/step.py's remove_outside_particles (one call a species,
-    in species order, on every exchange step of an open-z run) to count
-    the weight it removes from each species: a list per species of 0-d
-    float64 tensors, read after the run."""
+    in species order, in every exchange block of an open-z run) to add
+    the weight it removes from each species into a float64 device
+    accumulator of that species (None where nothing was removed yet),
+    read after the run.  The accumulation is a device op: a captured
+    exchange block replays it with the removal."""
     import torch
     from fbpic_tpu_torch.core import step as step_mod
     real = step_mod.remove_outside_particles
-    removed = [[] for _ in range(n_species)]
+    removed = [None] * n_species
     calls = [0]
 
-    def counted(config, sp, zmin, bounds=None):
-        out = real(config, sp, zmin, bounds)
-        removed[calls[0] % n_species].append(
-            sp.w.to(torch.float64).sum() - out.w.to(torch.float64).sum())
+    def counted(sp, removal):
+        out = real(sp, removal)
+        i = calls[0] % n_species
+        if removed[i] is None:
+            removed[i] = torch.zeros((), dtype=torch.float64,
+                                     device=sp.w.device)
+        removed[i].add_(sp.w.to(torch.float64).sum()
+                        - out.w.to(torch.float64).sum())
         calls[0] += 1
         return out
     step_mod.remove_outside_particles = counted
@@ -4047,7 +4055,13 @@ TOL_ATOMIC_RHO = 1e-6
 
 
 def picmi_density(z, r):
-    """PICMI_DENSITY written by hand, with the same numpy operations."""
+    """PICMI_DENSITY written by hand, with the same operations: numpy's
+    on host arrays (the initial load), torch's on tensors (the injection,
+    on the card, as picmi's analytic_density evaluates it)."""
+    import torch
+    if torch.is_tensor(z):
+        one = torch.full((), 1., dtype=z.dtype, device=z.device)
+        return N_E * torch.where(z < PICMI_RAMP, z / PICMI_RAMP, one)
     return N_E * np.where(z < PICMI_RAMP, z / PICMI_RAMP, 1.)
 
 
@@ -4347,6 +4361,18 @@ def phase_reference_script(counters):
         raise RuntimeError(f"{label}: unexpected run")
     if launches != {"K1": 48, "K2": 48, "K3": 0}:
         raise RuntimeError(f"{label}: launches {launches}")
+    # Its dens_func is numpy code: the probe keeps it on the host, and
+    # the exchange block of an exchange step runs eagerly (the rest of
+    # the chunk replays its graphs)
+    from fbpic_tpu_torch.core.graph import graph_blockers
+    blockers = graph_blockers(sim, sim.build_options())
+    print(f"{label}: graph_blockers {blockers}", flush=True)
+    if blockers.loop or not any("density function" in b
+                                for b in blockers.exchange) \
+            or sim._multi_step is None:
+        raise RuntimeError(f"{label}: the host density function is not "
+                           f"named: {blockers}")
+    out["graph_blockers"] = blockers._asdict()
     for s in (sim, rest):
         check_fields(s, label)
         if lost(s.overflow_totals):
@@ -4915,7 +4941,7 @@ def phase_multichip_lwfa(counters):
             or launches != {"K1": MC_SLABS * n, "K2": MC_SLABS * n,
                             "K3": 0}:
         raise RuntimeError(f"{label}: launches {launches} / {by_slab}")
-    if not run.graph_blockers and not variants:
+    if not run.graph_blockers.loop and not variants:
         raise RuntimeError(f"{label}: the graphed slabs captured no graph")
     if lost(run.overflow_totals) or lost(run_e.overflow_totals) or \
             lost(twin.sim.overflow_totals):
@@ -4978,7 +5004,7 @@ def phase_multichip_lwfa(counters):
                         records={str(k): v for k, v in rec_dev.items()},
                         launches=launches, launches_by_slab=by_slab,
                         graph_variants=[list(v) for v in variants],
-                        graph_blockers=run.graph_blockers)
+                        graph_blockers=run.graph_blockers._asdict())
     slab, row, rolled = slabs_planted_rollback(label, run, run_e)
     out["planted_rollback"] = dict(slab=slab, row=row, rollbacks=rolled)
     out["k1_slabs"], out["k2_slabs"] = phase_multichip_kernels(run, label)
@@ -5017,8 +5043,14 @@ def phase_multichip_lwfa(counters):
         print(f"{label} ({key}): {ms:.4f} ms/step over {N_COST} steps, "
               f"{m.get('device_ms_per_step')} ms/step device busy, idle "
               f"share {m.get('idle_share')}, {m.get('launches_per_step')} "
-              f"launches a step, {syncs['count']} host syncs in step(14)",
-              flush=True)
+              f"launches a step, {m.get('host_launch_calls_per_step')} host "
+              f"launch calls a step, {syncs['count']} host syncs in "
+              f"step(14)", flush=True)
+        if key == "slabs" and syncs["count"] > 1:
+            # the migration and the exchange block replay in the graphs:
+            # the chunk's one read is the only sync
+            raise RuntimeError(f"{label}: {syncs['count']} host syncs in "
+                               f"step(14), not 1")
         out[key] = m
     warnings.filters.pop(0)
     out["slabs"]["graph_variants"] = [list(v) for v in
@@ -5287,14 +5319,16 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
     (eager_steps), both built by build() from the same seeds (and, with
     run_up, both stepped run_up steps by Simulation.step first): n_steps
     steps each in one call, the graphed run's kernel counts (set to 0
-    just before it) exactly per_step a step, its graph variants (n_move,
-    full re-sort) variants_want; every array bit for bit but rho_prev; a
+    just before it) exactly per_step a step, exchange steps included,
+    its graph variants (n_move, full re-sort, exchange block inside)
+    variants_want; every array bit for bit but rho_prev; a
     back-transformed field diagnostic's captured rows and snapshots bit
     for bit; no loss; windows(graphed, twin, eager), if given (more steps
     with a mirror, an external field); then each run's ms/step, peak
     memory, profiled window (device busy, launches, host launch calls)
     and host syncs of an exchange period (at most syncs_max for the
-    graphed run), in the same calls on both after one untimed exchange
+    graphed run; host launch calls a step beside them), in the same
+    calls on both after one untimed exchange
     period, and the equality once more; with plant, a column overflow
     planted in both at a non-exchange step, and the graphed call that
     rolls back equal to the twin's.  With deterministic, both builds,
@@ -5393,8 +5427,8 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
     # The graph's copy of the step's results into the static buffers
     # (every state tensor once): its bytes and its time on the card
     from fbpic_tpu_torch.core.graph import state_tensors
-    pairs = list(zip(graphed._multi_step._static,
-                     state_tensors(graphed.state)))
+    runner = graphed._multi_step
+    pairs = list(zip(runner._static, state_tensors(graphed.state)))
     state_bytes = sum(t.numel() * t.element_size() for _, t in pairs)
     copy_ms = cuda_ms(lambda: [s.copy_(t) for s, t in pairs])
     copy_bound, _ = bound(2 * state_bytes, 0)      # read and write once
@@ -5445,8 +5479,10 @@ def graph_pair(label, build, per_step, counters, variants_want, n_steps,
             profile=prof, idle_share=None if prof is None else
             1 - prof["device_ms_per_step"] / ms)
         busy = None if prof is None else prof["device_ms_per_step"]
+        calls = None if prof is None else prof["host_launch_calls_per_step"]
         print(f"{label} {name}: {ms:.4f} ms/step, device busy {busy} "
-              f"ms/step, idle share {out[name]['idle_share']}, peak "
+              f"ms/step, idle share {out[name]['idle_share']}, "
+              f"{calls} host launch calls a step, peak "
               f"{peak:.3f} GB above the run's start, "
               f"{syncs['count']} host syncs in step({sim.exchange_period})",
               flush=True)
@@ -5633,10 +5669,15 @@ def phase_graph_paths(counters, smi):
     (phase 19: photons into a 524,288-slot ring across the overlap) and
     the ballistic PWFA (phase 15's bunch crossing an injection plane),
     each beside its eager twin (graph_pair); the bench run and the
-    ionization LWFA also roll back a planted column overflow.  At most
-    one host sync an exchange period (the chunk's read), two with the
-    BTD (its first write at the call's start), four for the PICMI LWFA
-    (its dens_func's three)."""
+    ionization LWFA also roll back a planted column overflow.  Every
+    exchange step's exchange block (removal, injection, a fresh
+    rho_prev; the PICMI LWFA's density evaluated with torch) replays
+    inside its step's graph.  At most one host sync an exchange period
+    (the chunk's read), two with the BTD (its first write at the call's
+    start).  The bench, PICMI and boosted LWFA's graphed ms/step, device
+    busy, idle share, host launch calls a step and host syncs of an
+    exchange period are printed beside the card's name and power
+    limit."""
     import torch
     workdir = tempfile.mkdtemp()
 
@@ -5649,10 +5690,11 @@ def phase_graph_paths(counters, smi):
     none = {"K1": 0, "K2": 0, "K3": 0}
     resident = {"K1": 1, "K2": 1, "K3": 0}
     boosted = {"K1": 0, "K2": 1, "K3": 2}
-    # the variants (n_move, full re-sort): the exchange steps' rest is
-    # replayed too, fully re-sorted
-    one = [(1, False), (1, True)]
-    two = [(1, False), (1, True), (2, False), (2, True)]
+    # the variants (n_move, full re-sort, exchange block inside): an
+    # exchange step is replayed whole, fully re-sorted
+    one = [(1, False, False), (1, True, True)]
+    two = [(1, False, False), (1, True, True), (2, False, False),
+           (2, True, True)]
     # (label, build, launches a step, graph variants, steps, and
     # graph_pair's options)
     paths = (
@@ -5660,8 +5702,7 @@ def phase_graph_paths(counters, smi):
          dict(plant=True)),
         ("boosted LWFA", make_boosted_sim, boosted, two, GRAPH_STEPS_BOOSTED,
          dict(deterministic=True, atomics=True)),
-        ("PICMI LWFA", picmi_sim, resident, one, GRAPH_STEPS,
-         dict(syncs_max=4)),
+        ("PICMI LWFA", picmi_sim, resident, one, GRAPH_STEPS, {}),
         ("boosted LWFA + BTD",
          lambda: with_btd(make_boosted_sim(), workdir), boosted, two,
          GRAPH_STEPS_BOOSTED, dict(deterministic=True, syncs_max=2)),
@@ -5693,8 +5734,27 @@ def phase_graph_paths(counters, smi):
         out[label] = graph_pair(label, build, per_step, counters, variants,
                                 n_steps, **kw)
         torch.cuda.empty_cache()
+    for label in ("bench LWFA", "PICMI LWFA", "boosted LWFA"):
+        print(graphed_summary(label, out[label]["graphed"], smi), flush=True)
     print(f"graph paths on {smi}", flush=True)
     return out
+
+
+def graphed_summary(label, m, smi):
+    """One line of a graphed path's cost beside the card's name and
+    power limit: ms/step, device busy, idle share, host launch calls a
+    step and host syncs of an exchange period (graph_pair's or phase
+    24's metrics)."""
+    prof = m.get("profile") or {}
+    busy = prof.get("device_ms_per_step", m.get("device_ms_per_step"))
+    calls = prof.get("host_launch_calls_per_step",
+                     m.get("host_launch_calls_per_step"))
+    syncs = m.get("host_syncs_exchange_period",
+                  m.get("host_syncs_step14", {}))
+    return (f"graphed {label} on {smi}: {m['ms_per_step']:.4f} ms/step, "
+            f"device busy {busy} ms/step, idle share {m.get('idle_share')}, "
+            f"{calls} host launch calls a step, {syncs.get('count')} host "
+            f"syncs a step(14)")
 
 
 def phase_resident_mesh_f64(counters):
@@ -5905,6 +5965,8 @@ def main():
     k2["launches_golden_f64"] = golden_launches["K2"]
     k3["launches_golden_f64"] = golden_launches["K3"]
     mc_launches, multichip = phase_multichip_lwfa(counters)
+    print(graphed_summary(f"{MC_SLABS}-slab multichip LWFA",
+                          multichip["slabs"], smi), flush=True)
     k1["launches_multichip"] = mc_launches["K1"]
     k2["launches_multichip"] = mc_launches["K2"]
     k1["multichip_slabs"] = multichip.pop("k1_slabs")

@@ -8,36 +8,47 @@ counters once per call.  ``MultiStep`` is the port's counterpart: it
 runs a chunk of up to ``MAX_CAPTURE`` steps with one host read at its
 end.
 
-- The exchange block of an exchange step (removal, injection and a
-  fresh rho_prev, every ``exchange_period`` steps of an open-z run,
-  ``step.exchange``) runs eagerly, outside any graph: its injection
-  draws angles from a ``torch.Generator`` and a user's ``dens_func``
-  reads positions on the host.
-- The rest of every step replays a captured ``torch.cuda.CUDAGraph`` of
-  the step.  There is one graph per variant, keyed by what the host
-  decides for a step (``plan_step``): the window's shift ``n_move`` and
-  the full re-sort (of an exchange step, or of a periodic run every 64
-  steps).  All of them share one
+- Every step replays a captured ``torch.cuda.CUDAGraph`` of the step,
+  an exchange step's exchange block (removal, continuous injection and
+  a fresh rho_prev, every ``exchange_period`` steps of an open-z run,
+  fbpic_tpu's ``lax.cond`` inside its program) included.  There is one
+  graph per variant, keyed by what the host decides for a step
+  (``plan_step``): the window's shift ``n_move``, the full re-sort (of
+  an exchange step, or of a periodic run every 64 steps) and whether
+  the exchange block is inside.  All of them share one
   memory pool: a graph's temporaries are dead when its replay ends (its
   results are copied into the static buffers, outside the pool), and
   the replays run one after the other on one stream.
+- The exchange block stays eager (run from Python before its step's
+  graph, ``step.exchange``) where ``graph_blockers`` names an
+  ``exchange`` reason: a user's density function that the probe
+  sent to the host (it gets numpy arrays, fbpic_tpu's
+  ``pure_callback``), or a column angle source other than the
+  simulation's ``GeneratorAngles`` (it may read the host iteration).
 - The step's scalars (``StepScalars``: zmin at the gather, the J
   deposit, rho_next and the step's end, the time, the window's
   reference, the processes' time t + dt/2, each ballistic species'
   injection plane, each mirror's zeroed interval, each laser antenna's
-  slice, cells and weights) come from per-chunk tables, uploaded once
+  slice, cells and weights, and the exchange block's values --
+  ``plan_exchange``: the removal bounds, each injecting species' column
+  count, column start and ring bound, a slab's ownership and migration
+  bounds) come from per-chunk tables, uploaded once
   per chunk; the row is picked by a device step index that every step
   of the chunk advances, so a replay reads its own step's values.  The
   host keeps its own arithmetic for them and for the variant keys, and
-  never reads them back.  The antennas' current series are copied into
+  never reads them back: it advances the injection fronts
+  (``inj_z_end``) as the eager block does.  The injecting species'
+  cursors are 0-d device tensors of the state, which a replayed
+  injection advances.  The antennas' current series are copied into
   static buffers once a chunk.
 - Ionization and Compton scattering run inside the graphed steps (their
   created counts, cursors and ids are device tensors of the state).
-  Their draws come from the simulation's ``torch.Generator``
-  (``GeneratorDraws``), which is registered with every graph: each
-  replay draws from the generator's Philox offset at its launch and
-  advances it as the eager step would, so a graphed run draws the eager
-  run's numbers.
+  Their draws, and the injection's angles and thermal momenta, come
+  from the simulation's ``torch.Generator`` (``GeneratorDraws``,
+  ``GeneratorAngles``), which is registered with every graph that
+  draws: each replay draws from the generator's Philox offset at its
+  launch and advances it as the eager step would, so a graphed run
+  draws the eager run's numbers.
 - The capture functions (``make_multi_step_capture``: the
   back-transformed fields' plane slices, fbpic_tpu's lax.scan outputs)
   write the state after each step into static buffers at the step
@@ -78,24 +89,28 @@ replaying it: the table, the step index, the flag and the rollback are
 the same; only the capture is CUDA-only.
 
 The slabs' runner (parallel/domain.py ``SlabMultiStep``) keeps one
-``ChunkBuffers`` per slab and captures through ``capture_graph`` too.
+``ChunkBuffers`` per slab and captures through ``capture_graph`` too,
+the migration inside the exchange variants.
 """
 import gc
 from dataclasses import fields, replace
+from typing import NamedTuple
 
 import torch
 
 from ..lpa_utils.laser.antenna_injection import antenna_cells
 from ..particles.draws import GeneratorDraws
+from ..particles.injection import GeneratorAngles
 from ..utils import kernels
-from .step import (StepScalars, ballistic_plane, ensure_counters,
-                   make_step_fn, mirror_planes, plan_step, process_time)
+from .step import (ExchangePlan, StepScalars, ballistic_plane,
+                   ensure_counters, make_step_fn, mirror_planes, plan_exchange,
+                   plan_step, process_time)
 
 #: Most steps in one chunk (fbpic_tpu's step chunk cap)
 MAX_CAPTURE = 250
 #: The real table's first columns: zmin, zmin_mid, zmin_next, time,
 #: mw_zref, zmin_end, time_end, time_mid (then each ballistic species'
-#: plane, each mirror's two, each antenna's three)
+#: plane, each mirror's two, each antenna's three, the exchange block's)
 _N_BASE = 8
 _ZMIN_END, _TIME_END, _TIME_MID = 5, 6, 7
 
@@ -160,6 +175,16 @@ class ChunkBuffers:
         #: the species with a ballistic injection plane (a column each)
         self._ballistic = [i for i, sc in enumerate(self.species_configs)
                            if sc.ballistic_z0 is not None]
+        #: the species the exchange block injects into (two real columns
+        #: and an int64 one each)
+        self._injecting = ([i for i, inj in enumerate(options.injectors)
+                            if inj is not None]
+                           if options.moving_window_v is not None else [])
+        #: the exchange block's real columns: the removal's three, each
+        #: injecting species' two, on a slab the injection's ownership
+        #: bounds and the migration's
+        self._n_exchange = 3 + 2 * len(self._injecting) + (
+            4 if halo is not None else 0)
         self._drop_buffers()
 
     def _drop_buffers(self):
@@ -190,10 +215,11 @@ class ChunkBuffers:
         n_b, n_m = len(self._ballistic), len(self.options.mirrors)
         n_a = len(antenna_series)
         self._table = torch.zeros(
-            (MAX_CAPTURE, _N_BASE + n_b + 2 * n_m + 3 * n_a), dtype=rdt,
-            device=dev)
-        self._itable = torch.zeros((MAX_CAPTURE, 3 * n_a),
-                                   dtype=torch.int64, device=dev)
+            (MAX_CAPTURE, _N_BASE + n_b + 2 * n_m + 3 * n_a
+             + self._n_exchange), dtype=rdt, device=dev)
+        self._itable = torch.zeros(
+            (MAX_CAPTURE, 3 * n_a + len(self._injecting)),
+            dtype=torch.int64, device=dev)
         self._index = torch.zeros((), dtype=torch.int64, device=dev)
         self._flag = torch.zeros((), dtype=torch.int64, device=dev)
         self._series = [torch.zeros((2, MAX_CAPTURE) + a.J.shape[2:],
@@ -207,21 +233,37 @@ class ChunkBuffers:
                                         pin_memory=pin) for b in bufs]
                            for bufs in self._caps]
 
-    def _plan(self, state, n_steps, antenna_series):
+    def _plan(self, state, n_steps, antenna_series, migrate_period=None):
         """The host's plan of every step of the chunk, and the rows of
         their scalars: the real table (zmin, zmin_mid, zmin_next, time,
         mw_zref, zmin_end, time_end, time_mid; each ballistic species'
-        plane; each mirror's z_lo, z_hi; each antenna's s0, s1, on) and
-        the int64 one (each antenna's row, iz0c, iz1c).  On a slab the
-        state's ``zmin`` is the global grid edge, and each step's local
-        one is derived from it as the eager slab loop derives it
-        (parallel/domain.py ``local_step``: the same host arithmetic);
-        ``_edges`` keeps, for each step, its local edge and the global
-        edge after it."""
+        plane; each mirror's z_lo, z_hi; each antenna's s0, s1, on; the
+        exchange block's removal z_lo, z_hi, z_park, each injecting
+        species' z_end and z_lo, on a slab the injection's lo, hi and
+        the migration's z_lo, z_hi) and the int64 one (each antenna's
+        row, iz0c, iz1c; each injecting species' n_cols).  The exchange
+        columns (``plan_exchange``) are filled at the steps that run the
+        exchange block or, every ``migrate_period`` steps on a slab, the
+        migration; zero elsewhere.  On a slab the state's ``zmin`` is
+        the global grid edge, and each step's local one is derived from
+        it as the eager slab loop derives it (parallel/domain.py
+        ``local_step``: the same host arithmetic); ``_edges`` keeps, for
+        each step, its local edge and the global edge after it, and
+        ``_z_ends`` each species' injection front after it (the host's:
+        never read back)."""
         cfg, halo = self.config, self.halo
         plans, rows, irows = [], [], []
-        self._edges = []
+        self._edges, self._z_ends = [], []
         zmin_g, time, mw_zref = state.zmin, state.time, state.mw_zref
+        z_ends = [sp.inj_z_end for sp in state.species]
+        for i in self._injecting:
+            sp = state.species[i]
+            if not (torch.is_tensor(sp.next_free)
+                    and torch.is_tensor(sp.next_id)):
+                # a host int would be baked into the captured injection
+                raise ValueError(f"species {i} injects: its cursors must "
+                                 f"be 0-d device tensors, as "
+                                 f"Simulation.add_new_species makes them")
         for it in range(state.iteration, state.iteration + n_steps):
             zmin = zmin_g if halo is None else \
                 zmin_g + halo.offset(type(zmin_g))
@@ -245,11 +287,30 @@ class ChunkBuffers:
                     series, it, plan.zmin_mid, cfg.dz, cfg.Nz, own)
                 row += [float(s0), float(s1), float(on)]
                 irow += [i, iz0c, iz1c]
+            migrate = bool(migrate_period) and it % migrate_period == 0
+            if plan.exchange or migrate:
+                xp = plan_exchange(cfg, self.options, z_ends, zmin, halo,
+                                   migrate)
+                row += [float(v) for v in xp.removal]
+                for i in self._injecting:
+                    row += [float(v) for v in xp.injection[i][1:]]
+                    irow.append(xp.injection[i][0])
+                if halo is not None:
+                    row += [float(v) for v in xp.inject_bounds]
+                    row += ([float(v) for v in xp.migration] if migrate
+                            else [0.0, 0.0])
+                if plan.exchange:
+                    z_ends = [a if a is not None else z for a, z in
+                              zip(xp.z_end_after, z_ends)]
+            else:
+                row += [0.0] * self._n_exchange
+                irow += [0] * len(self._injecting)
             rows.append(row)
             irows.append(irow)
             zmin_g = plan.zmin_end if halo is None else \
                 zmin_g + (plan.zmin_end - zmin)
             self._edges.append((zmin, zmin_g))
+            self._z_ends.append(tuple(z_ends))
             time, mw_zref = plan.time_end, plan.mw_zref_end
         return plans, rows, irows
 
@@ -297,12 +358,27 @@ class ChunkBuffers:
         a0 = m0 + 2 * n_m
         mirrors = tuple((row[m0 + 2 * k], row[m0 + 2 * k + 1])
                         for k in range(n_m))
+        n_a = (len(irow) - len(self._injecting)) // 3
         antennas = tuple(tuple(irow[3 * a:3 * a + 3])
                          + tuple(row[a0 + 3 * a:a0 + 3 * a + 3])
-                         for a in range(len(irow) // 3))
+                         for a in range(n_a))
         return StepScalars(*row[:5], zmin_end=row[_ZMIN_END],
                            mirrors=mirrors, antennas=antennas,
-                           time_mid=row[_TIME_MID], planes=tuple(planes))
+                           time_mid=row[_TIME_MID], planes=tuple(planes),
+                           exchange=self._exchange_values(
+                               row[a0 + 3 * n_a:], irow[3 * n_a:]))
+
+    def _exchange_values(self, row, irow):
+        """The exchange block's ExchangePlan of a table row's exchange
+        columns (0-d tensors)."""
+        injection = [None] * len(self.species_configs)
+        for k, i in enumerate(self._injecting):
+            injection[i] = (irow[k], row[3 + 2 * k], row[4 + 2 * k])
+        n = 3 + 2 * len(self._injecting)
+        return ExchangePlan(
+            removal=tuple(row[:3]), injection=tuple(injection),
+            inject_bounds=None if self.halo is None else tuple(row[n:n + 2]),
+            migration=None if self.halo is None else tuple(row[n + 2:n + 4]))
 
     @staticmethod
     def _end_values(row):
@@ -352,7 +428,8 @@ class MultiStep(ChunkBuffers):
 
     ``multi_step(state, aux, n_steps, inj_auxes, column_angles,
     generator, draws, antenna_series, ion_auxes, comp_auxes,
-    live_counts)`` runs n_steps <= MAX_CAPTURE steps from ``state``
+    live_counts, eager_exchange)`` runs n_steps <= MAX_CAPTURE steps
+    from ``state``
     (which it leaves unchanged) and returns (the new state, counts):
     counts holds the host ints of the chunk's one read, ``resort_redo``
     (the banded re-sorts' overflow in the graphed steps),
@@ -368,6 +445,13 @@ class MultiStep(ChunkBuffers):
     ``multi_step`` hands them.  On CUDA the draws' source must be a
     ``GeneratorDraws`` of ``generator`` (particles/draws.py), which is
     registered with every graph of a configuration with a process.
+
+    ``eager_exchange``: the exchange block of an exchange step runs
+    eagerly before its step's graph (``graph_blockers``' ``exchange``
+    names why);
+    else it is inside the graph, reading the chunk's tables, and the
+    ``column_angles`` must be a ``GeneratorAngles`` of ``generator``,
+    which the exchange variants register.
 
     ``capture_fns``: functions ``cap(state, aux, time, zmin)`` of the
     state after each step (time and zmin: its time and grid edge as 0-d
@@ -399,14 +483,15 @@ class MultiStep(ChunkBuffers):
         self.capture_fns = tuple(capture_fns)
         self._processes = has_processes(self.species_configs)
         self._generator = None
-        #: variant key (n_move, full_resort) -> (graph, launch counts)
+        #: variant key (n_move, full_resort, exchange block inside) ->
+    #: (graph, launch counts)
         self.graphs = {}
         self._pool = self._side = None
 
     # -----------------------------------------------------------------
     def __call__(self, state, aux, n_steps, inj_auxes=(), column_angles=None,
                  generator=None, draws=None, antenna_series=(), ion_auxes=(),
-                 comp_auxes=(), live_counts=()):
+                 comp_auxes=(), live_counts=(), eager_exchange=False):
         check_chunk(n_steps)
         state = ensure_counters(state)
         self._ensure_static(state, aux, antenna_series)
@@ -422,15 +507,18 @@ class MultiStep(ChunkBuffers):
         self._index.zero_()
         cur = with_state_tensors(state, self._static)
         args = (aux, inj_auxes, column_angles, generator)
-        for plan in plans:
-            if plan.exchange:
+        for plan, z_ends in zip(plans, self._z_ends):
+            inside = plan.exchange and not eager_exchange
+            if plan.exchange and eager_exchange:
                 new = self.step.exchange(cur, *args)
                 self._store(new)
                 cur = with_state_tensors(new, self._static)
-            self._graphed((plan.n_move, plan.full_resort), cur, args, kw)
+            self._graphed((plan.n_move, plan.full_resort, inside), cur, args,
+                          kw)
             cur = replace(cur, time=plan.time_end, zmin=plan.zmin_end,
                           mw_zref=plan.mw_zref_end,
-                          iteration=cur.iteration + 1)
+                          iteration=cur.iteration + 1,
+                          species=with_z_ends(cur.species, z_ends))
         self._copy_captures(n_steps)
         redo, n_sort, n_ring, *live = torch.stack(
             [self._flag, cur.sort_overflow, cur.ring_overwrite]
@@ -487,25 +575,29 @@ class MultiStep(ChunkBuffers):
         self._write_captures([fn(state, aux, *self._end_values(row))
                               for fn in self.capture_fns])
 
-    def _body(self, cur, args, kw):
-        """One step on the static buffers (an exchange step's exchange
-        block already run): its scalars from the tables' row at the step
-        index, the banded re-sort's overflow into the flag, the result
-        copied back, the captures written, the index advanced."""
+    def _body(self, cur, args, kw, inside):
+        """One step on the static buffers, its exchange block with it
+        (``inside``) or already run (an exchange step whose block stays
+        eager): its scalars from the tables' row at the step index, the
+        banded re-sort's overflow into the flag, the result copied back,
+        the captures written, the index advanced."""
         row, irow = self._row()
         new = self.step(cur, *args, scalars=self._scalars(row, irow),
-                        redo_flag=self._flag, exchanged=True, **kw)
+                        redo_flag=self._flag, exchanged=not inside, **kw)
         self._store(new)
         self._capture(with_state_tensors(new, self._static), args[0], row)
         self._index.add_(1)
 
     def _graphed(self, key, cur, args, kw):
-        """The step (after its exchange block) of variant ``key``: the
-        body itself on the CPU; on CUDA a replay, or, at the variant's
-        first step, its warm-up (the step, eagerly, on a side stream) and
-        its capture."""
+        """The step of variant ``key`` (n_move, full re-sort, exchange
+        block inside): the body itself on the CPU; on CUDA a replay, or,
+        at the variant's first step, its warm-up (the step, eagerly, on a
+        side stream) and its capture.  A variant that draws (the
+        processes, or the exchange block's injection) registers the
+        generator."""
+        inside = key[2]
         if self._table.device.type != "cuda":
-            self._body(cur, args, kw)
+            self._body(cur, args, kw, inside)
             return
         if key in self.graphs:
             graph, counts = self.graphs[key]
@@ -519,12 +611,21 @@ class MultiStep(ChunkBuffers):
         main = torch.cuda.current_stream(dev)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
-            self._body(cur, args, kw)
+            self._body(cur, args, kw, inside)
         main.wait_stream(self._side)
+        draws = self._processes or (inside and bool(self._injecting))
         self.graphs[key] = capture_graph(
-            lambda stream: self._body(cur, args, kw), self._pool,
-            [self._generator] if self._processes else [],
-            f"the step (n_move={key[0]}, full re-sort={key[1]})")
+            lambda stream: self._body(cur, args, kw, inside), self._pool,
+            [self._generator] if draws and self._generator is not None
+            else [], f"the step (n_move={key[0]}, full re-sort={key[1]}, "
+            f"exchange block inside={key[2]})")
+
+
+def with_z_ends(species, z_ends):
+    """The species with their injection fronts ``z_ends`` (host values,
+    None: the species injects nothing)."""
+    return [sp if z is None else sp.replace(inj_z_end=z)
+            for sp, z in zip(species, z_ends)]
 
 
 def check_chunk(n_steps):
@@ -588,27 +689,61 @@ def capture_graph(body, pool, generators, what):
     return graph, (counts, by_slab)
 
 
+class GraphBlockers(NamedTuple):
+    """Why a run does not replay all of its chunk from CUDA graphs
+    (``graph_blockers``): ``loop``, the reasons it keeps the eager loop;
+    ``exchange``, those that keep only the exchange block of an
+    exchange step eager (run before its step's graph, the rest of the
+    chunk replaying its graphs).  Both empty: every step replays."""
+    loop: list
+    exchange: list
+
+
 def graph_blockers(sim, options):
-    """Why ``sim``'s run with ``options`` does not take the chunk runner
-    (an empty list when it does).  Every single-device configuration
-    does: every species layout -- resident, or a ring of any shape,
-    cross-deposition included (their steps capture with no host read)
-    --, laser antennas, external fields, mirrors, the back-transformed
-    field diagnostic, ballistic species, ionization and Compton
-    scattering: their per-step values come from the chunk's tables, the
-    diagnostic's slices go to the runner's buffers, the processes' draws
-    from the simulation's generator, registered with the graphs.  One
-    thing keeps the eager loop, on CUDA only: a process draw source
-    other than a ``GeneratorDraws`` of ``sim.generator``
-    (particles/draws.py), which might read the host iteration that a
-    replay does not pass, or draw from a generator the graphs do not
-    advance.  On the CPU the runner calls the step itself, so any source
-    works there."""
-    out = []
+    """Why ``sim``'s run with ``options`` does not replay all of its
+    chunk from graphs (``GraphBlockers``).  Every single-device
+    configuration takes the chunk runner: every species layout --
+    resident, or a ring of any shape, cross-deposition included (their
+    steps capture with no host read) --, laser antennas, external
+    fields, mirrors, the back-transformed field diagnostic, ballistic
+    species, ionization, Compton scattering and the exchange block
+    (removal, continuous injection, a fresh rho_prev): their per-step
+    values come from the chunk's tables, the diagnostic's slices go to
+    the runner's buffers, the processes' draws and the injection's
+    angles and momenta from the simulation's generator, registered with
+    the graphs.
+
+    ``loop``: on CUDA only, a process draw source other than a
+    ``GeneratorDraws`` of ``sim.generator`` (particles/draws.py), which
+    might read the host iteration that a replay does not pass, or draw
+    from a generator the graphs do not advance; on the CPU the runner
+    calls the step itself, so any source works there.
+
+    ``exchange``, on every device (the CPU runs what the card runs): an
+    injecting species' density function that the probe sent to the
+    host (it gets numpy arrays there, fbpic_tpu's ``pure_callback``),
+    and a column angle source other than a ``GeneratorAngles`` of
+    ``sim.generator`` (it gets the host iteration, which a replay does
+    not pass, or draws from a generator the graphs do not advance: the
+    parity tests feed fbpic_tpu's angles)."""
+    loop = []
     draws = sim.process_draws
     if (has_processes(sim.species_configs) and sim.device.type == "cuda"
             and not (isinstance(draws, GeneratorDraws)
                      and draws.generator is sim.generator)):
-        out.append("a process draw source other than the simulation's "
-                   "GeneratorDraws")
-    return out
+        loop.append("a process draw source other than the simulation's "
+                    "GeneratorDraws")
+    injectors = [(i, inj) for i, inj in enumerate(options.injectors)
+                 if inj is not None] \
+        if options.moving_window_v is not None else []
+    exchange = [f"species {i}'s density function is evaluated on the "
+                f"host (the probe found no tensor of the device)"
+                for i, inj in injectors
+                if inj.dens_func is not None and not inj.dens_on_device]
+    angles = getattr(sim, "column_angles", None)
+    if injectors and angles is not None and not (
+            isinstance(angles, GeneratorAngles)
+            and angles.generator is sim.generator):
+        exchange.append("a column angle source other than the "
+                        "simulation's GeneratorAngles")
+    return GraphBlockers(loop, exchange)

@@ -33,7 +33,7 @@ from ..particles.state import (
     make_particle_state, pad_particle_state,
 )
 from ..particles.injection import (
-    InjectorConfig, GeneratorAngles, build_injector_aux,
+    InjectorConfig, GeneratorAngles, build_injector_aux, probe_dens_func,
 )
 from ..particles.draws import GeneratorDraws
 from ..particles.deposit import deposit_rho_linear, deposit_rho_J_linear
@@ -501,10 +501,16 @@ class Simulation:
                 max_cols = int(np.ceil(self.exchange_period
                                        * (c * self.config.dt / self.config.dz)
                                        * p_nz)) + 4
+                # The density function's probe, once (fbpic_tpu's
+                # ensure_traceable_dens): torch evaluates it on the
+                # device at every injection, or numpy on the host
                 injector_cfg = InjectorConfig(
                     dz_particles=dz_particles, n=n, ux_m=ux_m, uy_m=uy_m,
                     uz_m=uz_m, ux_th=ux_th, uy_th=uy_th, uz_th=uz_th,
                     dens_func=dens_func, dens_args=dens_args or "zr",
+                    dens_on_device=dens_func is not None
+                    and probe_dens_func(dens_func, dens_args,
+                                        dtype=self.dtype),
                     max_inject_cols=max_cols)
                 injector_aux = build_injector_aux(
                     Npr, p_rmin_, p_rmax_, p_nt, injector_cfg, rng=self._rng,
@@ -546,8 +552,12 @@ class Simulation:
         if injector_cfg is not None:
             z_end = (float(np.max(z)) + 0.5 * injector_cfg.dz_particles
                      if Ntot > 0 else float(self.zmax))
-            pstate = pstate.replace(next_free=Ntot,
-                                    inj_z_end=self.np_dtype(z_end))
+            # The ring cursor and the id counter as 0-d device tensors:
+            # an injection inside a captured step advances them there
+            pstate = pstate.replace(
+                next_free=self._device_counter(Ntot),
+                next_id=self._device_counter(pstate.next_id),
+                inj_z_end=self.np_dtype(z_end))
         self.species_configs.append(sc)
         self._species_counts.append(int(Ntot))
         self._injector_configs.append(injector_cfg)
@@ -731,19 +741,21 @@ class Simulation:
         antennas' currents are computed for the same chunks, one upload
         each (``_antenna_block``).
 
-        Every run (``core.graph.graph_blockers``: on CUDA, all but one
-        whose processes draw from a source other than a
-        ``GeneratorDraws`` of ``self.generator``) runs
+        Every run (all but one whose ``core.graph.graph_blockers`` name
+        a ``loop`` reason: on CUDA, processes that draw from a source
+        other than a ``GeneratorDraws`` of ``self.generator``) runs
         fbpic_tpu's chunk loop: chunks of at most MAX_CAPTURE steps,
         each ending where a plain writer's period ends, each run by the
         chunk runner (``make_multi_step``, or ``make_multi_step_capture``
         with the capturing diagnostics' ``device_capture``: on CUDA,
-        every step replayed from captured CUDA graphs after an exchange
-        step's exchange block, which runs eagerly; the processes and
-        ballistic species included) with one host read at
-        its end, which also brings the chunk's captures and the process
-        targets' live counts back.  A chunk that had to be run again
-        eagerly (a banded re-sort's overflow) counts in
+        every step replayed from captured CUDA graphs, an exchange
+        step's exchange block inside its graph -- or, where they name an
+        ``exchange`` reason (a density function on the host, another
+        column angle source), run eagerly before it --, the processes
+        and ballistic species included) with one host read at its end,
+        which also brings the chunk's captures and the process targets'
+        live counts back.  A chunk that had to be run again eagerly (a
+        banded re-sort's overflow) counts in
         ``overflow_totals["rollbacks"]``.  The other runs keep the eager
         loop, whose capturing diagnostics consume their buffer at most
         every ``MAX_CAPTURE`` cycles and at the end of the call."""
@@ -770,7 +782,8 @@ class Simulation:
         plain = [w for w in writers if not hasattr(w, "capture")]
         progress = ProgressBar(N) if show_progress else None
         counts = None
-        if graph_blockers(self, options):
+        blockers = graph_blockers(self, options)
+        if blockers.loop:
             self._run_eager(N, options, capture, plain, progress)
             for w in capture:
                 w.process_captures(self)
@@ -811,6 +824,7 @@ class Simulation:
                 self._multi_step = make_multi_step(
                     self.config, self.species_configs, options)
             self._multi_step_key = key
+        eager_exchange = bool(graph_blockers(self, options).exchange)
         done, counts = 0, None
         series, block_end = (), 0
         while done < N:
@@ -829,7 +843,8 @@ class Simulation:
                 antenna_series=series,
                 ion_auxes=tuple(self._ionizer_auxes),
                 comp_auxes=tuple(self._compton_auxes),
-                live_counts=self._ring_targets())
+                live_counts=self._ring_targets(),
+                eager_exchange=eager_exchange)
             if counts["rolled_back"]:
                 self.overflow_totals["rollbacks"] = \
                     self.overflow_totals.get("rollbacks", 0) + 1

@@ -140,11 +140,15 @@ class StepScalars:
     indices as int64 tensors); the elementary processes' time t + dt/2
     (``time_mid``, ``process_time``) and each species' ballistic
     injection plane (``planes``: a 0-d tensor per species, None where it
-    has none, ``ballistic_plane``; empty: the host's planes).  Given to
+    has none, ``ballistic_plane``; empty: the host's planes); the
+    exchange block's values (``exchange``: an ``ExchangePlan`` of 0-d
+    tensors, ``plan_exchange``'s values, the column counts int64; None
+    on a step without it).  Given to
     the step, every torch op and kernel of the step reads them from
     there, so that a captured step reads each replay's values.  Their
     values are the host's (``plan_step``, ``mirror_planes``,
-    ``antenna_cells``, ``process_time``, ``ballistic_plane``), rounded
+    ``antenna_cells``, ``process_time``, ``ballistic_plane``,
+    ``plan_exchange``), rounded
     to the working dtype as a torch op rounds the host number: the step
     is the same bit for bit either way."""
     zmin: torch.Tensor
@@ -157,6 +161,28 @@ class StepScalars:
     antennas: tuple = ()
     time_mid: torch.Tensor = None
     planes: tuple = ()
+    exchange: object = None
+
+
+@dataclass(frozen=True)
+class ExchangePlan:
+    """The values of one exchange block (``plan_exchange``): the removal
+    bounds and the dead particles' parking place (``removal``: z_lo,
+    z_hi, z_park), each injecting species' columns (``injection``: per
+    species None, or (n_cols, z_end, z_lo): the count of columns, the
+    first column's start, the lower bound of the ring's overwrite
+    count), on a slab the injection's ownership bounds
+    (``inject_bounds``: lo, hi) and the migration's (``migration``:
+    z_lo, z_hi, the slab's own interior).  Host numbers of the working
+    dtype (the column counts ints) from ``plan_exchange``, with
+    ``z_end_after`` (each injecting species' next column start, a host
+    value the host keeps), or 0-d tensors of a table row
+    (``StepScalars.exchange``)."""
+    removal: tuple
+    injection: tuple = ()
+    inject_bounds: tuple = None
+    migration: tuple = None
+    z_end_after: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -210,6 +236,75 @@ def plan_step(config, options, zmin, zmin_g, mw_zref, time, iteration):
         n_move=n_move, zmin_mid=zmin + 0.5 * vg_dt, zmin_next=zmin + vg_dt,
         zmin_end=zmin_end, mw_zref_end=mw_zref,
         time_end=time + config.dt)
+
+
+def injection_columns(config, options, inj_cfg, z_end, zmin,
+                      grid_globals=None):
+    """The host's columns of one species' continuous injection at grid
+    edge ``zmin`` (the slab's local edge on a slab, ``grid_globals``:
+    zmin, Nz, n_guard, n_inject of the global box): (n_cols, z_lo,
+    z_end_after), the count of columns the window uncovered since
+    ``z_end`` (a host int), the lower bound of the ring's overwrite
+    count and the next column start (host values of the working
+    dtype)."""
+    rdt = type(zmin)
+    if grid_globals is not None:
+        zmin_g, Nz_g, n_guard_g, n_inject_g = grid_globals
+    else:
+        zmin_g, Nz_g = zmin, config.Nz
+        n_guard_g, n_inject_g = config.n_guard, config.n_inject
+    # The plane's offset from zmin summed first, as XLA folds fbpic_tpu's
+    # constant terms (the plane sits on a column edge: rounding picks
+    # the column count)
+    z_inject = zmin_g + ((rdt((Nz_g - n_guard_g) * config.dz)
+                          + rdt((3 - n_inject_g) * config.dz))
+                         + rdt(config.dt * (options.moving_window_v
+                                            - inj_cfg.v_end_plasma)))
+    # times the reciprocal, as XLA computes a division by a constant
+    n_cols = int(np.clip(np.floor((z_inject - z_end)
+                                  * (rdt(1.0) / rdt(inj_cfg.dz_particles))),
+                         0, inj_cfg.max_inject_cols))
+    z_lo = zmin + max(config.n_guard, 1) * config.dz
+    z_end_after = z_end + type(z_end)(n_cols) * inj_cfg.dz_particles
+    return n_cols, z_lo, z_end_after
+
+
+def plan_exchange(config, options, z_ends, zmin, halo=None,
+                  migrate=False):
+    """The host's values of the exchange block at grid edge ``zmin`` (a
+    slab's local edge on a slab, ``halo``), every species' injection
+    front ``z_ends`` (``inj_z_end``, None where it injects nothing):
+    an ``ExchangePlan`` of host values of the working dtype, the
+    arithmetic the eager block has always done (the removal bounds
+    of the box, or of the global box on a slab; each injecting species'
+    ``injection_columns``; on a slab the injection's ownership bounds
+    and, with ``migrate``, the migration's)."""
+    Lz = config.Nz * config.dz
+    if halo is not None:
+        z_lo, z_hi = halo.removal_bounds(halo.global_zmin(zmin))
+    else:
+        ng = max(config.n_guard, 1)
+        z_lo = zmin + ng * config.dz
+        z_hi = zmin + Lz - ng * config.dz
+    injection, after = [None] * len(z_ends), [None] * len(z_ends)
+    if options.moving_window_v is not None:
+        gg = (None if halo is None
+              else halo.grid_globals(halo.global_zmin(zmin)))
+        for i, inj_cfg in enumerate(options.injectors):
+            if inj_cfg is None:
+                continue
+            n_cols, inj_lo, after[i] = injection_columns(
+                config, options, inj_cfg, z_ends[i], zmin, gg)
+            injection[i] = (n_cols, z_ends[i], inj_lo)
+    migration = None
+    if halo is not None and migrate:
+        rdt, g = type(zmin), config.n_guard
+        migration = (zmin + rdt(g * config.dz),
+                     zmin + rdt((config.Nz - g) * config.dz))
+    return ExchangePlan(
+        removal=(z_lo, z_hi, zmin + 0.5 * Lz), injection=tuple(injection),
+        inject_bounds=None if halo is None else halo.ownership_bounds(zmin),
+        migration=migration, z_end_after=tuple(after))
 
 
 def _zfold(config):
@@ -600,33 +695,26 @@ def damp_EB_z_skinny(aux, spect, interp_raw):
         for n, X in zip(names, rows_spect)})
 
 
-def remove_outside_particles(config, sp, zmin, bounds=None):
+def remove_outside_particles(sp, removal):
     """Mark particles that reached the guard cells as dead (w = 0) and
     park them at the box center (reference removal bounds,
-    particle_buffer_handling.py:89-92).  bounds: (z_lo, z_hi) in place
-    of the box's own (a slab of a decomposed run: the global box's)."""
-    Lz = config.Nz * config.dz
-    if bounds is not None:
-        z_lo, z_hi = (float(b) for b in bounds)
-    else:
-        ng = max(config.n_guard, 1)
-        z_lo = float(zmin + ng * config.dz)
-        z_hi = float(zmin + Lz - ng * config.dz)
+    particle_buffer_handling.py:89-92).  removal: (z_lo, z_hi, z_park)
+    of ``plan_exchange`` (the global box's bounds on a slab), host
+    numbers or 0-d tensors of the working dtype."""
+    z_lo, z_hi, z_park = (_scalar(v) for v in removal)
     dead = (sp.z < z_lo) | (sp.z > z_hi)
 
     def zero_dead(a):
         return None if a is None else torch.where(dead, torch.zeros_like(a),
                                                   a)
     return sp.replace(
-        w=zero_dead(sp.w),
-        z=torch.where(dead, torch.full_like(sp.z, float(zmin + 0.5 * Lz)),
-                      sp.z), ids=zero_dead(sp.ids),
+        w=zero_dead(sp.w), z=torch.where(dead, z_park, sp.z),
+        ids=zero_dead(sp.ids),
         ionization_level=zero_dead(sp.ionization_level))
 
 
-def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
-                         phi_of, generator, resident, level=0,
-                         grid_globals=None, inject_bounds=None):
+def continuous_injection(sp, inj_cfg, inj_aux, columns, phi_of, generator,
+                         resident, level=0, inject_bounds=None):
     """Inject the plasma columns the window uncovered since the last
     exchange.  A non-resident species keeps a stable storage order:
     the columns go into its ring at the cursor ``next_free``, and the
@@ -634,42 +722,30 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     species' storage order is rewritten by every re-sort, so a cursor
     does not track its free slots: the columns go into dead slots (dead
     first, in storage order), and those that find none are counted.
-    A slab of a decomposed run (fbpic_tpu core/step.py:735-855) places
-    the plane on the global grid (``grid_globals``: zmin, Nz, n_guard,
-    n_inject of the global box), writes only the particles inside its
-    ``inject_bounds`` and always into dead slots (the slabs' occupancies
-    differ); every slab draws the same columns and advances the cursors
-    alike.
+    A slab of a decomposed run (fbpic_tpu core/step.py:735-855) writes
+    only the particles inside its ``inject_bounds`` and always into dead
+    slots (the slabs' occupancies differ); every slab draws the same
+    columns and advances the cursors alike.
+    ``columns``: (n_cols, z_end, z_lo) of ``plan_exchange`` -- host
+    values, or 0-d tensors (n_cols int64) of the step's scalars, the
+    same values: nothing is read back either way; the species'
+    ``inj_z_end`` is the caller's (the host keeps it).
     A tracked species hands out one id per candidate particle (written
     or not), as fbpic_tpu does (core/step.py:798-801, :844-847); the
     particles of an ionizable species start at ``level``.  The cursors
-    may be host ints or 0-d device tensors.  Returns (species, count)."""
-    rdt = type(zmin)
-    if grid_globals is not None:
-        zmin_g, Nz_g, n_guard_g, n_inject_g = grid_globals
-    else:
-        zmin_g, Nz_g = zmin, config.Nz
-        n_guard_g, n_inject_g = config.n_guard, config.n_inject
-    # The plane's offset from zmin summed first, as XLA folds fbpic_tpu's
-    # constant terms (the plane sits on a column edge: rounding picks
-    # the column count)
-    z_inject = zmin_g + ((rdt((Nz_g - n_guard_g) * config.dz)
-                          + rdt((3 - n_inject_g) * config.dz))
-                         + rdt(config.dt * (options.moving_window_v
-                                            - inj_cfg.v_end_plasma)))
-    # times the reciprocal, as XLA computes a division by a constant
-    n_cols = int(np.clip(np.floor((z_inject - sp.inj_z_end)
-                                  * (rdt(1.0) / rdt(inj_cfg.dz_particles))),
-                         0, inj_cfg.max_inject_cols))
-    new, new_z_end = generate_columns(inj_cfg, inj_aux, sp.inj_z_end,
-                                      n_cols, phi_of, generator)
+    are 0-d device tensors (``Simulation.add_new_species``) or host
+    ints.  Returns (species, count)."""
+    updates = {}
+    n_cols, z_end, z_lo = columns
+    new = generate_columns(inj_cfg, inj_aux, z_end, n_cols, phi_of,
+                           generator)
     n_write = new["x"].shape[0]
     col_size = inj_aux.r.shape[0]
     cap = sp.capacity
     dev = sp.x.device
     mask = torch.arange(n_write, device=dev) < n_cols * col_size
     if inject_bounds is not None:
-        lo, hi = (float(b) for b in inject_bounds)
+        lo, hi = (_scalar(b) for b in inject_bounds)
         mask = mask & (new["z"] >= lo) & (new["z"] < hi)
 
     values = {name: new[name] for name in
@@ -680,15 +756,14 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
     if sp.ionization_level is not None:
         values["ionization_level"] = torch.full(
             (n_write,), level, dtype=torch.int32, device=dev)
-    updates = {}
     if sp.ids is not None:
         values["ids"] = sp.next_id + torch.arange(n_write, device=dev)
         updates["next_id"] = sp.next_id + n_cols * col_size
     if not resident and inject_bounds is None:
         slots = torch.remainder(
             sp.next_free + torch.arange(n_write, device=dev), cap)
-        z_lo = float(zmin + max(config.n_guard, 1) * config.dz)
-        count = (mask & (sp.w[slots] != 0) & (sp.z[slots] > z_lo)).sum()
+        count = (mask & (sp.w[slots] != 0)
+                 & (sp.z[slots] > _scalar(z_lo))).sum()
         for name, vals in values.items():
             updates[name] = write_ring(getattr(sp, name), sp.next_free,
                                        vals, cap, mask)
@@ -711,7 +786,6 @@ def continuous_injection(config, options, sp, inj_cfg, inj_aux, zmin,
             arr[slots] = torch.where(ok, packed[:n_write], arr[slots])
             updates[name] = arr
     updates["next_free"] = (sp.next_free + n_cols * col_size) % cap
-    updates["inj_z_end"] = new_z_end
     return sp.replace(**updates), count
 
 
@@ -905,15 +979,16 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
     ``exchanged``: the caller ran the exchange block of an exchange step
     already (``step.exchange(state, aux, inj_auxes, column_angles,
     generator)``, the returned function's attribute), so the step runs
-    the rest on its result: the chunk runner runs the block eagerly (its
-    injection draws angles and reads host values) and replays the rest.
+    the rest on its result: the chunk runner does so where the block
+    must stay eager (a user's host density function, another angle
+    source: core/graph.py's ``graph_blockers``).
 
     ``scalars``: the step's StepScalars, which every part of the step
-    but the exchange block (the re-sort, the gathers -- K2 and the
-    ring's --, the pushes and the ballistic planes, Compton scattering,
-    the newborns' deposits and appends, the deposits, the external
-    fields, the antennas and the mirrors) then reads in place of the
-    host's numbers (equal values).
+    (the exchange block with ``scalars.exchange``, the re-sort, the
+    gathers -- K2 and the ring's --, the pushes and the ballistic
+    planes, Compton scattering, the newborns' deposits and appends, the
+    deposits, the external fields, the antennas and the mirrors) then
+    reads in place of the host's numbers (equal values).
     ``redo_flag``: a 0-d int64 device tensor into which the banded
     re-sort adds its overflow count, instead of reading it back and
     redoing the sort: the caller redoes the step (core/graph.py)."""
@@ -928,40 +1003,50 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
     zfold = _zfold(config)
 
     def exchange(state: SimState, aux, inj_auxes=(), column_angles=None,
-                 generator=None) -> SimState:
+                 generator=None, scalars=None) -> SimState:
         """The exchange block of an exchange step (plan_step's
         ``exchange``: open z, every exchange_period steps): remove the
         particles in the guard cells, inject the columns the moving window
         uncovered, and re-deposit rho_prev (reference: main.py:435-449).
         In between, rho_prev is the window-shifted previous rho_next.
         Returns the state with it applied; the step then runs on it with
-        ``exchanged`` (core/graph.py replays that part)."""
+        ``exchanged``.  Its values come from ``plan_exchange`` (the
+        injection fronts advanced in the returned state), or, with
+        ``scalars`` whose ``exchange`` is set (the step's StepScalars),
+        from the device, the injection fronts left to the caller: the
+        block then reads nothing from the host, and core/graph.py
+        captures it with the rest of the step."""
         zmin, it = state.zmin, state.iteration
-        zmin_g = halo.global_zmin(zmin) if halo is not None else zmin
         ring_overwrite = state.ring_overwrite
-        bounds = (halo.removal_bounds(zmin_g) if halo is not None
-                  else None)
-        species = [remove_outside_particles(config, sp, zmin, bounds)
-                   for sp in state.species]
-        if options.moving_window_v is not None:
-            for i, inj_cfg in enumerate(options.injectors):
-                if inj_cfg is None:
-                    continue
-                ion = species_configs[i].ionizer
-                species[i], count = continuous_injection(
-                    config, options, species[i], inj_cfg, inj_auxes[i],
-                    zmin, lambda nkey, i=i: column_angles(it, i, nkey),
-                    generator, resident=i in resident_idx,
-                    level=0 if ion is None else ion.level_start,
-                    grid_globals=None if halo is None
-                    else halo.grid_globals(zmin_g),
-                    inject_bounds=None if halo is None
-                    else halo.ownership_bounds(zmin))
-                if halo is not None:
-                    count = halo.psum(count)
-                ring_overwrite = ring_overwrite + count
+        species = list(state.species)
+        on_host = scalars is None or scalars.exchange is None
+        if on_host:
+            values = plan_exchange(config, options,
+                                   [sp.inj_z_end for sp in species], zmin,
+                                   halo)
+            zd = float(zmin)
+        else:
+            values, zd = scalars.exchange, scalars.zmin
+        species = [remove_outside_particles(sp, values.removal)
+                   for sp in species]
+        for i, columns in enumerate(values.injection):
+            if columns is None:
+                continue
+            ion = species_configs[i].ionizer
+            species[i], count = continuous_injection(
+                species[i], options.injectors[i], inj_auxes[i], columns,
+                lambda nkey, i=i: column_angles(it, i, nkey), generator,
+                resident=i in resident_idx,
+                level=0 if ion is None else ion.level_start,
+                inject_bounds=values.inject_bounds)
+            if on_host:
+                species[i] = species[i].replace(
+                    inj_z_end=values.z_end_after[i])
+            if halo is not None:
+                count = halo.psum(count)
+            ring_overwrite = ring_overwrite + count
         rho_prev = deposit_rho_spect(config, aux, species, species_configs,
-                                     zmin)
+                                     zd)
         if options.filter_currents:
             rho_prev = ps.filter_scalar(rho_prev, aux.filter_z,
                                         aux.filter_r)
@@ -983,7 +1068,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                          state.time, it)
         if plan.exchange and not exchanged:
             state = exchange(state, aux, inj_auxes, column_angles,
-                             generator)
+                             generator, scalars=scalars)
         spect, interp = state.spect, state.interp
         species = list(state.species)
         sort_overflow = state.sort_overflow

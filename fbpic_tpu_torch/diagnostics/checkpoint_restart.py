@@ -21,8 +21,9 @@ with ``torch.load(weights_only=True)``.  It holds a dict:
   ``next_id``, ``sort_K``, ``resident`` and capacity (sort_K and the
   capacity change at run time), the loaded particle counts and the
   overflow totals.  The cursor and id counter of a species that
-  ionization or Compton scattering write into are device tensors: they
-  are written as ints and read back onto the device.
+  continuous injection, ionization or Compton scattering write into
+  are device tensors: they are written as ints and read back onto the
+  device.
 
 fbpic_tpu stores neither ``sort_K`` nor a generator state (its
 randomness is derived from a key in the state).
@@ -127,7 +128,7 @@ def load_checkpoint_dict(sim, ckpt):
             if key in tensors or getattr(sp, name) is not None:
                 arrays[name] = tensor(key)
         next_free, next_id = h["next_free"], h["next_id"]
-        if sim.is_process_target(i):
+        if sim.creates_at_run_time(i):
             next_free, next_id = (sim._device_counter(v)
                                   for v in (next_free, next_id))
         species.append(ParticleState(

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core import step as step_mod
-from ..core.graph import MAX_CAPTURE, graph_blockers
+from ..core.graph import MAX_CAPTURE, GraphBlockers, graph_blockers
 from ..core.state import SimState
 from ..fields import transform as tr
 from ..fields.solver import build_field_aux
@@ -116,8 +116,8 @@ class DistributedRun:
             n_guard=self.g, capture_fns=cap_fns, group=self.group)
         self._runner = None
         #: True: every chunk through the eager slab loop (a twin to hold
-        #: the chunk runner against); runs that ``graph_blockers`` names
-        #: take it anyway
+        #: the chunk runner against); runs whose ``graph_blockers`` name
+        #: a ``loop`` reason take it anyway
         self.eager = False
         self.exchange_period = self.multi_step.exchange_period
         self.migration_buffer = self.multi_step.migration_buffer
@@ -331,20 +331,21 @@ class DistributedRun:
 
     @property
     def graph_blockers(self):
-        """Why this run's chunks do not replay CUDA graphs (an empty list
-        when they do, and on the CPU, where the slab threads call the
-        chunk runner's body): slabs on several cards (one graph holds one
-        card's stream: those runs keep the eager slab loop), and the
-        single card's ``core.graph.graph_blockers`` (a process draw
-        source other than the simulation's GeneratorDraws)."""
-        out = []
-        cuda = [d for d in self.devices if d.type == "cuda"]
-        if len(set(cuda)) > 1:
-            out.append(f"slabs on several cards ({len(set(cuda))}): one "
-                       f"CUDA graph holds the work of one card")
-        if cuda:
-            out += graph_blockers(self.sim, self.options)
-        return out
+        """Why this run's chunks do not replay all of their steps from
+        CUDA graphs (``core.graph.GraphBlockers``): ``loop``, the reasons
+        that keep the eager slab loop (slabs on several cards: one graph
+        holds one card's stream; and on a card the single card's: a
+        process draw source other than the simulation's GeneratorDraws;
+        on the CPU none, the slab threads call the chunk runner's body);
+        ``exchange``, those that keep only the migration and exchange
+        block eager in the slab threads (the single card's: a density
+        function on the host, another column angle source)."""
+        card = graph_blockers(self.sim, self.options)
+        cuda = {d for d in self.devices if d.type == "cuda"}
+        loop = ([f"slabs on several cards ({len(cuda)}): one CUDA graph "
+                 f"holds the work of one card"] if len(cuda) > 1 else [])
+        return GraphBlockers(loop + (card.loop if cuda else []),
+                             card.exchange)
 
     @property
     def runner(self):
@@ -368,11 +369,13 @@ class DistributedRun:
         state is gathered into the Simulation and written through the
         same diagnostic classes as a single-card run (fbpic_tpu
         parallel/api.py:344-410).  Each chunk is one call of the chunk
-        runner (``runner``: every step's exchange block eagerly in the
-        slab threads, the rest replayed from CUDA graphs that hold every
-        slab's step; on the CPU the slab threads run the same body; the
-        eager slab loop where ``graph_blockers`` names a reason or
-        ``eager`` is set), with one host read at its end: the slabs'
+        runner (``runner``: every step replayed from CUDA graphs that hold
+        every slab's step, its migration and exchange block inside --
+        run eagerly in the slab threads before it where
+        ``graph_blockers`` names an ``exchange`` reason --; on the
+        CPU the slab threads run the same body; the eager slab loop where
+        it names a ``loop`` reason or ``eager`` is set), with
+        one host read at its end: the slabs'
         redo flags, the counters (``_check_migration``), the live
         counts and the back-transformed field diagnostics' captures,
         which they consume then.  A chunk run again eagerly (a banded
@@ -386,7 +389,9 @@ class DistributedRun:
             self.sync_to_sim()
             for diag in sim.diags:
                 diag.write(sim)
-        eager = self.eager or bool(self.graph_blockers)
+        blockers = self.graph_blockers
+        eager = self.eager or bool(blockers.loop)
+        eager_exchange = bool(blockers.exchange)
         species = tuple(range(len(sim.species_configs)))
         done = 0
         while done < N:
@@ -397,7 +402,7 @@ class DistributedRun:
             kwargs = self._antenna_series(chunk)
             self.states, counts = self.runner(
                 self.states, self.auxes, chunk, kwargs, live_counts=species,
-                eager=eager)
+                eager=eager, eager_exchange=eager_exchange)
             if counts["exchanged"]:
                 self._rho_local = True
             done += chunk

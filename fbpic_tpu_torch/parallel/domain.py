@@ -19,9 +19,10 @@ Layout (reference boundary_communicator.py:556-620):
     consecutive local grids overlap by 2*n_guard cells.
 
 ``make_multichip_step`` builds the eager slab loop; ``SlabMultiStep``
-runs the same steps in chunks, every step's rest replayed from one CUDA
-graph that holds every slab's step (fbpic_tpu's fori_loop inside
-shard_map).
+runs the same steps in chunks, every step replayed from one CUDA graph
+that holds every slab's step, its migration and exchange block
+included (fbpic_tpu's fori_loop inside shard_map, the migration under
+its ``lax.cond``).
 
 A decomposed state is a list of per-slab ``SimState``: fields
 (Nm, Nz_local, Nr) and particle arrays (cap_local,) on the slab's
@@ -39,7 +40,8 @@ from ..particles.compaction import topk_compact
 from ..particles.state import ParticleState
 from ..core import step as step_mod
 from ..core.graph import (ChunkBuffers, capture_graph, check_chunk,
-                          has_processes, state_tensors, with_state_tensors)
+                          has_processes, state_tensors, with_state_tensors,
+                          with_z_ends)
 from ..core.state import SimState
 from ..core.step import ensure_counters
 from ..particles.draws import GeneratorDraws
@@ -124,7 +126,7 @@ def sum_guards(fields, g, periodic):
 
 
 def migrate_particles(sp, config_local, zmin, comm, buffer_size,
-                      global_open=False):
+                      global_open=False, bounds=None):
     """Move the particles that crossed the slab's ownership boundary.
 
     Ownership: [zmin + g dz, zmin + (Nzl - g) dz), zmin the slab's local
@@ -140,13 +142,21 @@ def migrate_particles(sp, config_local, zmin, comm, buffer_size,
     the ring; otherwise the arrivals that wrapped are shifted by the
     global box length.
 
+    bounds: the ownership bounds (z_lo, z_hi) as 0-d tensors of the
+    working dtype (a table row's, ``core.step.plan_exchange``'s values),
+    read in place of the host's: the migration then reads nothing from
+    the host (the slabs' chunk runner captures it).
+
     Returns (species, n_lost): the particles dropped because a buffer or
     the dead slots ran out (a 0-d int64 tensor, this slab only)."""
     g, dz, Nzl = config_local.n_guard, config_local.dz, config_local.Nz
     rank, n = comm.rank, comm.size
-    rdt = type(zmin)
-    z_lo = float(zmin + rdt(g * dz))
-    z_hi = float(zmin + rdt((Nzl - g) * dz))
+    if bounds is None:
+        rdt = type(zmin)
+        z_lo = float(zmin + rdt(g * dz))
+        z_hi = float(zmin + rdt((Nzl - g) * dz))
+    else:
+        z_lo, z_hi = bounds
     names = list(MIGRATION_FIELDS) + [
         f for f in _OPTIONAL_FIELDS if getattr(sp, f) is not None]
 
@@ -374,12 +384,14 @@ def make_multichip_step(config_global, species_configs, options, mesh,
     step_fns = [step_mod.make_step_fn(config_local, species_configs, options,
                                       halo=h) for h in halos]
 
-    def migrate(rank, state):
+    def migrate(rank, state, bounds=None):
         """The state (``zmin`` the global edge) with its ``zmin`` the
         slab's local edge, its particles migrated every exchange period
         (the cadence of removal, injection and the fresh rho_prev in the
         base step; the guard clamp keeps strays inside the halo in
-        between) and the psum'd losses added to migration_overflow."""
+        between) and the psum'd losses added to migration_overflow.
+        ``bounds``: the slab's ownership bounds as 0-d tensors
+        (``migrate_particles``)."""
         halo = halos[rank]
         zmin_local = state.zmin + halo.offset(type(state.zmin))
         species = list(state.species)
@@ -390,7 +402,8 @@ def make_multichip_step(config_global, species_configs, options, mesh,
             for i, sp in enumerate(species):
                 species[i], lost = migrate_particles(
                     sp, config_local, zmin_local, halo.comm,
-                    migration_buffer, global_open=global_open)
+                    migration_buffer, global_open=global_open,
+                    bounds=bounds)
                 n_lost = n_lost + lost
             overflow = overflow + halo.psum(n_lost)
         return dataclasses.replace(state, species=species, zmin=zmin_local,
@@ -450,7 +463,8 @@ class SlabMultiStep:
     ``make_multichip_step``.
 
     ``runner(states, auxes, n_steps, slab_kwargs, live_counts=(),
-    eager=False)`` runs n_steps <= MAX_CAPTURE steps from the per-slab
+    eager=False, eager_exchange=False)`` runs n_steps <= MAX_CAPTURE
+    steps from the per-slab
     ``states`` (each slab's ``zmin`` the global edge; left unchanged)
     and returns (the new states, counts), counts the host values of the
     chunk's one read: ``resort_redo`` (the slabs' redo flags),
@@ -460,16 +474,20 @@ class SlabMultiStep:
     ``live_counts``), ``rolled_back`` and ``captures`` (each capture
     function's outputs stacked over the chunk's steps, from slab 0).
 
-    - The exchange block of a step runs eagerly, in the slab threads:
-      the migration every exchange period and, where the step's plan
-      says so (``plan_step``: every exchange period on a slab, whose
-      local box is open), the base step's exchange block (removal,
-      injection with its generator draws, a fresh rho_prev).
-    - The rest of every step is the step with ``exchanged``, its
-      StepScalars taken from each slab's own tables (``ChunkBuffers``
-      with the slab's halo: its local grid edges), the banded re-sort's
-      overflow added into each slab's redo flag, on each slab's static
-      buffers.  On CUDA, with every slab on one card, one graph per
+    - Every step is the step with its StepScalars taken from each
+      slab's own tables (``ChunkBuffers`` with the slab's halo: its
+      local grid edges), the banded re-sort's overflow added into each
+      slab's redo flag, on each slab's static buffers.  Its exchange
+      block is inside: the migration every exchange period (its
+      ownership bounds from the table, the losses psum'd into
+      ``migration_overflow``) and, where the step's plan says so
+      (``plan_step``: every exchange period on a slab, whose local box
+      is open), the base step's exchange block (removal, injection with
+      its generator's draws, a fresh rho_prev), their values the
+      table's (``core.step.plan_exchange``).  With ``eager_exchange``
+      (``DistributedRun.graph_blockers``' ``exchange`` reasons)
+      both run eagerly in the slab threads before the step's graph
+      instead.  On CUDA, with every slab on one card, one graph per
       variant holds every slab's step: the main thread opens the
       capture and each slab thread issues its step into the capture
       stream (``SlabGroup.run(fn, stream)``); the collectives resolve
@@ -479,7 +497,8 @@ class SlabMultiStep:
       reads in the one stream).  A replay is one graph launch a step for
       every slab, with no thread and no barrier.  On the CPU the slab
       threads call the same body.  A variant's key is every slab's
-      (n_move, full re-sort).
+      (n_move, full re-sort, exchange block inside); the exchange
+      variants register each slab's injection generator.
     - The capture functions (``cap(state, aux, comm)``) see the state
       after each step with its time and local grid edge as 0-d tensors
       of the table row; slab 0 writes their outputs into its static
@@ -509,8 +528,8 @@ class SlabMultiStep:
         self.bufs = [ChunkBuffers(multi_step.config_local,
                                   self.species_configs, multi_step.options,
                                   halo=h) for h in self.halos]
-        #: variant key (every slab's (n_move, full re-sort)) -> (graph,
-        #: launch counts)
+        #: variant key (every slab's (n_move, full re-sort, exchange
+        #: block inside)) -> (graph, launch counts)
         self.graphs = {}
         self._pool = self._side = None
         self._generators = []
@@ -521,14 +540,14 @@ class SlabMultiStep:
 
     # -----------------------------------------------------------------
     def __call__(self, states, auxes, n_steps, slab_kwargs, live_counts=(),
-                 eager=False):
+                 eager=False, eager_exchange=False):
         check_chunk(n_steps)
         states = [ensure_counters(with_migration_counter(s)) for s in states]
         series = [kw.get("antenna_series", ()) for kw in slab_kwargs]
         self._ensure_static(states, auxes, series)
         plans, edges = [], []
-        for b, st, ser in zip(self.bufs, states, series):
-            p, rows, irows = b._plan(st, n_steps, ser)
+        for b, st, ser, kw in zip(self.bufs, states, series, slab_kwargs):
+            p, rows, irows = b._plan(st, n_steps, ser, self.exchange_period)
             b._upload(rows, irows)
             plans.append(p)
             edges.append(b._edges)
@@ -541,10 +560,14 @@ class SlabMultiStep:
         self._generators = [kw["draws"].generator for kw in slab_kwargs
                             if self._processes
                             and isinstance(kw.get("draws"), GeneratorDraws)]
+        self._inject_generators = [
+            kw["generator"] for kw in slab_kwargs
+            if self.bufs[0]._injecting and kw.get("generator") is not None]
         gen_states = [g.get_state() for g in gens]
         redo = [0] * self.size
         if not eager:
-            curs = self._run_graphed(states, auxes, kws, plans, edges)
+            curs = self._run_graphed(states, auxes, kws, plans, edges,
+                                     eager_exchange)
             vals = self._read(curs, live_counts, flags=True)
             redo, vals = vals[:self.size], vals[self.size:]
         if eager or any(r > 0 for r in redo):
@@ -598,11 +621,13 @@ class SlabMultiStep:
         for b, st, ser, smp in zip(self.bufs, states, series, samples):
             b._ensure_static(st, ser, smp)
 
-    def _run_graphed(self, states, auxes, kws, plans, edges):
-        """The chunk on the static buffers: the exchange blocks eagerly
-        in the slab threads, every step's rest replayed (or, on the
-        CPU, run by the slab threads).  Returns the slabs' states on
-        their static buffers (``zmin`` the global edge)."""
+    def _run_graphed(self, states, auxes, kws, plans, edges,
+                     eager_exchange=False):
+        """The chunk on the static buffers, every step replayed (or, on
+        the CPU, run by the slab threads), its migration and exchange
+        block inside -- or, with ``eager_exchange``, run eagerly in the
+        slab threads before it.  Returns the slabs' states on their
+        static buffers (``zmin`` the global edge)."""
         for b, st in zip(self.bufs, states):
             for s, t in zip(b._static, state_tensors(st)):
                 s.copy_(t)
@@ -613,8 +638,10 @@ class SlabMultiStep:
         for k, step_plans in enumerate(zip(*plans)):
             plan = step_plans[0]
             local = [e[k][0] for e in edges]
-            if curs[0].iteration % self.exchange_period == 0 or plan.exchange:
-                def block(r, plan=plan):
+            block = (curs[0].iteration % self.exchange_period == 0
+                     or plan.exchange)
+            if block and eager_exchange:
+                def run_block(r, plan=plan):
                     st = self.eager_loop.migrate(r, curs[r])
                     if plan.exchange:
                         kw = kws[r]
@@ -623,28 +650,38 @@ class SlabMultiStep:
                             kw.get("column_angles"), kw.get("generator"))
                     self.bufs[r]._store(st)
                     return with_state_tensors(st, self.bufs[r]._static)
-                curs = self.group.run(block)
-            else:
+                curs = self.group.run(run_block)
+            elif not block:
                 curs = [dataclasses.replace(c, zmin=z)
                         for c, z in zip(curs, local)]
-            key = tuple((p.n_move, p.full_resort) for p in step_plans)
-            self._graphed(key, curs, auxes, kws)
+            inside = block and not eager_exchange
+            key = tuple((p.n_move, p.full_resort, inside)
+                        for p in step_plans)
+            self._graphed(key, curs, auxes, kws, inside)
             curs = [dataclasses.replace(
                 c, time=p.time_end, zmin=e[k][1], mw_zref=p.mw_zref_end,
-                iteration=c.iteration + 1)
-                for c, p, e in zip(curs, step_plans, edges)]
+                iteration=c.iteration + 1,
+                species=with_z_ends(c.species, b._z_ends[k]))
+                for c, p, e, b in zip(curs, step_plans, edges, self.bufs)]
         self.bufs[0]._copy_captures(len(plans[0]))
         return curs
 
-    def _body(self, r, cur, aux, kw):
-        """Slab r's step on its static buffers (an exchange step's
-        exchange block already run): its scalars from its tables' row,
-        the banded re-sort's overflow into its flag, the result copied
-        back, the captures, its index advanced."""
+    def _body(self, r, cur, aux, kw, inside):
+        """Slab r's step on its static buffers: with ``inside`` its
+        migration and exchange block first (``cur``'s zmin the global
+        edge; their values from the slab's table row), else on ``cur``
+        as it is (zmin the local edge, an exchange step's block already
+        run); its scalars from its tables' row, the banded re-sort's
+        overflow into its flag, the result copied back, the captures,
+        its index advanced."""
         b = self.bufs[r]
         row, irow = b._row()
-        new = self.step_fns[r](cur, aux, scalars=b._scalars(row, irow),
-                               redo_flag=b._flag, exchanged=True, **kw)
+        scalars = b._scalars(row, irow)
+        if inside:
+            cur = self.eager_loop.migrate(
+                r, cur, bounds=scalars.exchange.migration)
+        new = self.step_fns[r](cur, aux, scalars=scalars,
+                               redo_flag=b._flag, exchanged=not inside, **kw)
         b._store(new)
         self._capture(r, with_state_tensors(new, b._static), aux, row)
         b._index.add_(1)
@@ -667,13 +704,15 @@ class SlabMultiStep:
         self._capture(r, state, aux, b._row()[0])
         b._index.add_(1)
 
-    def _graphed(self, key, curs, auxes, kws):
-        """Every slab's step (after its exchange block) of variant
-        ``key``: the body in the slab threads on the CPU; on CUDA a
-        replay, or, at the variant's first step, its warm-up (the
-        slabs' steps, eagerly, on a side stream) and its capture."""
+    def _graphed(self, key, curs, auxes, kws, inside):
+        """Every slab's step of variant ``key`` (its migration and
+        exchange block with it, ``inside``): the body in the slab
+        threads on the CPU; on CUDA a replay, or, at the variant's first
+        step, its warm-up (the slabs' steps, eagerly, on a side stream)
+        and its capture, the generators of the draws registered with it
+        (the processes', and with ``inside`` the injection's)."""
         def body(r):
-            self._body(r, curs[r], auxes[r], kws[r])
+            self._body(r, curs[r], auxes[r], kws[r], inside)
         dev = self.bufs[0]._table.device
         if dev.type != "cuda":
             self.group.run(body)
@@ -692,8 +731,9 @@ class SlabMultiStep:
         main.wait_stream(self._side)
         self.graphs[key] = capture_graph(
             lambda stream: self.group.run(body, stream=stream), self._pool,
-            self._generators, f"the slabs' step (n_move, full re-sort: "
-            f"{key})")
+            self._generators + (self._inject_generators if inside else []),
+            f"the slabs' step (n_move, full re-sort, exchange block "
+            f"inside: {key})")
 
     def _read(self, states, live_counts, flags=False):
         """The chunk's one host read: every slab's redo flag (with

@@ -10,6 +10,14 @@ batch, continuous_injection.py:230).  fbpic_tpu draws those angles from
 ``jax.random``; the port's default source is a ``torch.Generator``
 (``GeneratorAngles``), and a caller can substitute any callable, e.g.
 one that reproduces fbpic_tpu's draws.
+
+A user's density function is probed once, when its species is added
+(``probe_dens_func``, the counterpart of fbpic_tpu's
+``ensure_traceable_dens``): one that torch evaluates on tensors
+without reading their values is called on the device at every
+injection (inside the chunk runner's CUDA graphs, as fbpic_tpu traces a
+``jnp`` function into its program); any other function gets numpy
+arrays on the host, as fbpic_tpu's ``pure_callback`` evaluates it.
 """
 from dataclasses import dataclass
 
@@ -28,8 +36,11 @@ class InjectorConfig:
     ux_th: float = 0.0
     uy_th: float = 0.0
     uz_th: float = 0.0
-    dens_func: object = None     # numpy callable (z, r) or (x, y, z)
+    dens_func: object = None     # callable (z, r) or (x, y, z)
     dens_args: str = "zr"        # 'zr' or 'xyz'
+    # dens_func evaluated on the device, with tensors (probe_dens_func);
+    # else on the host, with numpy arrays
+    dens_on_device: bool = False
     # Max columns injected in one exchange (>= exchange_period * p_nz
     # * cells moved per step, plus margin)
     max_inject_cols: int = 4
@@ -89,14 +100,34 @@ class GeneratorAngles:
         return (2.0 * np.pi * u).to(nkey.device)
 
 
+def probe_dens_func(dens_func, dens_args, *, dtype):
+    """Whether ``dens_func`` runs on the device: called once on small
+    tensors of torch's meta device (a shape and a dtype, no values), it
+    returns a tensor of their shape there.  A function that reads the
+    values -- numpy code (a ufunc turns a CPU tensor into an array, but
+    not one without values), a host read (``float``, ``.item()``) --
+    raises there, whatever the run's device: the CPU decides as the card
+    does.  A function that raises or returns anything else is evaluated
+    on the host."""
+    keys = ("x", "y", "z") if dens_args == "xyz" else ("z", "r")
+    probe = torch.empty(4, dtype=dtype, device="meta")
+    try:
+        out = dens_func(**{k: probe for k in keys})
+    except Exception:
+        return False
+    return torch.is_tensor(out) and out.shape == probe.shape \
+        and out.device == probe.device
+
+
 def generate_columns(inj_cfg: InjectorConfig, inj_aux: InjectorAux,
                      z_end, n_cols, phi_of, generator):
     """Generate max_inject_cols candidate columns starting at z_end.
 
-    ``z_end``: numpy scalar of the working dtype; ``n_cols``: int.
-    ``phi_of(nkey)``: the column angles.  Columns with index >= n_cols
-    get zero weight.  Returns a dict of (max_inject_cols * col_size,)
-    tensors and the new z_end.
+    ``z_end`` and ``n_cols``: host values (a numpy scalar of the working
+    dtype, an int) or 0-d tensors of the step's scalars (the working
+    dtype, int64): the same values either way.  ``phi_of(nkey)``: the
+    column angles.  Columns with index >= n_cols get zero weight.
+    Returns a dict of (max_inject_cols * col_size,) tensors.
     """
     dtype, device = inj_aux.r.dtype, inj_aux.r.device
     col_size = inj_aux.r.shape[0]
@@ -105,9 +136,10 @@ def generate_columns(inj_cfg: InjectorConfig, inj_aux: InjectorAux,
 
     cols_idx = torch.arange(max_cols, device=device)
     active = (cols_idx < n_cols).to(dtype)
-    # z_end (a numpy scalar of the working dtype) joins as a scalar
-    # operand: a tensor made from it would be a blocking host copy
-    z_cols = (cols_idx.to(dtype) + 0.5) * dz_p + float(z_end)
+    # A host z_end joins as a scalar operand: a tensor made from it
+    # would be a blocking host copy
+    z_cols = (cols_idx.to(dtype) + 0.5) * dz_p + (
+        z_end if torch.is_tensor(z_end) else float(z_end))
     r = inj_aux.r.repeat(max_cols)
     w = inj_aux.w_base.repeat(max_cols) * active.repeat_interleave(col_size)
     z = z_cols.repeat_interleave(col_size)
@@ -129,15 +161,18 @@ def generate_columns(inj_cfg: InjectorConfig, inj_aux: InjectorAux,
     y = r * sin_r
 
     if inj_cfg.dens_func is not None:
-        # User density functions are numpy code: evaluate on the host
         if inj_cfg.dens_args == "xyz":
             args = dict(x=x, y=y, z=z)
         else:
             args = dict(z=z, r=r)
-        dens = inj_cfg.dens_func(**{k: v.cpu().numpy()
-                                    for k, v in args.items()})
-        w = torch.clamp(w * torch.as_tensor(np.asarray(dens), dtype=dtype,
-                                            device=device), min=0.0)
+        if inj_cfg.dens_on_device:
+            dens = inj_cfg.dens_func(**args).to(dtype)
+        else:
+            # numpy code: evaluated on the host
+            dens = torch.as_tensor(np.asarray(inj_cfg.dens_func(
+                **{k: v.cpu().numpy() for k, v in args.items()})),
+                dtype=dtype, device=device)
+        w = torch.clamp(w * dens, min=0.0)
 
     ntot = max_cols * col_size
 
@@ -153,10 +188,8 @@ def generate_columns(inj_cfg: InjectorConfig, inj_aux: InjectorAux,
     uy = momentum(inj_cfg.uy_m, inj_cfg.uy_th)
     uz = momentum(inj_cfg.uz_m, inj_cfg.uz_th)
     inv_gamma = 1.0 / torch.sqrt(1 + ux**2 + uy**2 + uz**2)
-    np_dtype = type(z_end)
-    new_z_end = z_end + np_dtype(n_cols) * dz_p
     return dict(x=x, y=y, z=z, ux=ux, uy=uy, uz=uz,
-                inv_gamma=inv_gamma, w=w), new_z_end
+                inv_gamma=inv_gamma, w=w)
 
 
 def write_ring(arr, start, new_vals, capacity, mask=None):

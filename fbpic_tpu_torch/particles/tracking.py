@@ -34,6 +34,6 @@ def enable_tracking(sim, view):
     ids[:n] = torch.arange(1, n + 1, device=sp.w.device)
     ids = torch.where(sp.w != 0, ids, torch.zeros_like(ids))
     next_id = n + 1
-    if torch.is_tensor(sp.next_free):      # a process target
+    if torch.is_tensor(sp.next_free):      # created at run time
         next_id = sim._device_counter(next_id)
     sim.state.species[idx] = sp.replace(ids=ids, next_id=next_id)

@@ -235,20 +235,50 @@ class LabFrameParticleDiagnostic(_Container):
 
 
 #: The functions an AnalyticDistribution's expression may call, besides
-#: z, r, np, pi and the distribution's own keywords (fbpic_tpu's names,
-#: taken from numpy)
+#: z, r, np, pi and the distribution's own keywords (fbpic_tpu's names:
+#: numpy's on host arrays, torch's on tensors, ``TorchNamespace``)
 EXPRESSION_FUNCTIONS = ("exp", "sin", "cos", "sqrt", "tanh", "where",
                         "maximum", "minimum", "abs")
 
 
+class TorchNamespace:
+    """The ``np`` of an expression evaluated on tensors: torch's function
+    of each name (fbpic_tpu's is jax.numpy), taking Python numbers where
+    numpy takes them -- a number becomes a 0-d tensor of ``like``'s dtype
+    and device (a fill, no host copy), so the expression is computed in
+    the working dtype on the device."""
+
+    def __init__(self, like):
+        self._like = like
+
+    def _tensor(self, v):
+        return v if torch.is_tensor(v) else torch.full(
+            (), v, dtype=self._like.dtype, device=self._like.device)
+
+    def __getattr__(self, name):
+        fn = getattr(torch, name)
+        if not callable(fn):
+            return fn
+        return lambda *args: fn(*(self._tensor(a) for a in args))
+
+
 def analytic_density(expression, user_kw):
     """dens_func(z, r) of an AnalyticDistribution: its expression
-    evaluated with numpy on the host arrays the port passes."""
+    evaluated with numpy on host arrays (the initial load), with torch
+    on tensors (``TorchNamespace``: the injection, on the device and
+    inside the chunk runner's graphs, as fbpic_tpu evaluates it with
+    jax.numpy inside its program)."""
     def dens_func(z, r):
-        namespace = {"z": z, "r": r, "np": np, "pi": np.pi}
-        namespace.update({k: getattr(np, k) for k in EXPRESSION_FUNCTIONS})
+        on_tensors = torch.is_tensor(z)
+        lib = TorchNamespace(z) if on_tensors else np
+        namespace = {"z": z, "r": r, "np": lib, "pi": np.pi}
+        namespace.update({k: getattr(lib, k) for k in EXPRESSION_FUNCTIONS})
         namespace.update(user_kw)
-        return eval(expression, {"__builtins__": {}}, namespace)
+        # torch's C++ operators import through the calling frame's
+        # builtins: the expression's globals keep __import__ and no
+        # other builtin
+        builtins = {"__import__": __import__} if on_tensors else {}
+        return eval(expression, {"__builtins__": builtins}, namespace)
     return dens_func
 
 

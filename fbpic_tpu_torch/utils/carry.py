@@ -73,11 +73,12 @@ def state_from_numpy(spect, interp, species, time, zmin, iteration,
     injecting); a tracked species also has its ids, either one int64 per
     slot or fbpic_tpu's two uint32 words ``ids`` (low) and ``ids_hi``,
     joined as ``hi << 32 | lo``, and ``next_id`` (with ``next_id_hi``);
-    an ionizable species has its ``ionization_level`` (int32).  The
-    species whose indices are in ``process_targets`` (those ionization
-    or Compton scattering write into) get their cursor next_free and
-    counter next_id as 0-d int64 device tensors, as Simulation gives
-    them; the others as host ints.
+    an ionizable species has its ``ionization_level`` (int32).  An
+    injecting species (its inj_z_end set) and the species whose indices
+    are in ``process_targets`` (those ionization or Compton scattering
+    write into) get their cursor next_free and counter next_id as 0-d
+    int64 device tensors, as Simulation gives them; the others as host
+    ints.
     The capacity is the arrays' length: Nz * sort_K for a resident
     species, any length for a ring species (whose cursor is next_free),
     zero for an empty species without slots.  time, zmin,
@@ -117,7 +118,7 @@ def state_from_numpy(spect, interp, species, time, zmin, iteration,
                                      sp.get("next_id_hi")))
         z_end = sp.get("inj_z_end")
         next_free = int(sp.get("next_free") or 0)
-        if len(parts) in process_targets:
+        if len(parts) in process_targets or z_end is not None:
             next_free, next_id = (
                 torch.tensor(v, dtype=torch.int64, device=device)
                 for v in (next_free, next_id))

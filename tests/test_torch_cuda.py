@@ -1926,7 +1926,8 @@ def test_graphed_slabs_match_the_eager_slab_loop(cuda):
     one K2 per slab per step counted on the replays."""
     n_steps = 22
     (graphed, eager), counts = _slab_twins(n_steps)
-    assert graphed.graph_blockers == [] and graphed.exchange_period == 4
+    assert graphed.graph_blockers == ([], []) \
+        and graphed.exchange_period == 4
     assert graphed.runner.graphs and not eager.runner.graphs
     assert counts == {"K1": {0: n_steps, 1: n_steps},
                       "K2": {0: n_steps, 1: n_steps}, "K3": {}}
@@ -2072,7 +2073,8 @@ def test_graphed_run_equals_its_eager_twin(cuda):
     replays the captured step, and through the eager loop: the same bits
     but rho_prev; one K1 and one K2 launch a step, counted per replay;
     two graph variants (n_move = 1 every step; the exchange steps' rest,
-    after their eager exchange block, fully re-sorted)."""
+    after their eager exchange block -- the seeded angle source keeps it
+    eager -- fully re-sorted)."""
     from fbpic_tpu_torch.particles import cuda_fused, cuda_gather
     graphed, twin = _graph_twins(cuda)
     assert graphed.exchange_period > 1
@@ -2081,7 +2083,8 @@ def test_graphed_run_equals_its_eager_twin(cuda):
     graphed.step(40)
     assert cuda_fused.fused_onehot_contract.launches - n_k1 == 40
     assert cuda_gather.gather_sorted.launches - n_k2 == 40
-    assert sorted(graphed._multi_step.graphs) == [(1, False), (1, True)]
+    assert sorted(graphed._multi_step.graphs) == [(1, False, False),
+                                                  (1, True, False)]
     _eager_steps(twin, 40)
     _assert_twins_equal(graphed, twin)
     assert graphed.overflow_totals == {"sort_overflow": 0,
@@ -2149,6 +2152,179 @@ def test_graph_capture_raises_on_a_host_sync(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the step"):
         sim.step(3)
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def _exchange_twins(cuda, sort_K=256):
+    """The float32 golden-wake configuration twice, the column angles
+    the simulation's own (GeneratorAngles of its generator, seeded
+    alike): the exchange block replays inside its step's graph."""
+    from fbpic_tpu_torch.core.graph import graph_blockers
+    sims = [_golden_config_sim(cuda, torch.float32, sort_K)
+            for _ in range(2)]
+    assert graph_blockers(sims[0], sims[0].build_options()) == ([], [])
+    return sims
+
+
+def _assert_exchange_twins_equal(a, b):
+    """Every tensor bit for bit (under deterministic index_add_), the
+    host values, the injection front, the cursors and the generator's
+    state."""
+    from fbpic_tpu_torch.core.graph import state_tensors
+    sa, sb = a.state, b.state
+    assert (sa.iteration, float(sa.zmin), float(sa.time)) == \
+        (sb.iteration, float(sb.zmin), float(sb.time))
+    for i, (x, y) in enumerate(zip(state_tensors(sa), state_tensors(sb))):
+        assert torch.equal(x, y), i
+    pa, pb = sa.species[0], sb.species[0]
+    assert (pa.next_free, float(pa.inj_z_end)) == \
+        (pb.next_free, float(pb.inj_z_end))
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+def _host_launch_calls(run):
+    """The host's kernel launch calls (not the graph launches) of
+    run(), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                             "cuLaunchKernel"))
+
+
+@pytest.mark.cuda
+def test_graphed_exchange_runs_no_eager_exchange(cuda, monkeypatch):
+    """Two exchange periods in one chunk, after a call that captured
+    both variants: no exchange block runs from Python (the injection is
+    never called), the host launches the kernels of a one-step chunk
+    (the chunk's set-up and its one read) and, for each replay of an
+    exchange variant, at most the two of torch's replay prologue for
+    the generator registered with it (its seed and offset, filled on
+    the device) -- where an eager exchange block would launch hundreds
+    --, and the run equals its eager twin bit for bit under
+    deterministic index_add_, the injection front, the cursors and the
+    generator's state included."""
+    from fbpic_tpu_torch.core import step as step_module
+    with _deterministic():
+        graphed, twin = _exchange_twins(cuda)
+        ep = graphed.exchange_period
+        assert ep > 1
+        graphed.step(ep + 1)
+        _eager_steps(twin, ep + 1)
+        assert sorted(graphed._multi_step.graphs) == [(1, False, False),
+                                                      (1, True, True)]
+        real = step_module.continuous_injection
+        calls = []
+
+        def record(*args, **kwargs):
+            calls.append(1)
+            return real(*args, **kwargs)
+        monkeypatch.setattr(step_module, "continuous_injection", record)
+        one = _host_launch_calls(lambda: graphed.step(1))
+        periods = _host_launch_calls(lambda: graphed.step(2 * ep))
+        assert calls == []
+        monkeypatch.setattr(step_module, "continuous_injection", real)
+        # the twin with the same step() call boundaries (each call
+        # deposits rho_prev afresh)
+        _eager_steps(twin, 1)
+        _eager_steps(twin, 2 * ep)
+    assert one <= periods <= one + 2 * 2, (periods, one)
+    _assert_exchange_twins_equal(graphed, twin)
+    sp = graphed.state.species[0]
+    assert sp.next_free > 0 and int((sp.w != 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_density_probe_on_the_card(cuda):
+    """probe_dens_func decides on the meta device what the card does: a
+    torch density that it sends to the device returns a tensor of the
+    card under sync debug mode "error"; numpy code (np.where, and a
+    numpy ufunc, which a CPU tensor would pass through) and a torch
+    density that reads the host stay on the host, and raise on CUDA
+    tensors there."""
+    from fbpic_tpu_torch.particles.injection import probe_dens_func
+
+    def ramp(z, r):
+        return 1. + 0.5 * torch.tanh(z / 1.e-6)
+
+    def reads_back(z, r):
+        return z * float(z.max())
+    host = (lambda z, r: np.where(z > 0, 1., 0.),
+            lambda z, r: np.exp(-z / 1.e-6), reads_back)
+    for dtype in (torch.float32, torch.float64):
+        z = torch.linspace(0., 1.e-6, 8, dtype=dtype, device=cuda)
+        assert probe_dens_func(ramp, "zr", dtype=dtype)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ramp(z, z)
+            assert out.device == z.device and out.shape == z.shape
+            for fn in host:
+                assert not probe_dens_func(fn, "zr", dtype=dtype)
+                with pytest.raises(Exception):
+                    fn(z, z)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_exchange_capture_raises_on_a_host_read(cuda, monkeypatch):
+    """A host read planted in the exchange block (the injection reads
+    its column count back) raises while the exchange variant is
+    captured, with the variant in the message: no fallback."""
+    from fbpic_tpu_torch.core import step as step_module
+    real = step_module.continuous_injection
+
+    def reads_back(sp, inj_cfg, inj_aux, columns, *args, **kwargs):
+        if torch.is_tensor(columns[0]):
+            int(columns[0])
+        return real(sp, inj_cfg, inj_aux, columns, *args, **kwargs)
+
+    monkeypatch.setattr(step_module, "continuous_injection", reads_back)
+    sim, _ = _exchange_twins(cuda)
+    with pytest.raises(RuntimeError, match="exchange block inside=True"):
+        sim.step(3)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_exchange_inside_rolls_back_a_planted_overflow(cuda):
+    """A column overflow planted in both twins before a chunk that
+    crosses an exchange step replayed with its exchange block: the
+    chunk rolls back (the generator's state restored), runs again
+    eagerly and equals the eager twin bit for bit under deterministic
+    index_add_."""
+    import warnings
+    with _deterministic():
+        graphed, twin = _exchange_twins(cuda, sort_K=128)
+        graphed.step(5)
+        _eager_steps(twin, 5)
+        ep = graphed.exchange_period
+        assert graphed.state.iteration % ep != 0
+        for sim in (graphed, twin):
+            sp, K = sim.state.species[0], sim.species_configs[0].sort_K
+            Nz, dz = sim.config.Nz, sim.config.dz
+            live = (sp.w != 0).reshape(Nz, K)
+            counts = live.sum(1)
+            row = int(torch.argmax(counts[:-2] + counts[1:-1]
+                                   + counts[2:])) + 1
+            assert int(counts[row - 1:row + 2].sum()) > K
+            z = sp.z.clone().reshape(Nz, K)
+            z[row - 1] = torch.where(live[row - 1], z[row - 1] + dz,
+                                     z[row - 1])
+            z[row + 1] = torch.where(live[row + 1], z[row + 1] - dz,
+                                     z[row + 1])
+            sim.state.species[0] = sp.replace(z=z.reshape(-1))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            graphed.step(ep + 2)
+            _eager_steps(twin, ep + 2)
+    assert graphed.overflow_totals["rollbacks"] == 1
+    assert graphed.overflow_totals["sort_overflow"] \
+        == twin.overflow_totals["sort_overflow"] > 0
+    _assert_exchange_twins_equal(graphed, twin)
 
 
 @pytest.mark.cuda
@@ -2277,15 +2453,16 @@ def _graph_path_sim(device, case):
 @pytest.mark.parametrize("case", ["antenna_mirror", "mirror_ext", "ring",
                                   "btd", "cubic_pml", "cross_periodic"])
 def test_new_graph_paths_equal_their_eager_twin(cuda, case):
-    """9 steps through Simulation.step (exchange steps eager, the others
-    captured under sync debug mode "error" and replayed) against the
-    eager loop, under deterministic index_add_: every tensor equal bit
-    for bit, rho_prev too; with the BTD every captured row the runner
-    brought back equal to the eager loop's buffer, and the snapshots."""
+    """9 steps through Simulation.step (exchange steps' blocks eager --
+    the seeded angle source keeps them so --, every step captured under
+    sync debug mode "error" and replayed) against the eager loop, under
+    deterministic index_add_: every tensor equal bit for bit, rho_prev
+    too; with the BTD every captured row the runner brought back equal
+    to the eager loop's buffer, and the snapshots."""
     from fbpic_tpu_torch.core.graph import graph_blockers, state_tensors
     with _deterministic():
         graphed, twin = (_graph_path_sim(cuda, case) for _ in range(2))
-        assert graph_blockers(graphed, graphed.build_options()) == []
+        assert graph_blockers(graphed, graphed.build_options()).loop == []
         caps = {}
         for key, sim in (("graphed", graphed), ("eager", twin)):
             for diag in sim.diags:
@@ -2434,7 +2611,7 @@ def test_process_graph_paths_equal_their_eager_twin(cuda, case):
     counters = (cuda_fused.fused_onehot_contract, cuda_gather.gather_sorted)
     with _deterministic():
         graphed, twin = (_process_graph_sim(cuda, case) for _ in range(2))
-        assert graph_blockers(graphed, graphed.build_options()) == []
+        assert graph_blockers(graphed, graphed.build_options()).loop == []
         before = int(((graphed.state.species[1].z <= 0.)
                       & (graphed.state.species[1].w != 0)).sum())
         launches = []
@@ -2496,7 +2673,8 @@ def test_replays_draw_the_eager_runs_numbers(cuda):
         assert torch.equal(graphed.generator.get_state(),
                            twin.generator.get_state())
         draws.append(a.clone())
-    assert sorted(graphed._multi_step.graphs) == [(1, False), (1, True)]
+    assert sorted(graphed._multi_step.graphs) == [(1, False, False),
+                                                  (1, True, False)]
     # iteration 0 (an exchange step: its block eager, the rest fully
     # re-sorted) and 1 are their variants' warm-ups (the captures execute
     # nothing), 2-6 replays (4 the exchange step's rest)

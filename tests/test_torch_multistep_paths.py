@@ -422,4 +422,4 @@ CONFIGS = {
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_graph_blockers(name):
     build, want = CONFIGS[name]
-    assert _blockers(build()) == want
+    assert _blockers(build()) == (want, [])

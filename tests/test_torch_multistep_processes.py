@@ -82,8 +82,11 @@ IONS_RESORT = "full"
 GROUPS = {"ionization": (0, 1, 2), "ballistic": (3,), "compton": (3, 4)}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_torch_threads():
+    """Two intra-op threads (the suite runs several test processes side
+    by side) for the whole module: pytest sets the shared runs up before
+    any function-scoped fixture."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
     yield
@@ -279,35 +282,35 @@ def test_graph_blockers_of_process_runs():
     sim = _build("fbpic_tpu_torch")
     options = sim.build_options()
     assert isinstance(sim.process_draws, GeneratorDraws)
-    assert graph_blockers(sim, options) == []
+    assert graph_blockers(sim, options) == ([], [])
 
     def user_draws(name, iteration, species_index, shape, dtype):
         return torch.rand(shape, dtype=dtype)
     sim.process_draws = user_draws
-    assert graph_blockers(sim, options) == []          # on the CPU
+    assert graph_blockers(sim, options) == ([], [])    # on the CPU
     on_card = SimpleNamespace(species_configs=sim.species_configs,
                               device=torch.device("cuda"),
                               generator=sim.generator,
                               process_draws=user_draws)
     blocked = ["a process draw source other than the simulation's "
                "GeneratorDraws"]
-    assert graph_blockers(on_card, options) == blocked
+    assert graph_blockers(on_card, options) == (blocked, [])
     # a GeneratorDraws of another generator, which the graphs would not
     # advance
     on_card.process_draws = GeneratorDraws(torch.Generator())
-    assert graph_blockers(on_card, options) == blocked
+    assert graph_blockers(on_card, options) == (blocked, [])
 
     class Subclass(GeneratorDraws):
         pass
     for source in (GeneratorDraws, Subclass):
         on_card.process_draws = source(sim.generator)
-        assert graph_blockers(on_card, options) == []
+        assert graph_blockers(on_card, options) == ([], [])
     # without a process, the draw source is never called
     plain = dataclasses.replace
     on_card.species_configs = [plain(sc, ionizer=None, compton=None)
                                for sc in sim.species_configs]
     on_card.process_draws = lambda *a: None
-    assert graph_blockers(on_card, options) == []
+    assert graph_blockers(on_card, options) == ([], [])
 
 
 def test_new_draw_source_rebuilds_the_runner():

@@ -20,6 +20,11 @@ banded layout), on 2 and 4 slabs:
   (all slabs) and equals the eager loop, the lost particles counted
   alike;
 - ``graph_blockers``: empty on the CPU, slabs on several cards named.
+- The migration and the exchange block inside the slab body (their
+  bounds and column counts tensors of each slab's table) at 2 and 4
+  slabs, bit for bit with the eager slab loop (whose values are the
+  host's); a numpy density function keeps them eager in the slab
+  threads (``graph_blockers`` names it), bit for bit too.
 """
 import dataclasses
 import types
@@ -39,9 +44,11 @@ N_STEPS = 14
 GAMMA_B = 5.0
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread: the slabs are the parallelism."""
+    """One intra-op thread: the slabs are the parallelism (for the whole
+    module: pytest sets the shared pairs up before any function-scoped
+    fixture)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -92,7 +99,9 @@ def record_rows(sim):
 
 def pair(n_slabs, build=lwfa, n_steps=N_STEPS, **dist_kw):
     """The runner's run and its eager twin (the eager slab loop), from
-    the same seeds, n_steps each."""
+    the same seeds, n_steps each; ``exchange_calls`` on each: its
+    injections' and migrations' values, tensors of the step's scalars or
+    the host's (``ExchangeRecorder``)."""
     from fbpic_tpu_torch.parallel import distribute_simulation
     runs = []
     for eager in (False, True):
@@ -100,10 +109,42 @@ def pair(n_slabs, build=lwfa, n_steps=N_STEPS, **dist_kw):
                                     **dist_kw)
         run.eager = eager
         run.rows = record_rows(run.sim) if run.sim.diags else []
-        if n_steps:
-            run.step(n_steps)
+        with ExchangeRecorder() as rec:
+            if n_steps:
+                run.step(n_steps)
+        run.exchange_calls = rec.calls
         runs.append(run)
     return runs
+
+
+class ExchangeRecorder:
+    """While it is entered: whether each injection and each migration
+    read its values from the step's scalars (tensors) or from the
+    host."""
+
+    def __enter__(self):
+        from fbpic_tpu_torch.core import step as step_mod
+        from fbpic_tpu_torch.parallel import domain
+        self.calls = []
+        self.real = [(step_mod, "continuous_injection",
+                      step_mod.continuous_injection),
+                     (domain, "migrate_particles", domain.migrate_particles)]
+        inject, migrate = (fn for _, _, fn in self.real)
+
+        def record_inject(sp, inj_cfg, inj_aux, columns, *args, **kwargs):
+            self.calls.append(("inject", torch.is_tensor(columns[0])))
+            return inject(sp, inj_cfg, inj_aux, columns, *args, **kwargs)
+
+        def record_migrate(*args, bounds=None, **kwargs):
+            self.calls.append(("migrate", bounds is not None))
+            return migrate(*args, bounds=bounds, **kwargs)
+        step_mod.continuous_injection = record_inject
+        domain.migrate_particles = record_migrate
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.real:
+            setattr(module, name, fn)
 
 
 def assert_equal_runs(a, b):
@@ -242,12 +283,39 @@ def test_graph_blockers_name_slabs_on_several_cards():
     from fbpic_tpu_torch.parallel.api import DistributedRun
     sim = lwfa()
     run = distribute_simulation(sim, devices=["cpu"] * 2)
-    assert run.graph_blockers == []
+    assert run.graph_blockers == ([], [])
     blockers = DistributedRun.graph_blockers.fget(types.SimpleNamespace(
         devices=[torch.device("cuda:0"), torch.device("cuda:1")],
         sim=sim, options=run.options))
-    assert len(blockers) == 1 and "several cards" in blockers[0]
+    assert len(blockers.loop) == 1 and "several cards" in blockers.loop[0]
+    assert blockers.exchange == []
     shared = DistributedRun.graph_blockers.fget(types.SimpleNamespace(
         devices=[torch.device("cuda:0")] * 2, sim=sim,
         options=run.options))
-    assert shared == []
+    assert shared == ([], [])
+
+
+@pytest.mark.parametrize("n_slabs", [2, 4])
+def test_exchange_inside_the_slab_body(pairs, n_slabs):
+    graphed, eager = pairs(n_slabs)
+    assert graphed.graph_blockers == ([], [])
+    # exchange steps 0, 6 and 12: every slab migrates, injects once
+    n = 3 * n_slabs
+    assert sorted(graphed.exchange_calls) == [("inject", True)] * n \
+        + [("migrate", True)] * n
+    assert sorted(eager.exchange_calls) == [("inject", False)] * n \
+        + [("migrate", False)] * n
+    assert_equal_runs(graphed, eager)
+
+
+def test_host_density_keeps_the_slab_exchange_eager():
+    def ramp(z, r):
+        return np.where(z > 2.e-6, 1., 0.5)
+    graphed, eager = pair(2, lambda: lwfa(dens_func=ramp))
+    blockers = graphed.graph_blockers
+    assert blockers.loop == [] and len(blockers.exchange) == 1
+    assert "density function" in blockers.exchange[0]
+    calls = graphed.exchange_calls
+    assert calls == eager.exchange_calls and ("inject", False) in calls \
+        and ("inject", True) not in calls
+    assert_equal_runs(graphed, eager)

@@ -339,7 +339,8 @@ def test_ring_injection_matches_fbpic_tpu(cursor):
     the ring's end onto them)."""
     from fbpic_tpu.core.step import continuous_injection as ci0, \
         _stream_key, _STREAM_INJECT
-    from fbpic_tpu_torch.core.step import continuous_injection as ci1
+    from fbpic_tpu_torch.core.step import continuous_injection as ci1, \
+        injection_columns
     s0, s1 = window_sims(laser=False)
     sp0, sp1 = s0.state.species[0], s1.state.species[0]
     n_live = int((np.asarray(sp0.w) != 0).sum())
@@ -354,14 +355,16 @@ def test_ring_injection_matches_fbpic_tpu(cursor):
                        s0.species_configs[0], s0._injector_configs[0],
                        s0._injector_auxes[0], s0.state.zmin,
                        _stream_key(s0.state, _STREAM_INJECT, 0))
-    new1, count1 = ci1(s1.config, s1.build_options(), sp1, inj,
-                       s1._injector_auxes[0], s1.state.zmin,
+    n_cols, z_lo, z_end_after = injection_columns(
+        s1.config, s1.build_options(), inj, sp1.inj_z_end, s1.state.zmin)
+    new1, count1 = ci1(sp1, inj, s1._injector_auxes[0],
+                       (n_cols, sp1.inj_z_end, z_lo),
                        lambda nkey: s1.column_angles(0, 0, nkey),
                        s1.generator, resident=False)
     assert int(count1) == int(count0)
     assert (int(count0) == 0) == (cursor == "after_live")
     assert new1.next_free == int(new0.next_free)
-    assert float(new1.inj_z_end) == float(new0.inj_z_end)
+    assert float(z_end_after) == float(new0.inj_z_end)
     for n in PARTICLE:
         np.testing.assert_array_equal(np.asarray(getattr(new0, n)),
                                       getattr(new1, n).numpy(), n)
