@@ -306,6 +306,16 @@ the eager twin's loop: a replay runs no Python.
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.  Exits non-zero without a result
 when no CUDA device is available.
+
+``python3 chip_smoke.py --cards N`` (a machine with N cards, e.g. four
+H100s of one host) runs instead phase 24 on N slabs, one a card
+(each card's slabs replayed from its own CUDA graph, the cross-card
+exchanges peer copies inside the graphs), with its gates, beside the
+same slabs all on cuda:0 (graphed; bit for bit too) and with each
+card's device busy, flag-wait and copy time; then phase 25 on the N
+cards, K3 held against its plain version on each slab's operands; the
+cross-card copy against its plain version; and the kernels line (K1-K3
+and the copy).  It fails when fewer than N cards are visible.
 """
 import contextlib
 import json
@@ -391,6 +401,8 @@ TOL_K3 = {"float32": 1e-5, "float64": 1e-12}
 # cores (the bound of a kernel is the larger of bytes / rate and
 # operations / rate)
 HBM_BYTES_PER_S = 3.35e12
+#: NVLink between two H100 SXM of one host, each way (data sheet)
+NVLINK_BYTES_PER_S = 450e9
 FP32_FLOP_PER_S = 67e12
 # float64 outside the tensor cores (the same data sheet)
 FP64_FLOP_PER_S = 34e12
@@ -1242,6 +1254,8 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 KERNEL_GROUPS = (
     ("K1", r"fused_contract_kernel"), ("K2", r"gather_sorted_kernel"),
     ("K3", r"dense_contract_kernel"),
+    ("cross-card copies", r"copy_parts_kernel"),
+    ("cross-card flag waits", r"flag_kernel"),
     ("sort / scan", r"[Ss]ort|[Ss]can|cub::|Onesweep|Histogram"),
     ("FFT (cuFFT)", r"fft|FFT"),
     ("GEMM / batched matmul (cuBLAS)", r"gemm|gemv|cutlass|xmma|"
@@ -1265,6 +1279,33 @@ def kernel_groups(kernel_rows, n_steps):
         out[group] = (ms + ev.self_device_time_total / n_steps / 1e3,
                       n + ev.count / n_steps)
     return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def card_times(events, n_steps):
+    """{card index: ms a step} of the profiler's kernel events on each
+    card: ``busy_ms`` (every kernel), ``flag_wait_ms`` (the cross-card
+    exchange's flag kernels, csrc/peer.cu, which spin while a card
+    waits for a peer), ``exchange_copy_ms`` (its copies) and
+    ``busy_without_waits_ms``."""
+    import torch
+    out = {}
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.self_device_time_total
+        if us <= 0:
+            continue
+        card = out.setdefault(ev.device_index, dict(
+            busy_ms=0.0, flag_wait_ms=0.0, exchange_copy_ms=0.0))
+        ms = us / n_steps / 1e3
+        card["busy_ms"] += ms
+        if "flag_kernel" in ev.name:
+            card["flag_wait_ms"] += ms
+        elif "copy_parts_kernel" in ev.name:
+            card["exchange_copy_ms"] += ms
+    for card in out.values():
+        card["busy_without_waits_ms"] = card["busy_ms"] - card["flag_wait_ms"]
+    return dict(sorted(out.items()))
 
 
 def profile_steps(sim, n_steps, run=None, breakdown=False):
@@ -1312,6 +1353,13 @@ def profile_steps(sim, n_steps, run=None, breakdown=False):
     for ev in top:
         print(f"  {ev.self_device_time_total / n_steps / 1e3:9.4f} ms/step "
               f"{ev.count / n_steps:7.1f}/step  {ev.key[:90]}")
+    per_card = card_times(prof.events(), n_steps)
+    if len(per_card) > 1:
+        print("  per card (ms/step): " + "; ".join(
+            f"cuda:{c} busy {v['busy_ms']:.4f} (cross-card copies "
+            f"{v['exchange_copy_ms']:.4f}, flag waits "
+            f"{v['flag_wait_ms']:.4f})" for c, v in per_card.items()),
+              flush=True)
     groups = None
     if breakdown:
         groups = kernel_groups(kernels, n_steps)
@@ -1319,7 +1367,7 @@ def profile_steps(sim, n_steps, run=None, breakdown=False):
             f"{g} {ms:.4f} ({n:.1f})" for g, (ms, n) in groups.items()),
               flush=True)
     return dict(device_ms_per_step=busy_us / n_steps / 1e3,
-                kernel_groups=groups,
+                kernel_groups=groups, per_card=per_card,
                 profiled_wall_ms_per_step=wall / n_steps * 1e3,
                 launches_per_step=n_launch,
                 host_launch_calls_per_step=host_calls,
@@ -4640,10 +4688,11 @@ def exchange_device_ms(run):
     return ms
 
 
-def capture_slab_calls(run, targets):
+def capture_slab_calls(run, targets, first_only=False):
     """{name: {slab rank: (args, kwargs)}} of each module.<name> in
     ``targets`` (pairs) during one more step of the decomposed run: one
-    call of each per slab."""
+    call of each per slab (``first_only``: each slab's first of
+    several)."""
     from fbpic_tpu_torch.utils import kernels
     calls = {name: {} for _, name in targets}
     reals = {name: getattr(module, name) for module, name in targets}
@@ -4652,9 +4701,9 @@ def capture_slab_calls(run, targets):
         def record(*args, **kwargs):
             by_rank = calls[name]
             rank = kernels.current_slab.rank
-            if rank in by_rank:
+            if rank in by_rank and not first_only:
                 raise RuntimeError(f"slab {rank} called {name} twice")
-            by_rank[rank] = (args, kwargs)
+            by_rank.setdefault(rank, (args, kwargs))
             return reals[name](*args, **kwargs)
         return record
     # A replay runs no Python: the step goes through the eager slab loop
@@ -4719,6 +4768,7 @@ def slabs_difference(a, b):
     rel, same_host = {}, len(a.states) == len(b.states)
     for r, (sa, sb) in enumerate(zip(a.states, b.states)):
         for i, (x, y) in enumerate(zip(state_tensors(sa), state_tensors(sb))):
+            y = y.to(x.device)
             if x.shape != y.shape or not torch.equal(x, y):
                 d = (x.double() - y.double()).abs().max() if \
                     x.shape == y.shape else float("inf")
@@ -4818,19 +4868,22 @@ def slabs_planted_rollback(label, graphed, eager):
     return where[0][0], where[0][1], rolled
 
 
-def phase_multichip_lwfa(counters):
+def phase_multichip_lwfa(counters, n_slabs=MC_SLABS, devices=None,
+                         one_card=False):
     """24. examples/multichip_lwfa_script.py at full width (Nz = 800,
     Nr = 50, Nm = 2, 2x2x4 per cell, n_e = 4e24, a0 = 4, n_order = 32,
     open z, moving window, its FieldDiagnostic every 100 steps collected),
-    float32, through distribute_simulation on MC_SLABS slabs -- both on
-    cuda:0 on a one-card machine, one per card on two or more: the
-    slabs' chunk runner (graphed on one card; its graph_blockers
-    printed) --, its eager slab twin (the same script, ``run.eager``)
-    and its single-card twin (the same script, sim.step on the same
-    schedule):
+    float32, through distribute_simulation on ``n_slabs`` slabs of
+    ``devices`` -- by default MC_SLABS slabs, both on cuda:0 on a
+    one-card machine, one per card on two or more: the slabs' chunk
+    runner (one CUDA graph a card a variant; its graph_blockers printed)
+    --, its eager slab twin (the same script, ``run.eager``) and its
+    single-card twin (the same script, sim.step on the same schedule);
+    with ``one_card``, also the same slabs all on cuda:0, graphed:
     - the graphed and the eager slabs under deterministic index_add_,
       every array bit for bit at 50, 100 and 200 steps (the generators'
-      states and the collected records too);
+      states and the collected records too), and the slabs on one card
+      too (``one_card``: by reference what the cards copy);
     - exactly one K1 and one K2 launch per slab per step in each, no
       K3 (the graphed run's counted on its replays);
     - zero migration loss and zero sort overflow;
@@ -4847,20 +4900,23 @@ def phase_multichip_lwfa(counters):
     - K1 and K2 on each slab's own operands, captured in one more step,
       against their plain versions at TOL_K1 / TOL_K2;
     then, for the graphed slabs (their graphs captured again without
-    deterministic index_add_), the eager slabs and the single card,
-    ms/step, device busy, idle share, launches a step, the device time
-    by kernel group, the host syncs of step(14), and the halo's device
-    time a step.  Returns the launches of the graphed decomposed run
-    (the sums over its slabs)."""
+    deterministic index_add_), the eager slabs, the graphed slabs on one
+    card (``one_card``) and the single card, ms/step, device busy and
+    idle share (in all and per card, with the cross-card copies' and
+    flag waits' device time), launches a step, the device time by kernel
+    group, the host syncs of step(14), and the halo's device time a
+    step.  Returns the launches of the graphed decomposed run (the sums
+    over its slabs) and the phase's numbers."""
     import warnings
     import torch
     from fbpic_tpu_torch.parallel import api
     n_cards = torch.cuda.device_count()
-    devices = ([f"cuda:{i}" for i in range(MC_SLABS)] if n_cards >= MC_SLABS
-               else ["cuda:0"] * MC_SLABS)
-    label = f"multichip LWFA, {MC_SLABS} slabs on {devices}"
+    if devices is None:
+        devices = ([f"cuda:{i}" for i in range(n_slabs)]
+                   if n_cards >= n_slabs else ["cuda:0"] * n_slabs)
+    label = f"multichip LWFA, {n_slabs} slabs on {devices}"
     print(f"{label}: {n_cards} card(s) on this machine", flush=True)
-    sink_run, sink_eager, sink_twin = [], [], []
+    sink_run, sink_eager, sink_twin, sink_one = [], [], [], []
     real_dist = api.distribute_simulation
     # (distributing deposits rho_prev: a scatter deposit, made alike in
     # both under deterministic index_add_)
@@ -4869,9 +4925,13 @@ def phase_multichip_lwfa(counters):
             sim, devices=devices, **kw)), sink_run)
         ne = multichip_script(lambda sim, **kw: Deferred(real_dist(
             sim, devices=devices, **kw)), sink_eager)
+        no = multichip_script(lambda sim, **kw: Deferred(real_dist(
+            sim, devices=["cuda:0"] * n_slabs, **kw)), sink_one) \
+            if one_card else None
     run, asked = ns["run"].run, ns["run"].asked
     run_e = ne["run"].run
     run_e.eager = True
+    run_1 = no["run"].run if one_card else None
     tw = multichip_script(lambda sim, **kw: Deferred(Twin(sim)), sink_twin)
     twin = tw["run"].run
     sim = ns["sim"]
@@ -4888,8 +4948,9 @@ def phase_multichip_lwfa(counters):
         raise RuntimeError(f"{label}: a slab is not resident")
     out, checks = {}, {}
     launches = {k: 0 for k in counters}
-    by_slab = {"graphed": {k: {} for k in counters},
-               "eager": {k: {} for k in counters}}
+    runs = [("graphed", run), ("eager", run_e)] + (
+        [("one card", run_1)] if one_card else [])
+    by_slab = {key: {k: {} for k in counters} for key, _ in runs}
 
     def counted(obj, key, n_steps):
         """obj.step(n_steps) with the kernel counts set to 0 just before
@@ -4909,11 +4970,14 @@ def phase_multichip_lwfa(counters):
     done = 0
     for n_to in MC_STEPS:
         with deterministic_scatter(True):
-            counted(run, "graphed", n_to - done)
-            counted(run_e, "eager", n_to - done)
+            for key, obj in runs:
+                counted(obj, key, n_to - done)
         twin.step(n_to - done)
         done = n_to
         slabs_gate(label, run, run_e, f"after {n_to} steps")
+        if one_card:
+            slabs_gate(f"{label} against the same slabs on cuda:0", run,
+                       run_1, f"after {n_to} steps")
         dev = {}
         for m in (0, 1):
             a = twin.get_interp_field("Ez", m)
@@ -4927,8 +4991,8 @@ def phase_multichip_lwfa(counters):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = MC_STEPS[-1]
-    want_slab = {"K1": {r: n for r in range(MC_SLABS)},
-                 "K2": {r: n for r in range(MC_SLABS)}, "K3": {}}
+    want_slab = {"K1": {r: n for r in range(n_slabs)},
+                 "K2": {r: n for r in range(n_slabs)}, "K3": {}}
     runner = run.runner
     variants = sorted(runner.graphs)
     print(f"{label}: {n} steps of the graphed slabs, the eager slabs and "
@@ -4937,10 +5001,16 @@ def phase_multichip_lwfa(counters):
           f"{by_slab['eager']}); graph variants {variants}; overflow "
           f"{run.overflow_totals} (eager {run_e.overflow_totals}, single "
           f"card {sim_totals(twin.sim)})", flush=True)
-    if by_slab["graphed"] != want_slab or by_slab["eager"] != want_slab \
-            or launches != {"K1": MC_SLABS * n, "K2": MC_SLABS * n,
-                            "K3": 0}:
+    ported = ("K1", "K2", "K3")
+    if any({k: v[k] for k in ported} != want_slab
+           for v in by_slab.values()) or \
+            {k: launches[k] for k in ported} != {
+                "K1": n_slabs * n, "K2": n_slabs * n, "K3": 0}:
         raise RuntimeError(f"{label}: launches {launches} / {by_slab}")
+    if "copy" in counters and (launches["copy"] > 0) != (
+            len(set(devices)) > 1):
+        raise RuntimeError(f"{label}: {launches['copy']} cross-card copy "
+                           f"launches on {len(set(devices))} card(s)")
     if not run.graph_blockers.loop and not variants:
         raise RuntimeError(f"{label}: the graphed slabs captured no graph")
     if lost(run.overflow_totals) or lost(run_e.overflow_totals) or \
@@ -4967,7 +5037,7 @@ def phase_multichip_lwfa(counters):
     # the record's z rows (the physical grid) within 2 n_guard of a seam
     rows = np.arange(sim.Nz_phys) + sim.nd_edge
     near_seam = np.abs(rows[:, None] - run.Nz_int * np.arange(
-        1, MC_SLABS)).min(axis=1) < 2 * run.g
+        1, n_slabs)).min(axis=1) < 2 * run.g
     for it in (0, period):
         name = "data%08d.h5" % it
         same = record_differences(recs_eager[name], recs[name])
@@ -5015,17 +5085,21 @@ def phase_multichip_lwfa(counters):
     # the same call; one untimed exchange period first (the graphed
     # run's captures fall outside the timed window)
     warnings.filterwarnings("ignore", "particle-step", RuntimeWarning)
-    for key, obj, live in (("slabs", run, run_live(run)[0]),
-                           ("eager slabs", run_e, run_live(run_e)[0]),
-                           ("twin", twin, twin.live()[0])):
+    if one_card:
+        run_1.runner.release()
+    cost = [("slabs", run, run_live(run)[0]),
+            ("eager slabs", run_e, run_live(run_e)[0])] + (
+        [("slabs on one card", run_1, run_live(run_1)[0])]
+        if one_card else []) + [("twin", twin, twin.live()[0])]
+    for key, obj, live in cost:
         obj.step(run.exchange_period + 1)
-        graphs = dict(run.runner.graphs)
+        graphs = dict(obj.runner.graphs) if key != "twin" else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         obj.step(N_COST)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / N_COST * 1e3
-        if key == "slabs" and run.runner.graphs != graphs:
+        if graphs is not None and obj.runner.graphs != graphs:
             raise RuntimeError(f"{label}: the timed window captured "
                                f"graphs of its own")
         prof = profile_steps(obj, N_PROFILED, breakdown=True)
@@ -5033,20 +5107,26 @@ def phase_multichip_lwfa(counters):
         m = dict(ms_per_step=ms, live=live,
                  ns_per_particle_step=ms * 1e6 / live, host_syncs_step14=syncs)
         if prof is not None:
-            m.update(device_ms_per_step=prof["device_ms_per_step"],
-                     idle_share=1 - prof["device_ms_per_step"] / ms,
+            # on several cards: the busiest card's (its flag waits
+            # included; per card beside it), not the sum over the cards
+            busy = max(v["busy_ms"] for v in prof["per_card"].values())
+            m.update(device_ms_per_step=busy, idle_share=1 - busy / ms,
+                     device_ms_all_cards=prof["device_ms_per_step"],
                      launches_per_step=prof["launches_per_step"],
                      host_launch_calls_per_step=prof[
                          "host_launch_calls_per_step"],
                      kernel_ms_per_step=prof["kernel_ms_per_step"],
-                     kernel_groups=prof["kernel_groups"])
+                     kernel_groups=prof["kernel_groups"],
+                     per_card={c: dict(v, idle_share=1 - v[
+                         "busy_without_waits_ms"] / ms)
+                         for c, v in prof["per_card"].items()})
         print(f"{label} ({key}): {ms:.4f} ms/step over {N_COST} steps, "
               f"{m.get('device_ms_per_step')} ms/step device busy, idle "
               f"share {m.get('idle_share')}, {m.get('launches_per_step')} "
               f"launches a step, {m.get('host_launch_calls_per_step')} host "
               f"launch calls a step, {syncs['count']} host syncs in "
               f"step(14)", flush=True)
-        if key == "slabs" and syncs["count"] > 1:
+        if key in ("slabs", "slabs on one card") and syncs["count"] > 1:
             # the migration and the exchange block replay in the graphs:
             # the chunk's one read is the only sync
             raise RuntimeError(f"{label}: {syncs['count']} host syncs in "
@@ -5058,10 +5138,55 @@ def phase_multichip_lwfa(counters):
     out["overflow_after_the_plant"] = dict(slabs=dict(run.overflow_totals),
                                            eager=dict(run_e.overflow_totals))
     out["slabs"]["halo_device_ms_per_step"] = exchange_device_ms(run)
+    if "copy" in counters and len(set(devices)) > 1:
+        out["copy"] = measure_peer_copy(run)
     run.runner.release()
-    del run, run_e, twin, ns, ne, tw, sim, runner
+    if one_card:
+        run_1.runner.release()
+    del run, run_e, run_1, twin, ns, ne, no, tw, sim, runner
     torch.cuda.empty_cache()
     return {k: sum(v.values()) for k, v in by_slab["graphed"].items()}, out
+
+
+def measure_peer_copy(run):
+    """The cross-card copy (csrc/peer.cu ``copy_parts``) on one of the
+    run's exchanges: slab 0's six E / B guard strips (the 2g..g rows
+    before its right edge that exchange_guards_replace sends slab 1,
+    made contiguous) into buffers on slab 1's card, one launch, against
+    its plain version (torch's copy_ of each strip across the cards) on
+    the same strips, bit for bit; both timed on slab 0's card (CUDA
+    events); bound: the strips' bytes over one way of NVLink (the local
+    read and the remote write each move them once)."""
+    import torch
+    from fbpic_tpu_torch.fields import transform as tr
+    from fbpic_tpu_torch.parallel import peer
+    g = run.g
+    src_dev, dst_dev = run.devices[0], run.devices[1]
+    with torch.cuda.device(src_dev):
+        fields = [tr.ifft_z(getattr(run.states[0].spect, n))
+                  for n in ("Ep", "Em", "Ez", "Bp", "Bm", "Bz")]
+        n = fields[0].shape[1]
+        src = [F[:, n - 2 * g:n - g].contiguous() for F in fields]
+        dst = [torch.empty_like(t, device=dst_dev) for t in src]
+        ref = [torch.empty_like(t, device=dst_dev) for t in src]
+        peer.copy_parts(dst, src)
+        peer.copy_parts_plain(ref, src)
+        torch.cuda.synchronize(src_dev)
+        torch.cuda.synchronize(dst_dev)
+        err = max(float((a - b).abs().max()) for a, b in zip(dst, ref))
+        if not all(torch.equal(a, b) for a, b in zip(dst, ref)):
+            raise RuntimeError(f"the cross-card copy differs from its plain "
+                               f"version by {err}")
+        ms = cuda_ms(lambda: peer.copy_parts(dst, src))
+        plain_ms = cuda_ms(lambda: peer.copy_parts_plain(ref, src))
+    n_bytes = sum(t.numel() * t.element_size() for t in src)
+    bound_ms = n_bytes / NVLINK_BYTES_PER_S * 1e3
+    print(f"cross-card copy {src_dev} -> {dst_dev}, six {tuple(src[0].shape)} "
+          f"{src[0].dtype} strips ({n_bytes} bytes): kernel {ms:.4f} ms, "
+          f"plain (torch copy_ a strip) {plain_ms:.4f} ms, bound over "
+          f"NVLink {bound_ms:.5f} ms; bit for bit", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, n_bytes=n_bytes)
 
 
 def sim_totals(sim):
@@ -5080,10 +5205,11 @@ class NumpyAngles:
                                device=nkey.device)
 
 
-def resident_mesh_run(device, n_slabs=MC64_SLABS):
+def resident_mesh_run(device, n_slabs=MC64_SLABS, devices=None):
     """tests/test_resident.py:240-304's resident mesh in float64 on
     n_slabs slabs of ``device`` (n_slabs 0: the single device, not
-    decomposed), MC64_STEPS steps; the run (or the Simulation)."""
+    decomposed) or on ``devices`` (one a slab), MC64_STEPS steps; the
+    run (or the Simulation)."""
     import torch
     from fbpic_tpu_torch import Simulation
     from fbpic_tpu_torch.constants import c, e, m_e
@@ -5106,7 +5232,7 @@ def resident_mesh_run(device, n_slabs=MC64_SLABS):
     if not n_slabs:
         sim.step(MC64_STEPS)
         return sim
-    run = distribute_simulation(sim, devices=[device] * n_slabs,
+    run = distribute_simulation(sim, devices=devices or [device] * n_slabs,
                                 n_guard=24)
     if 0 not in run._resident_idx or run.exchange_period != 4:
         raise RuntimeError("resident mesh: not the test's configuration")
@@ -5757,7 +5883,7 @@ def graphed_summary(label, m, smi):
             f"syncs a step(14)")
 
 
-def phase_resident_mesh_f64(counters):
+def phase_resident_mesh_f64(counters, devices=None):
     """25. tests/test_resident.py's resident mesh in float64 (4 slabs,
     n_guard 24, exchange period 4, 40 steps) on the card (the slabs'
     chunk runner: one CUDA graph a variant for the four slabs) and on
@@ -5769,18 +5895,25 @@ def phase_resident_mesh_f64(counters):
     guard cell, from a missing stream dependency in an exchange, would
     be off by far more), rho_prev (a scatter deposit) within
     TOL_ATOMIC_RHO.  The same configuration on one device, card against
-    CPU, is printed beside it (the control)."""
+    CPU, is printed beside it (the control).  ``devices``: the slabs'
+    cards (one a slab: the chunks replayed from one graph a card, the
+    cross-card exchanges inside), and then K3 is also held against its
+    plain version on each slab's own operands (its J window, captured
+    in one more step) and timed; by default all four share cuda:0."""
     import torch
     label = "resident mesh, float64"
     for fn in counters.values():
         fn.launches = 0
         fn.launches_by_slab = {}
     t0 = time.perf_counter()
-    card = resident_mesh_run("cuda:0")
+    card = resident_mesh_run("cuda:0", devices=devices)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
-    by_slab = {k: dict(fn.launches_by_slab) for k, fn in counters.items()}
+    by_slab = {k: dict(counters[k].launches_by_slab)
+               for k in ("K1", "K2", "K3")}
     variants = sorted(card.runner.graphs)
+    if devices:
+        label = f"{label} on {devices}"
     print(f"{label}: the slabs' chunk runner on the card: graph variants "
           f"{variants}, graph_blockers {card.graph_blockers}", flush=True)
     if not variants:
@@ -5825,10 +5958,25 @@ def phase_resident_mesh_f64(counters):
                            f"(control {control})")
     if lost(card.overflow_totals):
         raise RuntimeError(f"{label}: overflow {card.overflow_totals}")
+    k3_slabs = {}
+    if devices:
+        from fbpic_tpu_torch.particles import sorted_deposit
+        calls = capture_slab_calls(
+            card, ((sorted_deposit, "dense_onehot_contract"),),
+            first_only=True)["dense_onehot_contract"]
+        for r, device in enumerate(card.devices):
+            with torch.cuda.device(device):
+                m = measure_k3(calls[r][0], f"J window, {label}, slab {r}",
+                               True)
+            bound_ms, bound_by = bound(m["n_bytes"], m["n_flops"],
+                                       m["flop_rate"])
+            k3_slabs[r] = dict(m, bound_ms=bound_ms, bound_by=bound_by)
+        del calls
     card.runner.release()
     del card, cpu, one_card, one_cpu
     torch.cuda.empty_cache()
     return {k: sum(v.values()) for k, v in by_slab.items()}, dict(
+        k3_slabs=k3_slabs,
         deviations=mesh, control=control, components=mesh_own,
         control_components=control_own, card_s=t_card, cpu_s=t_cpu,
         launches_by_slab=by_slab, graph_variants=[list(v)
@@ -6030,5 +6178,90 @@ def main():
     return 0
 
 
+def main_cards(n_cards):
+    """``--cards N``: the multichip LWFA at full width on N slabs, one a
+    card (phase 24's gates and numbers, beside the same slabs on one
+    card, graphed), and the float64 resident mesh on the N cards
+    against the CPU (phase 25), K3 on each slab's operands.  Fails when
+    fewer than N cards are visible."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke needs a CUDA device: "
+                           "torch.cuda.is_available() is false")
+    if torch.cuda.device_count() < n_cards:
+        raise RuntimeError(f"--cards {n_cards}: only "
+                           f"{torch.cuda.device_count()} card(s) visible")
+    from fbpic_tpu_torch.utils import kernels
+    from fbpic_tpu_torch.parallel import peer
+    from fbpic_tpu_torch.particles.cuda_dense import dense_onehot_contract
+    from fbpic_tpu_torch.particles.cuda_fused import fused_onehot_contract
+    from fbpic_tpu_torch.particles.cuda_gather import gather_sorted
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(f"{n_cards} cards of {torch.cuda.device_count()}:\n{smi}",
+          flush=True)
+    t_start = t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    counters = {"K1": fused_onehot_contract, "K2": gather_sorted,
+                "K3": dense_onehot_contract, "copy": peer.copy_parts}
+    devices = [f"cuda:{i}" for i in range(n_cards)]
+    mc_launches, multichip = phase_multichip_lwfa(
+        counters, n_slabs=n_cards, devices=devices, one_card=True)
+    card = f"{n_cards} x {smi.splitlines()[0]}"
+    print(graphed_summary(f"{n_cards}-slab multichip LWFA on {n_cards} "
+                          f"cards", multichip["slabs"], card), flush=True)
+    print(graphed_summary(f"{n_cards}-slab multichip LWFA on one card",
+                          multichip["slabs on one card"], card), flush=True)
+    mesh_launches, mesh = phase_resident_mesh_f64(counters, devices=devices)
+    k1_slabs = multichip.pop("k1_slabs")
+    k2_slabs = multichip.pop("k2_slabs")
+    k3_slabs = mesh.pop("k3_slabs")
+    copy = multichip.pop("copy")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def fullest(slabs):
+        """The numbers of the slab with the most live slots."""
+        return slabs[max(slabs, key=lambda r: slabs[r]["live_fraction"])]
+    k1 = dict(name="K1 fused J+drho deposit", route="cuda",
+              source="fbpic_tpu_torch/csrc/fused_deposit.cu",
+              replaces="fbpic_tpu/particles/pallas_fused.py:78",
+              launches=mc_launches["K1"], per_slab=k1_slabs,
+              **{k: fullest(k1_slabs).get(k) for k in keys})
+    k2 = dict(name="K2 sorted field gather", route="cuda",
+              source="fbpic_tpu_torch/csrc/gather.cu",
+              replaces="fbpic_tpu/particles/pallas_gather.py:80",
+              launches=mc_launches["K2"], per_slab=k2_slabs,
+              **{k: fullest(k2_slabs).get(k) for k in keys})
+    k3 = dict(name="K3 one-hot J / rho deposit", route="cuda",
+              source="fbpic_tpu_torch/csrc/dense_deposit.cu",
+              replaces="fbpic_tpu/particles/pallas_deposit.py:78",
+              launches=mesh_launches["K3"], per_slab=k3_slabs,
+              **{k: fullest(k3_slabs).get(k) for k in keys})
+    cp = dict(name="cross-card exchange copy", route="cuda",
+              source="fbpic_tpu_torch/csrc/peer.cu",
+              replaces="fbpic_tpu/parallel/domain.py:58 (ppermute, an XLA "
+                       "collective, not a Pallas kernel)",
+              launches=mc_launches["copy"],
+              **{k: copy[k] for k in keys})
+    print(json.dumps({"multichip_lwfa_cards": dict(multichip,
+                                                   launches=mc_launches),
+                      "resident_mesh_f64_cards": dict(
+                          mesh, launches=mesh_launches),
+                      "seconds": time.perf_counter() - t_start},
+                     default=float))
+    print(smi)
+    print(json.dumps({"kernels": [k1, k2, k3, cp]}, default=float))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if "--cards" in sys.argv[1:]:
+        sys.exit(main_cards(int(sys.argv[sys.argv.index("--cards") + 1])))
     sys.exit(main())

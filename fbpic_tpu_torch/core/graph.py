@@ -89,9 +89,10 @@ replaying it: the table, the step index, the flag and the rollback are
 the same; only the capture is CUDA-only.
 
 The slabs' runner (parallel/domain.py ``SlabMultiStep``) keeps one
-``ChunkBuffers`` per slab and captures through ``capture_graph`` too,
-the migration inside the exchange variants.
+``ChunkBuffers`` per slab and captures one graph a card at once through
+``capture_graphs``, the migration inside the exchange variants.
 """
+import contextlib
 import gc
 from dataclasses import fields, replace
 from typing import NamedTuple
@@ -634,39 +635,28 @@ def check_chunk(n_steps):
                          f"{n_steps}")
 
 
-def capture_graph(body, pool, generators, what):
-    """Capture ``body(stream)`` (``stream``: the capture stream) into a
-    new CUDA graph of memory pool ``pool``; returns (graph, counts), the
-    launches the capture counted, taken back out of the kernel counters
-    (``kernels.add_launches(*counts)`` adds them again at a replay):
-    ({wrapper: n}, {wrapper: {slab rank: n}}).  ``generators`` are
-    registered with the graph: each replay then draws from their
-    offsets at its launch and advances them as the eager step would.
-    The capture runs under torch's sync debug mode "error" (a host
-    synchronization in the body raises where it is made) and without
-    garbage collection (a graph it frees -- an old runner's, held in a
-    reference cycle -- would reset during this capture, which
-    invalidates it).  Only the capturing thread is barred from the
-    calls that are unsafe during a capture (``capture_error_mode``
-    "thread_local"): the slabs' threads issue into the capture stream
-    (parallel/domain.py).  A capture that fails raises."""
+class _Captured:
+    """The launches a capture counted (``counts``, set when it ends)."""
+    counts = None
+
+
+@contextlib.contextmanager
+def _capturing(what):
+    """The process-wide setting around a capture, set once whatever the
+    number of cards and threads that capture: no garbage collection (a
+    graph it frees -- an old runner's, held in a reference cycle --
+    would reset during this capture, which invalidates it).  A
+    RuntimeError raised inside is raised again as a failed capture of
+    ``what``.  Yields a ``_Captured`` whose ``counts`` are the launches
+    the capture counted, taken back out of the kernel counters:
+    ({wrapper: n}, {wrapper: {slab rank: n}})."""
     before = kernels.launch_counts()
     before_slab = kernels.slab_launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    mode = torch.cuda.get_sync_debug_mode()
+    captured = _Captured()
     collecting = gc.isenabled()
     gc.disable()
     try:
-        ctx = torch.cuda.graph(graph, pool=pool,
-                               capture_error_mode="thread_local")
-        with ctx:
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                body(ctx.capture_stream)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+        yield captured
     except RuntimeError as err:
         raise RuntimeError(f"capturing {what} in a CUDA graph failed: "
                            f"{err}") from err
@@ -686,7 +676,74 @@ def capture_graph(body, pool, generators, what):
     kernels.add_launches({fn: -n for fn, n in counts.items()},
                          {fn: {r: -n for r, n in ranks.items()}
                           for fn, ranks in by_slab.items()})
-    return graph, (counts, by_slab)
+    captured.counts = (counts, by_slab)
+
+
+@contextlib.contextmanager
+def _host_syncs_raise():
+    """torch's sync debug mode "error" (process-wide): a host
+    synchronization in the captured work raises where it is made."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _register(graph, generators):
+    """Register ``generators`` with ``graph``, each with its own card
+    current: torch puts a generator's graph-side seed and offset on the
+    current card at its first registration, and a replay on another card
+    would read them there, unordered with the fill that sets them."""
+    for gen in generators:
+        with torch.cuda.device(gen.device):
+            graph.register_generator_state(gen)
+
+
+def capture_graph(body, pool, generators, what):
+    """Capture ``body(stream)`` (``stream``: the capture stream) into a
+    new CUDA graph of memory pool ``pool``; returns (graph, counts), the
+    launches the capture counted, taken back out of the kernel counters
+    (``kernels.add_launches(*counts)`` adds them again at a replay):
+    ({wrapper: n}, {wrapper: {slab rank: n}}).  ``generators`` are
+    registered with the graph: each replay then draws from their
+    offsets at its launch and advances them as the eager step would.
+    The capture runs under ``_capturing`` and ``_host_syncs_raise``
+    (entered once the capture has begun: torch.cuda.graph synchronizes
+    before it begins).  Only the
+    capturing thread is barred from the calls that are unsafe during a
+    capture (``capture_error_mode`` "thread_local").  A capture that
+    fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    _register(graph, generators)
+    with _capturing(what) as captured:
+        ctx = torch.cuda.graph(graph, pool=pool,
+                               capture_error_mode="thread_local")
+        with ctx, _host_syncs_raise():
+            body(ctx.capture_stream)
+    return graph, captured.counts
+
+
+def capture_graphs(run, pools, generators, what):
+    """Capture one CUDA graph on each card of ``pools`` ({card: memory
+    pool}) at once: ``run(graphs)`` issues the work, ``graphs`` {card:
+    (graph, pool)} -- the slabs' threads open the captures, each card's
+    on its own stream (``parallel.group.SlabGroup.run``), since the
+    cards' collectives meet during the capture.  Each generator of
+    ``generators`` is registered with its own card's graph only.  The
+    cards are synchronized first; the capture runs under ``_capturing``
+    and ``_host_syncs_raise``, set once for every card.  Returns
+    ({card: graph}, counts) as ``capture_graph`` does; a capture that
+    fails on any card raises."""
+    graphs = {card: torch.cuda.CUDAGraph() for card in pools}
+    for gen in generators:
+        _register(graphs[torch.device(gen.device)], [gen])
+    for card in pools:
+        torch.cuda.synchronize(card)
+    with _capturing(what) as captured, _host_syncs_raise():
+        run({card: (graph, pools[card]) for card, graph in graphs.items()})
+    return graphs, captured.counts
 
 
 class GraphBlockers(NamedTuple):

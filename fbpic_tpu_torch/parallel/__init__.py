@@ -3,11 +3,12 @@
 One process, one thread per slab (``group``), the slabs meeting only in
 the guard exchange, the particle migration and the counters' sums:
 ``distribute_simulation(sim, devices=[...])`` then ``run.step(N)``,
-which goes through the slabs' chunk runner (``SlabMultiStep``: on one
-card, every step's rest replayed from one CUDA graph for all slabs).
+which goes through the slabs' chunk runner (``SlabMultiStep``: every
+step replayed from one CUDA graph a card, the cross-card exchanges
+inside).
 """
 from .mesh import Mesh, make_mesh, particle_dp_shardings
-from .group import SlabGroup, SlabComm
+from .group import SlabGroup, SlabComm, card_groups
 from .domain import (
     MIGRATION_FIELDS, local_grid_config, exchange_guards_replace,
     exchange_guards_add, migrate_particles, make_multichip_step, local_aux,
@@ -18,7 +19,7 @@ from .api import DistributedRun, distribute_simulation
 __all__ = [
     "DistributedRun", "Halo", "MIGRATION_FIELDS", "Mesh",
     "SlabComm", "SlabGroup", "SlabMultiStep", "build_multichip_state",
-    "distribute_simulation", "exchange_guards_add",
+    "card_groups", "distribute_simulation", "exchange_guards_add",
     "exchange_guards_replace", "local_aux", "local_grid_config",
     "make_mesh", "make_multichip_step", "migrate_particles",
     "particle_dp_shardings", "sum_guards",

@@ -333,19 +333,16 @@ class DistributedRun:
     def graph_blockers(self):
         """Why this run's chunks do not replay all of their steps from
         CUDA graphs (``core.graph.GraphBlockers``): ``loop``, the reasons
-        that keep the eager slab loop (slabs on several cards: one graph
-        holds one card's stream; and on a card the single card's: a
+        that keep the eager slab loop (on the cards the single card's: a
         process draw source other than the simulation's GeneratorDraws;
         on the CPU none, the slab threads call the chunk runner's body);
         ``exchange``, those that keep only the migration and exchange
         block eager in the slab threads (the single card's: a density
-        function on the host, another column angle source)."""
+        function on the host, another column angle source).  Slabs on
+        several cards replay one graph a card."""
         card = graph_blockers(self.sim, self.options)
-        cuda = {d for d in self.devices if d.type == "cuda"}
-        loop = ([f"slabs on several cards ({len(cuda)}): one CUDA graph "
-                 f"holds the work of one card"] if len(cuda) > 1 else [])
-        return GraphBlockers(loop + (card.loop if cuda else []),
-                             card.exchange)
+        cuda = any(d.type == "cuda" for d in self.devices)
+        return GraphBlockers(card.loop if cuda else [], card.exchange)
 
     @property
     def runner(self):

@@ -20,9 +20,9 @@ Layout (reference boundary_communicator.py:556-620):
 
 ``make_multichip_step`` builds the eager slab loop; ``SlabMultiStep``
 runs the same steps in chunks, every step replayed from one CUDA graph
-that holds every slab's step, its migration and exchange block
-included (fbpic_tpu's fori_loop inside shard_map, the migration under
-its ``lax.cond``).
+a card that holds the steps of the card's slabs, their migration,
+exchange block and cross-card exchanges included (fbpic_tpu's
+fori_loop inside shard_map, the migration under its ``lax.cond``).
 
 A decomposed state is a list of per-slab ``SimState``: fields
 (Nm, Nz_local, Nr) and particle arrays (cap_local,) on the slab's
@@ -30,6 +30,7 @@ device, each slab's ``zmin`` the GLOBAL grid edge (as fbpic_tpu keeps it
 replicated); the counters are psum'd, so every slab holds the totals.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,13 +40,14 @@ from ..fields.solver import build_field_aux, SpectralFields, InterpFields
 from ..particles.compaction import topk_compact
 from ..particles.state import ParticleState
 from ..core import step as step_mod
-from ..core.graph import (ChunkBuffers, capture_graph, check_chunk,
+from ..core.graph import (ChunkBuffers, capture_graphs, check_chunk,
                           has_processes, state_tensors, with_state_tensors,
                           with_z_ends)
 from ..core.state import SimState
 from ..core.step import ensure_counters
 from ..particles.draws import GeneratorDraws
 from ..utils import kernels
+from . import peer
 from .group import SlabGroup
 
 
@@ -487,34 +489,41 @@ class SlabMultiStep:
       table's (``core.step.plan_exchange``).  With ``eager_exchange``
       (``DistributedRun.graph_blockers``' ``exchange`` reasons)
       both run eagerly in the slab threads before the step's graph
-      instead.  On CUDA, with every slab on one card, one graph per
-      variant holds every slab's step: the main thread opens the
-      capture and each slab thread issues its step into the capture
-      stream (``SlabGroup.run(fn, stream)``); the collectives resolve
-      during the capture as they do eagerly (tensors by reference, the
-      exchanges and sums device ops in stream order; the barrier orders
-      the threads' issue, so a sender's writes come before a receiver's
-      reads in the one stream).  A replay is one graph launch a step for
-      every slab, with no thread and no barrier.  On the CPU the slab
-      threads call the same body.  A variant's key is every slab's
-      (n_move, full re-sort, exchange block inside); the exchange
-      variants register each slab's injection generator.
+      instead.  On CUDA each card holds one graph per variant with the
+      steps of its slabs: each card's first slab thread opens its
+      card's capture on the card's side stream, the card's slab threads
+      issue their steps into it, and the cards capture at the same time
+      (``SlabGroup.run(fn, streams, graphs)``, ``capture_graphs``); the
+      collectives resolve during the capture as they do eagerly --
+      within a card tensors by reference, in stream order (the barrier
+      orders the threads' issue, so a sender's writes come before a
+      receiver's reads in the card's one stream); between cards peer
+      copies into receive buffers on the receiving card, ordered by
+      flags in device memory (``parallel.group``), captured in both
+      cards' graphs.  A replay is one graph launch a card a step, with
+      no thread and no barrier.  On the CPU the slab threads call the
+      same body.  A variant's key is every slab's (n_move, full
+      re-sort, exchange block inside); each generator that draws (the
+      processes', and in the exchange variants the injection's) is
+      registered with its own card's graph.
     - The capture functions (``cap(state, aux, comm)``) see the state
       after each step with its time and local grid edge as 0-d tensors
       of the table row; slab 0 writes their outputs into its static
       buffers at the device step index, copied to pinned host memory
       before the chunk's one read.
     - The chunk's one read stacks every slab's redo flag, slab 0's
-      counters and the live counts; a flag above 0 runs the chunk again
-      from its input states through the eager slab loop (every slab,
-      the generators' states restored), its captures with it.
+      counters, the live counts and each card's timed-out exchange waits
+      (which raise) on slab 0's card; a flag above 0 on any card runs
+      the chunk again from its input states through the eager slab loop
+      (every slab, every card, the generators' states restored), its
+      captures with it.
       ``eager``: the chunk through the eager slab loop from the start
       (with the same read, captures and buffers).
 
     The kernel counters of a capture are taken back out, per slab too,
-    and added again at every replay.  A capture that fails, a host
-    synchronization in any slab's step during the capture, or a slab
-    that raises, raises."""
+    and added again at every replay.  A capture that fails on any card,
+    a host synchronization in any slab's step during the capture, or a
+    slab that raises, raises."""
 
     def __init__(self, multi_step, species_configs):
         self.eager_loop = multi_step
@@ -529,9 +538,13 @@ class SlabMultiStep:
                                   self.species_configs, multi_step.options,
                                   halo=h) for h in self.halos]
         #: variant key (every slab's (n_move, full re-sort, exchange
-        #: block inside)) -> (graph, launch counts)
+        #: block inside)) -> ({card: graph}, launch counts)
         self.graphs = {}
-        self._pool = self._side = None
+        #: each card's side stream (the warm-up and the capture) and
+        #: memory pool (its graphs')
+        self._sides, self._pools = {}, {}
+        #: the launcher threads of the cards' graphs (several cards)
+        self._launcher = None
         self._generators = []
 
     @property
@@ -597,10 +610,14 @@ class SlabMultiStep:
     def release(self):
         """Drop the graphs (their memory pool goes with the last) and the
         static buffers."""
-        for graph, _ in self.graphs.values():
-            graph.reset()
+        for graphs, _ in self.graphs.values():
+            for graph in graphs.values():
+                graph.reset()
         self.graphs = {}
-        self._pool = self._side = None
+        self._sides, self._pools = {}, {}
+        if self._launcher is not None:
+            self._launcher.shutdown()
+            self._launcher = None
         for b in self.bufs:
             b._drop_buffers()
 
@@ -707,39 +724,63 @@ class SlabMultiStep:
     def _graphed(self, key, curs, auxes, kws, inside):
         """Every slab's step of variant ``key`` (its migration and
         exchange block with it, ``inside``): the body in the slab
-        threads on the CPU; on CUDA a replay, or, at the variant's first
-        step, its warm-up (the slabs' steps, eagerly, on a side stream)
-        and its capture, the generators of the draws registered with it
-        (the processes', and with ``inside`` the injection's)."""
+        threads on the CPU; on CUDA a replay of each card's graph, or,
+        at the variant's first step, its warm-up (the slabs' steps,
+        eagerly, on each card's side stream) and the capture of one
+        graph a card, every card at once (``capture_graphs``), each
+        generator of the draws (the processes', and with ``inside`` the
+        injection's) registered with its own card's graph."""
         def body(r):
             self._body(r, curs[r], auxes[r], kws[r], inside)
-        dev = self.bufs[0]._table.device
-        if dev.type != "cuda":
+        if self.bufs[0]._table.device.type != "cuda":
             self.group.run(body)
             return
         if key in self.graphs:
-            graph, counts = self.graphs[key]
-            graph.replay()
+            graphs, counts = self.graphs[key]
+            self._replay(graphs)
             kernels.add_launches(*counts)
             return
-        if self._side is None:
-            self._side = torch.cuda.Stream(device=dev)
-            self._pool = torch.cuda.graph_pool_handle()
-        main = torch.cuda.current_stream(dev)
-        self._side.wait_stream(main)
-        self.group.run(body, stream=self._side)
-        main.wait_stream(self._side)
-        self.graphs[key] = capture_graph(
-            lambda stream: self.group.run(body, stream=stream), self._pool,
+        cards = self.group.cards
+        if not self._sides:
+            self._sides = {d: torch.cuda.Stream(device=d) for d in cards}
+            self._pools = {d: torch.cuda.graph_pool_handle() for d in cards}
+        mains = {d: torch.cuda.current_stream(d) for d in cards}
+        for d in cards:
+            self._sides[d].wait_stream(mains[d])
+        self.group.run(body, streams=self._sides)
+        for d in cards:
+            mains[d].wait_stream(self._sides[d])
+        self.graphs[key] = capture_graphs(
+            lambda graphs: self.group.run(body, streams=self._sides,
+                                          graphs=graphs), self._pools,
             self._generators + (self._inject_generators if inside else []),
             f"the slabs' step (n_move, full re-sort, exchange block "
             f"inside: {key})")
+
+    def _replay(self, graphs):
+        """Launch every card's graph of a step.  On several cards each
+        from a launcher thread of its own, all at once: a launch blocks
+        the host once its card's queue is full, and a card whose graph
+        waits on a peer's flag stops draining its queue until the peer's
+        graph is launched too (launched in turn from one thread, a
+        graph of ~4000 kernels, two slabs' exchange step, stalled the
+        card for good)."""
+        if len(graphs) == 1:
+            next(iter(graphs.values())).replay()
+            return
+        if self._launcher is None:
+            self._launcher = ThreadPoolExecutor(
+                max_workers=len(graphs), thread_name_prefix="graph-launch")
+        for done in [self._launcher.submit(g.replay) for g in graphs.values()]:
+            done.result()
 
     def _read(self, states, live_counts, flags=False):
         """The chunk's one host read: every slab's redo flag (with
         ``flags``), slab 0's migration, sort and ring counters (psum'd:
         every slab holds the totals), each slab's live count of each
-        species in ``live_counts``, stacked on slab 0's device."""
+        species in ``live_counts``, and each card's count of timed-out
+        exchange waits, stacked on slab 0's device.  A timed-out wait
+        raises."""
         dev = states[0].sort_overflow.device
         vals = [b._flag for b in self.bufs] if flags else []
         st0 = states[0]
@@ -747,7 +788,16 @@ class SlabMultiStep:
                  st0.ring_overwrite]
         vals += [(st.species[i].w != 0).sum() for i in live_counts
                  for st in states]
-        return torch.stack([v.to(dev) for v in vals]).tolist()
+        faults = self.group.faults()
+        out = torch.stack([v.to(dev, torch.int64)
+                           for v in vals + faults]).tolist()
+        if faults and any(out[len(vals):]):
+            raise RuntimeError(
+                f"a cross-card exchange of the slabs waited more than "
+                f"{peer.FLAG_TIMEOUT} s for a peer card (timed-out waits "
+                f"by card: {out[len(vals):]}; the flags: "
+                f"{self.group.fault_report()})")
+        return out[:len(vals)]
 
 
 def local_aux(config_local, **kwargs):

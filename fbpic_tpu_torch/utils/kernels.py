@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fused_deposit", "dense_deposit", "gather")
+SOURCES = ("fused_deposit", "dense_deposit", "gather", "peer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,6 +43,10 @@ _SIGNATURES = {
                          + [_P],
     "gather_smem_bytes": [_I] * 4,
     "gather_bz_max": [],
+    "peer_enable_access": [_I, _I],
+    "peer_copy_parts": [_P, _P, _P, _I, _P, _P, _I, _P],
+    "peer_take_flag": [_P, _P, ctypes.c_ulonglong, _P],
+    "peer_give_flag": [_P, _P],
 }
 
 _libs = {}

@@ -63,7 +63,14 @@ only PyTorch; there, skip the JAX-based conftest:
   both slabs' steps) bit for bit with the eager slab loop under
   deterministic index_add_, one K1 and one K2 per slab per step counted
   on the replays, a planted overflow rolled back on every slab, a host
-  read in one slab's captured step raising;
+  read in one slab's captured step raising; the cross-card exchange
+  (peer copies into receive buffers, flags in device memory) on one
+  card, its slabs put in groups as if on cards, bit for bit with the
+  mailbox; on four cards of one host (``-k several_cards``; skipped
+  on one card) the float32 LWFA on 4 slabs, one CUDA graph a
+  card, bit for bit with the eager slab loop and with 4 slabs on 2
+  cards and on 1, exact launches per slab, a planted overflow on the
+  third card rolled back on every card;
 - the chunk runner (core/graph.py): K2 reading zmin from device memory
   (a CUDA graph of one call replayed after the value changed); a
   resident LWFA through Simulation.step (the step replayed from a
@@ -1822,16 +1829,17 @@ def test_resident_mesh_on_card_matches_cpu(cuda):
 @pytest.mark.cuda
 def test_slabs_on_several_cards_match_slabs_sharing_one(cuda):
     """The 4 slabs of the float64 resident mesh spread over the cards
-    (cross-card exchanges: torch's copy between the cards' streams)
-    against the same 4 slabs sharing cuda:0."""
-    n_cards = torch.cuda.device_count()
-    if n_cards < 2:
-        pytest.skip("needs two cards")
+    (its chunks replayed from one CUDA graph a card, the cross-card
+    exchanges peer copies inside them) against the same 4 slabs sharing
+    cuda:0, within 1e-10."""
     n_steps = 12
-    devices = [f"cuda:{r * min(n_cards, 4) // 4}" for r in range(4)]
+    devices = _four_slabs_on_cards()
     one = _resident_mesh("cuda:0", n_steps)
     many = _resident_mesh("cuda:0", n_steps, devices=devices)
     assert [str(s.spect.Ez.device) for s in many.states] == devices
+    assert many.runner.graphs and all(
+        len(graphs) == len(set(devices))
+        for graphs, _ in many.runner.graphs.values())
     _states_close(one.states, many.states, 1e-10)
 
 
@@ -1882,18 +1890,18 @@ def test_float32_lwfa_on_two_slabs_of_the_card(cuda):
     assert run.overflow_totals["migration_overflow"] == 0
 
 
-def _slab_twins(n_steps, **dist_kw):
-    """The LWFA of _slab_lwfa (exchange period 4) on 2 slabs of cuda:0
-    twice from the same seeds: the chunk runner's run (its steps
-    replayed from CUDA graphs) and the eager slab loop, n_steps each
-    under deterministic index_add_; the graphed run's kernel counts
-    per slab (set to 0 just before it)."""
+def _slab_twins(n_steps, devices=("cuda:0",) * 2, **dist_kw):
+    """The LWFA of _slab_lwfa (exchange period 4) on slabs of
+    ``devices`` (2 slabs of cuda:0) twice from the same seeds: the chunk
+    runner's run (its steps replayed from CUDA graphs) and the eager
+    slab loop, n_steps each under deterministic index_add_; the graphed
+    run's kernel counts per slab (set to 0 just before it)."""
     from fbpic_tpu_torch.parallel import distribute_simulation
     runs, counts = [], None
     with _deterministic():
         for eager in (False, True):
             run = distribute_simulation(_slab_lwfa(exchange_period=4),
-                                        devices=["cuda:0"] * 2, n_guard=24,
+                                        devices=list(devices), n_guard=24,
                                         **dist_kw)
             run.eager = eager
             _reset_slab_counts()
@@ -1906,11 +1914,13 @@ def _slab_twins(n_steps, **dist_kw):
 
 
 def _assert_slabs_equal(a, b):
+    """Every tensor of every slab equal (wherever each run's slab lies),
+    the host values and the generators' states too."""
     from fbpic_tpu_torch.core.graph import state_tensors
     for r, (sa, sb) in enumerate(zip(a.states, b.states)):
         for i, (x, y) in enumerate(zip(state_tensors(sa),
                                        state_tensors(sb))):
-            assert torch.equal(x, y), (r, i)
+            assert torch.equal(x, y.to(x.device)), (r, i)
         for name in ("time", "zmin", "mw_zref", "iteration"):
             assert getattr(sa, name) == getattr(sb, name), (r, name)
     for ga, gb in zip(a._generators, b._generators):
@@ -1965,6 +1975,133 @@ def test_graphed_slabs_roll_back_a_planted_overflow(cuda):
     assert graphed.overflow_totals["sort_overflow"] == \
         eager.overflow_totals["sort_overflow"] > 0
     _assert_slabs_equal(graphed, eager)
+
+
+def _four_slabs_on_cards():
+    """4 slabs spread over the cards (one a card on four), or a skip
+    where the machine has one card."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two cards")
+    return [f"cuda:{r * min(n_cards, 4) // 4}" for r in range(4)]
+
+
+def _plant_column_overflow(run, slab):
+    """Move the live particles of the rows around slab ``slab``'s
+    fullest three into the middle row, past its sort_K."""
+    import dataclasses
+    cfg, K = run.config_local, run.sim.species_configs[0].sort_K
+    st = run.states[slab]
+    sp = st.species[0]
+    live = (sp.w != 0).reshape(cfg.Nz, K)
+    counts = live.sum(1)
+    row = int(torch.argmax(counts[:-2] + counts[1:-1] + counts[2:])) + 1
+    assert int(counts[row - 1:row + 2].sum()) > K
+    z = sp.z.clone().reshape(cfg.Nz, K)
+    for r in (row - 1, row + 1):
+        z[r] = torch.where(live[r], z[r] + (row - r) * cfg.dz, z[r])
+    run.states[slab] = dataclasses.replace(
+        st, species=[sp.replace(z=z.reshape(-1))])
+
+
+@pytest.mark.cuda
+def test_graphed_slabs_on_several_cards_match_the_eager_slab_loop(cuda):
+    """The float32 LWFA on 4 slabs spread over the cards: one CUDA graph
+    a card a variant (the cross-card exchanges, migration and sums
+    inside), 22 steps bit for bit with the eager slab loop on the same
+    cards under deterministic index_add_ (the generators too), one K1
+    and one K2 per slab per step counted on the replays, no timed-out
+    exchange wait."""
+    devices = _four_slabs_on_cards()
+    n_steps = 22
+    (graphed, eager), counts = _slab_twins(n_steps, devices)
+    cards = sorted({torch.device(d) for d in devices}, key=str)
+    assert [str(s.spect.Ez.device) for s in graphed.states] == devices
+    assert graphed.graph_blockers == ([], [])
+    assert graphed.runner.graphs and not eager.runner.graphs
+    for graphs, _ in graphed.runner.graphs.values():
+        assert sorted(graphs, key=str) == cards
+    assert counts == {"K1": {r: n_steps for r in range(4)},
+                      "K2": {r: n_steps for r in range(4)}, "K3": {}}
+    _assert_slabs_equal(graphed, eager)
+    assert [int(f) for f in graphed.group.faults()] == [0] * len(cards)
+    assert graphed.overflow_totals == eager.overflow_totals == {
+        "migration_overflow": 0, "sort_overflow": 0, "ring_overwrite": 0}
+
+
+@pytest.mark.cuda
+def test_graphed_slabs_on_several_cards_match_fewer_cards(cuda):
+    """The same 4 slabs graphed on 4 cards (one each, every seam across
+    cards), on 2 (two each: seams inside a card and across) and on 1:
+    every array of every slab bit for bit under deterministic
+    index_add_ (the exchanges move the same bits by reference or by
+    peer copy)."""
+    from fbpic_tpu_torch.parallel import distribute_simulation
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        pytest.skip("needs four cards")
+    runs = []
+    with _deterministic():
+        for k in (4, 2, 1):
+            run = distribute_simulation(
+                _slab_lwfa(exchange_period=4),
+                devices=[f"cuda:{r * k // 4}" for r in range(4)],
+                n_guard=24)
+            run.step(14)
+            assert run.runner.graphs
+            runs.append(run)
+    four, two, one = runs
+    _assert_slabs_equal(four, two)
+    _assert_slabs_equal(four, one)
+
+
+@pytest.mark.cuda
+def test_graphed_slabs_on_several_cards_roll_back_a_planted_overflow(cuda):
+    """A column overflow planted on slab 2 (on its own card) at a
+    replayed step: the chunk's one read sees that card's redo flag,
+    every card runs the chunk again through the eager slab loop, and
+    the result equals the eager run on the same cards."""
+    import warnings
+    devices = _four_slabs_on_cards()
+    (graphed, eager), _ = _slab_twins(5, devices,
+                                      on_migration_overflow="warn")
+    for run in (graphed, eager):
+        _plant_column_overflow(run, 2)
+    with _deterministic(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for run in (graphed, eager):
+            run.step(3)
+    assert graphed.overflow_totals.get("rollbacks") == 1
+    assert graphed.overflow_totals["sort_overflow"] == \
+        eager.overflow_totals["sort_overflow"] > 0
+    _assert_slabs_equal(graphed, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [[[0], [1]], [[0, 1], [2, 3]]])
+def test_receive_buffer_exchange_on_one_card_matches_the_mailbox(
+        cuda, monkeypatch, groups):
+    """The cross-card exchange (peer copies into receive buffers, the
+    flags in device memory) on one card: the slabs of cuda:0 put in
+    groups as if each group had a card of its own (2 slabs, one a group;
+    4 slabs, two a group: exchanges inside a group and across) exchange
+    through it -- in the card's one stream, the flags' two sets put no
+    wait ahead of the give it needs --, graphed and eager, 14 steps bit
+    for bit with the same slabs exchanging by reference (the mailbox),
+    copy launches counted, no timed-out wait."""
+    from fbpic_tpu_torch.parallel import group, peer
+    devices = ["cuda:0"] * sum(len(g) for g in groups)
+    runs, _ = _slab_twins(14, devices)
+    monkeypatch.setattr(group, "card_groups", lambda d: groups)
+    peer.copy_parts.launches = 0
+    (graphed, eager), counts = _slab_twins(14, devices)
+    assert graphed.group.groups == groups
+    assert graphed.group.channels is not None and graphed.runner.graphs
+    assert counts["K1"] == {r: 14 for r in range(len(devices))}
+    assert peer.copy_parts.launches > 0
+    assert [int(f) for f in graphed.group.faults()] == [0]
+    _assert_slabs_equal(graphed, eager)
+    _assert_slabs_equal(graphed, runs[0])
 
 
 @pytest.mark.cuda

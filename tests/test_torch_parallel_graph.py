@@ -19,7 +19,9 @@ banded layout), on 2 and 4 slabs:
 - a column overflow planted on a slab: the runner's chunk rolls back
   (all slabs) and equals the eager loop, the lost particles counted
   alike;
-- ``graph_blockers``: empty on the CPU, slabs on several cards named.
+- ``graph_blockers``: empty on the CPU and for slabs on several cards
+  (one graph a card); a process draw source and a host density
+  function still named there.
 - The migration and the exchange block inside the slab body (their
   bounds and column counts tensors of each slab's table) at 2 and 4
   slabs, bit for bit with the eager slab loop (whose values are the
@@ -279,20 +281,42 @@ def test_antenna_plane_on_one_slab_a_step(pairs, n_slabs):
 
 
 def test_graph_blockers_name_slabs_on_several_cards():
+    """Slabs on several cards take the chunk runner (one graph a card):
+    no blocker names them, on two cards or on four; the other reasons
+    still block there -- a process draw source other than the
+    simulation's GeneratorDraws keeps the eager slab loop, a host
+    density function keeps the exchange block eager."""
     from fbpic_tpu_torch.parallel import distribute_simulation
     from fbpic_tpu_torch.parallel.api import DistributedRun
     sim = lwfa()
     run = distribute_simulation(sim, devices=["cpu"] * 2)
     assert run.graph_blockers == ([], [])
-    blockers = DistributedRun.graph_blockers.fget(types.SimpleNamespace(
-        devices=[torch.device("cuda:0"), torch.device("cuda:1")],
-        sim=sim, options=run.options))
-    assert len(blockers.loop) == 1 and "several cards" in blockers.loop[0]
-    assert blockers.exchange == []
-    shared = DistributedRun.graph_blockers.fget(types.SimpleNamespace(
-        devices=[torch.device("cuda:0")] * 2, sim=sim,
-        options=run.options))
-    assert shared == ([], [])
+
+    def blockers(sim, n_cards, n_slabs=4):
+        return DistributedRun.graph_blockers.fget(types.SimpleNamespace(
+            devices=[torch.device("cuda", r * n_cards // n_slabs)
+                     for r in range(n_slabs)],
+            sim=sim, options=run.options))
+    for n_cards in (1, 2, 4):
+        assert blockers(sim, n_cards) == ([], [])
+    ionizing = types.SimpleNamespace(
+        process_draws=lambda *args, **kw: None,
+        species_configs=[types.SimpleNamespace(ionizer=object(),
+                                               compton=None)],
+        device=torch.device("cuda:0"), column_angles=None)
+    loop = blockers(ionizing, 4).loop
+    assert len(loop) == 1 and "process draw source" in loop[0]
+
+    def ramp(z, r):
+        return np.where(z > 2.e-6, 1., 0.5)
+    host = lwfa(dens_func=ramp)
+    on_host = distribute_simulation(host, devices=["cpu"] * 2)
+    for n_cards in (2, 4):
+        b = DistributedRun.graph_blockers.fget(types.SimpleNamespace(
+            devices=[torch.device("cuda", r % n_cards) for r in range(4)],
+            sim=host, options=on_host.options))
+        assert b.loop == [] and len(b.exchange) == 1
+        assert "density function" in b.exchange[0]
 
 
 @pytest.mark.parametrize("n_slabs", [2, 4])
