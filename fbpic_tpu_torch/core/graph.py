@@ -84,6 +84,15 @@ The kernel wrappers count their launches in Python, which a replay does
 not run: the counts a capture made are taken back out and added again
 at every replay (``utils.kernels.add_launches``).
 
+Every graph holds the step's device spans (utils/profiling.py): their
+marker kernels are captured always, and a runner's ``GraphMarkers``
+turns the marker nodes on while a torch profiler records and off
+otherwise, at the start of a call whose profiler state changed (the
+graphs are captured with ``keep_graph`` and instantiated after, for
+that).  A call's parts are host spans (``chunk``: ``plan``,
+``stage_in``, one ``replay`` a step, ``read``, ``stage_out`` or
+``rollback``; ``capture``).
+
 On CPU tensors the same runner calls the graph's body instead of
 replaying it: the table, the step index, the flag and the rollback are
 the same; only the capture is CUDA-only.
@@ -102,7 +111,8 @@ import torch
 from ..lpa_utils.laser.antenna_injection import antenna_cells
 from ..particles.draws import GeneratorDraws
 from ..particles.injection import GeneratorAngles
-from ..utils import kernels
+from ..utils import kernels, profiling
+from ..utils.profiling import mark, span
 from .step import (ExchangePlan, StepScalars, ballistic_plane,
                    ensure_counters, make_step_fn, mirror_planes, plan_exchange,
                    plan_step, process_time)
@@ -411,7 +421,9 @@ class ChunkBuffers:
     def _store(self, new):
         """Copy a step's result into the static buffers (a result that
         shares storage with another static buffer is copied aside
-        first; one that IS its buffer stays)."""
+        first; one that IS its buffer stays): the device span
+        ``store``."""
+        mark("store", self._table.device)
         outs = state_tensors(new)
         if len(outs) != len(self._static):
             raise ValueError("the step changed the state's structure")
@@ -485,64 +497,86 @@ class MultiStep(ChunkBuffers):
         self._processes = has_processes(self.species_configs)
         self._generator = None
         #: variant key (n_move, full_resort, exchange block inside) ->
-    #: (graph, launch counts)
+        #: (graph, launch counts)
         self.graphs = {}
         self._pool = self._side = None
+        #: the device spans' marker nodes of the graphs
+        self.markers = profiling.GraphMarkers()
 
     # -----------------------------------------------------------------
     def __call__(self, state, aux, n_steps, inj_auxes=(), column_angles=None,
                  generator=None, draws=None, antenna_series=(), ion_auxes=(),
                  comp_auxes=(), live_counts=(), eager_exchange=False):
+        with span("chunk"):
+            return self._chunk(state, aux, n_steps, inj_auxes, column_angles,
+                               generator, draws, antenna_series, ion_auxes,
+                               comp_auxes, live_counts, eager_exchange)
+
+    def _chunk(self, state, aux, n_steps, inj_auxes, column_angles,
+               generator, draws, antenna_series, ion_auxes, comp_auxes,
+               live_counts, eager_exchange):
         check_chunk(n_steps)
+        self.markers.follow()
         state = ensure_counters(state)
-        self._ensure_static(state, aux, antenna_series)
-        plans, rows, irows = self._plan(state, n_steps, antenna_series)
-        self._upload(rows, irows)
-        kw = dict(draws=draws, antenna_series=self._load_series(
-            antenna_series), ion_auxes=ion_auxes, comp_auxes=comp_auxes)
-        self._generator = generator
-        gen_state = None if generator is None else generator.get_state()
-        for s, t in zip(self._static, state_tensors(state)):
-            s.copy_(t)
-        self._flag.zero_()
-        self._index.zero_()
+        dev = state.spect.Ep.device
+        mark("chunk_in", dev)
+        with span("plan"):
+            self._ensure_static(state, aux, antenna_series)
+            plans, rows, irows = self._plan(state, n_steps, antenna_series)
+            self._upload(rows, irows)
+        with span("stage_in"):
+            kw = dict(draws=draws, antenna_series=self._load_series(
+                antenna_series), ion_auxes=ion_auxes, comp_auxes=comp_auxes)
+            self._generator = generator
+            gen_state = None if generator is None else generator.get_state()
+            for s, t in zip(self._static, state_tensors(state)):
+                s.copy_(t)
+            self._flag.zero_()
+            self._index.zero_()
         cur = with_state_tensors(state, self._static)
         args = (aux, inj_auxes, column_angles, generator)
         for plan, z_ends in zip(plans, self._z_ends):
-            inside = plan.exchange and not eager_exchange
-            if plan.exchange and eager_exchange:
-                new = self.step.exchange(cur, *args)
-                self._store(new)
-                cur = with_state_tensors(new, self._static)
-            self._graphed((plan.n_move, plan.full_resort, inside), cur, args,
-                          kw)
-            cur = replace(cur, time=plan.time_end, zmin=plan.zmin_end,
-                          mw_zref=plan.mw_zref_end,
-                          iteration=cur.iteration + 1,
-                          species=with_z_ends(cur.species, z_ends))
-        self._copy_captures(n_steps)
-        redo, n_sort, n_ring, *live = torch.stack(
-            [self._flag, cur.sort_overflow, cur.ring_overwrite]
-            + [(cur.species[i].w != 0).sum() for i in live_counts]).tolist()
+            with span("replay"):
+                inside = plan.exchange and not eager_exchange
+                if plan.exchange and eager_exchange:
+                    new = self.step.exchange(cur, *args)
+                    self._store(new)
+                    cur = with_state_tensors(new, self._static)
+                self._graphed((plan.n_move, plan.full_resort, inside), cur,
+                              args, kw)
+                cur = replace(cur, time=plan.time_end, zmin=plan.zmin_end,
+                              mw_zref=plan.mw_zref_end,
+                              iteration=cur.iteration + 1,
+                              species=with_z_ends(cur.species, z_ends))
+        mark("chunk_out", dev)
+        with span("read"):
+            self._copy_captures(n_steps)
+            redo, n_sort, n_ring, *live = torch.stack(
+                [self._flag, cur.sort_overflow, cur.ring_overwrite]
+                + [(cur.species[i].w != 0).sum() for i in live_counts]
+            ).tolist()
         if redo > 0:
             # A banded re-sort overflowed: the chunk again from its
             # start, through the eager step (which redoes the sort), and
             # its captures with it
-            if generator is not None:
-                generator.set_state(gen_state)
-            out = state
-            self._index.zero_()
-            for _ in range(n_steps):
-                out = self.step(out, *args, **kw)
-                self._capture(out, aux, self._row()[0])
-                self._index.add_(1)
-            self._copy_captures(n_steps)
-            n_sort, n_ring, *live = torch.stack(
-                [out.sort_overflow, out.ring_overwrite]
-                + [(out.species[i].w != 0).sum() for i in live_counts]
-            ).tolist()
+            with span("rollback"):
+                if generator is not None:
+                    generator.set_state(gen_state)
+                out = state
+                self._index.zero_()
+                for _ in range(n_steps):
+                    out = self.step(out, *args, **kw)
+                    self._capture(out, aux, self._row()[0])
+                    self._index.add_(1)
+                self._copy_captures(n_steps)
+                n_sort, n_ring, *live = torch.stack(
+                    [out.sort_overflow, out.ring_overwrite]
+                    + [(out.species[i].w != 0).sum() for i in live_counts]
+                ).tolist()
         else:
-            out = with_state_tensors(cur, [s.clone() for s in self._static])
+            with span("stage_out"):
+                out = with_state_tensors(cur, [s.clone()
+                                               for s in self._static])
         return out, dict(resort_redo=redo, sort_overflow=n_sort,
                          ring_overwrite=n_ring,
                          live=dict(zip(live_counts, live)),
@@ -555,6 +589,7 @@ class MultiStep(ChunkBuffers):
         for graph, _ in self.graphs.values():
             graph.reset()
         self.graphs = {}
+        self.markers.clear()
         self._pool = self._side = None
         self._drop_buffers()
 
@@ -581,7 +616,9 @@ class MultiStep(ChunkBuffers):
         (``inside``) or already run (an exchange step whose block stays
         eager): its scalars from the tables' row at the step index, the
         banded re-sort's overflow into the flag, the result copied back,
-        the captures written, the index advanced."""
+        the captures written, the index advanced.  The device span
+        ``row`` opens the step, before the table read."""
+        mark("row", self._table.device)
         row, irow = self._row()
         new = self.step(cur, *args, scalars=self._scalars(row, irow),
                         redo_flag=self._flag, exchanged=not inside, **kw)
@@ -609,17 +646,19 @@ class MultiStep(ChunkBuffers):
         if self._side is None:
             self._side = torch.cuda.Stream(device=dev)
             self._pool = torch.cuda.graph_pool_handle()
-        main = torch.cuda.current_stream(dev)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            self._body(cur, args, kw, inside)
-        main.wait_stream(self._side)
-        draws = self._processes or (inside and bool(self._injecting))
-        self.graphs[key] = capture_graph(
-            lambda stream: self._body(cur, args, kw, inside), self._pool,
-            [self._generator] if draws and self._generator is not None
-            else [], f"the step (n_move={key[0]}, full re-sort={key[1]}, "
-            f"exchange block inside={key[2]})")
+        with span("capture"):
+            main = torch.cuda.current_stream(dev)
+            self._side.wait_stream(main)
+            with torch.cuda.stream(self._side):
+                self._body(cur, args, kw, inside)
+            main.wait_stream(self._side)
+            draws = self._processes or (inside and bool(self._injecting))
+            self.graphs[key] = capture_graph(
+                lambda stream: self._body(cur, args, kw, inside), self._pool,
+                [self._generator] if draws and self._generator is not None
+                else [], f"the step (n_move={key[0]}, full re-sort="
+                f"{key[1]}, exchange block inside={key[2]})", self.markers,
+                dev)
 
 
 def with_z_ends(species, z_ends):
@@ -701,9 +740,11 @@ def _register(graph, generators):
             graph.register_generator_state(gen)
 
 
-def capture_graph(body, pool, generators, what):
+def capture_graph(body, pool, generators, what, markers, card):
     """Capture ``body(stream)`` (``stream``: the capture stream) into a
-    new CUDA graph of memory pool ``pool``; returns (graph, counts), the
+    new CUDA graph of memory pool ``pool`` on ``card``, its device
+    spans' marker nodes kept in ``markers`` (a ``GraphMarkers``, which
+    instantiates the graph); returns (graph, counts), the
     launches the capture counted, taken back out of the kernel counters
     (``kernels.add_launches(*counts)`` adds them again at a replay):
     ({wrapper: n}, {wrapper: {slab rank: n}}).  ``generators`` are
@@ -715,9 +756,9 @@ def capture_graph(body, pool, generators, what):
     capturing thread is barred from the calls that are unsafe during a
     capture (``capture_error_mode`` "thread_local").  A capture that
     fails raises."""
-    graph = torch.cuda.CUDAGraph()
+    graph = profiling.keep_graph()
     _register(graph, generators)
-    with _capturing(what) as captured:
+    with _capturing(what) as captured, markers.capturing({card: graph}):
         ctx = torch.cuda.graph(graph, pool=pool,
                                capture_error_mode="thread_local")
         with ctx, _host_syncs_raise():
@@ -725,7 +766,7 @@ def capture_graph(body, pool, generators, what):
     return graph, captured.counts
 
 
-def capture_graphs(run, pools, generators, what):
+def capture_graphs(run, pools, generators, what, markers):
     """Capture one CUDA graph on each card of ``pools`` ({card: memory
     pool}) at once: ``run(graphs)`` issues the work, ``graphs`` {card:
     (graph, pool)} -- the slabs' threads open the captures, each card's
@@ -733,15 +774,17 @@ def capture_graphs(run, pools, generators, what):
     cards' collectives meet during the capture.  Each generator of
     ``generators`` is registered with its own card's graph only.  The
     cards are synchronized first; the capture runs under ``_capturing``
-    and ``_host_syncs_raise``, set once for every card.  Returns
+    and ``_host_syncs_raise``, set once for every card, each card's
+    marker nodes kept in ``markers``.  Returns
     ({card: graph}, counts) as ``capture_graph`` does; a capture that
     fails on any card raises."""
-    graphs = {card: torch.cuda.CUDAGraph() for card in pools}
+    graphs = {card: profiling.keep_graph() for card in pools}
     for gen in generators:
         _register(graphs[torch.device(gen.device)], [gen])
     for card in pools:
         torch.cuda.synchronize(card)
-    with _capturing(what) as captured, _host_syncs_raise():
+    with _capturing(what) as captured, markers.capturing(graphs), \
+            _host_syncs_raise():
         run({card: (graph, pools[card]) for card, graph in graphs.items()})
     return graphs, captured.counts
 

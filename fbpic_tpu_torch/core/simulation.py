@@ -40,6 +40,7 @@ from ..particles.deposit import deposit_rho_linear, deposit_rho_J_linear
 from ..fields import psatd_push as psp
 from ..utils.device import catch_memory_error
 from ..utils.printing import ProgressBar, print_simulation_setup
+from ..utils.profiling import span
 from .graph import MAX_CAPTURE, graph_blockers, signature
 from .state import SimState
 from .step import (
@@ -762,21 +763,24 @@ class Simulation:
         if not self._banner_printed:
             self._banner_printed = True
             print_simulation_setup(self, self.verbose_level)
-        catch_memory_error(self._step_impl)(
-            N, correct_currents=correct_currents, correct_divE=correct_divE,
-            use_true_rho=use_true_rho, move_positions=move_positions,
-            move_momenta=move_momenta, show_progress=show_progress,
-            reuse_rho_prev=reuse_rho_prev)
+        with span("step"):
+            catch_memory_error(self._step_impl)(
+                N, correct_currents=correct_currents,
+                correct_divE=correct_divE, use_true_rho=use_true_rho,
+                move_positions=move_positions, move_momenta=move_momenta,
+                show_progress=show_progress, reuse_rho_prev=reuse_rho_prev)
 
     def _step_impl(self, N, show_progress=False, **option_kw):
         options = self.build_options(**option_kw)
         # Refresh spectral E/B from the interpolation grid (captures any
         # user-set fields), then the initial rho_prev deposit
         # (reference: main.py:408-415 and :435-449)
-        self.state = make_prepare(self.config, self.species_configs,
-                                  options)(self.state, self.aux)
-        for diag in self.diags:
-            diag.write(self)
+        with span("prepare"):
+            self.state = make_prepare(self.config, self.species_configs,
+                                      options)(self.state, self.aux)
+        with span("write"):
+            for diag in self.diags:
+                diag.write(self)
         writers = list(self.diags) + list(self.checkpoints)
         capture = [w for w in writers if hasattr(w, "capture")]
         plain = [w for w in writers if not hasattr(w, "capture")]
@@ -806,25 +810,26 @@ class Simulation:
         register the one and call the other at their capture): the
         runner is then built and captured again, the old one's graphs
         released first."""
-        self.state = ensure_counters(self.state)
-        key = (options, tuple(self.species_configs), id(self.aux),
-               signature(self.state), tuple(capture),
-               tuple(self.laser_antennas), self.generator,
-               self.process_draws)
-        if key != self._multi_step_key:
-            # A new configuration: the previous graphs go first
-            if self._multi_step is not None:
-                self._multi_step.release()
-            self._multi_step = None
-            if capture:
-                self._multi_step = make_multi_step_capture(
-                    self.config, self.species_configs, options,
-                    tuple(w.device_capture() for w in capture))
-            else:
-                self._multi_step = make_multi_step(
-                    self.config, self.species_configs, options)
-            self._multi_step_key = key
-        eager_exchange = bool(graph_blockers(self, options).exchange)
+        with span("plan"):
+            self.state = ensure_counters(self.state)
+            key = (options, tuple(self.species_configs), id(self.aux),
+                   signature(self.state), tuple(capture),
+                   tuple(self.laser_antennas), self.generator,
+                   self.process_draws)
+            if key != self._multi_step_key:
+                # A new configuration: the previous graphs go first
+                if self._multi_step is not None:
+                    self._multi_step.release()
+                self._multi_step = None
+                if capture:
+                    self._multi_step = make_multi_step_capture(
+                        self.config, self.species_configs, options,
+                        tuple(w.device_capture() for w in capture))
+                else:
+                    self._multi_step = make_multi_step(
+                        self.config, self.species_configs, options)
+                self._multi_step_key = key
+            eager_exchange = bool(graph_blockers(self, options).exchange)
         done, counts = 0, None
         series, block_end = (), 0
         while done < N:
@@ -849,10 +854,11 @@ class Simulation:
                 self.overflow_totals["rollbacks"] = \
                     self.overflow_totals.get("rollbacks", 0) + 1
             done += chunk
-            for w, caps in zip(capture, counts["captures"]):
-                w.process_chunk(self, caps)
-            for w in plain:
-                w.write(self)
+            with span("write"):
+                for w, caps in zip(capture, counts["captures"]):
+                    w.process_chunk(self, caps)
+                for w in plain:
+                    w.write(self)
             if progress is not None and progress.due(done):
                 progress.time(done)
                 progress.print_progress()
@@ -887,8 +893,9 @@ class Simulation:
                                  draws=self.process_draws)
             for w in capture:
                 w.capture(self, capacity=min(N - n, MAX_CAPTURE))
-            for w in plain:
-                w.write(self)
+            with span("write"):
+                for w in plain:
+                    w.write(self)
             if progress is not None and progress.due(n + 1):
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)

@@ -94,6 +94,7 @@ from ..fields.solver import SPECT_PML_FIELDS, INTERP_PML_FIELDS
 from ..lpa_utils.laser.antenna_injection import (
     add_antenna_current, add_antenna_current_device,
 )
+from ..utils.profiling import mark, span
 from .state import SimState
 
 
@@ -956,6 +957,16 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
     column_angles, generator, antenna_series, ion_auxes, comp_auxes,
     draws)``.
 
+    The step opens its device spans where each phase begins
+    (utils/profiling.py ``mark``, ``STEP_SPANS``): ``exchange`` (the
+    block, exchange steps only), then per resident species ``reorder``,
+    ``interpolate``, ``push``, ``deposit``, ``unpad``; for the other
+    species, each where it has work, ``interpolate`` (their gather and
+    push), ``push`` (the processes) and ``deposit`` (their fresh sorts
+    and fused deposits); ``sources``, the other species' second half
+    push an ``unpad`` inside it; ``maxwell``, ``window`` (a moving
+    window) and ``damp``.
+
     ``halo``: one slab's exchange and global-geometry hooks in a
     z-decomposed run (parallel/domain.py's Halo), called where
     fbpic_tpu's step calls its Halo: the removal bounds, the injection
@@ -1016,6 +1027,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         from the device, the injection fronts left to the caller: the
         block then reads nothing from the host, and core/graph.py
         captures it with the rest of the step."""
+        mark("exchange", aux.S_w.device)
         zmin, it = state.zmin, state.iteration
         ring_overwrite = state.ring_overwrite
         species = list(state.species)
@@ -1059,6 +1071,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
              draws=None, scalars=None, redo_flag=None,
              exchanged=False) -> SimState:
         dt = config.dt
+        dev = aux.S_w.device
         # The global grid's left edge (the local one but on a slab)
         zmin_g = halo.global_zmin(state.zmin) if halo is not None \
             else state.zmin
@@ -1129,6 +1142,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                     aux.S_w.device)
 
         for i in resident_idx:
+            mark("reorder", dev)
             sp, sc = species[i], species_configs[i]
             K = sc.sort_K
             if sp.capacity != config.Nz * K:
@@ -1178,6 +1192,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                 w=torch.where(valid, pad[3], torch.zeros_like(pad[3])),
                 ux=pad[4], uy=pad[5], uz=pad[6], inv_gamma=pad[7], **comp_kw)
 
+            mark("interpolate", dev)
             E_B = gather_fields_sorted(
                 psp.x, psp.y, psp.z, valid, interp, options.rmax_gather,
                 1.0 / config.dz, zd, config.Nz,
@@ -1186,6 +1201,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             # On the padded (Nz, K) layout: dead slots see the field
             # harmlessly
             E_B = apply_external_fields(options, E_B, psp, time_t, i)
+            mark("push", dev)
             if sc.q != 0:
                 ux, uy, uz, inv_gamma = pp.push_p(
                     psp, E_B[:3], E_B[3:], sc.q, sc.m, dt,
@@ -1215,6 +1231,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             # Fused J + rho/d(rho) deposit on the pushed padded arrays
             # (sort_at_start: the sort is half a push behind); the
             # weight of an ionizable species times its new levels
+            mark("deposit", dev)
             w_dep = psp.w_eff
             pad_dep = [psp.x, psp.y, psp.z, w_dep, psp.ux, psp.uy, psp.uz,
                        psp.inv_gamma]
@@ -1232,6 +1249,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
             fused_rho[i] = out[3]
             if want_drho:
                 fused_drho[i] = out[4]
+            mark("unpad", dev)
             psp = half_push_x(config, options, psp, zd_next)
             # Flatten back: the sorted order becomes the storage order;
             # invalid slots (duplicates of neighbours) are dead
@@ -1255,6 +1273,9 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # --- Non-resident species: linear or cubic gather, momentum
         # push, first half position push
         gathered = {}
+        ring_idx = [i for i in range(len(species)) if i not in resident_idx]
+        if ring_idx:
+            mark("interpolate", dev)
         for i, sc in enumerate(species_configs):
             if i not in resident_idx:
                 sp, E_B = gather_and_push(
@@ -1318,6 +1339,9 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                 halo)
             sort_overflow = sort_overflow + dropped
 
+        if any(sc.compton is not None or sc.ionizer is not None
+               for sc in species_configs):
+            mark("push", dev)
         for i, sc in enumerate(species_configs):
             if sc.compton is None:
                 continue
@@ -1376,6 +1400,8 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                            sp.inv_gamma]
                 if sp.comp_x is not None:
                     payload += [sp.comp_x, sp.comp_y, sp.comp_z]
+            if not sorts:
+                mark("deposit", dev)
             sorts[i] = build_column_sort(sp.z, w_eff, zd_mid,
                                          1.0 / config.dz, config.Nz,
                                          sc.sort_K, payload)
@@ -1410,6 +1436,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # --- Current at t = (n+1/2) dt; on a slab the antenna deposits
         # only where the slab owns its plane (its guard spill reaches
         # the neighbour through the exchange, as particles' does)
+        mark("sources", dev)
         Jp, Jm, Jz = deposit_J_spect(
             config, aux, species, species_configs, zd_mid,
             antenna_series=antenna_series, iteration=it, sorts=sorts,
@@ -1441,9 +1468,13 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
                     ruy, zfold=zfold, comp=_comp_of(sp))
 
         # --- Second half position push of the non-resident species
+        if ring_idx:
+            mark("unpad", dev)
         species = [sp if i in resident_idx
                    else half_push_x(config, options, sp, zd_next)
                    for i, sp in enumerate(species)]
+        if ring_idx:
+            mark("sources", dev)
 
         # --- float32: the per-particle d(rho) of the fused deposits plus
         # the grid differences of the other species
@@ -1486,6 +1517,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # then guard-added, rho only with use_true_rho / correct_divE,
         # which read it (fbpic_tpu core/step.py:1605-1636: rho_prev
         # exchanged and reused would break the next corrections)
+        mark("maxwell", dev)
         if options.correct_currents:
             spect = correct_currents(config, aux, spect, drho=drho)
         if halo is not None:
@@ -1511,6 +1543,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # roll the resident rows so row == column still holds
         zmin = plan.zmin_end
         if options.moving_window_v is not None:
+            mark("window", dev)
             n_move = plan.n_move
             spect = shift_spectral_fields(config, aux, spect, n_move,
                                           type(state.zmin))
@@ -1537,6 +1570,7 @@ def make_step_fn(config, species_configs, options: StepOptions, halo=None):
         # first, and the PML round trip follows without it.
         # On a slab the profile is its cut of the global one, and the E/B
         # guards are replaced in the same full round trip.
+        mark("damp", dev)
         if scalars is not None and options.mirrors:
             profile = _z_profile(config, options, aux, scalars.zmin_end,
                                  state.time, halo, planes=scalars.mirrors)
@@ -1646,12 +1680,15 @@ def prepare(config, options, species_configs, state, aux):
     """Before a run of steps: refresh spectral E/B (and the PML split
     fields) from the interpolation grid and deposit rho_prev (reference:
     main.py:408-415, :435-449)."""
-    spect = interp2spect_EB(aux, state.interp, state.spect,
-                            use_pml=config.use_pml)
-    rho = deposit_rho_spect(config, aux, state.species, species_configs,
-                            state.zmin)
-    if options.filter_currents:
-        rho = ps.filter_scalar(rho, aux.filter_z, aux.filter_r)
+    mark("prepare", aux.S_w.device)
+    with span("refresh_eb"):
+        spect = interp2spect_EB(aux, state.interp, state.spect,
+                                use_pml=config.use_pml)
+    with span("rho_prev"):
+        rho = deposit_rho_spect(config, aux, state.species,
+                                species_configs, state.zmin)
+        if options.filter_currents:
+            rho = ps.filter_scalar(rho, aux.filter_z, aux.filter_r)
     return replace(state, spect=replace(spect, rho_prev=rho))
 
 

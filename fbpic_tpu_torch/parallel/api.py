@@ -30,6 +30,7 @@ from ..particles.draws import GeneratorDraws
 from ..particles.injection import GeneratorAngles
 from ..particles.state import ARRAY_FIELDS
 from ..utils import kernels
+from ..utils.profiling import span
 from .group import SlabGroup
 from .mesh import make_mesh
 from . import domain as dom
@@ -377,6 +378,10 @@ class DistributedRun:
         counts and the back-transformed field diagnostics' captures,
         which they consume then.  A chunk run again eagerly (a banded
         re-sort's overflow) counts in ``overflow_totals["rollbacks"]``."""
+        with span("step"):
+            return self._step(N)
+
+    def _step(self, N):
         sim = self.sim
         if any(d.type == "cuda" for d in self.devices):
             kernels.build_all()          # before any slab thread runs
@@ -384,8 +389,9 @@ class DistributedRun:
         writers = [w for w in all_writers if not hasattr(w, "capture")]
         if all_writers and self.iteration == 0:
             self.sync_to_sim()
-            for diag in sim.diags:
-                diag.write(sim)
+            with span("write"):
+                for diag in sim.diags:
+                    diag.write(sim)
         blockers = self.graph_blockers
         eager = self.eager or bool(blockers.loop)
         eager_exchange = bool(blockers.exchange)
@@ -414,8 +420,9 @@ class DistributedRun:
             if writers and any(self.iteration % getattr(d, "period", N) == 0
                                for d in writers):
                 self.sync_to_sim()
-                for w in writers:
-                    w.write(sim)
+                with span("write"):
+                    for w in writers:
+                        w.write(sim)
         return self.states
 
     def _antenna_series(self, chunk):

@@ -46,7 +46,8 @@ from ..core.graph import (ChunkBuffers, capture_graphs, check_chunk,
 from ..core.state import SimState
 from ..core.step import ensure_counters
 from ..particles.draws import GeneratorDraws
-from ..utils import kernels
+from ..utils import kernels, profiling
+from ..utils.profiling import mark, span
 from . import peer
 from .group import SlabGroup
 
@@ -546,6 +547,8 @@ class SlabMultiStep:
         #: the launcher threads of the cards' graphs (several cards)
         self._launcher = None
         self._generators = []
+        #: the device spans' marker nodes of the graphs
+        self.markers = profiling.GraphMarkers()
 
     @property
     def size(self):
@@ -554,16 +557,27 @@ class SlabMultiStep:
     # -----------------------------------------------------------------
     def __call__(self, states, auxes, n_steps, slab_kwargs, live_counts=(),
                  eager=False, eager_exchange=False):
+        with span("chunk"):
+            return self._chunk(states, auxes, n_steps, slab_kwargs,
+                               live_counts, eager, eager_exchange)
+
+    def _chunk(self, states, auxes, n_steps, slab_kwargs, live_counts,
+               eager, eager_exchange):
         check_chunk(n_steps)
+        self.markers.follow()
+        for card in self.group.cards:
+            mark("chunk_in", card)
         states = [ensure_counters(with_migration_counter(s)) for s in states]
         series = [kw.get("antenna_series", ()) for kw in slab_kwargs]
-        self._ensure_static(states, auxes, series)
         plans, edges = [], []
-        for b, st, ser, kw in zip(self.bufs, states, series, slab_kwargs):
-            p, rows, irows = b._plan(st, n_steps, ser, self.exchange_period)
-            b._upload(rows, irows)
-            plans.append(p)
-            edges.append(b._edges)
+        with span("plan"):
+            self._ensure_static(states, auxes, series)
+            for b, st, ser in zip(self.bufs, states, series):
+                p, rows, irows = b._plan(st, n_steps, ser,
+                                         self.exchange_period)
+                b._upload(rows, irows)
+                plans.append(p)
+                edges.append(b._edges)
         kws = [dict(kw, antenna_series=b._load_series(ser))
                for kw, b, ser in zip(slab_kwargs, self.bufs, series)]
         gens = [g for kw in slab_kwargs
@@ -581,22 +595,25 @@ class SlabMultiStep:
         if not eager:
             curs = self._run_graphed(states, auxes, kws, plans, edges,
                                      eager_exchange)
-            vals = self._read(curs, live_counts, flags=True)
+            with span("read"):
+                vals = self._read(curs, live_counts, flags=True)
             redo, vals = vals[:self.size], vals[self.size:]
         if eager or any(r > 0 for r in redo):
             # The chunk again from its input states through the eager
             # slab loop (which redoes any sort) and its captures with it
-            for g, st in zip(gens, gen_states):
-                g.set_state(st)
-            for b in self.bufs:
-                b._index.zero_()
-            out = self.eager_loop(states, auxes, n_steps, kws,
-                                  capture=self._eager_capture)
-            self.bufs[0]._copy_captures(n_steps)
-            vals = self._read(out, live_counts)
+            with span("rollback"):
+                for g, st in zip(gens, gen_states):
+                    g.set_state(st)
+                for b in self.bufs:
+                    b._index.zero_()
+                out = self.eager_loop(states, auxes, n_steps, kws,
+                                      capture=self._eager_capture)
+                self.bufs[0]._copy_captures(n_steps)
+                vals = self._read(out, live_counts)
         else:
-            out = [with_state_tensors(c, [s.clone() for s in b._static])
-                   for c, b in zip(curs, self.bufs)]
+            with span("stage_out"):
+                out = [with_state_tensors(c, [s.clone() for s in b._static])
+                       for c, b in zip(curs, self.bufs)]
         lost, n_sort, n_ring, *live = vals
         live = {i: live[k * self.size:(k + 1) * self.size]
                 for k, i in enumerate(live_counts)}
@@ -614,6 +631,7 @@ class SlabMultiStep:
             for graph in graphs.values():
                 graph.reset()
         self.graphs = {}
+        self.markers.clear()
         self._sides, self._pools = {}, {}
         if self._launcher is not None:
             self._launcher.shutdown()
@@ -645,41 +663,47 @@ class SlabMultiStep:
         block inside -- or, with ``eager_exchange``, run eagerly in the
         slab threads before it.  Returns the slabs' states on their
         static buffers (``zmin`` the global edge)."""
-        for b, st in zip(self.bufs, states):
-            for s, t in zip(b._static, state_tensors(st)):
-                s.copy_(t)
-            b._flag.zero_()
-            b._index.zero_()
+        with span("stage_in"):
+            for b, st in zip(self.bufs, states):
+                for s, t in zip(b._static, state_tensors(st)):
+                    s.copy_(t)
+                b._flag.zero_()
+                b._index.zero_()
         curs = [with_state_tensors(st, b._static)
                 for st, b in zip(states, self.bufs)]
         for k, step_plans in enumerate(zip(*plans)):
-            plan = step_plans[0]
-            local = [e[k][0] for e in edges]
-            block = (curs[0].iteration % self.exchange_period == 0
-                     or plan.exchange)
-            if block and eager_exchange:
-                def run_block(r, plan=plan):
-                    st = self.eager_loop.migrate(r, curs[r])
-                    if plan.exchange:
-                        kw = kws[r]
-                        st = self.step_fns[r].exchange(
-                            st, auxes[r], kw.get("inj_auxes", ()),
-                            kw.get("column_angles"), kw.get("generator"))
-                    self.bufs[r]._store(st)
-                    return with_state_tensors(st, self.bufs[r]._static)
-                curs = self.group.run(run_block)
-            elif not block:
-                curs = [dataclasses.replace(c, zmin=z)
-                        for c, z in zip(curs, local)]
-            inside = block and not eager_exchange
-            key = tuple((p.n_move, p.full_resort, inside)
-                        for p in step_plans)
-            self._graphed(key, curs, auxes, kws, inside)
-            curs = [dataclasses.replace(
-                c, time=p.time_end, zmin=e[k][1], mw_zref=p.mw_zref_end,
-                iteration=c.iteration + 1,
-                species=with_z_ends(c.species, b._z_ends[k]))
-                for c, p, e, b in zip(curs, step_plans, edges, self.bufs)]
+            with span("replay"):
+                plan = step_plans[0]
+                local = [e[k][0] for e in edges]
+                block = (curs[0].iteration % self.exchange_period == 0
+                         or plan.exchange)
+                if block and eager_exchange:
+                    def run_block(r, plan=plan):
+                        st = self.eager_loop.migrate(r, curs[r])
+                        if plan.exchange:
+                            kw = kws[r]
+                            st = self.step_fns[r].exchange(
+                                st, auxes[r], kw.get("inj_auxes", ()),
+                                kw.get("column_angles"),
+                                kw.get("generator"))
+                        self.bufs[r]._store(st)
+                        return with_state_tensors(st, self.bufs[r]._static)
+                    curs = self.group.run(run_block)
+                elif not block:
+                    curs = [dataclasses.replace(c, zmin=z)
+                            for c, z in zip(curs, local)]
+                inside = block and not eager_exchange
+                key = tuple((p.n_move, p.full_resort, inside)
+                            for p in step_plans)
+                self._graphed(key, curs, auxes, kws, inside)
+                curs = [dataclasses.replace(
+                    c, time=p.time_end, zmin=e[k][1], mw_zref=p.mw_zref_end,
+                    iteration=c.iteration + 1,
+                    species=with_z_ends(c.species, b._z_ends[k]))
+                    for c, p, e, b in zip(curs, step_plans, edges,
+                                          self.bufs)]
+        for card in self.group.cards:
+            mark("chunk_out", card)
         self.bufs[0]._copy_captures(len(plans[0]))
         return curs
 
@@ -690,11 +714,14 @@ class SlabMultiStep:
         as it is (zmin the local edge, an exchange step's block already
         run); its scalars from its tables' row, the banded re-sort's
         overflow into its flag, the result copied back, the captures,
-        its index advanced."""
+        its index advanced.  The device span ``row`` opens the step,
+        before the table read."""
         b = self.bufs[r]
+        mark("row", b._table.device)
         row, irow = b._row()
         scalars = b._scalars(row, irow)
         if inside:
+            mark("exchange", b._table.device)
             cur = self.eager_loop.migrate(
                 r, cur, bounds=scalars.exchange.migration)
         new = self.step_fns[r](cur, aux, scalars=scalars,
@@ -744,18 +771,20 @@ class SlabMultiStep:
         if not self._sides:
             self._sides = {d: torch.cuda.Stream(device=d) for d in cards}
             self._pools = {d: torch.cuda.graph_pool_handle() for d in cards}
-        mains = {d: torch.cuda.current_stream(d) for d in cards}
-        for d in cards:
-            self._sides[d].wait_stream(mains[d])
-        self.group.run(body, streams=self._sides)
-        for d in cards:
-            mains[d].wait_stream(self._sides[d])
-        self.graphs[key] = capture_graphs(
-            lambda graphs: self.group.run(body, streams=self._sides,
-                                          graphs=graphs), self._pools,
-            self._generators + (self._inject_generators if inside else []),
-            f"the slabs' step (n_move, full re-sort, exchange block "
-            f"inside: {key})")
+        with span("capture"):
+            mains = {d: torch.cuda.current_stream(d) for d in cards}
+            for d in cards:
+                self._sides[d].wait_stream(mains[d])
+            self.group.run(body, streams=self._sides)
+            for d in cards:
+                mains[d].wait_stream(self._sides[d])
+            self.graphs[key] = capture_graphs(
+                lambda graphs: self.group.run(body, streams=self._sides,
+                                              graphs=graphs), self._pools,
+                self._generators
+                + (self._inject_generators if inside else []),
+                f"the slabs' step (n_move, full re-sort, exchange block "
+                f"inside: {key})", self.markers)
 
     def _replay(self, graphs):
         """Launch every card's graph of a step.  On several cards each

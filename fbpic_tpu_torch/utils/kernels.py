@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fused_deposit", "dense_deposit", "gather", "peer")
+SOURCES = ("fused_deposit", "dense_deposit", "gather", "peer", "spans")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,6 +47,10 @@ _SIGNATURES = {
     "peer_copy_parts": [_P, _P, _P, _I, _P, _P, _I, _P],
     "peer_take_flag": [_P, _P, ctypes.c_ulonglong, _P],
     "peer_give_flag": [_P, _P],
+    "span_load": [],
+    "span_launch": [_I, _P],
+    "span_find": [_P, _P, _I, _P],
+    "span_set_enabled": [_P, _P, _I, _I],
 }
 
 _libs = {}

@@ -1,8 +1,8 @@
 """fbpic_tpu_torch's remaining utils and import surface (CPU).
 
 - ``utils.random_seed.set_random_seed`` seeds numpy as fbpic_tpu's does;
-- ``utils.profiling.section`` times a block on the CPU without touching
-  CUDA, and ``trace`` writes a Chrome / Perfetto trace file;
+- ``utils.profiling.trace`` writes a Chrome / Perfetto trace file (the
+  spans: tests/test_torch_spans.py);
 - the top-level exports (``BinomialSmoother``, ``BoostConverter``,
   ``Simulation``) and the ``fbpic.main`` alias;
 - no module of fbpic_tpu_torch, and not chip_smoke.py, imports ``jax``
@@ -38,18 +38,6 @@ def test_set_random_seed_matches_fbpic_tpu():
         draws.append(np.random.rand(8))
     np.testing.assert_array_equal(draws[0], draws[1])
     np.testing.assert_array_equal(draws[1], np.random.RandomState(7).rand(8))
-
-
-def test_section_on_the_cpu():
-    from fbpic_tpu_torch.utils.profiling import section
-    said = []
-    with section("matmul", sink=said.append):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    (line,) = said
-    assert line.startswith("[fbpic_tpu_torch] matmul: ")
-    assert line.endswith(" ms") and float(line.split()[-2]) >= 0
-    if not torch.cuda.is_available():
-        assert not torch.cuda.is_initialized()
 
 
 def test_trace_writes_a_trace_file(tmp_path):
